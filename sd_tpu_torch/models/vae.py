@@ -1,0 +1,93 @@
+"""The KL autoencoder's decode path, NCHW (port of ``sd_tpu/models/vae.py``).
+
+``Decoder`` and ``AutoencoderKL.decode`` only: the encoder and ``quant_conv``
+wait for img2img. Names follow the CompVis ``state_dict``
+(``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
+``decoder.up.{i}.upsample.conv``, ``post_quant_conv`` ...), which is what
+``sd_tpu.models.vae.port_decoder`` reads.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sd_tpu_torch.ops.attention import VAEAttnBlock
+from sd_tpu_torch.ops.conv import Conv3x3
+from sd_tpu_torch.ops.norms import GroupNorm32
+from sd_tpu_torch.ops.resblock import Upsample, VAEResnetBlock
+
+__all__ = ["Decoder", "AutoencoderKL"]
+
+
+class Decoder(nn.Module):
+    """Conv ResNet decoder: latents ``[B, z, h, w]`` → images ``[B, 3, H, W]``."""
+
+    def __init__(self, *, ch: int, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 8),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
+                 dropout: float = 0.0, resamp_with_conv: bool = True,
+                 resolution: int = 256, z_channels: int = 4, attn_type: str = "vanilla",
+                 use_linear_attn: bool = False, in_channels: int = 3, double_z: bool = True):
+        # in_channels and double_z configure the encoder, which shares the ddconfig
+        super().__init__()
+        if attn_type != "vanilla" or use_linear_attn or not resamp_with_conv:
+            raise NotImplementedError("the port has the vanilla VAE attention and "
+                                      "conv upsampling only")
+        num_res = len(ch_mult)
+        block_in = ch * ch_mult[-1]
+        curr_res = resolution // 2 ** (num_res - 1)
+        self.conv_in = Conv3x3(z_channels, block_in)
+        self.mid = nn.Module()
+        self.mid.block_1 = VAEResnetBlock(block_in, dropout=dropout)
+        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.block_2 = VAEResnetBlock(block_in, dropout=dropout)
+        up = [None] * num_res
+        for i_level in reversed(range(num_res)):
+            block_out = ch * ch_mult[i_level]
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            for i_block in range(num_res_blocks + 1):
+                level.block.append(VAEResnetBlock(block_in, block_out, dropout=dropout))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    level.attn.append(VAEAttnBlock(block_in))
+            if i_level != 0:
+                level.upsample = Upsample(block_in)
+                curr_res *= 2
+            up[i_level] = level
+        self.up = nn.ModuleList(up)
+        self.norm_out = GroupNorm32(block_in, eps=1e-6)
+        self.conv_out = Conv3x3(block_in, out_ch)
+
+    def forward(self, z: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(z)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        for i_level in reversed(range(len(self.up))):
+            level = self.up[i_level]
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if i_level != 0:
+                h = level.upsample(h)
+        return self.conv_out(F.silu(self.norm_out(h)))
+
+
+class AutoencoderKL(nn.Module):
+    """KL-VAE first stage, decode half: ``post_quant_conv`` then ``decoder``."""
+
+    def __init__(self, ddconfig: Dict[str, Any], embed_dim: int):
+        super().__init__()
+        if not ddconfig.get("double_z", True):
+            raise ValueError("AutoencoderKL requires double_z")
+        self.decoder = Decoder(**ddconfig)
+        self.post_quant_conv = nn.Conv2d(embed_dim, ddconfig["z_channels"], 1)
+
+    def decode(self, z: torch.Tensor) -> torch.Tensor:
+        """Latents ``[B, embed_dim, h, w]`` → images in the parameters' dtype."""
+        z = z.to(self.post_quant_conv.weight.dtype)
+        return self.decoder(self.post_quant_conv(z))

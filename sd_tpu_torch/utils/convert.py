@@ -1,0 +1,184 @@
+"""``sd_tpu`` parameter trees → the port's ``state_dict``.
+
+The exact inverse of ``sd_tpu``'s torch porters (``port_unet``,
+``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``): flax
+``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
+the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
+``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
+convs → ``[out, in, 1, 1]``. Inputs are nested dicts of arrays (numpy, or
+anything ``np.asarray`` takes); outputs are flat dicts of numpy arrays, ready
+for ``load_state_dict`` after ``torch.from_numpy``. This is how the tests put
+the same weights into both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+
+from sd_tpu_torch.models.clip import CLIPTextConfig
+from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
+
+__all__ = ["unet_state_dict", "vae_decoder_state_dict", "clip_text_state_dict"]
+
+StateDict = Dict[str, np.ndarray]
+
+
+def _put(sd: StateDict, prefix: str, leaves: Mapping[str, Any]) -> None:
+    for name, value in leaves.items():
+        # an empty top-level prefix leaves a leading dot on nested names
+        sd[f"{prefix}.{name}".lstrip(".")] = np.asarray(value)
+
+
+def _linear(p) -> Dict[str, Any]:
+    out = {"weight": np.asarray(p["kernel"]).T}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def _conv(p) -> Dict[str, Any]:
+    out = {"weight": np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def _conv1x1(p) -> Dict[str, Any]:
+    out = {"weight": np.asarray(p["kernel"]).T[:, :, None, None]}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def _norm(p) -> Dict[str, Any]:
+    return {"weight": p["scale"], "bias": p["bias"]}
+
+
+# ---------------------------------------------------------------- UNet
+
+
+def _res(sd: StateDict, p, prefix: str) -> None:
+    _put(sd, f"{prefix}.in_layers.0", _norm(p["in_norm"]["GroupNorm_0"]))
+    _put(sd, f"{prefix}.in_layers.2", _conv(p["in_conv"]))
+    _put(sd, f"{prefix}.emb_layers.1", _linear(p["emb_proj"]))
+    _put(sd, f"{prefix}.out_layers.0", _norm(p["out_norm"]["GroupNorm_0"]))
+    _put(sd, f"{prefix}.out_layers.3", _conv(p["out_conv"]))
+    if "skip" in p:
+        _put(sd, f"{prefix}.skip_connection", _conv(p["skip"]))
+
+
+def _transformer_block(sd: StateDict, p, prefix: str) -> None:
+    for attn in ("attn1", "attn2"):
+        for proj in ("to_q", "to_k", "to_v"):
+            _put(sd, f"{prefix}.{attn}.{proj}", _linear(p[attn][proj]))
+        _put(sd, f"{prefix}.{attn}.to_out.0", _linear(p[attn]["to_out"]))
+    _put(sd, f"{prefix}.ff.net.0.proj", _linear(p["ff"]["proj_in"]["proj"]))
+    _put(sd, f"{prefix}.ff.net.2", _linear(p["ff"]["proj_out"]))
+    for norm in ("norm1", "norm2", "norm3"):
+        _put(sd, f"{prefix}.{norm}", _norm(p[norm]["LayerNorm_0"]))
+
+
+def _unet_layer(sd: StateDict, desc: Dict, p, prefix: str) -> None:
+    kind = desc["kind"]
+    if kind == "conv_in":
+        _put(sd, prefix, _conv(p))
+    elif kind == "res":
+        _res(sd, p, prefix)
+    elif kind == "spatial_transformer":
+        _put(sd, f"{prefix}.norm", _norm(p["norm"]["GroupNorm_0"]))
+        _put(sd, f"{prefix}.proj_in", _conv1x1(p["proj_in"]))
+        _put(sd, f"{prefix}.proj_out", _conv1x1(p["proj_out"]))
+        for d in range(desc["depth"]):
+            _transformer_block(sd, p[f"blocks_{d}"], f"{prefix}.transformer_blocks.{d}")
+    elif kind == "downsample":
+        _put(sd, f"{prefix}.op", _conv(p["conv"]))
+    elif kind == "upsample":
+        _put(sd, f"{prefix}.conv", _conv(p["conv"]))
+    else:
+        raise ValueError(kind)
+
+
+def unet_state_dict(params: Mapping, cfg: UNetConfig) -> StateDict:
+    """``sd_tpu`` UNetModel params → the port's ``UNetModel`` state_dict."""
+    plan = build_unet_plan(cfg)
+    sd: StateDict = {}
+    _put(sd, "time_embed.0", _linear(params["time_embed_0"]))
+    _put(sd, "time_embed.2", _linear(params["time_embed_2"]))
+    for i, block in enumerate(plan["input_blocks"]):
+        for j, desc in enumerate(block):
+            _unet_layer(sd, desc, params[f"input_blocks_{i}_{j}"], f"input_blocks.{i}.{j}")
+    for j, desc in enumerate(plan["middle_block"]):
+        _unet_layer(sd, desc, params[f"middle_block_{j}"], f"middle_block.{j}")
+    for i, block in enumerate(plan["output_blocks"]):
+        for j, desc in enumerate(block):
+            _unet_layer(sd, desc, params[f"output_blocks_{i}_{j}"], f"output_blocks.{i}.{j}")
+    _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
+    _put(sd, "out.2", _conv(params["out_conv"]))
+    return sd
+
+
+# ----------------------------------------------------------------- VAE
+
+
+def _vae_res(sd: StateDict, p, prefix: str) -> None:
+    _put(sd, f"{prefix}.norm1", _norm(p["norm1"]["GroupNorm_0"]))
+    _put(sd, f"{prefix}.conv1", _conv(p["conv1"]))
+    _put(sd, f"{prefix}.norm2", _norm(p["norm2"]["GroupNorm_0"]))
+    _put(sd, f"{prefix}.conv2", _conv(p["conv2"]))
+    if "nin_shortcut" in p:
+        _put(sd, f"{prefix}.nin_shortcut", _conv(p["nin_shortcut"]))
+
+
+def _vae_attn(sd: StateDict, p, prefix: str) -> None:
+    _put(sd, f"{prefix}.norm", _norm(p["norm"]["GroupNorm_0"]))
+    for name in ("q", "k", "v", "proj_out"):
+        _put(sd, f"{prefix}.{name}", _conv1x1(p[name]))
+
+
+def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
+    """``sd_tpu`` AutoencoderKL params → the port's ``AutoencoderKL`` (decode
+    half) state_dict: ``decoder.*`` and ``post_quant_conv.*``."""
+    dec = params["decoder"]
+    num_res = len(ddconfig["ch_mult"])
+    sd: StateDict = {}
+    _put(sd, "decoder.conv_in", _conv(dec["conv_in"]))
+    _put(sd, "decoder.conv_out", _conv(dec["conv_out"]))
+    _put(sd, "decoder.norm_out", _norm(dec["norm_out"]["GroupNorm_0"]))
+    _vae_res(sd, dec["mid_block_1"], "decoder.mid.block_1")
+    _vae_attn(sd, dec["mid_attn_1"], "decoder.mid.attn_1")
+    _vae_res(sd, dec["mid_block_2"], "decoder.mid.block_2")
+    for i in range(num_res):
+        for j in range(ddconfig["num_res_blocks"] + 1):
+            _vae_res(sd, dec[f"up_{i}_block_{j}"], f"decoder.up.{i}.block.{j}")
+            if f"up_{i}_attn_{j}" in dec:
+                _vae_attn(sd, dec[f"up_{i}_attn_{j}"], f"decoder.up.{i}.attn.{j}")
+        if i != 0:
+            _put(sd, f"decoder.up.{i}.upsample.conv", _conv(dec[f"up_{i}_upsample"]["conv"]))
+    _put(sd, "post_quant_conv", _conv1x1(params["post_quant_conv"]))
+    return sd
+
+
+# ---------------------------------------------------------------- CLIP
+
+
+def clip_text_state_dict(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
+    """``sd_tpu`` CLIPTextModel params → the port's ``CLIPTextModel``
+    state_dict (``text_model.*``, the HF names)."""
+    sd: StateDict = {
+        "text_model.embeddings.token_embedding.weight":
+            np.asarray(params["token_embedding"]["embedding"]),
+        "text_model.embeddings.position_embedding.weight":
+            np.asarray(params["position_embedding"]),
+    }
+    _put(sd, "text_model.final_layer_norm", _norm(params["final_layer_norm"]))
+    for i in range(cfg.num_hidden_layers):
+        p, prefix = params[f"layers_{i}"], f"text_model.encoder.layers.{i}"
+        _put(sd, f"{prefix}.layer_norm1", _norm(p["layer_norm1"]))
+        _put(sd, f"{prefix}.layer_norm2", _norm(p["layer_norm2"]))
+        for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+            _put(sd, f"{prefix}.self_attn.{proj}", _linear(p["self_attn"][proj]))
+        _put(sd, f"{prefix}.mlp.fc1", _linear(p["mlp"]["fc1"]))
+        _put(sd, f"{prefix}.mlp.fc2", _linear(p["mlp"]["fc2"]))
+    return sd
