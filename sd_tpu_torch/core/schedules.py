@@ -20,6 +20,7 @@ __all__ = [
     "make_ddim_timesteps",
     "make_ddim_sampling_parameters",
     "DiffusionSchedule",
+    "q_sample",
     "timestep_embedding",
 ]
 
@@ -133,6 +134,16 @@ class DiffusionSchedule:
             linear_start=linear_start,
             linear_end=linear_end,
         )
+
+
+def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
+             noise: torch.Tensor) -> torch.Tensor:
+    """Forward diffusion ``sqrt(ᾱ_t) x0 + sqrt(1 - ᾱ_t) noise`` at integer
+    timesteps ``t [B]`` (``x0`` and ``noise`` ``[B, ...]``)."""
+    shape = (-1,) + (1,) * (x0.ndim - 1)
+    table = lambda arr: torch.as_tensor(arr, device=x0.device)[t.long()].to(x0.dtype)
+    return (table(schedule.sqrt_alphas_cumprod).reshape(shape) * x0
+            + table(schedule.sqrt_one_minus_alphas_cumprod).reshape(shape) * noise)
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:

@@ -23,6 +23,11 @@
 // mid-block) the fp32 output accumulator alone is 128 KB for 64 rows, so that
 // head size uses 32-row tiles (173 KB of shared memory). This is the simple
 // first version: no cp.async/TMA pipelining and no wgmma yet.
+//
+// For training, the caller may pass an fp32 [B, H, Nq] buffer `lse`: each
+// row's log-sum-exp in base 2 (running max plus log2 of the running sum, in
+// units of the logits times scale * log2(e)) is written there, and the
+// backward (flash_attention_bwd.cu) rebuilds P from it. Inference passes null.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,8 +97,9 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 template <int BQ, int BK, int DP>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o, int nq, int nk,
-                 int heads, int d, float scale_log2e) {
+                 const bf16* __restrict__ v, bf16* __restrict__ o,
+                 float* __restrict__ lse, int nq, int nk, int heads, int d,
+                 float scale_log2e) {
   using L = Smem<BQ, BK, DP>;
   static_assert(BQ % 16 == 0 && BK % 32 == 0 && DP % 16 == 0, "tile shape");
   extern __shared__ __align__(128) unsigned char smem[];
@@ -204,19 +210,24 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     if (q0 + r < nq)
       ob[(size_t)(q0 + r) * row_stride + c] = __float2bfloat16(os[r * L::LDO + c] / ls[r]);
   }
+  if (lse != nullptr) {
+    float* lb = lse + ((size_t)b * heads + h) * nq;
+    for (int r = threadIdx.x; r < BQ; r += kThreads)
+      if (q0 + r < nq) lb[q0 + r] = ms[r] + log2f(ls[r]);
+  }
 }
 
 template <int BQ, int BK, int DP>
-cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int batch, int nq,
-                   int nk, int heads, int d, float scale_log2e, cudaStream_t stream) {
+cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse, int batch,
+                   int nq, int nk, int heads, int d, float scale_log2e, cudaStream_t stream) {
   constexpr int bytes = Smem<BQ, BK, DP>::BYTES;
   static_assert(bytes <= 232448, "shared memory per block");
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<BQ, BK, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
   dim3 grid((nq + BQ - 1) / BQ, heads, batch);
-  flash_fwd_kernel<BQ, BK, DP><<<grid, kThreads, bytes, stream>>>(q, k, v, o, nq, nk, heads, d,
-                                                                  scale_log2e);
+  flash_fwd_kernel<BQ, BK, DP><<<grid, kThreads, bytes, stream>>>(q, k, v, o, lse, nq, nk, heads,
+                                                                  d, scale_log2e);
   return cudaGetLastError();
 }
 
@@ -224,24 +235,26 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bat
 
 // Returns the CUDA error code of the launch (0 on success). d must be a
 // multiple of 8 and at most 512; the wrapper checks shapes and alignment.
+// `lse` is null, or fp32 [B, H, Nq] for the row log-sum-exp.
 extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   int batch, int nq, int nk, int heads, int d, float scale,
-                                   void* stream) {
+                                   void* lse, int batch, int nq, int nk, int heads, int d,
+                                   float scale, void* stream) {
   const float sl = scale * 1.4426950408889634f;
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 16) return launch<64, 64, 16>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 32) return launch<64, 64, 32>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 48) return launch<64, 64, 48>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 64) return launch<64, 64, 64>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 80) return launch<64, 64, 80>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 128) return launch<64, 64, 128>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 160) return launch<64, 64, 160>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 256) return launch<32, 32, 256>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
-  if (d <= 512) return launch<32, 32, 512>(qp, kp, vp, op, batch, nq, nk, heads, d, sl, s);
+  if (d <= 16) return launch<64, 64, 16>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 32) return launch<64, 64, 32>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 48) return launch<64, 64, 48>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 64) return launch<64, 64, 64>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 80) return launch<64, 64, 80>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 128) return launch<64, 64, 128>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 160) return launch<64, 64, 160>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 256) return launch<32, 32, 256>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
+  if (d <= 512) return launch<32, 32, 512>(qp, kp, vp, op, lp, batch, nq, nk, heads, d, sl, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

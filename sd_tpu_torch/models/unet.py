@@ -4,9 +4,13 @@ One block plan (:func:`build_unet_plan`, the same walk as ``sd_tpu``'s, with
 the reference's head-dim quirks) lays out the layers, so the port's
 ``state_dict`` names (``input_blocks.{i}.{j}``, ``middle_block.{j}``,
 ``output_blocks.{i}.{j}``, ``time_embed.{0,2}``, ``out.{0,2}``) are the ones
-``sd_tpu.models.unet.port_unet`` reads. The legacy pixel-space attention
-block, resblock up/down-sampling, conv-less resampling, class labels and the
-codebook head are not ported yet.
+``sd_tpu.models.unet.port_unet`` reads. With ``use_checkpoint`` (SD v1 sets
+it), each ResBlock and SpatialTransformer application of a module in
+training mode is recomputed in the backward pass
+(``torch.utils.checkpoint``), as ``sd_tpu`` wraps them in ``nn.remat``.
+The legacy pixel-space attention block, resblock up/down-sampling,
+conv-less resampling, class labels and the codebook head are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from sd_tpu_torch.core.schedules import timestep_embedding
 from sd_tpu_torch.ops.attention import SpatialTransformer
@@ -162,13 +167,15 @@ class UNetModel(nn.Module):
         self.out = nn.Sequential(GroupNorm32(plan["out_ch"]), nn.SiLU(),
                                  Conv3x3(plan["out_ch"], cfg.out_channels))
 
-    @staticmethod
-    def _run_block(layers: nn.ModuleList, h, emb, context):
+    def _run_block(self, layers: nn.ModuleList, h, emb, context):
+        remat = self.config.use_checkpoint and self.training and torch.is_grad_enabled()
         for layer in layers:
-            if isinstance(layer, ResBlock):
-                h = layer(h, emb)
-            elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
+            if isinstance(layer, (ResBlock, SpatialTransformer)):
+                arg = emb if isinstance(layer, ResBlock) else context
+                if remat:
+                    h = checkpoint(layer, h, arg, use_reentrant=False)
+                else:
+                    h = layer(h, arg)
             else:
                 h = layer(h)
         return h

@@ -1,10 +1,12 @@
-"""The KL autoencoder's decode path, NCHW (port of ``sd_tpu/models/vae.py``).
+"""The KL autoencoder, NCHW (port of ``sd_tpu/models/vae.py``).
 
-``Decoder`` and ``AutoencoderKL.decode`` only: the encoder and ``quant_conv``
-wait for img2img. Names follow the CompVis ``state_dict``
-(``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
+``Encoder``, ``Decoder`` and ``AutoencoderKL`` (``encode`` → a
+:class:`DiagonalGaussian`, ``decode``). Names follow the CompVis
+``state_dict`` (``encoder.down.{i}.block.{j}``, ``encoder.mid.attn_1``,
+``quant_conv``, ``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
 ``decoder.up.{i}.upsample.conv``, ``post_quant_conv`` ...), which is what
-``sd_tpu.models.vae.port_decoder`` reads.
+``sd_tpu.models.vae.port_autoencoder_kl`` reads. The VQ model and the
+linear-attention variant are not ported.
 """
 
 from __future__ import annotations
@@ -15,12 +17,71 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.ops.attention import VAEAttnBlock
 from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.norms import GroupNorm32
-from sd_tpu_torch.ops.resblock import Upsample, VAEResnetBlock
+from sd_tpu_torch.ops.resblock import Upsample, VAEDownsample, VAEResnetBlock
 
-__all__ = ["Decoder", "AutoencoderKL"]
+__all__ = ["Encoder", "Decoder", "AutoencoderKL"]
+
+
+def _check_ddconfig(attn_type: str, use_linear_attn: bool, resamp_with_conv: bool) -> None:
+    if attn_type != "vanilla" or use_linear_attn or not resamp_with_conv:
+        raise NotImplementedError("the port has the vanilla VAE attention and conv "
+                                  "resampling only")
+
+
+class Encoder(nn.Module):
+    """Conv ResNet encoder: images ``[B, 3, H, W]`` → moments
+    ``[B, 2·z, H/f, W/f]`` (``z`` without ``double_z``)."""
+
+    def __init__(self, *, ch: int, out_ch: int = 3, ch_mult: Sequence[int] = (1, 2, 4, 8),
+                 num_res_blocks: int = 2, attn_resolutions: Sequence[int] = (),
+                 dropout: float = 0.0, resamp_with_conv: bool = True,
+                 resolution: int = 256, z_channels: int = 4, attn_type: str = "vanilla",
+                 use_linear_attn: bool = False, in_channels: int = 3, double_z: bool = True):
+        # out_ch configures the decoder, which shares the ddconfig
+        super().__init__()
+        _check_ddconfig(attn_type, use_linear_attn, resamp_with_conv)
+        num_res = len(ch_mult)
+        curr_res = resolution
+        in_ch_mult = (1,) + tuple(ch_mult)
+        self.conv_in = Conv3x3(in_channels, ch)
+        self.down = nn.ModuleList()
+        for i_level in range(num_res):
+            level = nn.Module()
+            level.block = nn.ModuleList()
+            level.attn = nn.ModuleList()
+            block_in = ch * in_ch_mult[i_level]
+            block_out = ch * ch_mult[i_level]
+            for _ in range(num_res_blocks):
+                level.block.append(VAEResnetBlock(block_in, block_out, dropout=dropout))
+                block_in = block_out
+                if curr_res in attn_resolutions:
+                    level.attn.append(VAEAttnBlock(block_in))
+            if i_level != num_res - 1:
+                level.downsample = VAEDownsample(block_in)
+                curr_res //= 2
+            self.down.append(level)
+        self.mid = nn.Module()
+        self.mid.block_1 = VAEResnetBlock(block_in, dropout=dropout)
+        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.block_2 = VAEResnetBlock(block_in, dropout=dropout)
+        self.norm_out = GroupNorm32(block_in, eps=1e-6)
+        self.conv_out = Conv3x3(block_in, 2 * z_channels if double_z else z_channels)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = self.conv_in(x)
+        for i_level, level in enumerate(self.down):
+            for i_block, block in enumerate(level.block):
+                h = block(h)
+                if len(level.attn):
+                    h = level.attn[i_block](h)
+            if i_level != len(self.down) - 1:
+                h = level.downsample(h)
+        h = self.mid.block_2(self.mid.attn_1(self.mid.block_1(h)))
+        return self.conv_out(F.silu(self.norm_out(h)))
 
 
 class Decoder(nn.Module):
@@ -33,9 +94,7 @@ class Decoder(nn.Module):
                  use_linear_attn: bool = False, in_channels: int = 3, double_z: bool = True):
         # in_channels and double_z configure the encoder, which shares the ddconfig
         super().__init__()
-        if attn_type != "vanilla" or use_linear_attn or not resamp_with_conv:
-            raise NotImplementedError("the port has the vanilla VAE attention and "
-                                      "conv upsampling only")
+        _check_ddconfig(attn_type, use_linear_attn, resamp_with_conv)
         num_res = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_res - 1)
@@ -78,14 +137,23 @@ class Decoder(nn.Module):
 
 
 class AutoencoderKL(nn.Module):
-    """KL-VAE first stage, decode half: ``post_quant_conv`` then ``decoder``."""
+    """KL-VAE first stage: ``encoder`` then ``quant_conv`` to the posterior's
+    moments; ``post_quant_conv`` then ``decoder`` back to images."""
 
     def __init__(self, ddconfig: Dict[str, Any], embed_dim: int):
         super().__init__()
         if not ddconfig.get("double_z", True):
             raise ValueError("AutoencoderKL requires double_z")
+        self.encoder = Encoder(**ddconfig)
         self.decoder = Decoder(**ddconfig)
+        self.quant_conv = nn.Conv2d(2 * ddconfig["z_channels"], 2 * embed_dim, 1)
         self.post_quant_conv = nn.Conv2d(embed_dim, ddconfig["z_channels"], 1)
+
+    def encode(self, x: torch.Tensor) -> DiagonalGaussian:
+        """Images ``[B, 3, H, W]`` in [-1, 1] → the latent posterior, in the
+        parameters' dtype."""
+        x = x.to(self.quant_conv.weight.dtype)
+        return DiagonalGaussian.from_moments(self.quant_conv(self.encoder(x)))
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """Latents ``[B, embed_dim, h, w]`` → images in the parameters' dtype."""

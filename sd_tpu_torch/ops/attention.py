@@ -5,9 +5,12 @@ in ``sd_tpu``. Dispatch on a CUDA tensor:
 
 - every unmasked self-attention call (``Nq == Nk``) goes to the K1 kernel
   (``ops/cuda/flash_attention.py``), including the UNet's 8x8 mid-block;
+  where autograd records, its backward is K3 or the plain backward by
+  ``sd_tpu``'s rule;
 - cross-attention (77 keys) and CLIP's causal masked attention use plain
   torch ops with an fp32 softmax, as ``sd_tpu`` leaves them to XLA;
-- every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``).
+- every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),
+  whose backward recomputes through the plain version.
 
 On a CPU tensor each kernel wrapper computes its plain version.
 
@@ -25,7 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from sd_tpu_torch.ops.cuda import flash_attention, flash_attention_plain, geglu_ff
+from sd_tpu_torch.ops.cuda import (
+    differentiable_flash_attention,
+    differentiable_geglu_ff,
+    flash_attention_plain,
+)
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
 __all__ = [
@@ -45,7 +52,7 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is None and q.shape[1] == k.shape[1]:
-        return flash_attention(q, k, v, scale)
+        return differentiable_flash_attention(q, k, v, scale)
     return flash_attention_plain(q, k, v, scale, mask)
 
 
@@ -75,7 +82,7 @@ class GEGLU(nn.Module):
 
 class FeedForward(nn.Module):
     """Gated transformer MLP ``net = [GEGLU, Dropout, Linear]``, applied as one
-    :func:`geglu_ff` call."""
+    K2 call (:func:`differentiable_geglu_ff`)."""
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4,
                  dropout: float = 0.0):
@@ -86,7 +93,7 @@ class FeedForward(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
-        return geglu_ff(x, proj.weight, proj.bias, out.weight, out.bias)
+        return differentiable_geglu_ff(x, proj.weight, proj.bias, out.weight, out.bias)
 
 
 class CrossAttention(nn.Module):

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels.
 
-Every ``sd_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, at first use, and loaded with
-``ctypes``. The library lands in ``build/sd_tpu_torch/`` at the repository
+Every ``sd_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` process per source, all started together, and the objects are linked
+into one shared library with a plain C interface, at first use, and loaded
+with ``ctypes``. The library lands in ``build/sd_tpu_torch/`` at the repository
 root (git-ignored) under a name keyed to a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is. A
 missing ``nvcc`` raises: there is no fallback.
@@ -24,13 +25,15 @@ __all__ = ["kernels", "build_info", "check", "stream_of"]
 _CSRC = Path(__file__).resolve().parents[2] / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "sd_tpu_torch"
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # q, k, v, o, batch, nq, nk, heads, d, scale, stream
-    "sdt_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, o, lse, batch, nq, nk, heads, d, scale, stream
+    "sdt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+    # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, nq, nk, heads, d, scale, stream
+    "sdt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     # x, w1, b1, w2, b2, h, y, m, c, inner, c_out, stream
     "sdt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
@@ -62,6 +65,34 @@ def _library_path() -> Path:
     return _BUILD_DIR / f"libsd_tpu_kernels-{digest.hexdigest()[:16]}.so"
 
 
+def compile_library(lib: Path) -> str:
+    """Compile every source into the shared library ``lib``, one ``nvcc`` per
+    source in parallel, then link; returns nvcc's output."""
+    cu, _ = _sources()
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"{lib.stem}.tmp{os.getpid()}"
+    objects = [lib.parent / f"{tag}.{src.stem}.o" for src in cu]
+    cmds = [[nvcc, *_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(cu, objects)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                               f"{out}\n{err}")
+    tmp = lib.with_name(f"{tag}.so")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objects)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    for obj in objects:
+        obj.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                           f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, lib)
+    return "".join(out + err for out, err in outputs) + proc.stdout + proc.stderr
+
+
 @functools.cache
 def build_info() -> dict:
     """Build the library unless it exists; return its path, the build
@@ -71,20 +102,11 @@ def build_info() -> dict:
     if lib.is_file():
         return {"path": str(lib), "seconds": 0.0,
                 "log": log.read_text() if log.is_file() else ""}
-    cu, _ = _sources()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.tmp{os.getpid()}")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, cu)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    text = compile_library(lib)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    log.write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)
-    return {"path": str(lib), "seconds": seconds, "log": proc.stdout + proc.stderr}
+    log.write_text(text)
+    return {"path": str(lib), "seconds": seconds, "log": text}
 
 
 @functools.cache

@@ -13,6 +13,12 @@ value rows first and the gate rows second (the reference's
 :func:`geglu_ff_plain` for a CPU tensor only. A CUDA tensor that is not
 bf16, or a shape the kernels do not take, raises. ``geglu_ff.launches``
 counts calls that launched (one per call, whatever the internal launches).
+
+:func:`differentiable_geglu_ff` is the entry point for code that may need
+gradients: where autograd records, a ``torch.autograd.Function`` runs K2
+forward and, backward, recomputes through :func:`geglu_ff_plain` and takes
+its vector-Jacobian product, as ``sd_tpu``'s ``_geglu_ff_bwd`` does through
+``_split_reference`` (the JAX package has no backward kernel here).
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ import torch.nn.functional as F
 
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 
-__all__ = ["geglu_ff", "geglu_ff_plain"]
+__all__ = ["geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff"]
 
 
 def geglu_ff_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -30,10 +36,11 @@ def geglu_ff_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """The same function in plain PyTorch: fp32 products, exact-erf GELU in
     fp32, h rounded to the input dtype before the output projection."""
     inner = w2.shape[1]
-    s = F.linear(x.float(), w1.float(), b1.float())
-    a, g = s[..., :inner], s[..., inner:]
-    h = (a * F.gelu(g)).to(x.dtype)
-    return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+    with torch.autocast(x.device.type, enabled=False):
+        s = F.linear(x.float(), w1.float(), b1.float())
+        a, g = s[..., :inner], s[..., inner:]
+        h = (a * F.gelu(g)).to(x.dtype)
+        return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
 
 
 def _check_inputs(x, w1, b1, w2, b2):
@@ -89,3 +96,32 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 
 geglu_ff.launches = 0
+
+
+class _GegluFF(torch.autograd.Function):
+    """K2 forward; backward by recomputing the plain version (no kernel)."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
+    def forward(ctx, x, w1, b1, w2, b2):
+        ctx.save_for_backward(x, w1, b1, w2, b2)
+        return geglu_ff(x, w1, b1, w2, b2)
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, dy):
+        inputs = [t.detach().requires_grad_(need)
+                  for t, need in zip(ctx.saved_tensors, ctx.needs_input_grad)]
+        wanted = [t for t in inputs if t.requires_grad]
+        with torch.enable_grad():
+            grads = iter(torch.autograd.grad(geglu_ff_plain(*inputs), wanted, dy))
+        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+
+
+def differentiable_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                            w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+    """:func:`geglu_ff` with a gradient: through the autograd function where
+    autograd records, else the inference wrapper."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
+        return _GegluFF.apply(x, w1, b1, w2, b2)
+    return geglu_ff(x, w1, b1, w2, b2)

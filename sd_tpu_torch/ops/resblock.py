@@ -4,7 +4,9 @@
   ``sd_tpu``'s unfused path (the fused GN+SiLU+conv kernel is still to port).
 - ``VAEResnetBlock``: the autoencoder block (eps 1e-6 GroupNorm, 1x1
   shortcut).
-- ``Upsample`` (nearest x2 + 3x3 conv) and ``Downsample`` (stride-2 3x3 conv).
+- ``Upsample`` (nearest x2 + 3x3 conv), ``Downsample`` (stride-2 3x3 conv)
+  and ``VAEDownsample`` (the autoencoder's: pad right and bottom by one, then
+  a stride-2 3x3 conv with no padding).
 
 Submodule names follow the CompVis ``state_dict``
 (``in_layers.0``/``in_layers.2``/``emb_layers.1``/``out_layers.0``/
@@ -22,7 +24,7 @@ from torch import nn
 from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.norms import GroupNorm32
 
-__all__ = ["Upsample", "Downsample", "ResBlock", "VAEResnetBlock"]
+__all__ = ["Upsample", "Downsample", "VAEDownsample", "ResBlock", "VAEResnetBlock"]
 
 
 class Upsample(nn.Module):
@@ -45,6 +47,18 @@ class Downsample(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.op(x)
+
+
+class VAEDownsample(nn.Module):
+    """The encoder's downsample (``conv``): asymmetric pad (0, 1) on H and W,
+    then a stride-2 3x3 conv with no padding."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.conv(F.pad(x, (0, 1, 0, 1)))
 
 
 class ResBlock(nn.Module):

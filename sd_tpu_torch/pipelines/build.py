@@ -2,7 +2,8 @@
 
 SD v1 at full width, or the tiny test model, with seeded random weights on
 the target device (no checkpoint loading yet), the hash tokenizer, and the
-invisible watermark reused from ``sd_tpu.utils.watermark``.
+invisible watermark (the port's copies in ``data/tokenizer.py`` and
+``utils/watermark.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +12,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from sd_tpu.data.tokenizer import HashTokenizer
+from sd_tpu_torch.data.tokenizer import HashTokenizer
 from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 from sd_tpu_torch.utils.config import (
     SD_V1_MODEL_CONFIG,
@@ -45,7 +46,7 @@ def build_txt2img_pipeline(*, tiny: bool = False, device="cuda", seed: int = 0,
                                  seed=seed)
     pipe = Txt2ImgPipeline(ldm=ldm, tokenizer=tokenizer, downsample=downsample)
     if watermark and min(min_hw, hw or min_hw) >= 32:
-        from sd_tpu.utils.watermark import embed_watermark_batch
+        from sd_tpu_torch.utils.watermark import embed_watermark_batch
 
         pipe.watermarker = embed_watermark_batch
     return pipe, hw

@@ -1,16 +1,18 @@
-"""Model configs and ``build_latent_diffusion`` (the slice of ``sd_tpu/utils/config.py``
-that builds SD v1 and the tiny test model).
+"""Model and data configs and ``build_latent_diffusion`` (the slice of
+``sd_tpu/utils/config.py`` that builds SD v1 and the tiny test model).
 
 The card has no YAML parser, so SD v1's model config lives here as a dict;
 a CPU test holds it equal to ``configs/stable-diffusion/v1-inference.yaml``.
-:func:`build_latent_diffusion` makes random weights on the target device
-from a seeded ``torch.Generator``.
+:func:`train_config` adds a ``data`` node to either model: synthetic images
+with token captions under the model's ``cond_stage_key`` (no dataset is in
+the repository). :func:`build_latent_diffusion` makes random weights on the
+target device from a seeded ``torch.Generator``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 from torch import nn
@@ -20,8 +22,8 @@ from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.ldm import LatentDiffusion
 from sd_tpu_torch.models.unet import UNetConfig
 
-__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "build_latent_diffusion",
-           "init_random_"]
+__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "train_config",
+           "build_latent_diffusion", "init_random_"]
 
 # the `model:` node of configs/stable-diffusion/v1-inference.yaml
 SD_V1_MODEL_CONFIG: Dict[str, Any] = {
@@ -148,6 +150,25 @@ def tiny_sd_model_config() -> Dict[str, Any]:
     }
 
 
+def train_config(tiny: bool = False, batch_size: Optional[int] = None) -> Dict[str, Any]:
+    """``{"model": ..., "data": ...}`` for training SD v1 (512² images, 77
+    token ids under ``txt``, batch 4) or the tiny model (32² images, 8 ids
+    under ``caption``, batch 2) on ``SyntheticImages``."""
+    if tiny:
+        model = tiny_sd_model_config()
+        images = dict(size=32, length=64, caption_tokens=8, caption_vocab=64)
+        batch = 2
+    else:
+        model = copy.deepcopy(SD_V1_MODEL_CONFIG)
+        images = dict(size=512, length=1024, caption_tokens=77, caption_vocab=49408)
+        batch = 4
+    key = model["params"].get("cond_stage_key", "caption")
+    train = {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
+             "params": dict(images, caption_key=key, seed=0)}
+    return {"model": model,
+            "data": {"params": {"batch_size": batch_size or batch, "train": train}}}
+
+
 @torch.no_grad()
 def init_random_(module: nn.Module, generator: torch.Generator) -> None:
     """Non-zero random weights everywhere, so every site carries signal:
@@ -187,7 +208,9 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     with torch.device("meta"):
         ldm = LatentDiffusion(UNetConfig.from_dict(unet_p), kl_p["ddconfig"],
                               kl_p["embed_dim"], CLIPTextConfig(**clip_p), schedule,
-                              scale_factor=p.get("scale_factor", 1.0))
+                              scale_factor=p.get("scale_factor", 1.0),
+                              parameterization=p.get("parameterization", "eps"),
+                              cond_stage_key=p.get("cond_stage_key", "caption"))
     device = torch.device(device)
     ldm.to_empty(device=device)
     init_random_(ldm, torch.Generator(device=device).manual_seed(seed))

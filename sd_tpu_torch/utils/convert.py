@@ -1,7 +1,7 @@
 """``sd_tpu`` parameter trees → the port's ``state_dict``.
 
 The exact inverse of ``sd_tpu``'s torch porters (``port_unet``,
-``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``): flax
+``port_encoder``/``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``): flax
 ``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
 the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
 ``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
@@ -20,7 +20,8 @@ import numpy as np
 from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 
-__all__ = ["unet_state_dict", "vae_decoder_state_dict", "clip_text_state_dict"]
+__all__ = ["unet_state_dict", "vae_state_dict", "vae_encoder_state_dict",
+           "vae_decoder_state_dict", "clip_text_state_dict"]
 
 StateDict = Dict[str, np.ndarray]
 
@@ -158,6 +159,37 @@ def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
             _put(sd, f"decoder.up.{i}.upsample.conv", _conv(dec[f"up_{i}_upsample"]["conv"]))
     _put(sd, "post_quant_conv", _conv1x1(params["post_quant_conv"]))
     return sd
+
+
+def vae_encoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
+    """``sd_tpu`` AutoencoderKL params → the port's ``AutoencoderKL`` encode
+    half: ``encoder.*`` and ``quant_conv.*``."""
+    enc = params["encoder"]
+    sd: StateDict = {}
+    _put(sd, "encoder.conv_in", _conv(enc["conv_in"]))
+    _put(sd, "encoder.conv_out", _conv(enc["conv_out"]))
+    _put(sd, "encoder.norm_out", _norm(enc["norm_out"]["GroupNorm_0"]))
+    _vae_res(sd, enc["mid_block_1"], "encoder.mid.block_1")
+    _vae_attn(sd, enc["mid_attn_1"], "encoder.mid.attn_1")
+    _vae_res(sd, enc["mid_block_2"], "encoder.mid.block_2")
+    num_res = len(ddconfig["ch_mult"])
+    for i in range(num_res):
+        for j in range(ddconfig["num_res_blocks"]):
+            _vae_res(sd, enc[f"down_{i}_block_{j}"], f"encoder.down.{i}.block.{j}")
+            if f"down_{i}_attn_{j}" in enc:
+                _vae_attn(sd, enc[f"down_{i}_attn_{j}"], f"encoder.down.{i}.attn.{j}")
+        if i != num_res - 1:
+            _put(sd, f"encoder.down.{i}.downsample.conv",
+                 _conv(enc[f"down_{i}_downsample"]["conv"]))
+    _put(sd, "quant_conv", _conv1x1(params["quant_conv"]))
+    return sd
+
+
+def vae_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
+    """``sd_tpu`` AutoencoderKL params → the port's whole ``AutoencoderKL``
+    state_dict."""
+    return {**vae_encoder_state_dict(params, ddconfig),
+            **vae_decoder_state_dict(params, ddconfig)}
 
 
 # ---------------------------------------------------------------- CLIP

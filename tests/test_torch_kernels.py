@@ -6,7 +6,9 @@ these plain versions there.
 
 Tolerances: flash 2e-5 absolute (an fp32 softmax summed in another order);
 the FF adds the Pallas fp32 path's two-piece erf error (5.5e-7 before the
-output projection).
+output projection). The backward (K3's plain version and the differentiable
+entry points) 1e-5 of the gradient's scale: fp32 products of the same
+operands, summed in another order.
 """
 
 import importlib
@@ -15,13 +17,20 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from sd_tpu.ops.attention import _xla_attention
+from sd_tpu.ops.pallas.flash_attention import _bwd_bhnd_pallas, _bwd_bhnd_xla
 from sd_tpu.ops.pallas.flash_attention import flash_attention as pallas_flash
+from sd_tpu.ops.pallas.geglu_ff import _split_reference
 from sd_tpu.ops.pallas.geglu_ff import geglu_ff as pallas_geglu_ff
 from sd_tpu_torch.ops.cuda import _build
-from sd_tpu_torch.ops.cuda import flash_attention, flash_attention_plain, geglu_ff, geglu_ff_plain
+from sd_tpu_torch.ops.cuda import (differentiable_flash_attention, differentiable_geglu_ff,
+                                   flash_attention, flash_attention_bwd,
+                                   flash_attention_bwd_plain, flash_attention_lse_plain,
+                                   flash_attention_plain, geglu_ff, geglu_ff_plain)
+from sd_tpu_torch.ops.cuda.flash_attention import uses_bwd_kernel
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -105,7 +114,8 @@ def test_library_name_is_keyed_to_the_sources():
     assert path.parent == _build._BUILD_DIR
     assert path.name.startswith("libsd_tpu_kernels-") and path.suffix == ".so"
     assert path == _build._library_path()
-    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu", "geglu_ff.cu"}
+    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu",
+                                                      "flash_attention_bwd.cu", "geglu_ff.cu"}
 
 
 def _bf16(*shape):
@@ -144,3 +154,129 @@ def test_wrappers_accept_the_path_shapes():
     importlib.import_module("sd_tpu_torch.ops.cuda.geglu_ff")._check_inputs(
         _bf16(2, 64, 320), _bf16(2560, 320), torch.zeros(2560), _bf16(320, 1280),
         torch.zeros(320))
+
+
+# ------------------------------------------------------------------ backward
+
+
+def _close_to_scale(got, want, tol=1e-5):
+    want = np.asarray(want)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=0, atol=tol * np.abs(want).max())
+
+
+def _t(x):
+    """[B, N, H, D] numpy -> sd_tpu's [B, H, N, D] kernel layout."""
+    return jnp.asarray(np.ascontiguousarray(x.transpose(0, 2, 1, 3)))
+
+
+@pytest.mark.parametrize("shape,reference", [
+    ((1, 512, 2, 16), "pallas"),   # K3's branch: Nk > 256, Nq % 256 == 0
+    ((1, 256, 2, 16), "xla"),      # the plain branch
+])
+def test_flash_bwd_plain_matches_sd_tpu(shape, reference):
+    q, k, v = _qkv(shape, 5)
+    do = np.random.default_rng(6).standard_normal(shape).astype(np.float32)
+    scale = shape[-1] ** -0.5
+    o = flash_attention_plain(*map(torch.from_numpy, (q, k, v)), scale).numpy()
+    args = [_t(a) for a in (q, k, v, o, do)]
+    if reference == "pallas":
+        want = _bwd_bhnd_pallas(*args, scale, shape[1], interpret=True)
+    else:
+        want = _bwd_bhnd_xla(*args, scale, shape[1])
+    got = flash_attention_bwd_plain(*map(torch.from_numpy, (q, k, v, o, do)), scale)
+    for g, w in zip(got, want):
+        _close_to_scale(g.numpy(), np.asarray(w).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("n", [512, 256])
+def test_differentiable_attention_grads_match_jax(n):
+    """jax.grad of sd_tpu's flash_attention (Pallas in interpret mode) against
+    the port's autograd function, on each branch of the backward dispatch."""
+    shape = (2, n, 2, 16)
+    q, k, v = _qkv(shape, 7)
+    w = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
+    assert uses_bwd_kernel(n, n) == (n > 256)
+
+    def loss(q_, k_, v_):
+        return jnp.sum(jnp.asarray(w) * pallas_flash(q_, k_, v_, interpret=True, block_q=128))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = differentiable_flash_attention(*leaves)
+    assert out.grad_fn is not None
+    (out * torch.from_numpy(w)).sum().backward()
+    for leaf, g in zip(leaves, want):
+        _close_to_scale(leaf.grad.numpy(), g)
+
+
+def test_differentiable_geglu_grads_match_jax_vjp():
+    """The port's K2 autograd function against jax.vjp of sd_tpu's
+    _split_reference, the backward of its fused kernel."""
+    rng = np.random.default_rng(9)
+    m, c, inner = 64, 32, 128
+    x = (0.5 * rng.standard_normal((m, c))).astype(np.float32)
+    w1a, w1g = ((0.1 * rng.standard_normal((c, inner))).astype(np.float32) for _ in range(2))
+    b1a, b1g = ((0.1 * rng.standard_normal(inner)).astype(np.float32) for _ in range(2))
+    w2 = (0.1 * rng.standard_normal((inner, c))).astype(np.float32)
+    b2 = (0.1 * rng.standard_normal(c)).astype(np.float32)
+    dy = rng.standard_normal((m, c)).astype(np.float32)
+    _, vjp = jax.vjp(_split_reference, *map(jnp.asarray, (x, w1a, w1g, b1a, b1g, w2, b2)))
+    dx, dw1a, dw1g, db1a, db1g, dw2, db2 = vjp(jnp.asarray(dy))
+
+    # torch Linear layout: w1 [2I, C] value rows first, w2 [C, I]
+    leaves = [torch.from_numpy(np.ascontiguousarray(a)).requires_grad_() for a in
+              (x, np.concatenate([w1a.T, w1g.T]), np.concatenate([b1a, b1g]), w2.T, b2)]
+    y = differentiable_geglu_ff(*leaves)
+    assert y.grad_fn is not None
+    y.backward(torch.from_numpy(dy))
+    want = [dx, np.concatenate([np.asarray(dw1a).T, np.asarray(dw1g).T]),
+            np.concatenate([db1a, db1g]), np.asarray(dw2).T, db2]
+    for leaf, w in zip(leaves, want):
+        _close_to_scale(leaf.grad.numpy(), w)
+
+
+def test_lse_plain_is_the_log2_softmax_normalizer():
+    q, k, _ = map(torch.from_numpy, _qkv((1, 64, 2, 16), 10))
+    lse = flash_attention_lse_plain(q, k, 0.25)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) * 0.25
+    p = torch.exp2(logits * np.log2(np.e) - lse[..., None])
+    torch.testing.assert_close(p.sum(-1), torch.ones_like(lse), rtol=0, atol=1e-5)
+
+
+def test_cpu_backward_takes_the_plain_version_and_counts_nothing():
+    q, k, v = map(torch.from_numpy, _qkv((1, 512, 2, 16), 11))
+    o = flash_attention_plain(q, k, v, 0.25)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, o, o, None, 0.25)
+    for g, w in zip(got, flash_attention_bwd_plain(q, k, v, o, o, 0.25)):
+        assert torch.equal(g, w)
+    assert flash_attention_bwd.launches == before
+
+
+def test_no_grad_calls_take_the_inference_wrappers():
+    q = torch.zeros((1, 64, 2, 16), requires_grad=True)
+    with torch.no_grad():
+        assert differentiable_flash_attention(q, q, q).grad_fn is None
+    x = torch.zeros((4, 16))
+    assert differentiable_geglu_ff(x, torch.zeros((64, 16)), torch.zeros(64),
+                                   torch.zeros((16, 32)), torch.zeros(16)).grad_fn is None
+
+
+@pytest.mark.parametrize("d,lse_shape,error", [
+    (136, (1, 2, 64), ValueError),   # K3 takes d up to 128
+    (40, (1, 2, 32), ValueError),    # lse is not [B, H, Nq]
+    (40, None, ValueError),          # no lse
+])
+def test_flash_bwd_wrapper_rejects_what_the_kernel_does_not_take(d, lse_shape, error):
+    module = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
+    t = _bf16(1, 64, 2, d)
+    lse = None if lse_shape is None else torch.zeros(lse_shape)
+    with pytest.raises(error):
+        module._check_bwd_inputs(t, t, t, t, t, lse)
+
+
+def test_flash_bwd_wrapper_accepts_the_path_shapes():
+    module = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
+    for b, n, h, d in ((4, 4096, 8, 40), (4, 1024, 8, 80)):
+        t = _bf16(b, n, h, d)
+        module._check_bwd_inputs(t, t, t, t, t, torch.zeros((b, h, n)))

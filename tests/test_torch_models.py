@@ -77,7 +77,7 @@ def test_vae_decoder_matches_sd_tpu():
     params = _init(jmodel, 3, jnp.zeros((1, 32, 32, 3)))
     want = jmodel.apply({"params": params}, jnp.asarray(z), method=jmodel.decode)
     ae = load_numpy_state_dict(AutoencoderKL(DDCONFIG, 4),
-                               convert.vae_decoder_state_dict(params, DDCONFIG))
+                               convert.vae_state_dict(params, DDCONFIG))
     with torch.no_grad():
         got = ae.decode(torch.from_numpy(z.transpose(0, 3, 1, 2).copy()))
     _close(got.permute(0, 2, 3, 1).numpy(), want)
@@ -106,18 +106,24 @@ def _round_trip(which):
         sd = random_state_dict(UNetModel(cfg), rng)
         params = junet.port_unet(sd, junet.UNetConfig.from_dict(UNET_P), prefix="")
         return sd, convert.unet_state_dict(params, cfg)
-    if which == "decoder":
+    if which in ("decoder", "encoder"):
+        # one half of the autoencoder's state_dict, through that half's porter
         sd = random_state_dict(AutoencoderKL(DDCONFIG, 4), rng)
-        params = {"decoder": jvae.port_decoder(sd, DDCONFIG, prefix="decoder"),
-                  "post_quant_conv": port.dense_from_conv1x1(sd, "post_quant_conv")}
-        return sd, convert.vae_decoder_state_dict(params, DDCONFIG)
+        conv = "post_quant_conv" if which == "decoder" else "quant_conv"
+        sd = {k: v for k, v in sd.items() if k.startswith((which + ".", conv + "."))}
+        porter = jvae.port_decoder if which == "decoder" else jvae.port_encoder
+        params = {which: porter(sd, DDCONFIG, prefix=which),
+                  conv: port.dense_from_conv1x1(sd, conv)}
+        to_port = (convert.vae_decoder_state_dict if which == "decoder"
+                   else convert.vae_encoder_state_dict)
+        return sd, to_port(params, DDCONFIG)
     cfg = CLIPTextConfig(**CLIP_P)
     sd = random_state_dict(CLIPTextModel(cfg), rng)
     params = jclip.port_clip_text(sd, jclip.CLIPTextConfig(**CLIP_P), prefix="text_model.")
     return sd, convert.clip_text_state_dict(params, cfg)
 
 
-@pytest.mark.parametrize("which", ["unet", "decoder", "clip"])
+@pytest.mark.parametrize("which", ["unet", "decoder", "encoder", "clip"])
 def test_converter_inverts_the_porters(which):
     sd, back = _round_trip(which)
     assert sorted(back) == sorted(sd)
@@ -149,6 +155,7 @@ def test_sd_v1_config_is_the_yaml():
 def test_ldm_state_dict_uses_checkpoint_names():
     ldm = build_latent_diffusion(tiny_sd_model_config(), device="cpu")
     prefixes = {k.split(".")[0] + "." + k.split(".")[1] for k in ldm.state_dict()}
-    assert prefixes == {"model.diffusion_model", "first_stage_model.decoder",
+    assert prefixes == {"model.diffusion_model", "first_stage_model.encoder",
+                        "first_stage_model.quant_conv", "first_stage_model.decoder",
                         "first_stage_model.post_quant_conv", "cond_stage_model.transformer"}
     assert all(p.abs().sum() > 0 for p in ldm.parameters())

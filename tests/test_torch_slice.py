@@ -76,7 +76,7 @@ def _port_ldm(cfg, jldm):
                           convert.unet_state_dict(jldm.unet_params, unet_cfg))
     ddconfig = p["first_stage_config"]["params"]["ddconfig"]
     load_numpy_state_dict(ldm.first_stage_model,
-                          convert.vae_decoder_state_dict(jldm.first_stage_params, ddconfig))
+                          convert.vae_state_dict(jldm.first_stage_params, ddconfig))
     clip_cfg = CLIPTextConfig(**p["cond_stage_config"]["params"])
     load_numpy_state_dict(ldm.cond_stage_model.transformer,
                           convert.clip_text_state_dict(jldm.cond_stage_params, clip_cfg))
@@ -108,13 +108,14 @@ def test_tiny_txt2img_matches_sd_tpu():
 
 
 def test_cli_runs_the_tiny_port_without_jax(tmp_path):
-    """The port's CLI, in a fresh interpreter, imports neither jax nor flax."""
+    """The port's CLI, in a fresh interpreter, imports neither jax, flax nor
+    sd_tpu."""
     code = (
         "import runpy, sys\n"
         f"sys.argv = ['txt2img', '--tiny', '--plms', '--device', 'cpu', '--ddim_steps', '2',"
         f" '--fixed_code', '--outdir', {str(tmp_path)!r}]\n"
         "runpy.run_module('sd_tpu_torch.scripts.txt2img', run_name='__main__')\n"
-        "bad = [m for m in ('jax', 'flax') if m in sys.modules]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'sd_tpu')]\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, capture_output=True,
