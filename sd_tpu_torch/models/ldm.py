@@ -9,6 +9,12 @@ UNet), ``first_stage_model.*`` (the KL autoencoder: ``encoder``,
 
 Images are NCHW here; the batch contract at the trainer is ``sd_tpu``'s
 NHWC.
+
+:meth:`LatentDiffusion.set_int8_mode` holds the int8 serving mode on the
+UNet's and the first stage's sites and quantizes their weights at once,
+the counterpart of ``sd_tpu``'s ``unet_qw``/``first_stage_qw`` overlays;
+each site quantizes again if its weights are replaced later, so no stale
+int8 weights are served.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
 from sd_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from sd_tpu_torch.models.unet import UNetConfig, UNetModel
 from sd_tpu_torch.models.vae import AutoencoderKL
+from sd_tpu_torch.ops import quant
 
 __all__ = ["LatentDiffusion", "FrozenCLIPEmbedder", "DiffusionWrapper"]
 
@@ -58,6 +65,18 @@ class LatentDiffusion(nn.Module):
         self.parameterization = parameterization
         # the batch entry that feeds the cond stage (token ids)
         self.cond_stage_key = cond_stage_key
+        # the int8 serving mode held on the sites (set_int8_mode)
+        self.int8_mode = quant.INT8_OFF
+
+    def set_int8_mode(self, mode) -> quant.Int8Mode:
+        """Hold the int8 serving ``mode`` (``SD_TPU_INT8``'s grammar or a
+        ``quant.Int8Mode``) on every site, and quantize the weights it reads
+        now where it will run (bf16 on the card); returns the mode."""
+        mode = self.int8_mode = quant.set_int8_mode(self, mode)
+        probe = next(self.parameters())
+        if any(quant.int8_bucket_enabled(mode, b, probe) for b in ("conv", "ff", "proj")):
+            quant.prequantize_weights(self)
+        return mode
 
     def apply_model(self, x: torch.Tensor, t: torch.Tensor, cond: torch.Tensor) -> torch.Tensor:
         """eps prediction for latents ``x [B, C, h, w]`` at timesteps ``t [B]``."""

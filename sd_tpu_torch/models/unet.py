@@ -24,7 +24,6 @@ from torch.utils.checkpoint import checkpoint
 
 from sd_tpu_torch.core.schedules import timestep_embedding
 from sd_tpu_torch.ops.attention import SpatialTransformer
-from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.norms import GroupNorm32
 from sd_tpu_torch.ops.resblock import Downsample, ResBlock, Upsample
 
@@ -133,7 +132,8 @@ def build_unet_plan(cfg: UNetConfig) -> Dict[str, Any]:
 def _make_layer(cfg: UNetConfig, desc: Dict) -> nn.Module:
     kind = desc["kind"]
     if kind == "conv_in":
-        return Conv3x3(cfg.in_channels, desc["ch"])
+        # a plain conv, as sd_tpu's nn.Conv here: the int8 mode leaves it in bf16
+        return nn.Conv2d(cfg.in_channels, desc["ch"], 3, padding=1)
     if kind == "res":
         return ResBlock(desc["ch"], 4 * cfg.model_channels, dropout=cfg.dropout,
                         out_channels=desc["out_ch"],
@@ -165,7 +165,7 @@ class UNetModel(nn.Module):
         self.middle_block = blocks(plan["middle_block"])
         self.output_blocks = nn.ModuleList(blocks(b) for b in plan["output_blocks"])
         self.out = nn.Sequential(GroupNorm32(plan["out_ch"]), nn.SiLU(),
-                                 Conv3x3(plan["out_ch"], cfg.out_channels))
+                                 nn.Conv2d(plan["out_ch"], cfg.out_channels, 3, padding=1))
 
     def _run_block(self, layers: nn.ModuleList, h, emb, context):
         remat = self.config.use_checkpoint and self.training and torch.is_grad_enabled()

@@ -12,6 +12,15 @@ in ``sd_tpu``. Dispatch on a CUDA tensor:
 - every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),
   whose backward recomputes through the plain version.
 
+In the int8 serving mode (``ops/quant.py``; the mode is held on each
+module's ``int8``), as ``sd_tpu``: the self-attention sites that
+``resolve_int8`` accepts (full rows of at least 2048 keys) go to K5, the FF
+sites that pass ``int8_ff_supported`` to K4, and with the ``proj`` bucket
+the projections to K6: self-attention's Q, K and V in one call on the
+concatenated ``[3C, C]`` weight, cross-attention's Q (K and V of the
+77-token context stay bf16), and every ``to_out``. The int8 weights are
+quantized at load time and held per module (``quant.Int8Weights``).
+
 On a CPU tensor each kernel wrapper computes its plain version.
 
 Modules keep the CompVis ``state_dict`` names (``to_q``, ``to_out.0``,
@@ -28,11 +37,18 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from sd_tpu_torch.ops import quant
 from sd_tpu_torch.ops.cuda import (
     differentiable_flash_attention,
     differentiable_geglu_ff,
+    flash_attention_int8,
     flash_attention_plain,
+    geglu_ff_int8,
+    int8_dense,
+    resolve_int8,
 )
+from sd_tpu_torch.ops.cuda.geglu_ff import int8_ff_supported, quantize_cols, quantize_ff_weights
+from sd_tpu_torch.ops.cuda.int8_dense import block_m
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
 __all__ = [
@@ -47,11 +63,16 @@ __all__ = [
 
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None,
-                          mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Multi-head scaled dot-product attention over ``[B, N, H, D]``."""
+                          mask: Optional[torch.Tensor] = None,
+                          int8: quant.Int8Mode = quant.INT8_OFF) -> torch.Tensor:
+    """Multi-head scaled dot-product attention over ``[B, N, H, D]``;
+    ``int8`` is the serving mode of the calling module."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is None and q.shape[1] == k.shape[1]:
+        mode = resolve_int8(int8, q, k)
+        if mode != "off":
+            return flash_attention_int8(q, k, v, scale, mode)
         return differentiable_flash_attention(q, k, v, scale)
     return flash_attention_plain(q, k, v, scale, mask)
 
@@ -80,9 +101,12 @@ class GEGLU(nn.Module):
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
 
-class FeedForward(nn.Module):
+class FeedForward(quant.Int8Weights, nn.Module):
     """Gated transformer MLP ``net = [GEGLU, Dropout, Linear]``, applied as one
-    K2 call (:func:`differentiable_geglu_ff`)."""
+    K2 call (:func:`differentiable_geglu_ff`), or one K4 call where the int8
+    mode's site gate passes."""
+
+    int8_bucket = "ff"
 
     def __init__(self, dim: int, dim_out: Optional[int] = None, mult: int = 4,
                  dropout: float = 0.0):
@@ -91,13 +115,25 @@ class FeedForward(nn.Module):
         self.net = nn.Sequential(GEGLU(dim, inner), nn.Dropout(dropout),
                                  nn.Linear(inner, dim_out or dim))
 
+    def int8_sources(self):
+        return self.net[0].proj.weight, self.net[2].weight
+
+    def int8_quantize(self):
+        w1, w2 = self.int8_sources()
+        return quantize_ff_weights(w1, w2, w1.dtype)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         proj, out = self.net[0].proj, self.net[2]
+        if int8_ff_supported(self.int8, x, out.weight.shape[1]):
+            return geglu_ff_int8(x, proj.weight, proj.bias, out.weight, out.bias,
+                                 self.int8_weights())
         return differentiable_geglu_ff(x, proj.weight, proj.bias, out.weight, out.bias)
 
 
-class CrossAttention(nn.Module):
+class CrossAttention(quant.Int8Weights, nn.Module):
     """Self (``context=None``) or cross attention over ``[B, N, C]`` tokens."""
+
+    int8_bucket = "proj"
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None,
                  heads: int = 8, dim_head: int = 64, dropout: float = 0.0):
@@ -110,16 +146,52 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(context_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(dropout))
 
+    def int8_sources(self):
+        return self.to_q.weight, self.to_k.weight, self.to_v.weight, self.to_out[0].weight
+
+    def int8_quantize(self):
+        """The ``proj`` bucket's int8 weights: Q (with K and V behind it
+        where they share Q's input width, for the fused self-attention
+        call) and ``to_out``, per output channel. The rows of the
+        concatenation are quantized each on its own, so its first third is
+        Q's quantization."""
+        w = self.to_q.weight
+        if self.to_k.weight.shape == w.shape:
+            w = torch.cat([w, self.to_k.weight, self.to_v.weight])
+        qkv_q, qkv_s = quantize_cols(w)
+        out_q, out_s = quantize_cols(self.to_out[0].weight)
+        return dict(qkv_q=qkv_q, qkv_s=qkv_s, out_q=out_q, out_s=out_s)
+
     def forward(self, x: torch.Tensor, context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        is_self = context is None
         context = x if context is None else context
         b, nq, _ = x.shape
         nk = context.shape[1]
         h, d = self.heads, self.dim_head
-        q = self.to_q(x).view(b, nq, h, d)
-        k = self.to_k(context).view(b, nk, h, d)
-        v = self.to_v(context).view(b, nk, h, d)
-        out = dot_product_attention(q, k, v, scale=d**-0.5)
-        return self.to_out(out.reshape(b, nq, h * d))
+        # sd_tpu's int8_dense takes the plain product where no row block fits
+        proj = (quant.int8_bucket_enabled(self.int8, "proj", x)
+                and block_m(b * nq) is not None)
+        qw = self.int8_weights() if proj else None
+        if proj and is_self:
+            q, k, v = int8_dense(x, None, prequant=(qw["qkv_q"], qw["qkv_s"])).chunk(3, dim=-1)
+        else:
+            if proj:
+                inner = h * d
+                q = int8_dense(x, self.to_q.weight,
+                               prequant=(qw["qkv_q"][:inner], qw["qkv_s"][:inner]))
+            else:
+                q = self.to_q(x)
+            k, v = self.to_k(context), self.to_v(context)
+        q = q.reshape(b, nq, h, d)
+        k = k.reshape(b, nk, h, d)
+        v = v.reshape(b, nk, h, d)
+        out = dot_product_attention(q, k, v, scale=d**-0.5, int8=self.int8)
+        out = out.reshape(b, nq, h * d)
+        if proj:
+            lin = self.to_out[0]
+            out = int8_dense(out, lin.weight, lin.bias, prequant=(qw["out_q"], qw["out_s"]))
+            return self.to_out[1](out)
+        return self.to_out(out)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -170,6 +242,8 @@ class SpatialTransformer(nn.Module):
 class VAEAttnBlock(nn.Module):
     """Single-head attention of the VAE mid-block (head dim = C, scale C^-0.5)."""
 
+    int8 = quant.INT8_OFF
+
     def __init__(self, in_channels: int):
         super().__init__()
         c = in_channels
@@ -185,6 +259,6 @@ class VAEAttnBlock(nn.Module):
         q = _linear_1x1(t, self.q).view(b, hh * ww, 1, c)
         k = _linear_1x1(t, self.k).view(b, hh * ww, 1, c)
         v = _linear_1x1(t, self.v).view(b, hh * ww, 1, c)
-        out = dot_product_attention(q, k, v, scale=c**-0.5)
+        out = dot_product_attention(q, k, v, scale=c**-0.5, int8=self.int8)
         out = _linear_1x1(out.reshape(b, hh * ww, c), self.proj_out)
         return x + _from_tokens(out, hh, ww)

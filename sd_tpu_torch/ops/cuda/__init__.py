@@ -10,11 +10,23 @@ from sd_tpu_torch.ops.cuda.flash_attention import (
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
+    flash_attention_int8,
+    flash_attention_int8_plain,
     flash_attention_lse_plain,
     flash_attention_plain,
+    resolve_int8,
 )
-from sd_tpu_torch.ops.cuda.geglu_ff import differentiable_geglu_ff, geglu_ff, geglu_ff_plain
+from sd_tpu_torch.ops.cuda.geglu_ff import (
+    differentiable_geglu_ff,
+    geglu_ff,
+    geglu_ff_int8,
+    geglu_ff_int8_plain,
+    geglu_ff_plain,
+)
+from sd_tpu_torch.ops.cuda.int8_dense import int8_dense, int8_dense_plain
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain", "differentiable_flash_attention",
-           "geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff"]
+           "flash_attention_int8", "flash_attention_int8_plain", "resolve_int8",
+           "geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff", "geglu_ff_int8",
+           "geglu_ff_int8_plain", "int8_dense", "int8_dense_plain"]

@@ -36,6 +36,16 @@ _SIGNATURES = {
     "sdt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
     # x, w1, b1, w2, b2, h, y, m, c, inner, c_out, stream
     "sdt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, wq, sw, b, out, m, c, f, stream
+    "sdt_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
+    # x, w1aq, s1a, b1a, w1gq, s1g, b1g, w2q, s2, b2, h, rowmax, hq, sh, y,
+    # m, c, inner, c_out, stream
+    "sdt_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
+    # q, k, v, o, qq, sq, kq, sk, vq, sv, batch, n, heads, d, scale * log2(e),
+    # pv8, stream
+    "sdt_flash_attention_int8": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P],
+    # d -> the padded head dim of the int8 attention (0: not taken)
+    "sdt_flash_int8_padded_dim": [_I],
 }
 
 

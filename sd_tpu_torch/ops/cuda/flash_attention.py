@@ -19,6 +19,17 @@ does about that.
   ``torch.autograd.Function`` whose forward is K1 (with the row log-sum-exp
   saved) and whose backward follows ``sd_tpu``'s ``_flash_bhnd_bwd``: K3 when
   Nk > 256 and Nq is a multiple of 256, the plain backward otherwise.
+
+K5, the int8 serving mode's attention (``attn``: int8 QKᵀ, mode "qk";
+``attn_pv``: int8 P·V too, mode "qkpv"), replaces ``_kernel_chunked_int8``
+through ``_fwd_bhnd``; its source is
+``sd_tpu_torch/csrc/flash_attention_int8.cu``. :func:`resolve_int8` is
+``sd_tpu``'s ``_resolve_int8`` rule; :func:`flash_attention_int8` launches
+the kernel for a CUDA tensor (``flash_attention_int8.launches``; of them
+``.pv_launches`` in "qkpv") and uses
+:func:`flash_attention_int8_plain`, which walks 1024-key chunks in the TPU
+kernel's order, for a CPU tensor only. It has no backward and raises where
+autograd would record.
 """
 
 from __future__ import annotations
@@ -28,11 +39,14 @@ from typing import Optional, Tuple
 
 import torch
 
+from sd_tpu_torch.ops import quant
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
+from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_rows
 
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
-           "differentiable_flash_attention"]
+           "differentiable_flash_attention", "resolve_int8", "flash_attention_int8",
+           "flash_attention_int8_plain"]
 
 _MAX_HEAD_DIM = 512
 _MAX_BWD_HEAD_DIM = 128
@@ -40,6 +54,11 @@ _MAX_BWD_HEAD_DIM = 128
 # when the queries tile by 256; the plain backward otherwise
 _SMALL_KV = 256
 _BLOCK_Q_BWD = 256
+_LOG2E = math.log2(math.e)
+# the int8 kernel's key chunk (part of its function in "qkpv"), and the
+# shortest row it engages at (sd_tpu measured int8 slower below it)
+INT8_CHUNK = 1024
+_INT8_MIN_KV = 2048
 
 
 def _plain_scope(t: torch.Tensor):
@@ -234,3 +253,110 @@ def differentiable_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Te
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _FlashAttention.apply(q, k, v, float(scale))
     return flash_attention(q, k, v, scale)
+
+
+def resolve_int8(int8, q: torch.Tensor, k: torch.Tensor, masked: bool = False) -> str:
+    """``sd_tpu``'s ``_resolve_int8``: the int8 mode of one attention call.
+
+    ``int8`` is "off"/"qk"/"qkpv", or a serving mode (``quant.Int8Mode``):
+    ``attn_pv`` gives "qkpv" at head dims >= 256 and "qk" below, ``attn``
+    gives "qk", each only where the bucket's gate passes for ``q``. Any mode
+    resolves to "off" unless the row is full and unmasked (Nq == Nk),
+    Nk >= 2048 and Nk a multiple of the 1024-key chunk.
+    """
+    if isinstance(int8, quant.Int8Mode):
+        if quant.int8_bucket_enabled(int8, "attn_pv", q):
+            int8 = "qkpv" if q.shape[-1] >= 256 else "qk"
+        elif quant.int8_bucket_enabled(int8, "attn", q):
+            int8 = "qk"
+        else:
+            int8 = "off"
+    if int8 not in ("off", "qk", "qkpv"):
+        raise ValueError(f"int8 attention mode {int8!r}: expected off, qk or qkpv")
+    nq, nk = q.shape[1], k.shape[1]
+    if masked or nq != nk or nk < _INT8_MIN_KV or nk % INT8_CHUNK:
+        return "off"
+    return int8
+
+
+def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                               scale: float, mode: str) -> torch.Tensor:
+    """K5's function in plain PyTorch, in ``_kernel_chunked_int8``'s order:
+    Q per row and K per key quantized in fp32, exact integer logits times
+    ``sq * scale * log2 e * sk``, an exp2 online softmax over 1024-key
+    chunks; "qk" casts P to V's dtype for P·V, "qkpv" quantizes P to
+    round(P·127) against the max after each chunk and V per feature over the
+    chunk. ``[B, N, H, D]`` in, the dtype of ``q`` out."""
+    nk = k.shape[1]
+    with torch.autocast(q.device.type, enabled=False):
+        qq, sq = quantize_rows(q.transpose(1, 2))           # [B, H, Nq, D], [B, H, Nq, 1]
+        kq, sk = quantize_rows(k.transpose(1, 2))           # [B, H, Nk, D], [B, H, Nk, 1]
+        vt = v.transpose(1, 2)
+        sq_post = sq * (scale * _LOG2E)
+        sk = sk.transpose(-1, -2)                           # [B, H, 1, Nk]
+        m = torch.full(sq.shape, -math.inf, device=q.device)
+        l = torch.zeros(sq.shape, device=q.device)
+        acc = torch.zeros(qq.shape, device=q.device)
+        for c0 in range(0, nk, INT8_CHUNK):
+            sl = slice(c0, c0 + INT8_CHUNK)
+            s = int8_matmul_exact(qq, kq[..., sl, :].transpose(-1, -2)) * sq_post * sk[..., sl]
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp2(s - m_new)
+            corr = torch.exp2(m - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            vc = vt[..., sl, :]
+            if mode == "qkpv":
+                pq = torch.round(p * 127.0).to(torch.int8)
+                vq, sv = quantize_rows(vc, dim=-2)          # per feature: [B, H, 1, D]
+                acc = acc * corr + int8_matmul_exact(pq, vq) * (sv / 127.0)
+            else:
+                acc = acc * corr + p.to(vc.dtype).float() @ vc.float()
+            m = m_new
+        return (acc / l).to(q.dtype).transpose(1, 2)
+
+
+def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: Optional[float] = None, mode: str = "qk") -> torch.Tensor:
+    """Self-attention over ``[B, N, H, D]`` with int8 QKᵀ ("qk") or int8 QKᵀ
+    and P·V ("qkpv"); N a multiple of 1024. Returns ``[B, N, H, D]``."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mode not in ("qk", "qkpv"):
+        raise ValueError(f"flash_attention_int8: mode {mode!r}, expected qk or qkpv")
+    check_no_grad("flash_attention_int8", q, k, v)
+    if q.device.type == "cpu":
+        return flash_attention_int8_plain(q, k, v, scale, mode)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention_int8: no path for device {q.device}")
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    _check_inputs(q, k, v)
+    b, n, h, d = q.shape
+    lib = kernels()
+    dp = lib.sdt_flash_int8_padded_dim(d)
+    if k.shape[1] != n or n % INT8_CHUNK or dp == 0:
+        raise ValueError(f"flash_attention_int8: self-attention with N a multiple of "
+                         f"{INT8_CHUNK} and a head dim the kernel takes, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    dev = q.device
+    out = torch.empty_like(q)
+    codes = lambda: torch.empty((b, h, n, dp), dtype=torch.int8, device=dev)
+    scales = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
+    qq, kq, sq, sk = codes(), codes(), scales(b, h, n), scales(b, h, n)
+    pv8 = mode == "qkpv"
+    vq = codes() if pv8 else None
+    sv = scales(b, h, n // INT8_CHUNK, dp) if pv8 else None
+    with torch.cuda.device(dev):
+        err = lib.sdt_flash_attention_int8(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qq.data_ptr(),
+            sq.data_ptr(), kq.data_ptr(), sk.data_ptr(), vq.data_ptr() if pv8 else None,
+            sv.data_ptr() if pv8 else None, b, n, h, d, float(scale) * _LOG2E, int(pv8),
+            stream_of(q))
+    check(err, "flash_attention_int8")
+    flash_attention_int8.launches += 1
+    flash_attention_int8.pv_launches += pv8
+    return out
+
+
+# launches, and those of them in "qkpv"
+flash_attention_int8.launches = 0
+flash_attention_int8.pv_launches = 0

@@ -3,7 +3,9 @@
 SD v1 at full width, or the tiny test model, with seeded random weights on
 the target device (no checkpoint loading yet), the hash tokenizer, and the
 invisible watermark (the port's copies in ``data/tokenizer.py`` and
-``utils/watermark.py``).
+``utils/watermark.py``). ``int8`` selects the int8 serving mode in
+``SD_TPU_INT8``'s grammar (``ops/quant.py``); None reads that variable, once,
+here.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from sd_tpu_torch.data.tokenizer import HashTokenizer
+from sd_tpu_torch.ops.quant import parse_int8
 from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 from sd_tpu_torch.utils.config import (
     SD_V1_MODEL_CONFIG,
@@ -30,7 +33,7 @@ def inference_dtype(device) -> torch.dtype:
 
 
 def build_txt2img_pipeline(*, tiny: bool = False, device="cuda", seed: int = 0,
-                           watermark: bool = True, min_hw: int = 512
+                           watermark: bool = True, min_hw: int = 512, int8=None
                            ) -> Tuple[Txt2ImgPipeline, Optional[int]]:
     """Returns ``(pipe, clamped_tiny_hw)``: 64 for the tiny model (callers
     clamp H and W to it), else None. ``min_hw`` is min(H, W) of the run; the
@@ -43,7 +46,7 @@ def build_txt2img_pipeline(*, tiny: bool = False, device="cuda", seed: int = 0,
         model_cfg, hw, downsample = SD_V1_MODEL_CONFIG, None, 8
         tokenizer = HashTokenizer()
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=inference_dtype(device),
-                                 seed=seed)
+                                 seed=seed, int8=parse_int8(int8))
     pipe = Txt2ImgPipeline(ldm=ldm, tokenizer=tokenizer, downsample=downsample)
     if watermark and min(min_hw, hw or min_hw) >= 32:
         from sd_tpu_torch.utils.watermark import embed_watermark_batch

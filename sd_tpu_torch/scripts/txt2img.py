@@ -6,7 +6,9 @@ for this path.
 
 Runs SD v1 at full width with seeded random weights (no checkpoint loading
 yet), or the tiny model with ``--tiny``. ``--device`` defaults to ``cuda``;
-a run that asks for the card and finds none fails.
+a run that asks for the card and finds none fails. The int8 serving mode
+is chosen as in ``sd_tpu``, by ``SD_TPU_INT8`` (for example ``all``, or
+``conv,ff,attn,attn_pv,proj``); it runs on the card only.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
 
     from PIL import Image
 
+    from sd_tpu_torch.ops.quant import int8_mode_label
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 
     pipe, tiny_hw = build_txt2img_pipeline(tiny=opt.tiny, device=device, seed=opt.seed,
@@ -68,8 +71,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     for i, img in enumerate(images):
         Image.fromarray(img).save(os.path.join(sample_dir, f"{base_count + i:05}.png"))
     t = pipe.last_timings
-    print(f"{len(images)} samples in {t['total_s']:.2f} s (sampling {t['sample_s']:.2f} s) "
-          f"at {opt.outdir}")
+    label = int8_mode_label(pipe.ldm.int8_mode, device, next(pipe.ldm.parameters()).dtype)
+    print(f"{len(images)} samples in {t['total_s']:.2f} s (sampling {t['sample_s']:.2f} s, "
+          f"{label}) at {opt.outdir}")
 
 
 if __name__ == "__main__":

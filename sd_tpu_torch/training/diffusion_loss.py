@@ -163,6 +163,12 @@ class LDMTrainer:
         """One optimizer step. With accumulation the batch's leading axis is
         split into ``accumulate_grad_batches`` microbatches whose gradients
         are averaged; the returned dict is the last microbatch's."""
+        if self.ldm.int8_mode:
+            raise RuntimeError(
+                f"the int8 serving mode {sorted(self.ldm.int8_mode.buckets)} is set on the "
+                f"model, but it is inference-only: round() has zero gradient a.e., so training "
+                f"would silently learn nothing through quantized sites. Build the model with "
+                f"int8='off' to train.")
         accum = self.accumulate_grad_batches
         state.optimizer.zero_grad(set_to_none=True)
         arrays = {k: batch[k] for k in ("image", self.ldm.cond_stage_key)}

@@ -190,10 +190,13 @@ def _check_target(node: Dict[str, Any], target: str) -> Dict[str, Any]:
 
 
 def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.float32,
-                           seed: int = 0) -> LatentDiffusion:
+                           seed: int = 0, int8="off") -> LatentDiffusion:
     """Build a :class:`LatentDiffusion` from a config's ``model`` node on
     ``device`` in ``dtype``, with random weights from
-    ``torch.Generator(device).manual_seed(seed)``."""
+    ``torch.Generator(device).manual_seed(seed)``, and the int8 serving mode
+    ``int8`` (``SD_TPU_INT8``'s grammar; off by default) held on its sites,
+    with the weights it reads quantized after the cast to ``dtype``
+    (``sd_tpu``'s ``maybe_weight_quant_overlay``)."""
     p = copy.deepcopy(model_cfg.get("params") or {})
     if p.get("conditioning_key", "crossattn") != "crossattn":
         raise NotImplementedError("the port has crossattn conditioning only")
@@ -214,4 +217,6 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     device = torch.device(device)
     ldm.to_empty(device=device)
     init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
-    return ldm.to(dtype).eval()
+    ldm = ldm.to(dtype).eval()
+    ldm.set_int8_mode(int8)
+    return ldm

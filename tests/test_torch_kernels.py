@@ -114,8 +114,11 @@ def test_library_name_is_keyed_to_the_sources():
     assert path.parent == _build._BUILD_DIR
     assert path.name.startswith("libsd_tpu_kernels-") and path.suffix == ".so"
     assert path == _build._library_path()
-    assert {p.name for p in _build._sources()[0]} == {"flash_attention.cu",
-                                                      "flash_attention_bwd.cu", "geglu_ff.cu"}
+    cu, headers = _build._sources()
+    assert {p.name for p in cu} == {"flash_attention.cu", "flash_attention_bwd.cu",
+                                    "geglu_ff.cu", "flash_attention_int8.cu",
+                                    "geglu_ff_int8.cu", "int8_dense.cu"}
+    assert {p.name for p in headers} == {"int8_gemm.cuh"}
 
 
 def _bf16(*shape):
