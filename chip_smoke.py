@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's three main paths once on one NVIDIA card: txt2img
-serving in bf16 and in the int8 serving mode, and LDM training, all at SD v1
-full width.
+"""Drive the PyTorch port's main paths once on one NVIDIA card: txt2img
+serving in bf16, in the int8 serving mode and in the two conv modes, and LDM
+training, all at SD v1 full width.
 
     python3 chip_smoke.py
 
@@ -60,7 +60,30 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    identical (tools/int8_quality.py's flagship gate); then one request with
    every bucket (K6 = 64 (S+1), the decoder's K5 in "qkpv"); then one
    request at batch 8 (K4 = 11 (S+1)), its images/s beside a bf16 batch-8
-   request.
+   request;
+13. K7 fused GroupNorm-apply + SiLU + conv3x3: against its plain version
+   (fp32 on the same bf16 inputs) at every launch shape and flag set of the
+   fused serving path (a block's first launch: prologue + moments; its
+   second: prologue + bias + skip), with the ms of the unfused site
+   (GroupNorm32, SiLU, F.conv2d with bias, + skip, and the next GroupNorm's
+   statistics); one gradient through K7's autograd function against the
+   plain backward;
+14. K8 and X3 Winograd F(2x2,3x3): against their plain versions and
+   F.conv2d (cuDNN, the library yardstick) at every K8 site shape of the
+   serving path, then the X3 experiment of tools/exp_winograd.py
+   (timing_split) at its four levels at B=16, K8 beside it; X3's launches
+   are counted over that experiment;
+15. conv-mode reference: the small UNet of tests/test_torch_conv_modes.py
+   (model_channels 128, channel_mult [1, 2], 32² latents) in bf16 on the
+   card with both modes against fp32 on the CPU;
+16. conv-mode serving: SD v1 serves one request in each conv mode with the
+   bf16 phase's generator 0: SD_TPU_FUSED_CONV=1, SD_TPU_CONV_IMPL=winograd,
+   and both; exact K7 and K8 launches per request (from the gates: 8 UNet and
+   10 decoder blocks fused; 21 UNet and 31 decoder Winograd sites alone,
+   16 and 11 beside the fused blocks), K1 and K2 as in bf16, and each
+   request's latents within relative L2 0.10 of the bf16 request 0's and
+   not identical to them; then one more bf16 request, so that bf16 and the
+   modes take turns on the card.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -140,8 +163,8 @@ INT8_FLASH_SHAPES = [(2, 4096, 8, 40, "qk"), (16, 4096, 8, 40, "qk"), (1, 4096, 
 INT8_DENSE_SHAPES = [(b * n, c, f * c) for b in (2, 16)
                      for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))
                      for f in (3, 1)]
-# the flagship agreement gate of tools/int8_quality.py: int8 against bf16
-# latents after the whole trajectory, relative L2
+# the flagship agreement gate of tools/int8_quality.py: int8 (or a conv
+# mode) against bf16 latents after the whole trajectory, relative L2
 AGREEMENT_TOL = 0.10
 BATCH8 = 8
 # The int8 kernels' max abs error bounds, as fractions of the output's scale
@@ -154,6 +177,40 @@ BATCH8 = 8
 # fail its kernel's bound, so that a kernel that skipped its quantization
 # cannot pass; KERNEL_TOL (2e-2) would pass one at K5 "qk"'s shapes.
 INT8_TOL = {"K4": 1.6e-2, "K5 qk": 6e-3, "K5 qkpv": 2e-2, "K6": 6e-3}
+
+# K7's launches of the fused serving path: (B, C, H=W, N, launch), "first"
+# (prologue + moments) or "second" (prologue + bias + skip), the UNet's
+# blocks at B=2, the decoder's at B=1
+FUSED_SHAPES = ([(2, c, hw, n, "first") for c, hw, n in (
+    (640, 32, 640), (640, 16, 1280), (1280, 16, 1280), (2560, 16, 1280), (1920, 16, 1280),
+    (1920, 32, 640), (1280, 32, 640))]
+    + [(2, 640, 32, 640, "second"), (2, 1280, 16, 1280, "second")]
+    + [(1, c, hw, c, launch) for c, hw in ((512, 64), (512, 128), (256, 256))
+       for launch in ("first", "second")])
+# K8's sites (B, C, H=W, K): the UNet's at 64² and 32² at B=2, the decoder's
+WINO_SHAPES = [(2, 320, 64, 320), (2, 960, 64, 320), (2, 640, 64, 320), (2, 640, 64, 640),
+               (2, 320, 32, 640), (2, 640, 32, 640), (2, 1280, 32, 640), (2, 960, 32, 640),
+               (2, 1280, 32, 1280), (1, 512, 64, 512), (1, 512, 128, 512), (1, 512, 256, 512),
+               (1, 512, 256, 256), (1, 256, 256, 256), (1, 256, 512, 256), (1, 256, 512, 128),
+               (1, 128, 512, 128)]
+# tools/exp_winograd.py's LEVELS at its B=16: X3's experiment path
+X3_LEVELS = [(16, 320, 64, 320), (16, 640, 32, 640), (16, 1280, 16, 1280), (16, 1280, 8, 1280)]
+# K7's and K8's sites per request of SD v1 (gates of sd_tpu, asserted equal
+# on these shapes by tests/test_torch_conv_modes.py): fused blocks (two
+# launches each) and Winograd Conv3x3 calls per UNet evaluation and in the
+# decoder, alone and beside the fused blocks
+FUSED_BLOCKS = {"unet": 8, "decoder": 10}
+WINO_SITES = {"unet": 21, "decoder": 31}
+WINO_SITES_BESIDE_FUSED = {"unet": 16, "decoder": 11}
+# the small UNet with both conv modes, bf16 on the card against fp32 on the
+# CPU: max |diff| of the output over max |fp32 output|
+CONV_MODES_TOL = 5e-2
+# K7's gradient through the autograd function (bf16 inputs, so bf16
+# per-pixel gradients) against the plain backward in fp32: relative L2 of
+# each gradient. The per-channel gradients (da, dd, dbias) sum per-pixel
+# terms of both signs, whose 2^-9 roundings survive the cancellation: 1.3e-2
+# and 1.5e-2 at a small shape on the CPU
+FUSED_GRAD_TOL = 5e-2
 
 
 def log(msg: str) -> None:
@@ -457,6 +514,161 @@ def check_int8_conv(randn) -> None:
         log(f"[int8_conv3x3] {(b, cin, hw, hw, cout)}: {ms:.4f} ms, cuDNN bf16 {bf16_ms:.4f} ms")
 
 
+def _fused_bound(b, c, hw, n, second):
+    """K7's least time: its products, and its inputs and outputs once each."""
+    px = b * hw * hw
+    nbytes = px * c * 2 + 9 * c * n * 2 + 2 * b * c * 4 + px * n * 2
+    nbytes += (n * 4 + px * n * 2) if second else 2 * b * n * 4
+    return bound(2 * px * 9 * c * n, nbytes)
+
+
+def check_fused_conv(randn) -> list:
+    """K7 at every launch of the fused serving path, against its plain
+    version in fp32 on the same bf16 inputs, beside the unfused site."""
+    from sd_tpu_torch.ops.cuda import fused_conv3x3, fused_conv3x3_plain
+    from sd_tpu_torch.ops.cuda.fused_conv import fold_gn_affine
+    from sd_tpu_torch.ops.norms import GroupNorm32, group_stats
+
+    rows = []
+    for b, c, hw, n, launch in FUSED_SHAPES:
+        shape = (b, c, hw, hw, n, launch)
+        second = launch == "second"
+        x = randn(b, c, hw, hw).to(torch.bfloat16)
+        w = (randn(n, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
+        gn = GroupNorm32(c).to(x.device, torch.bfloat16)
+        with torch.no_grad():
+            gn.weight.copy_(1.0 + 0.1 * randn(c))
+            gn.bias.copy_(0.1 * randn(c))
+        a, d = fold_gn_affine(*group_stats(x, 32), gn.weight.float(), gn.bias.float(), gn.eps)
+        bias = 0.1 * randn(n)
+        skip = randn(b, n, hw, hw).to(torch.bfloat16)
+        kw = dict(a=a, d=d, bias=bias, skip=skip) if second else dict(a=a, d=d,
+                                                                      emit_moments=True)
+        got = fused_conv3x3(x, w, **kw)
+        torch.cuda.synchronize()
+        ref_kw = dict(kw, skip=skip.float()) if second else kw
+        ref = fused_conv3x3_plain(x.float(), w.float(), **ref_kw)
+        if second:
+            got, ref = (got,), (ref,)
+        err = check_error("K7 fused_conv3x3", shape, got[0], ref[0], scale_floor=1.0)
+        for name, g, r in zip(("sum", "sum of squares"), got[1:], ref[1:]):
+            check_error(f"K7 fused_conv3x3 moments {name}", shape, g, r)
+        bf16_b = bias.to(torch.bfloat16)
+
+        def unfused():
+            h = F.conv2d(F.silu(gn(x)), w, bf16_b, padding=1)
+            if second:
+                return h + skip
+            return group_stats(h, 32)
+
+        ms = time_ms(lambda: fused_conv3x3(x, w, **kw))
+        plain_ms = time_ms(lambda: fused_conv3x3_plain(x, w, **kw), iters=5)
+        unfused_ms = time_ms(unfused)
+        bnd = _fused_bound(b, c, hw, n, second)
+        log(f"[K7 fused_conv3x3] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+            f"site {unfused_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                         unfused_ms=unfused_ms, **bnd))
+    check_fused_grad(randn)
+    return rows
+
+
+def check_fused_grad(randn) -> None:
+    """One gradient through K7's autograd function (bf16 inputs, every
+    flag) against the plain backward in fp32 on the same inputs."""
+    from sd_tpu_torch.ops.cuda import fused_conv3x3, fused_conv3x3_plain
+
+    b, c, hw, n = 2, 640, 32, 640
+    vals = [randn(b, c, hw, hw).to(torch.bfloat16), (randn(n, c, 3, 3) * (9 * c) ** -0.5
+                                                      ).to(torch.bfloat16),
+            1.0 + 0.1 * randn(b, c), 0.3 * randn(b, c), 0.1 * randn(n),
+            randn(b, n, hw, hw).to(torch.bfloat16)]
+    gy, g1, g2 = randn(b, n, hw, hw), randn(b, n) * 1e-2, randn(b, n) * 1e-4
+    names = ("x", "w", "a", "d", "bias", "skip")
+
+    def grads(fn, leaves):
+        x, w, a, d, bias, skip = leaves
+        y, s1, s2 = fn(x, w, a, d, bias, skip)
+        loss = (y.float() * gy).sum() + (s1 * g1).sum() + (s2 * g2).sum()
+        return torch.autograd.grad(loss, leaves)
+
+    leaves = [v.clone().requires_grad_() for v in vals]
+    got = grads(lambda x, w, a, d, bias, skip: fused_conv3x3(
+        x, w, a=a, d=d, bias=bias, skip=skip, emit_moments=True), leaves)
+    ref_leaves = [v.float().requires_grad_() for v in vals]
+    want = grads(lambda *t: fused_conv3x3_plain(*t, emit_moments=True), ref_leaves)
+    torch.cuda.synchronize()
+    for name, g, r in zip(names, got, want):
+        rel = ((g.float() - r).norm() / r.norm()).item()
+        ok = bool(torch.isfinite(g).all()) and rel <= FUSED_GRAD_TOL
+        log(f"[K7 gradient] d{name}: relative L2 {rel:.3e} against the plain backward in fp32 "
+            f"(bound {FUSED_GRAD_TOL}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K7 gradient d{name}: relative L2 {rel}")
+
+
+def check_winograd(randn) -> dict:
+    """K8 and X3 at every K8 site of the serving path and at the X3
+    experiment's levels, against their plain version (fp32 on the same bf16
+    inputs) and against F.conv2d in fp32, with F.conv2d's bf16 ms."""
+    from sd_tpu_torch.ops.cuda import (winograd_conv3x3, winograd_conv3x3_plain,
+                                       winograd_conv3x3_split)
+
+    rows = {"winograd_conv3x3": [], "winograd_conv3x3_split": []}
+    for b, c, hw, k in WINO_SHAPES + X3_LEVELS:
+        shape = (b, c, hw, hw, k)
+        x = randn(b, c, hw, hw).to(torch.bfloat16)
+        w = (randn(k, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
+        ref = winograd_conv3x3_plain(x.float(), w.float())
+        direct = F.conv2d(x.float(), w.float(), padding=1)
+        plain_ms = time_ms(lambda: winograd_conv3x3_plain(x, w), iters=5)
+        library_ms = time_ms(lambda: F.conv2d(x, w, padding=1))
+        bnd = bound(2 * b * (hw // 2) ** 2 * 16 * c * k,
+                    b * c * hw * hw * 2 + 9 * c * k * 2 + b * k * hw * hw * 2)
+        for name, fn, label in (("winograd_conv3x3", winograd_conv3x3, "K8"),
+                                ("winograd_conv3x3_split", winograd_conv3x3_split, "X3")):
+            got = fn(x, w)
+            torch.cuda.synchronize()
+            err = check_error(f"{label} {name}", shape, got, ref)
+            check_error(f"{label} {name} against F.conv2d", shape, got, direct)
+            ms = time_ms(lambda: fn(x, w))
+            log(f"[{label} {name}] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
+                f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+            rows[name].append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                   **bnd))
+    return rows
+
+
+def x3_experiment() -> dict:
+    """The X3 experiment path (tools/exp_winograd.py's timing_split): one
+    in-kernel-split Winograd conv at each UNet level at B=16, against the
+    direct conv; returns the launch counts of that run."""
+    from sd_tpu_torch.ops.cuda import winograd_conv3x3_split
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    reset_launches()
+    for b, c, hw, k in X3_LEVELS:
+        x = torch.randn((b, c, hw, hw), generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn((k, c, 3, 3), generator=g, device="cuda") * 0.02).to(torch.bfloat16)
+        got = winograd_conv3x3_split(x, w)
+        check_error("X3 experiment", (b, c, hw, hw, k), got, F.conv2d(x.float(), w.float(),
+                                                                       padding=1))
+    counts = read_launches()
+    want = expect(winograd_conv3x3_split=len(X3_LEVELS))
+    log(f"[X3 experiment] launches {counts}, expected {want}")
+    if counts != want:
+        raise AssertionError(f"X3 experiment launches {counts} != {want}")
+    return counts
+
+
+def check_conv_kernels() -> dict:
+    g = torch.Generator(device="cuda").manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    timings = {"fused_conv3x3": check_fused_conv(randn)}
+    timings.update(check_winograd(randn))
+    return timings
+
+
 def check_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
@@ -494,8 +706,50 @@ def check_reference() -> None:
         raise AssertionError(f"tiny model disagrees with its fp32 CPU reference: {rel}")
 
 
+# the small UNet of tests/test_torch_conv_modes.py: every resnet block
+# passes K7's gate, and the 32² upsample conv K8's
+SMALL_UNET = dict(image_size=32, in_channels=4, out_channels=4, model_channels=128,
+                  attention_resolutions=[2], num_res_blocks=1, channel_mult=[1, 2], num_heads=4,
+                  use_spatial_transformer=True, transformer_depth=1, context_dim=32)
+
+
+def check_conv_modes_reference() -> None:
+    """The small UNet with both conv modes, bf16 on the card, against the
+    same weights in fp32 on the CPU (plain versions)."""
+    from sd_tpu_torch.models.unet import UNetConfig, UNetModel
+    from sd_tpu_torch.ops.resblock import set_conv_modes
+    from sd_tpu_torch.utils.config import init_random_
+
+    cpu = UNetModel(UNetConfig.from_dict(SMALL_UNET)).eval()
+    init_random_(cpu, torch.Generator().manual_seed(0))
+    card = copy.deepcopy(cpu).to("cuda", torch.bfloat16)
+    rng = np.random.default_rng(0)
+    x = torch.from_numpy(rng.standard_normal((2, 4, 32, 32)).astype(np.float32))
+    ctx = torch.from_numpy(rng.standard_normal((2, 8, 32)).astype(np.float32))
+    t = torch.tensor([17, 633])
+    with torch.no_grad():
+        want = cpu(x, t, ctx)
+        bf16 = card(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
+        set_conv_modes(card, "1", "winograd")
+        reset_launches()
+        got = card(x.cuda(), t.cuda(), ctx.cuda()).float().cpu()
+        counts = read_launches()
+    rel = lambda a: ((a - want).abs().max() / want.abs().max()).item()
+    moved = ((got - bf16).norm() / bf16.norm()).item()
+    log(f"[conv modes reference] small UNet, both modes in bf16 on the card vs fp32 on the CPU: "
+        f"max |diff| / max |ref| = {rel(got):.3e} (bound {CONV_MODES_TOL}); the card's bf16 run "
+        f"without the modes {rel(bf16):.3e}, {moved:.3e} (relative L2) from the modes' run; "
+        f"launches {counts}")
+    if counts["fused_conv3x3"] != 16 or counts["winograd_conv3x3"] != 1:
+        raise AssertionError(f"the small UNet did not take K7 16 times and K8 once: {counts}")
+    if torch.equal(got, bf16):
+        raise AssertionError("the small UNet's output did not change with the conv modes")
+    if not (np.isfinite(rel(got)) and rel(got) <= CONV_MODES_TOL):
+        raise AssertionError(f"small UNet with the conv modes disagrees: {rel(got)}")
+
+
 def _counted():
-    """Every launch counter: the six kernels, K5's "qkpv" share, and the
+    """Every launch counter: the nine kernels, K5's "qkpv" share, and the
     int8 conv's calls on the card."""
     from sd_tpu_torch.ops import cuda
     from sd_tpu_torch.ops.quant import int8_conv3x3
@@ -503,7 +757,9 @@ def _counted():
     return {"flash_attention": cuda.flash_attention, "geglu_ff": cuda.geglu_ff,
             "flash_attention_bwd": cuda.flash_attention_bwd,
             "geglu_ff_int8": cuda.geglu_ff_int8, "flash_attention_int8": cuda.flash_attention_int8,
-            "int8_dense": cuda.int8_dense, "int8_conv3x3": int8_conv3x3}
+            "int8_dense": cuda.int8_dense, "int8_conv3x3": int8_conv3x3,
+            "fused_conv3x3": cuda.fused_conv3x3, "winograd_conv3x3": cuda.winograd_conv3x3,
+            "winograd_conv3x3_split": cuda.winograd_conv3x3_split}
 
 
 def check_int8_reference() -> None:
@@ -564,7 +820,8 @@ def build_sd_v1(int8: str):
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 
     t0 = time.perf_counter()
-    pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8=int8)
+    pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8=int8,
+                                     fused_conv="auto", conv_impl="auto")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pipe.ldm.parameters())
     label = int8_mode_label(pipe.ldm.int8_mode, "cuda")
@@ -617,7 +874,45 @@ def serve_main_path() -> dict:
         flash_attention=SITES_PER_UNET * (STEPS + 1) + 1,
         geglu_ff=SITES_PER_UNET * (STEPS + 1)))
     out["batch8_seconds"] = batch8["seconds"][0]
-    return out
+    return out, pipe
+
+
+def serve_conv_modes(pipe, bf16: dict) -> dict:
+    """SD v1 with each conv mode and with both: one request each with the
+    bf16 phase's generator 0, exact K7 and K8 counts, K1 and K2 as in bf16,
+    latents within AGREEMENT_TOL of the bf16 request 0's."""
+    s1 = STEPS + 1
+    k7 = 2 * (FUSED_BLOCKS["unet"] * s1 + FUSED_BLOCKS["decoder"])
+    k8 = WINO_SITES["unet"] * s1 + WINO_SITES["decoder"]
+    k8_beside = WINO_SITES_BESIDE_FUSED["unet"] * s1 + WINO_SITES_BESIDE_FUSED["decoder"]
+    runs = (("1", "auto", dict(fused_conv3x3=k7)), ("auto", "winograd", dict(winograd_conv3x3=k8)),
+            ("1", "winograd", dict(fused_conv3x3=k7, winograd_conv3x3=k8_beside)))
+    total, seconds = {}, []
+    z16 = bf16["latents"][0]
+    for fused, impl, counts in runs:
+        pipe.ldm.set_conv_modes(fused, impl)
+        label = f"bf16, SD_TPU_FUSED_CONV={fused}, SD_TPU_CONV_IMPL={impl}"
+        out = serve(pipe, label, 1, 1, expect(
+            flash_attention=SITES_PER_UNET * s1 + 1, geglu_ff=SITES_PER_UNET * s1, **counts))
+        z = out["latents"][0]
+        rel = ((z - z16).norm() / z16.norm()).item()
+        log(f"[serve {label}] agreement: latents against the bf16 request 0, relative L2 "
+            f"{rel:.5f} (bound {AGREEMENT_TOL}); identical: {torch.equal(z, z16)}; "
+            f"{out['seconds'][0]:.3f} s against bf16's {bf16['seconds'][0]:.3f} s")
+        if not (np.isfinite(rel) and rel < AGREEMENT_TOL) or torch.equal(z, z16):
+            raise AssertionError(f"{label} disagrees with bf16: relative L2 {rel}")
+        seconds.append(out["seconds"][0])
+        for k, v in out["launches"].items():
+            total[k] = total.get(k, 0) + v
+    pipe.ldm.set_conv_modes("auto", "auto")
+    again = serve(pipe, "bf16, after the conv modes", 1, 1, expect(
+        flash_attention=SITES_PER_UNET * s1 + 1, geglu_ff=SITES_PER_UNET * s1))
+    log(f"[serve] per request: bf16 {' '.join(f'{t:.3f}' for t in bf16['seconds'])} s, then the "
+        f"conv modes (fused, winograd, both) {' '.join(f'{t:.3f}' for t in seconds)} s, then "
+        f"bf16 {again['seconds'][0]:.3f} s")
+    for k, v in again["launches"].items():
+        total[k] += v
+    return total
 
 
 def conv3x3_calls(ldm) -> int:
@@ -824,9 +1119,14 @@ def main() -> None:
     build()
     timings = check_kernels()
     timings.update(check_int8_kernels())
+    timings.update(check_conv_kernels())
     check_reference()
     check_int8_reference()
-    served = serve_main_path()
+    check_conv_modes_reference()
+    x3_launches = x3_experiment()
+    served, pipe = serve_main_path()
+    served_conv = serve_conv_modes(pipe, served)
+    del pipe
     free_memory()
     served_int8 = serve_int8(served)
     free_memory()
@@ -844,14 +1144,21 @@ def main() -> None:
               "flash_attention_int8": ("sd_tpu_torch/csrc/flash_attention_int8.cu",
                                        "sd_tpu/ops/pallas/flash_attention.py:225"),
               "int8_dense": ("sd_tpu_torch/csrc/int8_dense.cu",
-                             "sd_tpu/ops/pallas/int8_dense.py:66")}
+                             "sd_tpu/ops/pallas/int8_dense.py:66"),
+              "fused_conv3x3": ("sd_tpu_torch/csrc/fused_conv.cu",
+                                "sd_tpu/ops/pallas/fused_conv.py:300"),
+              "winograd_conv3x3": ("sd_tpu_torch/csrc/winograd_conv.cu",
+                                   "sd_tpu/ops/pallas/winograd_conv.py:174"),
+              "winograd_conv3x3_split": ("sd_tpu_torch/csrc/winograd_conv.cu",
+                                         "tools/exp_winograd.py:271")}
+    runs = (served["launches"], served_int8, trained, served_conv, x3_launches)
     kernels = []
     for k, rows in timings.items():
         library = [r["library_ms"] for r in rows]
         ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
         kernels.append({
             "name": k, "route": "cuda", "source": source[k][0], "replaces": source[k][1],
-            "launches": served["launches"][k] + served_int8[k] + trained[k],
+            "launches": sum(run[k] for run in runs),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
             "bound_ms": sum(r["bound_ms"] for r in rows),

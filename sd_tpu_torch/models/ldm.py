@@ -14,7 +14,10 @@ NHWC.
 UNet's and the first stage's sites and quantizes their weights at once,
 the counterpart of ``sd_tpu``'s ``unet_qw``/``first_stage_qw`` overlays;
 each site quantizes again if its weights are replaced later, so no stale
-int8 weights are served.
+int8 weights are served. :meth:`LatentDiffusion.set_conv_modes` holds the
+two conv modes of ``sd_tpu`` on the sites: ``SD_TPU_FUSED_CONV`` on every
+``ResBlock`` and ``VAEResnetBlock`` (``conv_impl``, K7) and
+``SD_TPU_CONV_IMPL`` on every ``Conv3x3`` (``impl``, K8).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from sd_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
 from sd_tpu_torch.models.unet import UNetConfig, UNetModel
 from sd_tpu_torch.models.vae import AutoencoderKL
 from sd_tpu_torch.ops import quant
+from sd_tpu_torch.ops.resblock import set_conv_modes
 
 __all__ = ["LatentDiffusion", "FrozenCLIPEmbedder", "DiffusionWrapper"]
 
@@ -67,6 +71,15 @@ class LatentDiffusion(nn.Module):
         self.cond_stage_key = cond_stage_key
         # the int8 serving mode held on the sites (set_int8_mode)
         self.int8_mode = quant.INT8_OFF
+        # the conv modes held on the sites (set_conv_modes)
+        self.fused_conv, self.conv_impl = "auto", "auto"
+
+    def set_conv_modes(self, fused_conv=None, conv_impl=None):
+        """Hold the fused conv mode (``SD_TPU_FUSED_CONV``'s values) on every
+        resnet block and the conv mode (``SD_TPU_CONV_IMPL``'s) on every
+        ``Conv3x3``; None reads the variable. Returns both, parsed."""
+        self.fused_conv, self.conv_impl = set_conv_modes(self, fused_conv, conv_impl)
+        return self.fused_conv, self.conv_impl
 
     def set_int8_mode(self, mode) -> quant.Int8Mode:
         """Hold the int8 serving ``mode`` (``SD_TPU_INT8``'s grammar or a

@@ -1,10 +1,18 @@
 """3x3 stride-1 convolution (port of ``sd_tpu/ops/conv.py``).
 
-``sd_tpu`` leaves this conv to XLA, so the port leaves it to ``F.conv2d``
-(cuDNN on the card), except in the int8 serving mode: where the ``conv``
-bucket is on (``ops/quant.py``'s gate and threshold), it runs the W8A8 conv
-``int8_conv3x3`` on the weights quantized at load time. NCHW activations,
-OIHW weights as in the CompVis checkpoints.
+``Conv3x3`` dispatches as ``sd_tpu``'s does, in this order:
+
+1. Winograd F(2x2,3x3), K8 (``ops/cuda/winograd_conv.py``), where ``impl``
+   is ``"winograd"`` (held from ``SD_TPU_CONV_IMPL``) and
+   :func:`winograd_supported` passes (bf16 on the card, ``sd_tpu``'s shape
+   rules);
+2. otherwise the W8A8 conv ``int8_conv3x3``, where the int8 mode's ``conv``
+   bucket is on (``ops/quant.py``'s gate and threshold), on the weights
+   quantized at load time;
+3. otherwise ``F.conv2d`` (cuDNN on the card), as ``sd_tpu`` leaves it to XLA.
+
+After Winograd the bias is added in the activation dtype, as in ``sd_tpu``.
+NCHW activations, OIHW weights as in the CompVis checkpoints.
 """
 
 from __future__ import annotations
@@ -13,15 +21,18 @@ import torch
 from torch import nn
 
 from sd_tpu_torch.ops import quant
+from sd_tpu_torch.ops.cuda.winograd_conv import winograd_conv3x3, winograd_supported
 
 __all__ = ["Conv3x3"]
 
 
 class Conv3x3(quant.Int8Weights, nn.Conv2d):
-    """``nn.Conv2d(cin, cout, 3, padding=1)``; ``int8`` holds the serving
-    mode (``quant.set_int8_mode``)."""
+    """``nn.Conv2d(cin, cout, 3, padding=1)``; ``impl`` holds the conv mode
+    (``"auto"`` or ``"winograd"``) and ``int8`` the int8 serving mode
+    (``quant.set_int8_mode``)."""
 
     int8_bucket = "conv"
+    impl = "auto"
 
     def __init__(self, in_channels: int, out_channels: int):
         super().__init__(in_channels, out_channels, 3, padding=1)
@@ -34,6 +45,10 @@ class Conv3x3(quant.Int8Weights, nn.Conv2d):
         return {"kq": kq, "sw": sw}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.impl == "winograd" and winograd_supported(x.shape, self.weight.shape, x.dtype,
+                                                          x.device):
+            y = winograd_conv3x3(x, self.weight.to(x.dtype))
+            return y + self.bias.to(x.dtype)[:, None, None]
         if quant.int8_enabled(self.int8, x):
             qw = self.int8_weights()
             return quant.int8_conv3x3(x, self.weight, self.bias, (qw["kq"], qw["sw"]))

@@ -46,6 +46,10 @@ _SIGNATURES = {
     "sdt_flash_attention_int8": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P],
     # d -> the padded head dim of the int8 attention (0: not taken)
     "sdt_flash_int8_padded_dim": [_I],
+    # x, w, a, d, bias, skip, y, m1, m2, batch, c, h, w, n, stream
+    "sdt_fused_conv3x3": [_P] * 9 + [_I] * 5 + [_P],
+    # p00, p01, p10, p11, x, u, y, batch, c, h, w, k, split, stream
+    "sdt_winograd_conv3x3": [_P] * 7 + [_I] * 6 + [_P],
 }
 
 

@@ -4,7 +4,8 @@
 to the activation dtype, with the single-pass variance clamped at zero: the
 E[x²]−E[x]² form can round negative on near-constant inputs and make
 ``rsqrt`` return NaN. ``LayerNormFp32`` is the pre-LN of the transformer
-blocks and CLIP. Both keep ``nn.GroupNorm``/``nn.LayerNorm``'s parameter
+blocks and CLIP. :func:`group_stats` gives the fused conv path's
+per-(batch, group) statistics. Both layers keep ``nn.GroupNorm``/``nn.LayerNorm``'s parameter
 names (``weight``, ``bias``), as the CompVis checkpoints do.
 """
 
@@ -14,7 +15,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["GroupNorm32", "LayerNormFp32"]
+__all__ = ["GroupNorm32", "LayerNormFp32", "group_stats"]
+
+
+def group_stats(x: torch.Tensor, num_groups: int):
+    """Per-(batch, group) mean and E[x²] of NCHW ``x`` in fp32, in one pass
+    (``sd_tpu``'s ``group_stats``); returns two ``[B, G]`` tensors."""
+    xg = x.float().reshape(x.shape[0], num_groups, -1)
+    return xg.mean(dim=-1), xg.square().mean(dim=-1)
 
 
 class GroupNorm32(nn.GroupNorm):

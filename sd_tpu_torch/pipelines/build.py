@@ -5,7 +5,9 @@ the target device (no checkpoint loading yet), the hash tokenizer, and the
 invisible watermark (the port's copies in ``data/tokenizer.py`` and
 ``utils/watermark.py``). ``int8`` selects the int8 serving mode in
 ``SD_TPU_INT8``'s grammar (``ops/quant.py``); None reads that variable, once,
-here.
+here. ``fused_conv`` and ``conv_impl`` select the conv modes
+(``SD_TPU_FUSED_CONV``: K7 at the resnet blocks; ``SD_TPU_CONV_IMPL``:
+``winograd`` for K8 at the 3x3 convs); None reads those variables, here.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ def inference_dtype(device) -> torch.dtype:
 
 
 def build_txt2img_pipeline(*, tiny: bool = False, device="cuda", seed: int = 0,
-                           watermark: bool = True, min_hw: int = 512, int8=None
+                           watermark: bool = True, min_hw: int = 512, int8=None,
+                           fused_conv=None, conv_impl=None
                            ) -> Tuple[Txt2ImgPipeline, Optional[int]]:
     """Returns ``(pipe, clamped_tiny_hw)``: 64 for the tiny model (callers
     clamp H and W to it), else None. ``min_hw`` is min(H, W) of the run; the
@@ -46,7 +49,8 @@ def build_txt2img_pipeline(*, tiny: bool = False, device="cuda", seed: int = 0,
         model_cfg, hw, downsample = SD_V1_MODEL_CONFIG, None, 8
         tokenizer = HashTokenizer()
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=inference_dtype(device),
-                                 seed=seed, int8=parse_int8(int8))
+                                 seed=seed, int8=parse_int8(int8), fused_conv=fused_conv,
+                                 conv_impl=conv_impl)
     pipe = Txt2ImgPipeline(ldm=ldm, tokenizer=tokenizer, downsample=downsample)
     if watermark and min(min_hw, hw or min_hw) >= 32:
         from sd_tpu_torch.utils.watermark import embed_watermark_batch

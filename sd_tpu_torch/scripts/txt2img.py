@@ -8,7 +8,11 @@ Runs SD v1 at full width with seeded random weights (no checkpoint loading
 yet), or the tiny model with ``--tiny``. ``--device`` defaults to ``cuda``;
 a run that asks for the card and finds none fails. The int8 serving mode
 is chosen as in ``sd_tpu``, by ``SD_TPU_INT8`` (for example ``all``, or
-``conv,ff,attn,attn_pv,proj``); it runs on the card only.
+``conv,ff,attn,attn_pv,proj``); it runs on the card only. So are the conv
+modes: ``SD_TPU_FUSED_CONV=1`` sends the resnet blocks whose convs pass
+K7's gate through the fused GroupNorm+SiLU+conv kernel, and
+``SD_TPU_CONV_IMPL=winograd`` sends the other 3x3 convs that pass K8's gate
+through the Winograd kernel. The summary line names the modes.
 """
 
 from __future__ import annotations
@@ -72,8 +76,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
         Image.fromarray(img).save(os.path.join(sample_dir, f"{base_count + i:05}.png"))
     t = pipe.last_timings
     label = int8_mode_label(pipe.ldm.int8_mode, device, next(pipe.ldm.parameters()).dtype)
+    ldm = pipe.ldm
     print(f"{len(images)} samples in {t['total_s']:.2f} s (sampling {t['sample_s']:.2f} s, "
-          f"{label}) at {opt.outdir}")
+          f"{label}, fused conv {ldm.fused_conv}, conv {ldm.conv_impl}) at {opt.outdir}")
 
 
 if __name__ == "__main__":

@@ -190,13 +190,16 @@ def _check_target(node: Dict[str, Any], target: str) -> Dict[str, Any]:
 
 
 def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.float32,
-                           seed: int = 0, int8="off") -> LatentDiffusion:
+                           seed: int = 0, int8="off", fused_conv=None,
+                           conv_impl=None) -> LatentDiffusion:
     """Build a :class:`LatentDiffusion` from a config's ``model`` node on
     ``device`` in ``dtype``, with random weights from
     ``torch.Generator(device).manual_seed(seed)``, and the int8 serving mode
     ``int8`` (``SD_TPU_INT8``'s grammar; off by default) held on its sites,
     with the weights it reads quantized after the cast to ``dtype``
-    (``sd_tpu``'s ``maybe_weight_quant_overlay``)."""
+    (``sd_tpu``'s ``maybe_weight_quant_overlay``), and the conv modes
+    ``fused_conv`` and ``conv_impl`` (``SD_TPU_FUSED_CONV``'s and
+    ``SD_TPU_CONV_IMPL``'s values; None reads the variable, here, once)."""
     p = copy.deepcopy(model_cfg.get("params") or {})
     if p.get("conditioning_key", "crossattn") != "crossattn":
         raise NotImplementedError("the port has crossattn conditioning only")
@@ -219,4 +222,5 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
     ldm = ldm.to(dtype).eval()
     ldm.set_int8_mode(int8)
+    ldm.set_conv_modes(fused_conv, conv_impl)
     return ldm
