@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA card: txt2img
-serving in bf16, in the int8 serving mode and in the two conv modes, and LDM
-training, all at SD v1 full width.
+serving in bf16, in the int8 serving mode and in the two conv modes, LDM
+training, and the fused transformer-block experiment, all at SD v1 full
+width.
 
     python3 chip_smoke.py
 
@@ -83,7 +84,20 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    16 and 11 beside the fused blocks), K1 and K2 as in bf16, and each
    request's latents within relative L2 0.10 of the bf16 request 0's and
    not identical to them; then one more bf16 request, so that bf16 and the
-   modes take turns on the card.
+   modes take turns on the card;
+17. X1 and X2, the fused transformer-block kernels of the block experiment
+   (tools/exp_block_kernel.py): each against its plain version (fp32 on the
+   same bf16 inputs, the experiment's; X2's padded context rows non-zero,
+   so that its mask shows) at SD v1's four transformer sites at B=16, the
+   bound set by the branch, what the kernel adds to x, not by the output,
+   with the ms of the unfused yardstick (the port's LayerNormFp32,
+   CrossAttention with K1, FeedForward with K2), and X1∘X2 on a port
+   BasicTransformerBlock against the block itself in bf16 (relative L2
+   within BLOCK_AGREEMENT_TOL);
+18. the block experiment: `python -m sd_tpu_torch.scripts.exp_block_kernel`
+   and `... tail` at their defaults (N=4096, C=320), through their main();
+   the launches, reset just before each, must be exactly 2 + 2 x 30 X1 and
+   K1 launches, then 2 + 2 x 30 X2 and K2 launches.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -96,6 +110,7 @@ import os
 import subprocess
 import tempfile
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -205,6 +220,16 @@ WINO_SITES_BESIDE_FUSED = {"unet": 16, "decoder": 11}
 # the small UNet with both conv modes, bf16 on the card against fp32 on the
 # CPU: max |diff| of the output over max |fp32 output|
 CONV_MODES_TOL = 5e-2
+# the block experiment (tools/exp_block_kernel.py) at SD v1's four
+# transformer sites (N, C), at its B=16 with 8 heads, inner 4C, and 77
+# context keys of 128 rows
+BLOCK_SITES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280)]
+# X1∘X2 on a port BasicTransformerBlock against the block itself, both bf16
+# on the card: relative L2 of the outputs. They round at other points (the
+# single-pass LayerNorm variance, P against a per-tile or per-row max,
+# bias rounding), each about 2^-9 relative
+BLOCK_AGREEMENT_TOL = 1e-2
+CONTEXT_DIM = 768  # SD v1's CLIP ViT-L/14 text width
 # K7's gradient through the autograd function (bf16 inputs, so bf16
 # per-pixel gradients) against the plain backward in fp32: relative L2 of
 # each gradient. The per-channel gradients (da, dd, dbias) sum per-pixel
@@ -270,12 +295,18 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
 
 
 def check_error(name: str, shape, got: torch.Tensor, ref: torch.Tensor,
-                scale_floor: float = 0.0, tol: float = KERNEL_TOL) -> float:
+                scale_floor: float = 0.0, tol: float = KERNEL_TOL,
+                residual: Optional[torch.Tensor] = None) -> float:
+    """max |got − ref| within ``tol`` of the scale: max(scale_floor,
+    max |ref|), or with ``residual`` max |ref − residual|, the branch a
+    kernel adds to its residual input, so that a fault in a branch much
+    smaller than the residual still shows."""
     err = (got.float() - ref).abs().max().item()
-    ref_max = ref.abs().max().item()
+    label = "max |plain|" if residual is None else "max |plain - x|"
+    ref_max = (ref if residual is None else ref - residual.float()).abs().max().item()
     limit = tol * max(scale_floor, ref_max)
     ok = np.isfinite(err) and err <= limit
-    log(f"[{name}] {shape}: max_abs_err {err:.3e} (max |plain| {ref_max:.3e}, bound "
+    log(f"[{name}] {shape}: max_abs_err {err:.3e} ({label} {ref_max:.3e}, bound "
         f"{limit:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name} at {shape}: max abs error {err} above {limit}")
@@ -661,6 +692,137 @@ def x3_experiment() -> dict:
     return counts
 
 
+def _block_bound(b, n, c, heads):
+    """X1's least time: the tool's CostEstimate flops, x read and the output
+    written once, the four weights and three vectors read once."""
+    d = c // heads
+    nbytes = 2 * b * n * c * 2 + 4 * c * c * 2 + 3 * c * 4
+    return bound(8 * b * n * c * c + 4 * b * heads * n * n * d, nbytes)
+
+
+def _tail_bound(b, n, c, heads, inner, kv_len):
+    """X2's least time: the tool's CostEstimate flops plus QKᵀ and P·V over
+    kv_len keys; x, the live kc/vc rows, the weights and vectors read once,
+    the output written once."""
+    nbytes = (2 * b * n * c + 2 * b * kv_len * c + 2 * c * c + 3 * c * inner) * 2
+    nbytes += (6 * c + 2 * inner) * 4
+    return bound(4 * b * n * c * c + 6 * b * n * c * inner + 4 * b * n * kv_len * c, nbytes)
+
+
+def _fp32(args: dict) -> dict:
+    return {k: v.float() if torch.is_tensor(v) else v for k, v in args.items()}
+
+
+def check_x1_site(n: int, c: int):
+    """X1 on the experiment's inputs at (N, C), B=16, against its plain
+    version in fp32, within KERNEL_TOL of the branch's max; returns (x, the
+    keyword arguments, the max abs error)."""
+    from sd_tpu_torch.ops.cuda import fused_block, fused_block_plain
+    from sd_tpu_torch.scripts import exp_block_kernel as exp
+
+    x, args = exp.block_inputs(n, c, "cuda", seed=n)
+    got = fused_block(x, **args)
+    torch.cuda.synchronize()
+    err = check_error("X1 fused_block", tuple(x.shape), got,
+                      fused_block_plain(x.float(), **_fp32(args)), residual=x)
+    return x, args, err
+
+
+def check_x2_site(n: int, c: int):
+    """X2 as :func:`check_x1_site`, every context row non-zero: only the mask
+    keeps rows >= kv_len out."""
+    from sd_tpu_torch.ops.cuda import tail_fused, tail_fused_plain
+    from sd_tpu_torch.scripts import exp_block_kernel as exp
+
+    x, args = exp.tail_inputs(n, c, "cuda", seed=n + 1)
+    got = tail_fused(x, **args)
+    torch.cuda.synchronize()
+    err = check_error("X2 tail_fused", tuple(x.shape), got,
+                      tail_fused_plain(x.float(), **_fp32(args)), residual=x)
+    return x, args, err
+
+
+def check_block_kernels() -> dict:
+    """X1 and X2 at SD v1's four transformer sites at B=16 against their
+    plain versions (fp32 on the same bf16 inputs), beside the unfused
+    yardstick; then X1∘X2 on a port BasicTransformerBlock against the block."""
+    from sd_tpu_torch.ops.attention import BasicTransformerBlock
+    from sd_tpu_torch.ops.cuda import (fused_block, fused_block_plain, tail_fused,
+                                       tail_fused_plain)
+    from sd_tpu_torch.scripts import exp_block_kernel as exp
+    from sd_tpu_torch.utils.config import init_random_
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    b, heads, kv_len = exp.B, exp.HEADS, exp.KV_LEN
+    rows = {"fused_block": [], "tail_fused": []}
+    for n, c in BLOCK_SITES:
+        shape = (b, n, c)
+        x, args, err = check_x1_site(n, c)
+        mods = exp.self_attention_modules(**args, dtype=x.dtype)
+        ms = time_ms(lambda: fused_block(x, **args))
+        plain_ms = time_ms(lambda: fused_block_plain(x, **args), iters=3, warmup=1)
+        unfused_ms = time_ms(lambda: exp.unfused_block(x, *mods))
+        bnd = _block_bound(b, n, c, heads)
+        log(f"[X1 fused_block] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+            f"{unfused_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows["fused_block"].append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                        unfused_ms=unfused_ms, **bnd))
+
+        x, args, err = check_x2_site(n, c)
+        kc, vc = args["kc"], args["vc"]
+        weights = {k: v for k, v in args.items() if k not in ("kc", "vc", "kv_len")}
+        mods = exp.tail_modules(**weights, dtype=x.dtype)
+        ms = time_ms(lambda: tail_fused(x, **args))
+        plain_ms = time_ms(lambda: tail_fused_plain(x, **args), iters=3, warmup=1)
+        unfused_ms = time_ms(lambda: exp.tail_unfused(x, kc, vc, kv_len, *mods))
+        bnd = _tail_bound(b, n, c, heads, 4 * c, kv_len)
+        log(f"[X2 tail_fused] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+            f"{unfused_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows["tail_fused"].append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                                       unfused_ms=unfused_ms, **bnd))
+
+        block = BasicTransformerBlock(c, heads, c // heads, context_dim=CONTEXT_DIM)
+        init_random_(block, torch.Generator().manual_seed(n))
+        block = block.to("cuda", torch.bfloat16).eval()
+        x = randn(b, n, c).to(torch.bfloat16)
+        ctx = randn(b, kv_len, CONTEXT_DIM).to(torch.bfloat16)
+        with torch.no_grad():
+            fused = exp.fused_transformer_block(block, x, ctx)
+            want = block(x, ctx)
+        rel = exp.relative_l2(fused, want)
+        ok = bool(torch.isfinite(fused).all()) and rel <= BLOCK_AGREEMENT_TOL
+        log(f"[X1∘X2 block] {shape}: a port BasicTransformerBlock through X1 and X2 against the "
+            f"block, bf16: relative L2 {rel:.3e} (bound {BLOCK_AGREEMENT_TOL}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"X1∘X2 at {shape}: relative L2 {rel}")
+        del x, args, mods, block, kc, vc, weights
+        free_memory()
+    return rows
+
+
+def block_experiment() -> dict:
+    """The block experiment's two entry points at their defaults, through
+    main(); exact launches of each; returns the counts of both runs."""
+    from sd_tpu_torch.scripts import exp_block_kernel as exp
+
+    per_step = 2 + exp.REPS * exp.ITERS  # the check, the warm-up step, the chained runs
+    total = {}
+    for argv, want in (([], expect(fused_block=per_step, flash_attention=per_step)),
+                       (["tail"], expect(tail_fused=per_step, geglu_ff=per_step))):
+        reset_launches()
+        result = exp.main(argv)
+        counts = read_launches()
+        log(f"[block experiment] {' '.join(['exp_block_kernel', *argv])}: {result}; launches "
+            f"{counts}, expected {want}")
+        if counts != want:
+            raise AssertionError(f"block experiment {argv}: launches {counts} != {want}")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
 def check_conv_kernels() -> dict:
     g = torch.Generator(device="cuda").manual_seed(3)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
@@ -749,7 +911,7 @@ def check_conv_modes_reference() -> None:
 
 
 def _counted():
-    """Every launch counter: the nine kernels, K5's "qkpv" share, and the
+    """Every launch counter: the eleven kernels, K5's "qkpv" share, and the
     int8 conv's calls on the card."""
     from sd_tpu_torch.ops import cuda
     from sd_tpu_torch.ops.quant import int8_conv3x3
@@ -759,7 +921,8 @@ def _counted():
             "geglu_ff_int8": cuda.geglu_ff_int8, "flash_attention_int8": cuda.flash_attention_int8,
             "int8_dense": cuda.int8_dense, "int8_conv3x3": int8_conv3x3,
             "fused_conv3x3": cuda.fused_conv3x3, "winograd_conv3x3": cuda.winograd_conv3x3,
-            "winograd_conv3x3_split": cuda.winograd_conv3x3_split}
+            "winograd_conv3x3_split": cuda.winograd_conv3x3_split,
+            "fused_block": cuda.fused_block, "tail_fused": cuda.tail_fused}
 
 
 def check_int8_reference() -> None:
@@ -1120,10 +1283,14 @@ def main() -> None:
     timings = check_kernels()
     timings.update(check_int8_kernels())
     timings.update(check_conv_kernels())
+    free_memory()
+    timings.update(check_block_kernels())
     check_reference()
     check_int8_reference()
     check_conv_modes_reference()
     x3_launches = x3_experiment()
+    block_launches = block_experiment()
+    free_memory()
     served, pipe = serve_main_path()
     served_conv = serve_conv_modes(pipe, served)
     del pipe
@@ -1150,8 +1317,10 @@ def main() -> None:
               "winograd_conv3x3": ("sd_tpu_torch/csrc/winograd_conv.cu",
                                    "sd_tpu/ops/pallas/winograd_conv.py:174"),
               "winograd_conv3x3_split": ("sd_tpu_torch/csrc/winograd_conv.cu",
-                                         "tools/exp_winograd.py:271")}
-    runs = (served["launches"], served_int8, trained, served_conv, x3_launches)
+                                         "tools/exp_winograd.py:271"),
+              "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
+              "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
+    runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches)
     kernels = []
     for k, rows in timings.items():
         library = [r["library_ms"] for r in rows]

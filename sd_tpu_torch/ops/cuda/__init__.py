@@ -16,6 +16,13 @@ from sd_tpu_torch.ops.cuda.flash_attention import (
     flash_attention_plain,
     resolve_int8,
 )
+from sd_tpu_torch.ops.cuda.fused_block import (
+    block_weights,
+    fused_block,
+    fused_block_plain,
+    tail_fused,
+    tail_fused_plain,
+)
 from sd_tpu_torch.ops.cuda.fused_conv import fused_conv3x3, fused_conv3x3_plain
 from sd_tpu_torch.ops.cuda.geglu_ff import (
     differentiable_geglu_ff,
@@ -37,4 +44,5 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff", "geglu_ff_int8",
            "geglu_ff_int8_plain", "int8_dense", "int8_dense_plain", "fused_conv3x3",
            "fused_conv3x3_plain", "winograd_conv3x3", "winograd_conv3x3_split",
-           "winograd_conv3x3_plain"]
+           "winograd_conv3x3_plain", "fused_block", "fused_block_plain", "tail_fused",
+           "tail_fused_plain", "block_weights"]

@@ -50,6 +50,15 @@ _SIGNATURES = {
     "sdt_fused_conv3x3": [_P] * 9 + [_I] * 5 + [_P],
     # p00, p01, p10, p11, x, u, y, batch, c, h, w, k, split, stream
     "sdt_winograd_conv3x3": [_P] * 7 + [_I] * 6 + [_P],
+    # x, gamma, beta, wqkv, wo, bo, qkv, out, batch, n, heads, d, stream
+    "sdt_fused_block": [_P] * 8 + [_I] * 4 + [_P],
+    # c, d -> the row tile of X1's attention launch (0: not taken)
+    "sdt_fused_block_q": [_I, _I],
+    # x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, x1, h, out,
+    # batch, n, nk, kv_len, heads, d, inner, stream
+    "sdt_tail_fused": [_P] * 17 + [_I] * 7 + [_P],
+    # c, d, kv_len -> the row tile of X2's first launch (0: not taken)
+    "sdt_tail_fused_q": [_I] * 3,
 }
 
 

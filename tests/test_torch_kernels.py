@@ -118,8 +118,8 @@ def test_library_name_is_keyed_to_the_sources():
     assert {p.name for p in cu} == {"flash_attention.cu", "flash_attention_bwd.cu",
                                     "geglu_ff.cu", "flash_attention_int8.cu",
                                     "geglu_ff_int8.cu", "int8_dense.cu", "fused_conv.cu",
-                                    "winograd_conv.cu"}
-    assert {p.name for p in headers} == {"int8_gemm.cuh"}
+                                    "winograd_conv.cu", "fused_block.cu", "tail_fused.cu"}
+    assert {p.name for p in headers} == {"int8_gemm.cuh", "block_tile.cuh"}
 
 
 def _bf16(*shape):
