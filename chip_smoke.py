@@ -12,17 +12,25 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 2. build: nvcc builds sd_tpu_torch/csrc into build/sd_tpu_torch (git-ignored);
 3. K1 flash attention and 4. K2 GEGLU feed-forward: each kernel against its
    plain PyTorch version at every shape of the serving path at batch 1 with
-   guidance (B=2) and of the training path at batch 4, bf16 inputs, the
-   plain version computed in fp32 from the same inputs; K1's row log-sum-exp (the statistic K3 reads) against its
-   plain version too; max abs error and the ms of each (CUDA events), the
-   bound, and the ms of one PyTorch call computing the same function
+   guidance (B=2), of the training path at batch 4 and (K1) of the serving
+   path at batch 8 (B=16), bf16 inputs, the plain version computed in fp32
+   from the same inputs (one batch element at a time where its logits would
+   pass 2 GiB); K1's row log-sum-exp (the statistic K3 reads) against its
+   plain version too, and every K1 shape a second time with sharp logits
+   (q times SHARP); K1's launch plan at each shape (blocks, shared memory,
+   blocks per SM, waves); max abs error and the ms of each (CUDA events),
+   the bound, and the ms of one PyTorch call computing the same function
    (scaled_dot_product_attention for K1; none for K2);
-5. K3 flash-attention backward: at the training path's two shapes, dQ, dK
-   and dV from K1 + K3 against the plain backward in fp32 on the same bf16
-   inputs; the yardstick is scaled_dot_product_attention's forward+backward
-   minus its forward;
+5. K3 flash-attention backward: at the training path's two shapes, with
+   plain and with sharp logits, dQ, dK and dV from K1 + K3 against the plain
+   backward in fp32 on the same bf16 inputs; the yardstick is
+   scaled_dot_product_attention's forward+backward minus its forward;
 6. reference: the tiny model in bf16 on the card against the same weights in
-   fp32 on the CPU (plain versions), 5 PLMS steps, latents compared;
+   fp32 on the CPU (plain versions), 5 PLMS steps, latents compared; then
+   the fp32 opt-out: SD_TPU_PRECISION=fp32 builds the tiny model in fp32 on
+   the card (TF32 off for matmul and cuDNN), which samples against its fp32
+   CPU run, and one tiny training loss and its gradients in fp32 outside
+   autocast against the CPU, with no K1, K2 or K3 launch;
 7. serving: SD v1 at full width (860M UNet, kl-f8 decoder, CLIP ViT-L/14
    text tower) with seeded random weights in bf16 serves three one-prompt
    requests at 512x512, PLMS 50 steps, guidance 7.5, through
@@ -103,10 +111,12 @@ The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
 """
 
+import contextlib
 import copy
 import gc
 import json
 import os
+import re
 import subprocess
 import tempfile
 import time
@@ -124,11 +134,14 @@ SITES_PER_UNET = 16  # SpatialTransformer blocks of the SD v1 UNet
 
 # (B, N, H, D): the UNet's self-attention sites at 64x64, 32x32, 16x16 and
 # 8x8 latents, and the VAE mid-block: serving at batch 1 with guidance (B=2;
-# the decoder's mid-block at B=1), then training at batch 4 (the encoder's)
+# the decoder's mid-block at B=1), then training at batch 4 (the encoder's),
+# then serving at batch 8 (B=16; the decoder's at B=8)
 FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8, 160),
                 (1, 4096, 1, 512),
                 (4, 4096, 8, 40), (4, 1024, 8, 80), (4, 256, 8, 160), (4, 64, 8, 160),
-                (4, 4096, 1, 512)]
+                (4, 4096, 1, 512),
+                (16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),
+                (8, 4096, 1, 512)]
 # (M, C, inner): the transformer FF blocks, M = B * tokens, serving then training
 FF_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
              (16384, 320, 1280), (4096, 640, 2560), (1024, 1280, 5120), (256, 1280, 5120)]
@@ -140,6 +153,17 @@ BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 KERNEL_TOL = 2e-2
 # K1's log-sum-exp is fp32 throughout: absolute bound in log2 units
 LSE_TOL = 1e-3
+# every K1 and K3 shape runs a second time with q scaled by this, so that
+# the logits (std about 4) pick out a few keys: near-uniform logits hardly
+# move the running max and can hide a wrong rescale of O
+SHARP = 4.0
+# the fp32 model on the card (SD_TPU_PRECISION=fp32, TF32 off for matmul and
+# cuDNN) against fp32 on the CPU, the same ops summed in other orders, for
+# each of: max |diff| / max |ref| of the tiny model's latents after 6 UNet
+# calls with guidance 7.5 (the CPU's fp32 run reads 2.5e-6 against its fp64
+# run; the card's bf16 run about 1e-2), a training loss (relative) and its
+# UNet gradients (relative L2)
+FP32_TOL = 1e-3
 # tiny model, bf16 on the card vs fp32 on the CPU after 6 UNet calls with
 # guidance 7.5: max |diff| of the latents over max |fp32 latents|
 REFERENCE_TOL = 5e-2
@@ -266,8 +290,19 @@ def build() -> None:
     spills = [line for line in lines if "spill" in line and not line.startswith("0 bytes")]
     log(f"[build] {info['path']} in {info['seconds']:.1f} s: {len(used)} kernels, "
         f"{len(spills)} with register spills")
-    for line in spills:
-        log(f"[build]   {line}")
+    kernel, seen = None, set()
+    for line in lines:
+        if "Function properties for" in line:
+            kernel = line.rsplit(" ", 1)[-1]
+        elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
+            log(f"[build]   {kernel}: {line}")
+        elif "Used" in line and kernel not in seen:
+            # K1's and K3's kernels by name and template arguments
+            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?", kernel or "")
+            if name:
+                args = ",".join(re.findall(r"Li(\d+)E", kernel))
+                log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
+            seen.add(kernel)
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -294,6 +329,14 @@ def bound(flops: float, nbytes: float, int8_ops: float = 0.0) -> dict:
             "bound_by": "operations" if ops_ms >= bytes_ms else "bytes"}
 
 
+class CheckFailed(AssertionError):
+    """A kernel's output outside its bound: ``err`` against ``limit``."""
+
+    def __init__(self, msg: str, err: float, limit: float):
+        super().__init__(msg)
+        self.err, self.limit = err, limit
+
+
 def check_error(name: str, shape, got: torch.Tensor, ref: torch.Tensor,
                 scale_floor: float = 0.0, tol: float = KERNEL_TOL,
                 residual: Optional[torch.Tensor] = None) -> float:
@@ -309,7 +352,16 @@ def check_error(name: str, shape, got: torch.Tensor, ref: torch.Tensor,
     log(f"[{name}] {shape}: max_abs_err {err:.3e} ({label} {ref_max:.3e}, bound "
         f"{limit:.3e}) {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"{name} at {shape}: max abs error {err} above {limit}")
+        raise CheckFailed(f"{name} at {shape}: max abs error {err} above {limit}", err, limit)
+    return err
+
+
+def check_lse(shape, got: torch.Tensor, ref: torch.Tensor) -> float:
+    """K1's row log-sum-exp within LSE_TOL (absolute, log2 units)."""
+    err = (got - ref).abs().max().item()
+    log(f"[K1 flash_attention] {shape}: log-sum-exp max_abs_err {err:.3e} (bound {LSE_TOL})")
+    if not (np.isfinite(err) and err <= LSE_TOL):
+        raise CheckFailed(f"K1 log-sum-exp at {shape}: {err}", err, LSE_TOL)
     return err
 
 
@@ -340,34 +392,73 @@ def sdpa(q, k, v, scale):
                                           v.transpose(1, 2), scale=scale)
 
 
-def check_flash(randn) -> list:
+def by_batch(fn, *tensors):
+    """``fn`` over one batch element at a time, concatenated: the same
+    function, for the plain references whose [B, H, N, N] fp32 logits would
+    not fit beside the timings."""
+    return torch.cat([fn(*(t[i:i + 1] for t in tensors)) for i in range(tensors[0].shape[0])])
+
+
+def log_plan(which: str, shape) -> None:
+    """The launch plan of K1 or of a K3 pass at ``shape``: its blocks and
+    the waves they take on this card."""
+    from sd_tpu_torch.ops.cuda.flash_attention import kernel_plan
+
+    b, n, h, d = shape
+    plan = kernel_plan(d, which)
+    blocks = -(-n // plan["rows"]) * h * b
+    slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[{which} plan] {shape}: {plan['rows']} rows a block, tiles of {plan['tile']}, "
+        f"{plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory, "
+        f"{plan['blocks_per_sm']} blocks per SM; {blocks} blocks, {blocks / slots:.2f} waves")
+
+
+def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
+    """K1 at one shape against its plain version (output and row
+    log-sum-exp); with ``sharp``, q scaled by SHARP. Timed: the kernel, the
+    plain version, sdpa and the bound."""
     from sd_tpu_torch.ops.cuda import (flash_attention, flash_attention_lse_plain,
                                        flash_attention_plain)
     from sd_tpu_torch.ops.cuda.flash_attention import _launch_forward
 
+    b, n, h, d = shape
+    scale = d**-0.5
+    bf = [randn(*shape).to(torch.bfloat16) for _ in range(3)]
+    if sharp:
+        bf[0] = bf[0] * SHARP
+    label = f"{shape}{' sharp' if sharp else ''}"
+    out = flash_attention(*bf, scale)
+    # the log-sum-exp that only the autograd path asks K1 for
+    lse = _launch_forward(*bf, scale, with_lse=True)[1]
+    torch.cuda.synchronize()
+    fp = [t.float() for t in bf]
+    big = b * h * n * n * 4 > 2**31
+    plain = lambda *t: flash_attention_plain(*t, scale)
+    lse_plain = lambda q, k: flash_attention_lse_plain(q, k, scale)
+    ref, lse_ref = ((by_batch(plain, *fp), by_batch(lse_plain, *fp[:2])) if big
+                    else (plain(*fp), lse_plain(*fp[:2])))
+    err = check_error("K1 flash_attention", label, out, ref)
+    check_lse(label, lse, lse_ref)
+    del fp
+    if not timed:
+        return dict(err=err)
+    ms = time_ms(lambda: flash_attention(*bf, scale))
+    plain_ms = time_ms(lambda: flash_attention_plain(*bf, scale), iters=5 if big else 20)
+    library_ms = time_ms(lambda: sdpa(*bf, scale))
+    bnd = bound(4 * b * h * n * n * d, 4 * b * n * h * d * 2)
+    log(f"[K1 flash_attention] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
+
+
+def check_flash(randn) -> list:
     rows = []
     for shape in FLASH_SHAPES:
-        b, n, h, d = shape
-        scale = d**-0.5
-        bf = [randn(*shape).to(torch.bfloat16) for _ in range(3)]
-        fp = [t.float() for t in bf]
-        out = flash_attention(*bf, scale)
-        # the log-sum-exp that only the autograd path asks K1 for
-        lse = _launch_forward(*bf, scale, with_lse=True)[1]
-        torch.cuda.synchronize()
-        err = check_error("K1 flash_attention", shape, out, flash_attention_plain(*fp, scale))
-        lse_err = (lse - flash_attention_lse_plain(fp[0], fp[1], scale)).abs().max().item()
-        log(f"[K1 flash_attention] {shape}: log-sum-exp max_abs_err {lse_err:.3e} (bound "
-            f"{LSE_TOL})")
-        if not (np.isfinite(lse_err) and lse_err <= LSE_TOL):
-            raise AssertionError(f"K1 log-sum-exp at {shape}: {lse_err}")
-        ms = time_ms(lambda: flash_attention(*bf, scale))
-        plain_ms = time_ms(lambda: flash_attention_plain(*bf, scale))
-        library_ms = time_ms(lambda: sdpa(*bf, scale))
-        bnd = bound(4 * b * h * n * n * d, 4 * b * n * h * d * 2)
-        log(f"[K1 flash_attention] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd))
+        log_plan("K1", shape)
+        row = flash_case(randn, shape)
+        row["err"] = max(row["err"], flash_case(randn, shape, sharp=True, timed=False)["err"])
+        rows.append(row)
+        free_memory()
     return rows
 
 
@@ -393,43 +484,61 @@ def check_geglu(randn) -> list:
     return rows
 
 
-def check_flash_bwd(randn) -> list:
+def flash_bwd_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
+    """K1 + K3 at one shape: the forward output of the autograd path, then
+    dQ, dK and dV against the plain backward in fp32 on the same bf16
+    inputs; with ``sharp``, q scaled by SHARP. Timed: K3, the plain
+    backward, sdpa's backward (forward+backward minus forward), the bound."""
     from sd_tpu_torch.ops.cuda import (differentiable_flash_attention, flash_attention_bwd,
                                        flash_attention_bwd_plain, flash_attention_plain)
     from sd_tpu_torch.ops.cuda.flash_attention import _launch_forward
 
+    b, n, h, d = shape
+    scale = d**-0.5
+    label = f"{shape}{' sharp' if sharp else ''}"
+    q, k, v = (randn(*shape).to(torch.bfloat16) for _ in range(3))
+    if sharp:
+        q = q * SHARP
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    do = randn(*shape).to(torch.bfloat16)
+    o = differentiable_flash_attention(q, k, v, scale)
+    torch.cuda.synchronize()
+    check_error("K1 differentiable_flash_attention", label, o,
+                flash_attention_plain(*(t.detach().float() for t in (q, k, v)), scale))
+    grads = torch.autograd.grad(o, (q, k, v), do)
+    torch.cuda.synchronize()
+    q, k, v, o = (t.detach() for t in (q, k, v, o))
+    refs = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)), scale)
+    err = max(check_error(f"K3 flash_attention_bwd d{name}", label, g, r)
+              for name, g, r in zip("QKV", grads, refs))
+    if not timed:
+        return dict(err=err)
+    lse = _launch_forward(q, k, v, scale, with_lse=True)[1]
+    ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, scale))
+    plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, scale))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(*leaves, scale), leaves, do.transpose(1, 2))
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: sdpa(*leaves, scale))
+    library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
+    bnd = bound(10 * b * h * n * n * d, 8 * b * n * h * d * 2 + b * h * n * 4)
+    log(f"[K3 flash_attention_bwd] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"sdpa fwd+bwd minus fwd {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
+
+
+def check_flash_bwd(randn) -> list:
     rows = []
     for shape in BWD_SHAPES:
-        b, n, h, d = shape
-        scale = d**-0.5
-        q, k, v = (randn(*shape).to(torch.bfloat16).requires_grad_() for _ in range(3))
-        do = randn(*shape).to(torch.bfloat16)
-        o = differentiable_flash_attention(q, k, v, scale)
-        torch.cuda.synchronize()
-        check_error("K1 differentiable_flash_attention", shape, o,
-                    flash_attention_plain(*(t.detach().float() for t in (q, k, v)), scale))
-        grads = torch.autograd.grad(o, (q, k, v), do)
-        torch.cuda.synchronize()
-        q, k, v, o = (t.detach() for t in (q, k, v, o))
-        refs = flash_attention_bwd_plain(*(t.float() for t in (q, k, v, o, do)), scale)
-        err = max(check_error(f"K3 flash_attention_bwd d{name}", shape, g, r)
-                  for name, g, r in zip("QKV", grads, refs))
-        lse = _launch_forward(q, k, v, scale, with_lse=True)[1]
-        ms = time_ms(lambda: flash_attention_bwd(q, k, v, o, do, lse, scale))
-        plain_ms = time_ms(lambda: flash_attention_bwd_plain(q, k, v, o, do, scale))
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-
-        def sdpa_fwd_bwd():
-            torch.autograd.grad(sdpa(*leaves, scale), leaves, do.transpose(1, 2))
-
-        with torch.no_grad():
-            fwd_ms = time_ms(lambda: sdpa(*leaves, scale))
-        library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
-        bnd = bound(10 * b * h * n * n * d, 8 * b * n * h * d * 2 + b * h * n * 4)
-        log(f"[K3 flash_attention_bwd] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"sdpa fwd+bwd minus fwd {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-            f"({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd))
+        log_plan("K3 dK/dV", shape)
+        log_plan("K3 dQ", shape)
+        row = flash_bwd_case(randn, shape)
+        row["err"] = max(row["err"], flash_bwd_case(randn, shape, sharp=True, timed=False)["err"])
+        rows.append(row)
     return rows
 
 
@@ -868,6 +977,76 @@ def check_reference() -> None:
         raise AssertionError(f"tiny model disagrees with its fp32 CPU reference: {rel}")
 
 
+def check_fp32_reference() -> None:
+    """The fp32 opt-out on the card. SD_TPU_PRECISION=fp32 builds the tiny
+    model in fp32; with the CPU model's weights it samples (PLMS 5) against
+    the fp32 CPU run. Then one tiny training loss and its UNet gradients in
+    fp32 outside autocast against the CPU. TF32 is off for matmul and cuDNN
+    (main() sets both). Neither run may launch K1, K2 or K3, whose kernels
+    are bf16: the plain versions serve fp32."""
+    from sd_tpu_torch.data.base import collate
+    from sd_tpu_torch.data.synthetic import SyntheticImages
+    from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
+    from sd_tpu_torch.training.diffusion_loss import LDMTrainer
+    from sd_tpu_torch.utils.config import build_latent_diffusion, train_config
+
+    cpu_pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False)
+    before = os.environ.get("SD_TPU_PRECISION")
+    os.environ["SD_TPU_PRECISION"] = "fp32"
+    try:
+        card_pipe, _ = build_txt2img_pipeline(tiny=True, device="cuda", seed=0, watermark=False)
+    finally:
+        if before is None:
+            del os.environ["SD_TPU_PRECISION"]
+        else:
+            os.environ["SD_TPU_PRECISION"] = before
+    dtypes = {p.dtype for p in card_pipe.ldm.parameters()}
+    if dtypes != {torch.float32}:
+        raise AssertionError(f"SD_TPU_PRECISION=fp32 built the model in {dtypes}")
+    card_pipe.ldm.load_state_dict(cpu_pipe.ldm.state_dict())
+    x_T = np.random.default_rng(0).standard_normal((2, hw // 2, hw // 2, 4)).astype(np.float32)
+    run = dict(height=hw, width=hw, steps=5, guidance_scale=7.5)
+    prompts = [PROMPT, "a red cube"]
+    cpu_pipe(prompts, x_T=torch.from_numpy(x_T), **run)
+    reset_launches()
+    card_pipe(prompts, x_T=torch.from_numpy(x_T).cuda(), **run)
+    sampled = read_launches()
+    want = cpu_pipe.last_latents
+    got = card_pipe.last_latents.cpu()
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[fp32 reference] tiny model, SD_TPU_PRECISION=fp32 on the card vs fp32 CPU, PLMS 5: "
+        f"latents {got.dtype}, max |diff| / max |ref| = {rel:.3e} (bound {FP32_TOL}); "
+        f"launches {sampled}")
+    if got.dtype != torch.float32 or not (np.isfinite(rel) and rel <= FP32_TOL):
+        raise AssertionError(f"the fp32 tiny model disagrees with its CPU run: {rel}")
+
+    cpu_ldm = build_latent_diffusion(train_config(tiny=True)["model"], device="cpu", seed=0)
+    trainers = [LDMTrainer(ldm=ldm, base_lr=1e-3, use_ema=False)
+                for ldm in (cpu_ldm, copy.deepcopy(cpu_ldm).cuda())]
+    for trainer in trainers:
+        trainer.init_state()
+    batch = collate([SyntheticImages(size=128, length=2)[i] for i in range(2)])
+    t = torch.from_numpy(np.array([17, 633]))
+    noise = torch.from_numpy(
+        np.random.default_rng(0).standard_normal((2, 4, 64, 64)).astype(np.float32))
+    want_loss, want = _tiny_loss_and_grads(trainers[0], batch, t, noise, autocast=False)
+    reset_launches()
+    got_loss, got = _tiny_loss_and_grads(trainers[1], batch, t, noise, autocast=False)
+    trained = read_launches()
+    loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+    diff = sum((got[n] - want[n]).square().sum() for n in want).sqrt().item()
+    norm = sum(want[n].square().sum() for n in want).sqrt().item()
+    log(f"[fp32 reference] tiny training step at 128², fp32 outside autocast on the card vs "
+        f"the CPU: loss {got_loss:.6f} vs {want_loss:.6f} (relative {loss_rel:.3e}), UNet "
+        f"gradients relative L2 {diff / norm:.3e} (bound {FP32_TOL} each); launches "
+        f"{trained}")
+    if not (loss_rel <= FP32_TOL and diff / norm <= FP32_TOL):
+        raise AssertionError("the fp32 training step disagrees with its CPU run")
+    for counts in (sampled, trained):
+        if any(counts[k] for k in ("flash_attention", "geglu_ff", "flash_attention_bwd")):
+            raise AssertionError(f"an fp32 run launched a bf16 kernel: {counts}")
+
+
 # the small UNet of tests/test_torch_conv_modes.py: every resnet block
 # passes K7's gate, and the 32² upsample conv K8's
 SMALL_UNET = dict(image_size=32, in_channels=4, out_channels=4, model_channels=128,
@@ -1119,19 +1298,21 @@ def serve_int8(bf16: dict) -> dict:
     return total
 
 
-def _tiny_loss_and_grads(trainer, batch, t, noise):
+def _tiny_loss_and_grads(trainer, batch, t, noise, autocast: bool = True):
     """One loss of ``p_losses`` and the UNet gradients, with the batch's
-    latents at the posterior's mode and the given t and noise."""
+    latents at the posterior's mode and the given t and noise; under the
+    trainer's autocast, or outside any."""
     from sd_tpu_torch.training.diffusion_loss import p_losses
 
     ldm, device = trainer.ldm, trainer.device
+    scope = trainer.autocast if autocast else contextlib.nullcontext
     x = torch.from_numpy(batch["image"]).to(device).permute(0, 3, 1, 2)
     tokens = torch.from_numpy(batch["caption"]).to(device).long()
     trainer.unet.zero_grad(set_to_none=True)
-    with torch.no_grad(), trainer.autocast():
+    with torch.no_grad(), scope():
         z = ldm.encode_to_latent(x).float()
         cond = ldm.get_learned_conditioning(tokens)
-    with trainer.autocast():
+    with scope():
         loss, _ = p_losses(ldm.apply_model, ldm.schedule, z, cond, t.to(device),
                            noise.to(device))
     loss.backward()
@@ -1286,6 +1467,8 @@ def main() -> None:
     free_memory()
     timings.update(check_block_kernels())
     check_reference()
+    check_fp32_reference()
+    free_memory()
     check_int8_reference()
     check_conv_modes_reference()
     x3_launches = x3_experiment()

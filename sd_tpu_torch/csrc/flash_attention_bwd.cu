@@ -1,168 +1,202 @@
-// Flash-attention backward for Hopper (sm_90a): dQ, dK, dV of
+// K3, flash-attention backward for Hopper (sm_90a): dQ, dK, dV of
 // O = softmax(Q K^T * scale) V, with the softmax recomputed.
 //
 // Replaces the TPU kernel `_bwd_kernel` driven by `_bwd_bhnd_pallas` in
-// sd_tpu/ops/pallas/flash_attention.py. It computes the same thing:
+// sd_tpu/ops/pallas/flash_attention.py and computes the same thing:
 //
-//   p  = softmax(q k^T * scale)          recomputed, fp32
-//   dV = bf16(p)^T dO                    fp32 accumulate
-//   dP = dO v^T                          fp32
-//   delta = rowsum(dO * o)               fp32
+//   p  = exp2(s * scale * log2(e) - lse)   recomputed from K1's lse, fp32
+//   dV = bf16(p)^T dO                      fp32 accumulate
+//   dP = dO v^T                            fp32
+//   delta = rowsum(dO * o)                 fp32
 //   dS = bf16(p * (dP - delta) * scale)
-//   dQ = dS k,  dK = dS^T q              fp32 accumulate, stored as bf16
+//   dQ = dS k,  dK = dS^T q                fp32 accumulate, stored as bf16
 //
 // with the TPU kernel's two roundings to bf16 (`p_lo` and `ds`).
 //
 // Layout: q, o, dO, dQ are [B, Nq, H, D] and k, v, dK, dV are [B, Nk, H, D],
 // bf16, contiguous; a (b, h) slice is read with row stride H * D, as K1 reads
 // it. lse is K1's fp32 [B, H, Nq] row log-sum-exp in base 2 (m + log2 l of
-// the logits times scale * log2(e)), so p = exp2(s * scale * log2(e) - lse).
+// the logits times scale * log2(e)).
 //
-// What bounds it on the H100: five products of 2 * Nq * Nk * D flops per
-// head, 10 * B * H * Nq * Nk * D in all: 0.217 ms at [4, 4096, 8, 40] and
-// 0.027 ms at [4, 1024, 8, 80] at the H100 SXM's published 989 TFLOP/s dense
-// bf16 peak (at its 700 W limit); the bytes (q, k, v, o, dO in, dQ, dK, dV
-// out, and the fp32 lse) take 0.025 and 0.013 ms at 3.35 TB/s. So it is
-// bound by operations.
+// What bounds it on the H100: operations. Five products of 2 * Nq * Nk * D
+// flops per head, 10 * B * H * Nq * Nk * D in all: 0.217 ms at [4, 4096, 8,
+// 40] and 0.027 ms at [4, 1024, 8, 80] at the H100 SXM's 989 TFLOP/s dense
+// bf16 peak, against 0.025 and 0.013 ms for the bytes (q, k, v, o, dO in,
+// dQ, dK, dV out, and the fp32 lse) at 3.35 TB/s.
 //
-// Design. The TPU kernel keeps a whole K/V row in VMEM and carries dK/dV
-// across a sequential q-block grid axis; here blocks run in parallel and in
-// no order, so the work is split into three launches with no atomics, each
-// output written once and the result deterministic:
+// Design. Blocks run in parallel and in no order, so dK/dV and dQ come from
+// two passes, each output written once by the block that owns it: no
+// atomics, and the result is deterministic. Three launches, one call:
 //   1. delta: one warp per (b, n, h) row sums dO * o in fp32;
-//   2. dK/dV: one block per (64-key tile, head, batch) loops over every
-//      64-row q tile, rebuilds P from lse, and accumulates dK and dV in fp32
-//      shared memory;
-//   3. dQ: one block per (64-row q tile, head, batch) loops over the K/V
-//      tiles and accumulates dQ in fp32 shared memory.
-// S and dP are recomputed in both 2 and 3 (seven products instead of five),
-// the price of having no atomics. The products run on the tensor cores
-// through WMMA (16x16x16 bf16, fp32 accumulate), with 8 warps a block. The
-// head dimension is zero-padded in shared memory to the next multiple of 16
-// (d = 40 -> 48); ragged edges are zero-filled and masked to p = 0. d must be
-// a multiple of 8 and at most 128 (190 KB of shared memory at d = 128). This
-// is the simple first version: no cp.async/TMA pipelining, no wgmma, no
-// register-resident accumulators yet.
+//   2. dK/dV: a block of 4 warps owns 64 keys, each warp 16, and loops over
+//      the q tiles (64 rows; 32 at d > 64). A warp computes S^T = K Q^T and
+//      dP^T = V dO^T for its 16 keys on mma.sync.m16n8k16, rebuilds P^T and
+//      dS^T in registers from lse and delta (indexed by the column, the
+//      query), repacks both as bf16 A fragments (flash_mma.cuh) and
+//      accumulates dV += P^T dO and dK += dS^T Q in registers;
+//   3. dQ: a block of 4 warps owns 64 query rows, each warp 16 (at d <= 48
+//      128 rows, each warp two m-tiles of 16, so that each K and V fragment
+//      read from shared memory serves two products), with Q's and dO's
+//      fragments loaded once, and loops over the key tiles (64 keys; 32 at
+//      d > 64 or with two m-tiles): S = Q K^T and dP = dO V^T, P and dS in
+//      registers, dQ += dS K in registers.
+// S and dP are computed in both passes (seven products instead of five), the
+// price of having no atomics. In both the streamed tiles (Q, dO, lse, delta;
+// K, V) are double-buffered in shared memory by cp.async and read with
+// ldmatrix (.trans where the tile is the product's B with the head dim as
+// its columns), with one __syncthreads per tile. The contraction over the
+// head dim is zero-padded in shared memory to a multiple of 16 (d = 40 ->
+// 48); the ragged edges are zero-filled, and p and dS are set to 0 outside
+// the valid rows and columns (selected, never computed from -inf). d must be
+// a multiple of 8 and at most 128.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
+#include "flash_mma.cuh"
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+using sdt::bf16;
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int BQ = 64;  // q rows per tile
-constexpr int BK = 64;  // key rows per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
 
 __host__ __device__ constexpr int round_up(int x, int m) { return (x + m - 1) / m * m; }
 
-// Shared-memory plan of one block. Pitches are padded by 16 bytes to spread
-// banks; every WMMA tile starts on a 32-byte boundary.
-template <int DP>
-struct Smem {
-  static constexpr int LDQ = DP + 8;  // bf16 pitch of the Q, dO, K and V tiles
-  static constexpr int LDS = BK + 4;  // fp32 pitch of S (then P) and dP
-  static constexpr int LDP = BK + 8;  // bf16 pitch of bf16(P) and dS
-  static constexpr int LDA = DP + 4;  // fp32 pitch of the accumulators
-  static constexpr int Q = 0;
-  static constexpr int DO = round_up(Q + BQ * LDQ * 2, 128);
-  static constexpr int K = round_up(DO + BQ * LDQ * 2, 128);
-  static constexpr int V = round_up(K + BK * LDQ * 2, 128);
-  static constexpr int S = round_up(V + BK * LDQ * 2, 128);
-  static constexpr int DP_ = round_up(S + BQ * LDS * 4, 128);
-  static constexpr int PB = round_up(DP_ + BQ * LDS * 4, 128);
-  static constexpr int DS = round_up(PB + BQ * LDP * 2, 128);
-  static constexpr int ACC0 = round_up(DS + BQ * LDP * 2, 128);  // dK, or dQ
-  static constexpr int ACC1 = round_up(ACC0 + 64 * LDA * 4, 128);  // dV
-  static constexpr int LSE = round_up(ACC1 + 64 * LDA * 4, 128);
-  static constexpr int DELTA = LSE + BQ * 4;
-  static constexpr int BYTES = DELTA + BQ * 4;
-};
+// The dQ pass's 16-row m-tiles per warp: two where the padded head dim is at
+// most 48 and the accumulators of both fit in the registers, so that each B
+// fragment read from shared memory serves two products. The dK/dV pass keeps
+// one: its four accumulators of two m-tiles would spill.
+__host__ __device__ constexpr int dq_m_tiles(int dk) { return dk <= 48 ? 2 : 1; }
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
+// dS from p, dP and the row's delta, before its rounding to bf16.
+__device__ __forceinline__ float ds_of(float p, float dp, float delta, float scale) {
+  return p * (dp - delta) * scale;
 }
 
-// Copies rows [row0, row0 + 64) of one (batch, head) slice into shared
-// memory, 16 bytes per thread and step. Rows at or past n and columns at or
-// past d are written as zeros (d is a multiple of 8).
-template <int DP>
+// Copies rows [row0, row0 + ROWS) of one (batch, head) slice, the first d
+// columns, into shared memory at pitch LD; rows at or past n are zero-filled.
+template <int ROWS, int LD>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n,
-                                          int row_stride, int d) {
-  constexpr int CHUNKS = DP / 8;
-  constexpr int LD = DP + 8;
-  for (int i = threadIdx.x; i < 64 * CHUNKS; i += kThreads) {
-    const int r = i / CHUNKS;
-    const int c = (i % CHUNKS) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n && c < d)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * row_stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
+                                          int row_stride, int chunks) {
+  for (int i = threadIdx.x; i < ROWS * chunks; i += kThreads) {
+    const int r = i / chunks;
+    const int c = (i - r * chunks) * 8;
+    const bool valid = row0 + r < n;
+    sdt::cp_async16(dst + r * LD + c, src + (size_t)(valid ? row0 + r : 0) * row_stride + c,
+                    valid);
   }
 }
 
-// c[64 x 64] (fp32) = a[64 x DP] b[64 x DP]^T, both bf16 row-major.
-template <int DP>
-__device__ __forceinline__ void gemm_nt(float* c, int ldc, const bf16* a, const bf16* b,
-                                        int warp) {
-  constexpr int LD = DP + 8;
-  for (int t = warp; t < 16; t += kWarps) {
-    const int ti = t / 4, tj = t % 4;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-      wmma::load_matrix_sync(fa, a + ti * 16 * LD + kk, LD);
-      wmma::load_matrix_sync(fb, b + tj * 16 * LD + kk, LD);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    wmma::store_matrix_sync(c + ti * 16 * ldc + tj * 16, acc, ldc, wmma::mem_row_major);
-  }
-}
-
-// acc[64 x DP] (fp32) += op(a) b, with a bf16 [64 x 64] (pitch lda) and
-// b bf16 [64 x DP] row-major. op(a) = a^T when A_T, else a.
-template <int DP, bool A_T>
-__device__ __forceinline__ void gemm_acc(float* acc, const bf16* a, int lda, const bf16* b,
-                                         int warp) {
-  constexpr int LD = DP + 8;
-  constexpr int LDA = DP + 4;
-  constexpr int TD = DP / 16;
-  using layout_a = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  for (int t = warp; t < 4 * TD; t += kWarps) {
-    const int ti = t / TD, tj = t % TD;
-    float* cptr = acc + ti * 16 * LDA + tj * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    wmma::load_matrix_sync(c, cptr, LDA, wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < 64; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, layout_a> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-      // a^T (r, c) = a[c][r]: read column-major at the tile of a's rows kk..
-      const bf16* aptr = A_T ? a + kk * lda + ti * 16 : a + ti * 16 * lda + kk;
-      wmma::load_matrix_sync(fa, aptr, lda);
-      wmma::load_matrix_sync(fb, b + kk * LD + tj * 16, LD);
-      wmma::mma_sync(c, fa, fb, c);
-    }
-    wmma::store_matrix_sync(cptr, c, LDA, wmma::mem_row_major);
-  }
-}
-
-// Loads 64 fp32 row statistics starting at row0; rows past n read as 0.
+// Copies ROWS fp32 row statistics from row0; rows at or past n read as 0.
+template <int ROWS>
 __device__ __forceinline__ void load_stats(float* dst, const float* src, int row0, int n) {
-  for (int i = threadIdx.x; i < BQ; i += kThreads) dst[i] = (row0 + i < n) ? src[row0 + i] : 0.f;
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+    const bool valid = row0 + i < n;
+    sdt::cp_async4(dst + i, src + (valid ? row0 + i : 0), valid);
+  }
+}
+
+template <int DK, int LD>
+__device__ __forceinline__ void zero_padding(bf16* base, int rows, int d) {
+  const int pad = (DK - d) / 8;
+  for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
+    const int r = i / pad;
+    *reinterpret_cast<uint4*>(base + r * LD + d + (i - r * pad) * 8) = make_uint4(0, 0, 0, 0);
+  }
+}
+
+// c[mt][16 x 8 * N] += a[mt] b^T over the padded head dim for each of MT
+// m-tiles: a's A fragments in registers (KD k16 steps), b's rows (the n
+// side) in shared memory at pitch LD, two n8 tiles per ldmatrix, each
+// serving every m-tile.
+template <int MT, int N, int KD, int LD>
+__device__ __forceinline__ void gemm_abt(float (&c)[MT][N][4], const unsigned (&a)[MT][KD][4],
+                                         const bf16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KD; ++kk) {
+#pragma unroll
+    for (int jp = 0; jp < N / 2; ++jp) {
+      unsigned f[4];
+      sdt::ldmatrix_x4(f, b + (jp * 16 + lane % 8 + lane / 16 * 8) * LD + kk * 16 +
+                              (lane / 8) % 2 * 8);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        sdt::mma(c[mt][2 * jp], a[mt][kk], f[0], f[1]);
+        sdt::mma(c[mt][2 * jp + 1], a[mt][kk], f[2], f[3]);
+      }
+    }
+  }
+}
+
+// c[mt][16 x d] += a[mt] b for each of MT m-tiles: a's A fragments in
+// registers (KS k16 steps over b's rows), b row-major in shared memory at
+// pitch LD with the head dim as its columns; n8 tiles at or past nv = d / 8
+// are skipped.
+template <int MT, int NO, int KS, int LD>
+__device__ __forceinline__ void gemm_ab(float (&c)[MT][NO][4], const unsigned (&a)[MT][KS][4],
+                                        const bf16* b, int nv, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+    for (int dp = 0; dp < NO / 2; ++dp) {
+      if (2 * dp < nv) {
+        unsigned f[4];
+        sdt::ldmatrix_x4_trans(f, b + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD +
+                                      dp * 16 + lane / 16 * 8);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          sdt::mma(c[mt][2 * dp], a[mt][kk], f[0], f[1]);
+          if (2 * dp + 1 < nv) sdt::mma(c[mt][2 * dp + 1], a[mt][kk], f[2], f[3]);
+        }
+      }
+    }
+  }
+}
+
+// A fragments of MT consecutive 16-row m-tiles of a row-major tile at pitch LD.
+template <int MT, int KD, int LD>
+__device__ __forceinline__ void load_a(unsigned (&a)[MT][KD][4], const bf16* tile, int lane) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk)
+      sdt::ldmatrix_x4(a[mt][kk], tile + (mt * 16 + lane % 16) * LD + kk * 16 + lane / 16 * 8);
+}
+
+template <int MT, int N>
+__device__ __forceinline__ void zero(float (&c)[MT][N][4]) {
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int j = 0; j < N; ++j) c[mt][j][0] = c[mt][j][1] = c[mt][j][2] = c[mt][j][3] = 0.f;
+}
+
+// Stores rows g and g + 8 of each m-tile of an [MT * 16 x d] fp32
+// accumulator, from row r0, as bf16.
+template <int MT, int NO>
+__device__ __forceinline__ void store_rows(bf16* out, const float (&c)[MT][NO][4], int r0, int n,
+                                           int row_stride, int nv, int lane) {
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int ra = r0 + mt * 16 + g, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      if (j < nv) {
+        const int col = j * 8 + 2 * tq;
+        if (ra < n)
+          *reinterpret_cast<unsigned*>(out + (size_t)ra * row_stride + col) =
+              sdt::pack_bf16(c[mt][j][0], c[mt][j][1]);
+        if (rb < n)
+          *reinterpret_cast<unsigned*>(out + (size_t)rb * row_stride + col) =
+              sdt::pack_bf16(c[mt][j][2], c[mt][j][3]);
+      }
+    }
+  }
 }
 
 // delta[b, h, n] = sum_d dO[b, n, h, d] * o[b, n, h, d], one warp per row.
@@ -176,7 +210,8 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   const bf16* dp = dout + row * d;
   float s = 0.f;
   for (int c = lane; c < d; c += 32) s += __bfloat162float(op[c]) * __bfloat162float(dp[c]);
-  s = warp_sum(s);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
   if (lane == 0) {
     const long long bn = row / heads;  // b * nq + n
     const int h = (int)(row % heads);
@@ -186,33 +221,49 @@ flash_bwd_delta_kernel(const bf16* __restrict__ o, const bf16* __restrict__ dout
   }
 }
 
-// One block per (64-key tile, head, batch): dK and dV of those keys.
-template <int DP>
+// Shared memory of a pass with MT m-tiles per warp: the block's own rows
+// (MT * 64) of two tensors (K, V or Q, dO), then two stages of the streamed
+// tile of two tensors (BT rows each) and of two fp32 row statistics (lse,
+// delta; the dK/dV pass only).
+template <int DK, int MT_>
+struct Plan {
+  static constexpr int MT = MT_;
+  static constexpr int LD = DK + 8;
+  static constexpr int OWNED = 16 * MT * kWarps;  // the rows a block owns
+  static constexpr int BT = MT == 2 || DK > 64 ? 32 : 64;
+  static constexpr int OWN = 2 * OWNED;          // rows of the two owned tiles
+  static constexpr int ROWS = OWN + 4 * BT;      // with both stages of the streamed pair
+  static constexpr int STATS = ROWS * LD * 2;    // byte offset of [2 stages][lse, delta][BT]
+  static constexpr int BYTES = STATS + 2 * 2 * BT * 4;
+};
+
+// One block per (MT * 64-key tile, head, batch): dK and dV of those keys.
+template <int DK, int MT_>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
                       const float* __restrict__ lse, const float* __restrict__ delta,
                       bf16* __restrict__ dk, bf16* __restrict__ dv, int nq, int nk, int heads,
-                      int d, float scale, float scale_log2e) {
-  using L = Smem<DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::DO);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V);
-  float* ss = reinterpret_cast<float*>(smem + L::S);
-  float* dps = reinterpret_cast<float*>(smem + L::DP_);
-  bf16* pbs = reinterpret_cast<bf16*>(smem + L::PB);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L::DS);
-  float* dks = reinterpret_cast<float*>(smem + L::ACC0);
-  float* dvs = reinterpret_cast<float*>(smem + L::ACC1);
-  float* lses = reinterpret_cast<float*>(smem + L::LSE);
-  float* deltas = reinterpret_cast<float*>(smem + L::DELTA);
+                      int d, float scale, float sl) {
+  using P = Plan<DK, MT_>;
+  constexpr int MT = P::MT;
+  constexpr int LD = P::LD;
+  constexpr int BQ = P::BT;
+  constexpr int KD = DK / 16;
+  constexpr int NS = BQ / 8;  // n8 tiles of S^T (queries)
+  constexpr int NO = DK / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = smem;
+  bf16* vs = smem + P::OWNED * LD;
+  float* stats = reinterpret_cast<float*>(smem_raw + P::STATS);
 
-  const int k0 = blockIdx.x * BK;
+  const int k0 = blockIdx.x * P::OWNED;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row_stride = heads * d;
+  const int chunks = d / 8;
+  const int nv = d / 8;
   const bf16* qb = q + ((size_t)b * nq * heads + h) * d;
   const bf16* dob = dout + ((size_t)b * nq * heads + h) * d;
   const bf16* kb = k + ((size_t)b * nk * heads + h) * d;
@@ -220,126 +271,217 @@ flash_bwd_dkdv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const float* lseb = lse + ((size_t)b * heads + h) * nq;
   const float* deltab = delta + ((size_t)b * heads + h) * nq;
   const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wrow = warp * MT * 16;  // this warp's first key in the block
 
-  load_rows<DP>(ks, kb, k0, nk, row_stride, d);
-  load_rows<DP>(vs, vb, k0, nk, row_stride, d);
-  for (int i = threadIdx.x; i < 64 * L::LDA; i += kThreads) {
-    dks[i] = 0.f;
-    dvs[i] = 0.f;
-  }
+  if (d < DK) zero_padding<DK, LD>(smem, P::ROWS, d);
+  load_rows<P::OWNED, LD>(ks, kb, k0, nk, row_stride, chunks);
+  load_rows<P::OWNED, LD>(vs, vb, k0, nk, row_stride, chunks);
+  load_rows<BQ, LD>(smem + P::OWN * LD, qb, 0, nq, row_stride, chunks);
+  load_rows<BQ, LD>(smem + (P::OWN + BQ) * LD, dob, 0, nq, row_stride, chunks);
+  load_stats<BQ>(stats, lseb, 0, nq);
+  load_stats<BQ>(stats + BQ, deltab, 0, nq);
+  sdt::cp_async_commit();
 
-  for (int q0 = 0; q0 < nq; q0 += BQ) {
-    load_rows<DP>(qs, qb, q0, nq, row_stride, d);
-    load_rows<DP>(dos, dob, q0, nq, row_stride, d);
-    load_stats(lses, lseb, q0, nq);
-    load_stats(deltas, deltab, q0, nq);
+  float dka[MT][NO][4], dva[MT][NO][4];
+  zero(dka);
+  zero(dva);
+
+  const int ntiles = (nq + BQ - 1) / BQ;
+  for (int t = 0; t < ntiles; ++t) {
+    sdt::cp_async_wait<0>();
     __syncthreads();
-
-    gemm_nt<DP>(ss, L::LDS, qs, ks, warp);    // S = Q K^T
-    gemm_nt<DP>(dps, L::LDS, dos, vs, warp);  // dP = dO V^T
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const float p = (q0 + r < nq && k0 + c < nk)
-                          ? exp2f(ss[r * L::LDS + c] * scale_log2e - lses[r]) : 0.f;
-      pbs[r * L::LDP + c] = __float2bfloat16(p);
-      dss[r * L::LDP + c] = __float2bfloat16(p * (dps[r * L::LDS + c] - deltas[r]) * scale);
+    if (t + 1 < ntiles) {
+      const int st = (t + 1) & 1;
+      bf16* next = smem + (P::OWN + st * 2 * BQ) * LD;
+      load_rows<BQ, LD>(next, qb, (t + 1) * BQ, nq, row_stride, chunks);
+      load_rows<BQ, LD>(next + BQ * LD, dob, (t + 1) * BQ, nq, row_stride, chunks);
+      load_stats<BQ>(stats + st * 2 * BQ, lseb, (t + 1) * BQ, nq);
+      load_stats<BQ>(stats + st * 2 * BQ + BQ, deltab, (t + 1) * BQ, nq);
+      sdt::cp_async_commit();
     }
-    __syncthreads();
+    const bf16* qs = smem + (P::OWN + (t & 1) * 2 * BQ) * LD;
+    const bf16* dos = qs + BQ * LD;
+    const float* lses = stats + (t & 1) * 2 * BQ;
+    const float* deltas = lses + BQ;
 
-    gemm_acc<DP, true>(dvs, pbs, L::LDP, dos, warp);  // dV += bf16(P)^T dO
-    gemm_acc<DP, true>(dks, dss, L::LDP, qs, warp);   // dK += dS^T Q
-    __syncthreads();
-  }
-
-  bf16* dkb = dk + ((size_t)b * nk * heads + h) * d;
-  bf16* dvb = dv + ((size_t)b * nk * heads + h) * d;
-  for (int i = threadIdx.x; i < BK * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    if (k0 + r < nk) {
-      dkb[(size_t)(k0 + r) * row_stride + c] = __float2bfloat16(dks[r * L::LDA + c]);
-      dvb[(size_t)(k0 + r) * row_stride + c] = __float2bfloat16(dvs[r * L::LDA + c]);
+    // S^T = K Q^T and dP^T = V dO^T for this warp's keys
+    float st_[MT][NS][4], dpt[MT][NS][4];
+    zero(st_);
+    zero(dpt);
+    {
+      unsigned a[MT][KD][4];
+      load_a<MT, KD, LD>(a, ks + wrow * LD, lane);
+      gemm_abt<MT, NS, KD, LD>(st_, a, qs, lane);
+      load_a<MT, KD, LD>(a, vs + wrow * LD, lane);
+      gemm_abt<MT, NS, KD, LD>(dpt, a, dos, lane);
     }
+
+    // P^T and dS^T in registers: columns are queries
+    unsigned pt[MT][NS / 2][4], dst[MT][NS / 2][4];
+    const int qbase = t * BQ;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const bool key0 = k0 + wrow + mt * 16 + g < nk;
+      const bool key1 = k0 + wrow + mt * 16 + g + 8 < nk;
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = j * 8 + 2 * tq + (e & 1);
+          const bool valid = (e < 2 ? key0 : key1) && qbase + col < nq;
+          const float pe = sdt::exp2_approx(fmaf(st_[mt][j][e], sl, -lses[col]));
+          p[e] = valid ? pe : 0.f;
+          ds[e] = valid ? ds_of(pe, dpt[mt][j][e], deltas[col], scale) : 0.f;
+        }
+        pt[mt][j / 2][j % 2 * 2] = sdt::pack_bf16(p[0], p[1]);
+        pt[mt][j / 2][j % 2 * 2 + 1] = sdt::pack_bf16(p[2], p[3]);
+        dst[mt][j / 2][j % 2 * 2] = sdt::pack_bf16(ds[0], ds[1]);
+        dst[mt][j / 2][j % 2 * 2 + 1] = sdt::pack_bf16(ds[2], ds[3]);
+      }
+    }
+
+    // dV += bf16(P)^T dO and dK += dS^T Q
+    gemm_ab<MT, NO, NS / 2, LD>(dva, pt, dos, nv, lane);
+    gemm_ab<MT, NO, NS / 2, LD>(dka, dst, qs, nv, lane);
   }
+
+  const int r0 = k0 + wrow;
+  store_rows<MT, NO>(dk + ((size_t)b * nk * heads + h) * d, dka, r0, nk, row_stride, nv, lane);
+  store_rows<MT, NO>(dv + ((size_t)b * nk * heads + h) * d, dva, r0, nk, row_stride, nv, lane);
 }
 
-// One block per (64-row q tile, head, batch): dQ of those rows.
-template <int DP>
+// One block per (MT * 64-row q tile, head, batch): dQ of those rows.
+template <int DK, int MT_>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
                     const float* __restrict__ lse, const float* __restrict__ delta,
                     bf16* __restrict__ dq, int nq, int nk, int heads, int d, float scale,
-                    float scale_log2e) {
-  using L = Smem<DP>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* dos = reinterpret_cast<bf16*>(smem + L::DO);
-  bf16* ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* vs = reinterpret_cast<bf16*>(smem + L::V);
-  float* ss = reinterpret_cast<float*>(smem + L::S);
-  float* dps = reinterpret_cast<float*>(smem + L::DP_);
-  bf16* dss = reinterpret_cast<bf16*>(smem + L::DS);
-  float* dqs = reinterpret_cast<float*>(smem + L::ACC0);
-  float* lses = reinterpret_cast<float*>(smem + L::LSE);
-  float* deltas = reinterpret_cast<float*>(smem + L::DELTA);
+                    float sl) {
+  using P = Plan<DK, MT_>;
+  constexpr int MT = P::MT;
+  constexpr int LD = P::LD;
+  constexpr int BK = P::BT;
+  constexpr int KD = DK / 16;
+  constexpr int NS = BK / 8;  // n8 tiles of S (keys)
+  constexpr int NO = DK / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* qs = smem;
+  bf16* dos = smem + P::OWNED * LD;
 
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * P::OWNED;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int row_stride = heads * d;
+  const int chunks = d / 8;
+  const int nv = d / 8;
   const bf16* qb = q + ((size_t)b * nq * heads + h) * d;
   const bf16* dob = dout + ((size_t)b * nq * heads + h) * d;
   const bf16* kb = k + ((size_t)b * nk * heads + h) * d;
   const bf16* vb = v + ((size_t)b * nk * heads + h) * d;
   const int warp = threadIdx.x / 32;
-
-  load_rows<DP>(qs, qb, q0, nq, row_stride, d);
-  load_rows<DP>(dos, dob, q0, nq, row_stride, d);
-  load_stats(lses, lse + ((size_t)b * heads + h) * nq, q0, nq);
-  load_stats(deltas, delta + ((size_t)b * heads + h) * nq, q0, nq);
-  for (int i = threadIdx.x; i < 64 * L::LDA; i += kThreads) dqs[i] = 0.f;
-
-  for (int k0 = 0; k0 < nk; k0 += BK) {
-    load_rows<DP>(ks, kb, k0, nk, row_stride, d);
-    load_rows<DP>(vs, vb, k0, nk, row_stride, d);
-    __syncthreads();
-
-    gemm_nt<DP>(ss, L::LDS, qs, ks, warp);    // S = Q K^T
-    gemm_nt<DP>(dps, L::LDS, dos, vs, warp);  // dP = dO V^T
-    __syncthreads();
-
-    for (int i = threadIdx.x; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i % BK;
-      const float p = (q0 + r < nq && k0 + c < nk)
-                          ? exp2f(ss[r * L::LDS + c] * scale_log2e - lses[r]) : 0.f;
-      dss[r * L::LDP + c] = __float2bfloat16(p * (dps[r * L::LDS + c] - deltas[r]) * scale);
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int wrow = warp * MT * 16;  // this warp's first query row in the block
+  const float* lseb = lse + ((size_t)b * heads + h) * nq;
+  const float* deltab = delta + ((size_t)b * heads + h) * nq;
+  // lse and delta of rows g and g + 8 of each m-tile
+  float lsr[MT][2], dlr[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = q0 + wrow + mt * 16 + g + 8 * i;
+      lsr[mt][i] = r < nq ? lseb[r] : 0.f;
+      dlr[mt][i] = r < nq ? deltab[r] : 0.f;
     }
-    __syncthreads();
 
-    gemm_acc<DP, false>(dqs, dss, L::LDP, ks, warp);  // dQ += dS K
+  if (d < DK) zero_padding<DK, LD>(smem, P::ROWS, d);
+  load_rows<P::OWNED, LD>(qs, qb, q0, nq, row_stride, chunks);
+  load_rows<P::OWNED, LD>(dos, dob, q0, nq, row_stride, chunks);
+  load_rows<BK, LD>(smem + P::OWN * LD, kb, 0, nk, row_stride, chunks);
+  load_rows<BK, LD>(smem + (P::OWN + BK) * LD, vb, 0, nk, row_stride, chunks);
+  sdt::cp_async_commit();
+
+  float dqa[MT][NO][4];
+  zero(dqa);
+  unsigned qf[MT][KD][4], dof[MT][KD][4];
+
+  const int ntiles = (nk + BK - 1) / BK;
+  for (int t = 0; t < ntiles; ++t) {
+    sdt::cp_async_wait<0>();
     __syncthreads();
+    if (t == 0) {
+      load_a<MT, KD, LD>(qf, qs + wrow * LD, lane);
+      load_a<MT, KD, LD>(dof, dos + wrow * LD, lane);
+    }
+    if (t + 1 < ntiles) {
+      bf16* next = smem + (P::OWN + ((t + 1) & 1) * 2 * BK) * LD;
+      load_rows<BK, LD>(next, kb, (t + 1) * BK, nk, row_stride, chunks);
+      load_rows<BK, LD>(next + BK * LD, vb, (t + 1) * BK, nk, row_stride, chunks);
+      sdt::cp_async_commit();
+    }
+    const bf16* kt = smem + (P::OWN + (t & 1) * 2 * BK) * LD;
+    const bf16* vt = kt + BK * LD;
+
+    float s[MT][NS][4], dp[MT][NS][4];
+    zero(s);
+    zero(dp);
+    gemm_abt<MT, NS, KD, LD>(s, qf, kt, lane);
+    gemm_abt<MT, NS, KD, LD>(dp, dof, vt, lane);
+
+    unsigned dsf[MT][NS / 2][4];
+    const int kbase = t * BK;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = e < 2 ? 0 : 1;
+          const bool valid = q0 + wrow + mt * 16 + g + 8 * i < nq &&
+                             kbase + j * 8 + 2 * tq + (e & 1) < nk;
+          const float pe = sdt::exp2_approx(fmaf(s[mt][j][e], sl, -lsr[mt][i]));
+          ds[e] = valid ? ds_of(pe, dp[mt][j][e], dlr[mt][i], scale) : 0.f;
+        }
+        dsf[mt][j / 2][j % 2 * 2] = sdt::pack_bf16(ds[0], ds[1]);
+        dsf[mt][j / 2][j % 2 * 2 + 1] = sdt::pack_bf16(ds[2], ds[3]);
+      }
+    }
+
+    // dQ += dS K
+    gemm_ab<MT, NO, NS / 2, LD>(dqa, dsf, kt, nv, lane);
   }
 
-  bf16* dqb = dq + ((size_t)b * nq * heads + h) * d;
-  for (int i = threadIdx.x; i < BQ * d; i += kThreads) {
-    const int r = i / d, c = i % d;
-    if (q0 + r < nq) dqb[(size_t)(q0 + r) * row_stride + c] = __float2bfloat16(dqs[r * L::LDA + c]);
-  }
+  store_rows<MT, NO>(dq + ((size_t)b * nq * heads + h) * d, dqa, q0 + wrow, nq, row_stride, nv,
+                     lane);
 }
 
-template <int DP>
+// The two passes' plans at padded head dim DK.
+template <int DK>
+struct Passes {
+  using DKDV = Plan<DK, 1>;
+  using DQ = Plan<DK, dq_m_tiles(DK)>;
+};
+
+template <int DK>
 cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, const bf16* dout,
                    const float* lse, float* delta, bf16* dq, bf16* dk, bf16* dv, int batch,
                    int nq, int nk, int heads, int d, float scale, cudaStream_t stream) {
-  constexpr int bytes = Smem<DP>::BYTES;
-  static_assert(bytes <= 232448, "shared memory per block");
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  using X = Passes<DK>;
+  static_assert(X::DKDV::BYTES <= 232448 && X::DQ::BYTES <= 232448, "shared memory per block");
+  const auto dkdv_kernel = flash_bwd_dkdv_kernel<DK, X::DKDV::MT>;
+  const auto dq_kernel = flash_bwd_dq_kernel<DK, X::DQ::MT>;
+  cudaError_t err = cudaFuncSetAttribute(dkdv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         X::DKDV::BYTES);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<DP>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  err = cudaFuncSetAttribute(dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             X::DQ::BYTES);
   if (err != cudaSuccess) return err;
   const float sl = scale * 1.4426950408889634f;
 
@@ -350,19 +492,49 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  dim3 grid_kv((nk + BK - 1) / BK, heads, batch);
-  flash_bwd_dkdv_kernel<DP><<<grid_kv, kThreads, bytes, stream>>>(
-      q, k, v, dout, lse, delta, dk, dv, nq, nk, heads, d, scale, sl);
+  dim3 grid_kv((nk + X::DKDV::OWNED - 1) / X::DKDV::OWNED, heads, batch);
+  dkdv_kernel<<<grid_kv, kThreads, X::DKDV::BYTES, stream>>>(q, k, v, dout, lse, delta, dk, dv,
+                                                             nq, nk, heads, d, scale, sl);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
-  dim3 grid_q((nq + BQ - 1) / BQ, heads, batch);
-  flash_bwd_dq_kernel<DP><<<grid_q, kThreads, bytes, stream>>>(q, k, v, dout, lse, delta, dq,
-                                                               nq, nk, heads, d, scale, sl);
+  dim3 grid_q((nq + X::DQ::OWNED - 1) / X::DQ::OWNED, heads, batch);
+  dq_kernel<<<grid_q, kThreads, X::DQ::BYTES, stream>>>(q, k, v, dout, lse, delta, dq, nq, nk,
+                                                        heads, d, scale, sl);
   return cudaGetLastError();
 }
 
+template <typename Kernel>
+cudaError_t occupancy(Kernel kernel, int bytes, int* blocks) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, bytes);
+}
+
+template <typename P, typename Kernel>
+cudaError_t plan_of(Kernel kernel, int* out) {
+  int blocks = 0;
+  const cudaError_t err = occupancy(kernel, P::BYTES, &blocks);
+  out[0] = P::OWNED;
+  out[1] = P::BT;
+  out[2] = kThreads;
+  out[3] = P::BYTES;
+  out[4] = blocks;
+  return err;
+}
+
+// The plan of one pass (which: 1 dK/dV, 2 dQ) at padded head dim DK.
+template <int DK>
+cudaError_t plan(int which, int* out) {
+  using X = Passes<DK>;
+  return which == 1 ? plan_of<typename X::DKDV>(flash_bwd_dkdv_kernel<DK, X::DKDV::MT>, out)
+                    : plan_of<typename X::DQ>(flash_bwd_dq_kernel<DK, X::DQ::MT>, out);
+}
+
 }  // namespace
+
+#define SDT_BWD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 
 // Returns the CUDA error code of the launches (0 on success). `delta` is fp32
 // scratch of [B, H, Nq]. d must be a multiple of 8 and at most 128; the
@@ -383,17 +555,26 @@ extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void*
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define SDT_BWD(DP) \
-  launch<DP>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp, batch, nq, nk, heads, d, scale, s)
-  if (d % 8 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (d <= 16) return SDT_BWD(16);
-  if (d <= 32) return SDT_BWD(32);
-  if (d <= 48) return SDT_BWD(48);
-  if (d <= 64) return SDT_BWD(64);
-  if (d <= 80) return SDT_BWD(80);
-  if (d <= 96) return SDT_BWD(96);
-  if (d <= 112) return SDT_BWD(112);
-  if (d <= 128) return SDT_BWD(128);
+  if (d % 8 || d <= 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+#define SDT_BWD(DK)                                                                        \
+  if (round_up(d, 16) == DK)                                                               \
+    return static_cast<int>(                                                               \
+        launch<DK>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp, batch, nq, nk, heads, d, scale, \
+                   s));
+  SDT_BWD_DIMS(SDT_BWD)
 #undef SDT_BWD
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// K3's plan for head dim d and pass `which` (1: dK/dV, 2: dQ): out = {rows a
+// block owns, rows of the streamed tile, threads, shared-memory bytes,
+// resident blocks per SM}.
+extern "C" int sdt_flash_bwd_plan(int d, int which, int* out) {
+  if (d % 8 || d <= 0 || d > 128 || (which != 1 && which != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+#define SDT_PLAN(DK) \
+  if (round_up(d, 16) == DK) return static_cast<int>(plan<DK>(which, out));
+  SDT_BWD_DIMS(SDT_PLAN)
+#undef SDT_PLAN
   return static_cast<int>(cudaErrorInvalidValue);
 }

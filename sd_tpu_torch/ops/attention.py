@@ -10,7 +10,17 @@ in ``sd_tpu``. Dispatch on a CUDA tensor:
 - cross-attention (77 keys) and CLIP's causal masked attention use plain
   torch ops with an fp32 softmax, as ``sd_tpu`` leaves them to XLA;
 - every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),
-  whose backward recomputes through the plain version.
+  whose backward recomputes through the plain version, unless the module
+  trains with a dropout above 0: then GEGLU, the dropout and the output
+  projection run in plain PyTorch, as ``sd_tpu`` takes its kernel only for a
+  deterministic call or a dropout of 0.
+
+The kernels are bf16. :func:`takes_kernel` is the dispatch rule on the
+dtype: a CUDA tensor that is not bf16 (an fp32 model, ``SD_TPU_PRECISION=fp32``,
+or training outside autocast) goes to the plain versions
+(``flash_attention_plain``, ``geglu_ff_plain``), as ``sd_tpu``'s FF gate
+sends non-bf16 inputs to XLA. The dtype is the one the kernel would see:
+autocast's where autocast is on.
 
 In the int8 serving mode (``ops/quant.py``; the mode is held on each
 module's ``int8``), as ``sd_tpu``: the self-attention sites that
@@ -47,11 +57,13 @@ from sd_tpu_torch.ops.cuda import (
     int8_dense,
     resolve_int8,
 )
-from sd_tpu_torch.ops.cuda.geglu_ff import int8_ff_supported, quantize_cols, quantize_ff_weights
+from sd_tpu_torch.ops.cuda.geglu_ff import (geglu_ff_plain, int8_ff_supported, quantize_cols,
+                                            quantize_ff_weights)
 from sd_tpu_torch.ops.cuda.int8_dense import block_m
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
 __all__ = [
+    "takes_kernel",
     "dot_product_attention",
     "GEGLU",
     "FeedForward",
@@ -62,6 +74,25 @@ __all__ = [
 ]
 
 
+def takes_kernel(device_type: str, dtype: torch.dtype) -> bool:
+    """Whether a call goes to a kernel wrapper: always on the CPU (where the
+    wrappers compute their plain versions), and on the card only in bf16,
+    the kernels' dtype; another dtype on the card takes the plain version."""
+    return device_type != "cuda" or dtype == torch.bfloat16
+
+
+def _kernel_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype a kernel wrapper would be handed: autocast's where autocast
+    is on for the tensor's device (the wrappers cast to it), else the tensor's."""
+    if torch.is_autocast_enabled(t.device.type):
+        return torch.get_autocast_dtype(t.device.type)
+    return t.dtype
+
+
+def _takes_kernel(t: torch.Tensor) -> bool:
+    return takes_kernel(t.device.type, _kernel_dtype(t))
+
+
 def dot_product_attention(q, k, v, scale: Optional[float] = None,
                           mask: Optional[torch.Tensor] = None,
                           int8: quant.Int8Mode = quant.INT8_OFF) -> torch.Tensor:
@@ -69,7 +100,7 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     ``int8`` is the serving mode of the calling module."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if mask is None and q.shape[1] == k.shape[1]:
+    if mask is None and q.shape[1] == k.shape[1] and _takes_kernel(q):
         mode = resolve_int8(int8, q, k)
         if mode != "off":
             return flash_attention_int8(q, k, v, scale, mode)
@@ -94,17 +125,23 @@ def _from_tokens(x: torch.Tensor, h: int, w: int) -> torch.Tensor:
 
 class GEGLU(nn.Module):
     """The gated projection; holds ``proj`` (``[2·dim_out, dim_in]``, value
-    rows first). :class:`FeedForward` applies it through the K2 kernel."""
+    rows first). :class:`FeedForward` applies it through the K2 kernel, or
+    through this module's own forward where it keeps the dropout."""
 
     def __init__(self, dim_in: int, dim_out: int):
         super().__init__()
         self.proj = nn.Linear(dim_in, dim_out * 2)
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        a, gate = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(gate)
+
 
 class FeedForward(quant.Int8Weights, nn.Module):
     """Gated transformer MLP ``net = [GEGLU, Dropout, Linear]``, applied as one
     K2 call (:func:`differentiable_geglu_ff`), or one K4 call where the int8
-    mode's site gate passes."""
+    mode's site gate passes; module by module where it trains with a dropout
+    above 0, and through the plain version where the card's input is not bf16."""
 
     int8_bucket = "ff"
 
@@ -123,7 +160,12 @@ class FeedForward(quant.Int8Weights, nn.Module):
         return quantize_ff_weights(w1, w2, w1.dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        proj, out = self.net[0].proj, self.net[2]
+        geglu, dropout, out = self.net
+        if self.training and dropout.p > 0:
+            return out(dropout(geglu(x)))
+        proj = geglu.proj
+        if not _takes_kernel(x):
+            return geglu_ff_plain(x, proj.weight, proj.bias, out.weight, out.bias)
         if int8_ff_supported(self.int8, x, out.weight.shape[1]):
             return geglu_ff_int8(x, proj.weight, proj.bias, out.weight, out.bias,
                                  self.int8_weights())

@@ -12,8 +12,11 @@ does about that.
   kernels for a CUDA tensor and use :func:`flash_attention_plain` /
   :func:`flash_attention_bwd_plain` for a CPU tensor only. The card's path is
   bf16: a CUDA tensor of another dtype raises, as does any shape a kernel
-  does not take. ``flash_attention.launches`` and
-  ``flash_attention_bwd.launches`` count kernel launches (one per call).
+  does not take (``ops/attention.py::takes_kernel`` sends the card's other
+  dtypes to the plain versions before they get here).
+  ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
+  kernel launches (one per call).
+  :func:`kernel_plan` reads each kernel's launch plan from the library.
 - :func:`differentiable_flash_attention` is the entry point for code that
   may need gradients: where autograd records, it runs a
   ``torch.autograd.Function`` whose forward is K1 (with the row log-sum-exp
@@ -34,6 +37,7 @@ autograd would record.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -46,7 +50,7 @@ from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_ro
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "differentiable_flash_attention", "resolve_int8", "flash_attention_int8",
-           "flash_attention_int8_plain"]
+           "flash_attention_int8_plain", "kernel_plan"]
 
 _MAX_HEAD_DIM = 512
 _MAX_BWD_HEAD_DIM = 128
@@ -151,9 +155,31 @@ def _check_bwd_inputs(q, k, v, o, do, lse):
         raise ValueError(f"flash_attention_bwd: head dim {d} above {_MAX_BWD_HEAD_DIM}")
 
 
+def _check_scale(scale: float, what: str) -> None:
+    # the kernels take the row max of the raw logits before scaling them
+    if not scale > 0:
+        raise ValueError(f"{what}: scale must be positive, got {scale}")
+
+
+def kernel_plan(d: int, which: str = "K1") -> dict:
+    """The launch plan of K1 ("K1") or of one of K3's passes ("K3 dK/dV",
+    "K3 dQ") at head dim ``d``, from the loaded library: the rows a block
+    owns, the rows of the tile it streams, threads and shared-memory bytes
+    per block, and the blocks that fit on one SM. Needs the card."""
+    out = (ctypes.c_int * 5)()
+    lib = kernels()
+    if which == "K1":
+        err = lib.sdt_flash_plan(d, out)
+    else:
+        err = lib.sdt_flash_bwd_plan(d, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
+    check(err, f"{which} plan at d={d}")
+    return dict(zip(("rows", "tile", "threads", "smem_bytes", "blocks_per_sm"), out))
+
+
 def _launch_forward(q, k, v, scale: float, with_lse: bool):
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     _check_inputs(q, k, v)
+    _check_scale(scale, "flash_attention")
     b, nq, h, d = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((b, h, nq), dtype=torch.float32, device=q.device) if with_lse else None
@@ -195,6 +221,7 @@ def flash_attention_bwd(q, k, v, o, do, lse: Optional[torch.Tensor], scale: floa
         raise ValueError(f"flash_attention_bwd: no path for device {q.device}")
     q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
     _check_bwd_inputs(q, k, v, o, do, lse)
+    _check_scale(scale, "flash_attention_bwd")
     b, nq, h, d = q.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     delta = torch.empty((b, h, nq), dtype=torch.float32, device=q.device)
