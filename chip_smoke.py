@@ -77,11 +77,13 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    (GroupNorm32, SiLU, F.conv2d with bias, + skip, and the next GroupNorm's
    statistics); one gradient through K7's autograd function against the
    plain backward;
-14. K8 and X3 Winograd F(2x2,3x3): against their plain versions and
-   F.conv2d (cuDNN, the library yardstick) at every K8 site shape of the
-   serving path, then the X3 experiment of tools/exp_winograd.py
-   (timing_split) at its four levels at B=16, K8 beside it; X3's launches
-   are counted over that experiment;
+14. K8 and X3 Winograd F(2x2,3x3): given U (as Conv3x3 keeps it), against
+   their plain versions and F.conv2d (cuDNN, the library yardstick) at
+   every K8 site shape of the serving path, at the X3 experiment of
+   tools/exp_winograd.py (timing_split) at its four levels at B=16, K8
+   beside it, and at two ragged shapes (WINO_RAGGED); the launch plan the
+   library chooses at each, the kernel's ms with U given and the whole
+   call's; X3's launches are counted over that experiment;
 15. conv-mode reference: the small UNet of tests/test_torch_conv_modes.py
    (model_channels 128, channel_mult [1, 2], 32² latents) in bf16 on the
    card with both modes against fp32 on the CPU;
@@ -234,6 +236,10 @@ WINO_SHAPES = [(2, 320, 64, 320), (2, 960, 64, 320), (2, 640, 64, 320), (2, 640,
                (1, 128, 512, 128)]
 # tools/exp_winograd.py's LEVELS at its B=16: X3's experiment path
 X3_LEVELS = [(16, 320, 64, 320), (16, 640, 32, 640), (16, 1280, 16, 1280), (16, 1280, 8, 1280)]
+# K8 and X3 off the plans' multiples (B, C, H, W, K): tile grids of 9 x 17
+# and 11 x 20, C not a multiple of the channel step, K not of a block's
+# channels; W = 34 takes X3's 4-byte copies, W = 40 its 16-byte ones
+WINO_RAGGED = [(1, 136, 18, 34, 136), (2, 200, 22, 40, 264)]
 # K7's and K8's sites per request of SD v1 (gates of sd_tpu, asserted equal
 # on these shapes by tests/test_torch_conv_modes.py): fused blocks (two
 # launches each) and Winograd Conv3x3 calls per UNet evaluation and in the
@@ -297,10 +303,11 @@ def build() -> None:
         elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
             log(f"[build]   {kernel}: {line}")
         elif "Used" in line and kernel not in seen:
-            # K1's and K3's kernels by name and template arguments
-            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?", kernel or "")
+            # K1's, K3's, K8's and X3's kernels by name and template arguments
+            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel",
+                             kernel or "")
             if name:
-                args = ",".join(re.findall(r"Li(\d+)E", kernel))
+                args = ",".join(re.findall(r"L[ib](\d+)E", kernel))
                 log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
             seen.add(kernel)
 
@@ -747,35 +754,73 @@ def check_fused_grad(randn) -> None:
             raise AssertionError(f"K7 gradient d{name}: relative L2 {rel}")
 
 
-def check_winograd(randn) -> dict:
-    """K8 and X3 at every K8 site of the serving path and at the X3
-    experiment's levels, against their plain version (fp32 on the same bf16
-    inputs) and against F.conv2d in fp32, with F.conv2d's bf16 ms."""
+def log_winograd_plan(label: str, x_shape, k: int, split: bool) -> None:
+    """The launch plan the library chooses for K8 or X3 at this shape."""
+    from sd_tpu_torch.ops.cuda.winograd_conv import kernel_plan
+
+    plan = kernel_plan(x_shape, k, split)
+    slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
+    log(f"[{label} plan] {tuple(x_shape)}->{k}: plan {plan['plan']}, "
+        f"{plan['tile_rows']} x {plan['tile_cols']} tiles and {plan['channels']} channels a "
+        f"block, {plan['channel_step']} input channels a step, {plan['threads']} threads, "
+        f"{plan['smem_bytes']} bytes of shared memory, {plan['blocks_per_sm']} blocks per SM; "
+        f"{plan['blocks']} blocks, {plan['blocks'] / slots:.2f} waves")
+
+
+def winograd_case(randn, shape, timed: bool = True) -> dict:
+    """K8 and X3 at one shape (B, C, H, W, K), given U (the weight transform
+    rounded to bf16, as Conv3x3 keeps it), against their plain version (fp32
+    on the same bf16 inputs) and against F.conv2d in fp32; raises
+    CheckFailed on either. Timed: each kernel's ms with U given, the whole
+    wrapper's ms (U computed in the call), the plain version's, F.conv2d's
+    in bf16 and the bound."""
     from sd_tpu_torch.ops.cuda import (winograd_conv3x3, winograd_conv3x3_plain,
                                        winograd_conv3x3_split)
+    from sd_tpu_torch.ops.cuda.winograd_conv import weight_transform
 
+    b, c, h, wd, k = shape
+    x = randn(b, c, h, wd).to(torch.bfloat16)
+    w = (randn(k, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
+    u = weight_transform(w).to(torch.bfloat16).contiguous()
+    ref = winograd_conv3x3_plain(x.float(), w.float())
+    direct = F.conv2d(x.float(), w.float(), padding=1)
+    rows = {}
+    for name, fn, label in (("winograd_conv3x3", winograd_conv3x3, "K8"),
+                            ("winograd_conv3x3_split", winograd_conv3x3_split, "X3")):
+        got = fn(x, w, u=u)
+        torch.cuda.synchronize()
+        err = check_error(f"{label} {name}", shape, got, ref)
+        check_error(f"{label} {name} against F.conv2d", shape, got, direct)
+        rows[name] = dict(err=err)
+    if not timed:
+        return rows
+    plain_ms = time_ms(lambda: winograd_conv3x3_plain(x, w), iters=5)
+    library_ms = time_ms(lambda: F.conv2d(x, w, padding=1))
+    bnd = bound(2 * b * (h // 2) * (wd // 2) * 16 * c * k,
+                b * c * h * wd * 2 + 9 * c * k * 2 + b * k * h * wd * 2)
+    for name, fn, label in (("winograd_conv3x3", winograd_conv3x3, "K8"),
+                            ("winograd_conv3x3_split", winograd_conv3x3_split, "X3")):
+        log_winograd_plan(label, x.shape, k, name.endswith("split"))
+        ms = time_ms(lambda: fn(x, w, u=u))
+        call_ms = time_ms(lambda: fn(x, w))
+        log(f"[{label} {name}] {shape}: kernel {ms:.4f} ms (U given), whole call {call_ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, F.conv2d {library_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        rows[name].update(ms=ms, call_ms=call_ms, plain_ms=plain_ms, library_ms=library_ms,
+                          **bnd)
+    return rows
+
+
+def check_winograd(randn) -> dict:
+    """K8 and X3 at every K8 site of the serving path and at the X3
+    experiment's levels (the rows of the kernels line), then at the ragged
+    shapes of WINO_RAGGED (checked and timed, not summed)."""
     rows = {"winograd_conv3x3": [], "winograd_conv3x3_split": []}
     for b, c, hw, k in WINO_SHAPES + X3_LEVELS:
-        shape = (b, c, hw, hw, k)
-        x = randn(b, c, hw, hw).to(torch.bfloat16)
-        w = (randn(k, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
-        ref = winograd_conv3x3_plain(x.float(), w.float())
-        direct = F.conv2d(x.float(), w.float(), padding=1)
-        plain_ms = time_ms(lambda: winograd_conv3x3_plain(x, w), iters=5)
-        library_ms = time_ms(lambda: F.conv2d(x, w, padding=1))
-        bnd = bound(2 * b * (hw // 2) ** 2 * 16 * c * k,
-                    b * c * hw * hw * 2 + 9 * c * k * 2 + b * k * hw * hw * 2)
-        for name, fn, label in (("winograd_conv3x3", winograd_conv3x3, "K8"),
-                                ("winograd_conv3x3_split", winograd_conv3x3_split, "X3")):
-            got = fn(x, w)
-            torch.cuda.synchronize()
-            err = check_error(f"{label} {name}", shape, got, ref)
-            check_error(f"{label} {name} against F.conv2d", shape, got, direct)
-            ms = time_ms(lambda: fn(x, w))
-            log(f"[{label} {name}] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, F.conv2d "
-                f"{library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-            rows[name].append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                   **bnd))
+        for name, row in winograd_case(randn, (b, c, hw, hw, k)).items():
+            rows[name].append(row)
+    for shape in WINO_RAGGED:
+        winograd_case(randn, shape)
     return rows
 
 

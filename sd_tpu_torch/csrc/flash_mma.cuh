@@ -1,8 +1,9 @@
 // Register-level building blocks of the flash-attention kernels K1
-// (flash_attention.cu) and K3 (flash_attention_bwd.cu) for Hopper (sm_90a):
-// asynchronous 16-byte copies into shared memory, ldmatrix, the
-// mma.sync.m16n8k16 bf16 product with fp32 accumulators, and the softmax
-// pieces both kernels share.
+// (flash_attention.cu) and K3 (flash_attention_bwd.cu) and of K8/X3
+// (winograd_conv.cu) for Hopper (sm_90a): asynchronous 16-byte copies into
+// shared memory, ldmatrix, the mma.sync.m16n8k16 bf16 product with fp32
+// accumulators, the softmax pieces K1 and K3 share, and the warpgroup
+// product wgmma.mma_async with both operands in shared memory.
 //
 // Fragments of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -86,6 +87,116 @@ __device__ __forceinline__ float exp2_approx(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
   return y;
+}
+
+// wgmma: four warps (a warpgroup, 128 threads) compute D[64 x N] += A[64 x 16]
+// B[16 x N] asynchronously, both operands read from shared memory through
+// 64-bit descriptors. Here both are MN-major and swizzled: an operand of
+// MN x 16 is made of "atoms" of 8 K-rows of ROW bytes (128, 64 or 32: ROW / 2
+// MN-contiguous elements), whose 16-byte chunks are permuted by swizzle()
+// below; an atom is 8 ROW bytes and must be aligned to that. SBO is the
+// byte stride between atoms adjacent in K, LBO between atoms adjacent in
+// MN (where MN > ROW / 2).
+// The accumulator of thread (warp w of the group, lane g * 4 + t) holds
+// d[4 j + 2 h + e] = D[16 w + g + 8 h][8 j + 2 t + e], as the C fragments
+// of m16n8k16 for n8 tiles j = 0 .. N / 8 - 1.
+template <int ROW>
+__device__ __forceinline__ uint64_t wgmma_desc(const void* p, unsigned sbo, unsigned lbo = 16) {
+  constexpr uint64_t layout = ROW == 128 ? 1 : ROW == 64 ? 2 : 3;
+  return (uint64_t)((smem_addr(p) >> 4) & 0x3fff) | (uint64_t)((lbo >> 4) & 0x3fff) << 16 |
+         (uint64_t)((sbo >> 4) & 0x3fff) << 32 | layout << 62;
+}
+
+// The byte offset, within an atom of rows of ROW bytes, that holds logical
+// offset o: the 16-byte chunk index XOR the row's bits above 128 bytes.
+template <int ROW>
+__device__ __forceinline__ unsigned swizzle(unsigned o) {
+  constexpr unsigned mask = ROW == 128 ? 7 : ROW == 64 ? 3 : 1;
+  return o ^ (((o >> 7) & mask) << 4);
+}
+
+// Before a batch of wgmma: orders the accumulators' earlier register writes.
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Waits until at most N of this warpgroup's committed batches are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Orders this thread's earlier writes to shared memory (stores and completed
+// cp.async copies) before later reads of the async proxy (wgmma).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= A B, m64nNk16, bf16 operands MN-major in shared memory, fp32
+// accumulators; accumulate = 0 overwrites d.
+template <int N>
+__device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                           int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<16>(float (&d)[8], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<32>(float (&d)[16], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, "
+      "1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<48>(float (&d)[24], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
 }
 
 // The maximum and the sum over the four threads of a quad (one fragment row).

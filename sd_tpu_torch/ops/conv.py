@@ -12,6 +12,11 @@
 3. otherwise ``F.conv2d`` (cuDNN on the card), as ``sd_tpu`` leaves it to XLA.
 
 After Winograd the bias is added in the activation dtype, as in ``sd_tpu``.
+Where autograd does not record, K8 reads U (the weight transform, rounded
+to the activation dtype) from a copy the module keeps and rebuilds whenever
+the weight is replaced or changed in place (:meth:`Conv3x3.winograd_u`);
+``sd_tpu`` computes U inside its jitted program, where XLA can hoist it out
+of the sampler's loop.
 NCHW activations, OIHW weights as in the CompVis checkpoints.
 """
 
@@ -21,7 +26,8 @@ import torch
 from torch import nn
 
 from sd_tpu_torch.ops import quant
-from sd_tpu_torch.ops.cuda.winograd_conv import winograd_conv3x3, winograd_supported
+from sd_tpu_torch.ops.cuda.winograd_conv import (weight_transform, winograd_conv3x3,
+                                                 winograd_supported)
 
 __all__ = ["Conv3x3"]
 
@@ -44,10 +50,25 @@ class Conv3x3(quant.Int8Weights, nn.Conv2d):
         kq, sw = quant.quantize_conv_kernel(self.weight)
         return {"kq": kq, "sw": sw}
 
+    def winograd_u(self, dtype: torch.dtype) -> torch.Tensor:
+        """K8's U [16, C, K] of the weight in ``dtype``: computed once per
+        weight version, keyed as :meth:`int8_weights` keys its copies."""
+        w = self.weight
+        key = (w.data_ptr(), w.dtype, w.device, w._version, dtype)
+        cache = getattr(self, "_winograd_cache", None)
+        if cache is None or cache[0] != key:
+            with torch.no_grad():
+                cache = (key, weight_transform(w.to(dtype)).to(dtype).contiguous())
+            self._winograd_cache = cache
+        return cache[1]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.impl == "winograd" and winograd_supported(x.shape, self.weight.shape, x.dtype,
                                                           x.device):
-            y = winograd_conv3x3(x, self.weight.to(x.dtype))
+            w = self.weight.to(x.dtype)
+            recording = torch.is_grad_enabled() and (x.requires_grad or w.requires_grad)
+            u = None if recording else self.winograd_u(x.dtype)
+            y = winograd_conv3x3(x, w, u)
             return y + self.bias.to(x.dtype)[:, None, None]
         if quant.int8_enabled(self.int8, x):
             qw = self.int8_weights()

@@ -52,8 +52,11 @@ _SIGNATURES = {
     "sdt_flash_int8_padded_dim": [_I],
     # x, w, a, d, bias, skip, y, m1, m2, batch, c, h, w, n, stream
     "sdt_fused_conv3x3": [_P] * 9 + [_I] * 5 + [_P],
-    # p00, p01, p10, p11, x, u, y, batch, c, h, w, k, split, stream
-    "sdt_winograd_conv3x3": [_P] * 7 + [_I] * 6 + [_P],
+    # in (K8: the parity buffer; X3: x), u, y, batch, c, h, w, k, s1p, split,
+    # stream
+    "sdt_winograd_conv3x3": [_P] * 3 + [_I] * 7 + [_P],
+    # split, batch, h, w, k, int[9] out: K8's or X3's launch plan
+    "sdt_winograd_plan": [_I] * 5 + [_P],
     # x, gamma, beta, wqkv, wo, bo, qkv, out, batch, n, heads, d, stream
     "sdt_fused_block": [_P] * 8 + [_I] * 4 + [_P],
     # c, d -> the row tile of X1's attention launch (0: not taken)

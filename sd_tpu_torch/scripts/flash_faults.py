@@ -1,19 +1,20 @@
-"""Plant faults in copies of K1's and K3's sources and show that
-``chip_smoke.py``'s checks fail on each, at every N=4096 shape.
+"""Plant faults in copies of K1's, K3's, K8's and X3's sources and show
+that ``chip_smoke.py``'s checks fail on each, at every shape they cover.
 
-    python -m sd_tpu_torch.scripts.flash_faults            (from the repository root)
+    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K8|X3 ...]   (from the repository root)
 
-For each fault in :data:`FAULTS` the package is copied into
-``build/flash_faults/<name>/`` (git-ignored), the fault's replacements are
-made in the copy's ``csrc`` (each must match its expected count, so a
-fault that no longer applies fails loudly), and a child process with that
-copy first on ``sys.path`` builds its kernels and runs the smoke's
-``flash_case`` (K1 faults) or ``flash_bwd_case`` (K3 faults) at every N=4096
-shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``, with plain and with sharp
-logits. A run "fails" where a check raises ``CheckFailed``; its margin is
-the error over the check's bound. The script prints one JSON line of every
-margin, last, and exits 1 unless every fault failed at every shape. Needs a
-card.
+For each fault in :data:`FAULTS` (those of the kernels named, or all) the
+package is copied into ``build/flash_faults/<name>/`` (git-ignored), the
+fault's replacements are made in the copy's ``csrc`` (each must match its
+expected count, so a fault that no longer applies fails loudly), and a
+child process with that copy first on ``sys.path`` builds its kernels and
+runs the smoke's checks: ``flash_case`` (K1 faults) or ``flash_bwd_case``
+(K3 faults) at every N=4096 shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``,
+with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
+source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both. A run
+"fails" where a check raises ``CheckFailed``; its margin is the error over
+the check's bound. The script prints one JSON line of every margin, last,
+and exits 1 unless every fault failed at every shape. Needs a card.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1 or K3, [(source file, text, replacement, count)])
+# name: (K1, K3, K8 or X3, [(source file, text, replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
@@ -44,6 +45,14 @@ FAULTS = {
     "dS without delta": ("K3", [
         ("flash_attention_bwd.cu", "return p * (dp - delta) * scale;", "return p * dp * scale;",
          1)]),
+    "the last channel step dropped": ("K8", [
+        ("winograd_conv.cu", "const int nsteps = (C + CS - 1) / CS;",
+         "const int nsteps = (C + CS - 1) / CS - 1;", 1)]),
+    "one sign of the z1 fold flipped": ("K8", [
+        ("winograd_conv.cu", "m[1][j] - m[2][j] - m[3][j]", "m[1][j] - m[2][j] + m[3][j]", 1)]),
+    "X3's top halo row read from row 0": ("X3", [
+        ("winograd_conv.cu", "const int yy = 2 * r0 - 1 + pr;",
+         "const int yy = max(2 * r0 - 1 + pr, 0);", 1)]),
 }
 
 
@@ -67,15 +76,25 @@ def _smoke():
 
 def run_checks(kernel: str) -> dict:
     """In the child: the smoke's K1 or K3 case at every N=4096 shape, plain
-    and sharp; returns {shape (sharp): margin, or None where it passed}."""
+    and sharp, or its Winograd case (K8 and X3) at every UNet shape; returns
+    {shape (sharp): margin, or None where it passed}."""
     import torch
 
     smoke = _smoke()
-    shapes = smoke.FLASH_SHAPES if kernel == "K1" else smoke.BWD_SHAPES
-    case = smoke.flash_case if kernel == "K1" else smoke.flash_bwd_case
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     margins = {}
+    if kernel in ("K8", "X3"):
+        for b, c, hw, k in (s for s in smoke.WINO_SHAPES if s[0] == 2):
+            label = "x".join(map(str, (b, c, hw, hw, k)))
+            try:
+                smoke.winograd_case(randn, (b, c, hw, hw, k), timed=False)
+                margins[label] = None
+            except smoke.CheckFailed as failed:
+                margins[label] = failed.err / failed.limit
+        return margins
+    shapes = smoke.FLASH_SHAPES if kernel == "K1" else smoke.BWD_SHAPES
+    case = smoke.flash_case if kernel == "K1" else smoke.flash_bwd_case
     for shape in (s for s in shapes if s[1] == 4096):
         for sharp in (False, True):
             label = "x".join(map(str, shape)) + ("/sharp" if sharp else "")
@@ -92,8 +111,11 @@ def main() -> None:
     if len(sys.argv) == 3 and sys.argv[1] == "--child":
         print(json.dumps(run_checks(sys.argv[2])))
         return
+    wanted = set(sys.argv[1:]) or {kernel for kernel, _ in FAULTS.values()}
     results, ok = {}, True
     for name, (kernel, edits) in FAULTS.items():
+        if kernel not in wanted:
+            continue
         copy = ROOT / "build" / "flash_faults" / name.replace(" ", "_").replace("'", "")
         shutil.rmtree(copy, ignore_errors=True)
         shutil.copytree(ROOT / "sd_tpu_torch", copy / "sd_tpu_torch",

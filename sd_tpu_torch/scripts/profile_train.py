@@ -31,6 +31,7 @@ GROUPS: List[Tuple[str, Tuple[str, ...]]] = [
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K3 flash_attention_bwd", ("flash_bwd_",)),
     ("K2 geglu_ff", ("gemm_nt_kernel",)),
+    ("K8/X3 winograd_conv3x3", ("winograd_kernel<",)),
     ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
     ("convs (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit_", "winograd")),
     ("matmul (cuBLAS)", ("gemm", "cutlass", "xmma", "nvjet", "splitK")),

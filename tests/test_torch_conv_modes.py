@@ -14,6 +14,8 @@ Tolerances (fp32 on both sides; only the order of the fp32 sums differs):
   output's scale (max |sd_tpu|, at least 1), the moments within 1e-5 of
   theirs;
 - fold_gn_affine: rtol 1e-6, atol 1e-6 (the same elementwise fp32 ops);
+- Conv3x3's cached U (bf16) against sd_tpu's fp32 weight_transform: rtol
+  2^-8, one bf16 rounding;
 - the fused ResBlock and VAEResnetBlock: 2e-5 of the output's scale (two
   convs and the GroupNorm statistics between them);
 - the small UNet: 1e-4 of the output's scale, as tests/test_torch_models.py
@@ -44,7 +46,8 @@ from sd_tpu_torch.ops.cuda import (fused_conv3x3, fused_conv3x3_plain, winograd_
                                    winograd_conv3x3_plain, winograd_conv3x3_split)
 from sd_tpu_torch.ops.cuda.fused_conv import (fold_gn_affine, fused_conv_enabled,
                                               fused_conv_supported, parse_fused_conv)
-from sd_tpu_torch.ops.cuda.winograd_conv import (parse_conv_impl, weight_transform,
+from sd_tpu_torch.ops.cuda.winograd_conv import (_parity_buffer, _parity_planes,
+                                                 parse_conv_impl, weight_transform,
                                                  winograd_supported)
 from sd_tpu_torch.ops.norms import group_stats
 from sd_tpu_torch.ops.resblock import (ResBlock, VAEResnetBlock, _fused_pair_supported,
@@ -422,6 +425,85 @@ def test_winograd_grads_match_jax():
         gx, gw = torch.autograd.grad((fn(xt, wt) * _nchw(g)).sum(), (xt, wt))
         _close(_nhwc(gx), want[0], what="dx")
         _close(gw.numpy().transpose(2, 3, 1, 0), want[1], what="dw")
+
+
+def test_winograd_with_u_matches_pallas_off_the_block_multiples():
+    """K8 and X3 given U, at a shape whose tile grid (9 x 17) and C (136) are
+    not multiples of any plan's patch and channel step, against sd_tpu's
+    winograd_conv3x3 in interpret mode."""
+    x = _np(60, (1, 18, 34, 136))
+    wk = _np(61, (3, 3, 136, 136), (9 * 136) ** -0.5)
+    want = np.asarray(jwino.winograd_conv3x3(jnp.asarray(x), jnp.asarray(wk), interpret=True))
+    u = weight_transform(_oihw(wk))
+    for fn in (winograd_conv3x3, winograd_conv3x3_split):
+        _close(_nhwc(fn(_nchw(x), _oihw(wk), u=u)), want, what=fn.__name__)
+
+
+def test_parity_buffer_holds_the_four_planes():
+    """K8's one-copy input at an odd S + 1 (17, pitch 24): plane P_ij at
+    [:, :, i, j], its S + 1 columns as _parity_planes builds them, zeros in
+    the pitch's padding."""
+    x = torch.from_numpy(_np(62, (2, 3, 10, 32)))
+    buf, s1p = _parity_buffer(x)
+    assert s1p == 24 and buf.shape == (2, 3, 2, 2, 6, 24) and buf.is_contiguous()
+    planes = _parity_planes(x)
+    for i in range(2):
+        for j in range(2):
+            assert torch.equal(buf[:, :, i, j, :, :17], planes[2 * i + j])
+            assert not buf[:, :, i, j, :, 17:].any()
+
+
+def _winograd_conv3x3_module(seed, cin, cout, dtype=torch.float32):
+    conv = Conv3x3(cin, cout).to(dtype)
+    with torch.no_grad():
+        conv.weight.copy_(torch.from_numpy(_np(seed, (cout, cin, 3, 3), (9 * cin) ** -0.5)))
+    conv.impl = "winograd"
+    return conv
+
+
+def test_conv3x3_winograd_u_is_cached_per_weight_version():
+    """Conv3x3 keeps U = weight_transform(w) rounded to the dtype, equal to
+    sd_tpu's weight_transform within that rounding, computed once and again
+    after an in-place edit of the weight."""
+    conv = _winograd_conv3x3_module(63, 24, 40, torch.bfloat16)
+    u = conv.winograd_u(torch.bfloat16)
+    assert u.dtype == torch.bfloat16 and u.shape == (16, 24, 40)
+    assert torch.equal(u, weight_transform(conv.weight).to(torch.bfloat16))
+    w_hwio = conv.weight.detach().float().permute(2, 3, 1, 0).numpy()
+    want = np.asarray(jwino.weight_transform(jnp.asarray(w_hwio)))
+    np.testing.assert_allclose(u.float().numpy(), want, rtol=2**-8, atol=1e-6)
+    assert conv.winograd_u(torch.bfloat16) is u
+    with torch.no_grad():
+        conv.weight.mul_(2)
+    again = conv.winograd_u(torch.bfloat16)
+    assert again is not u
+    assert torch.equal(again, weight_transform(conv.weight).to(torch.bfloat16))
+
+
+def test_conv3x3_winograd_u_cache_serves_without_autograd_only(monkeypatch):
+    """Under no_grad Conv3x3 hands K8 its cached U; while autograd records it
+    does not, and its gradients still match jax.grad of sd_tpu's kernel in
+    interpret mode."""
+    monkeypatch.setattr(port_conv, "winograd_supported", lambda *a: True)
+    seen = []
+    real = port_conv.winograd_conv3x3
+    monkeypatch.setattr(port_conv, "winograd_conv3x3",
+                        lambda x, w, u=None: seen.append(u) or real(x, w, u=u))
+    conv = _winograd_conv3x3_module(64, 128, 128)
+    x = _np(65, (1, 16, 32, 128))
+    g = _np(66, (1, 16, 32, 128))
+    with torch.no_grad():
+        conv(_nchw(x))
+    assert seen[-1] is conv.winograd_u(torch.float32)
+    del conv._winograd_cache
+    xt = _nchw(x).requires_grad_()
+    gx, gw = torch.autograd.grad((conv(xt) * _nchw(g)).sum(), (xt, conv.weight))
+    assert seen[-1] is None and not hasattr(conv, "_winograd_cache")
+    w_hwio = conv.weight.detach().permute(2, 3, 1, 0).numpy()
+    want = jax.grad(lambda a, b: jnp.sum(jwino.winograd_conv3x3(a, b, interpret=True) * g),
+                    argnums=(0, 1))(jnp.asarray(x), jnp.asarray(w_hwio))
+    _close(_nhwc(gx), want[0], what="dx")
+    _close(gw.numpy().transpose(2, 3, 1, 0), want[1], what="dw")
 
 
 def test_conv3x3_winograd_matches_sd_tpu(monkeypatch):
