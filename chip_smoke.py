@@ -12,15 +12,19 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 2. build: nvcc builds sd_tpu_torch/csrc into build/sd_tpu_torch (git-ignored);
 3. K1 flash attention and 4. K2 GEGLU feed-forward: each kernel against its
    plain PyTorch version at every shape of the serving path at batch 1 with
-   guidance (B=2), of the training path at batch 4 and (K1) of the serving
-   path at batch 8 (B=16), bf16 inputs, the plain version computed in fp32
+   guidance (B=2), of the training path at batch 4 and of the serving path
+   at batch 8 (B=16), and (K2) at one ragged shape, bf16 inputs, the plain
+   version computed in fp32
    from the same inputs (one batch element at a time where its logits would
    pass 2 GiB); K1's row log-sum-exp (the statistic K3 reads) against its
    plain version too, and every K1 shape a second time with sharp logits
    (q times SHARP); K1's launch plan at each shape (blocks, shared memory,
-   blocks per SM, waves); max abs error and the ms of each (CUDA events),
-   the bound, and the ms of one PyTorch call computing the same function
-   (scaled_dot_product_attention for K1; none for K2);
+   blocks per SM, waves) and K2's per GEMM (a block's rows and columns,
+   stages, blocks, k splits, waves) at each shape; max abs error and the ms
+   of each (CUDA events), the bound, and the ms of one PyTorch call
+   computing the same function (scaled_dot_product_attention for K1; none
+   for K2, whose yardstick is the unfused bf16 FF: F.linear, chunk, F.gelu,
+   multiply, F.linear);
 5. K3 flash-attention backward: at the training path's two shapes, with
    plain and with sharp logits, dQ, dK and dV from K1 + K3 against the plain
    backward in fp32 on the same bf16 inputs; the yardstick is
@@ -53,10 +57,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    dense: each kernel against its plain PyTorch version (fp32 on the same
    bf16 inputs, the same int8 codes) at every shape of the int8 serving
    path at batch 1 and batch 8, with the ms of the bf16 path the site takes
-   otherwise (K2, K1, F.linear); each kernel within its own bound
-   (INT8_TOL), which the bf16 path's output (and, for K5 "qkpv", K5 "qk"'s)
-   must exceed at every shape, so that a kernel skipping its quantization
-   fails;
+   otherwise (K2, K1, F.linear), and K5's launch plan at each shape; each
+   kernel within its own bound (INT8_TOL), which the bf16 path's output
+   (and, for K5 "qkpv", K5 "qk"'s) must exceed at every shape, so that a
+   kernel skipping its quantization fails; K5 "qkpv" at d=40 too (its
+   narrow kernel, on no serving path: within INT8_TOL, not timed);
 11. int8 reference: the tiny model at 256² (attention at N=4096, the
    decoder's at N=16384) with every bucket in bf16 on the card against the
    same weights in fp32 on the CPU without int8, PLMS 5: relative L2 of the
@@ -144,9 +149,13 @@ FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8,
                 (4, 4096, 1, 512),
                 (16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),
                 (8, 4096, 1, 512)]
-# (M, C, inner): the transformer FF blocks, M = B * tokens, serving then training
+# (M, C, inner): the transformer FF blocks, M = B * tokens: serving at batch 1
+# (B=2), training at batch 4, serving at batch 8 (B=16; its 8x8 site,
+# M=1024, is training's 16x16 one), and one ragged shape (M not a multiple
+# of any block's rows)
 FF_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280, 5120),
-             (16384, 320, 1280), (4096, 640, 2560), (1024, 1280, 5120), (256, 1280, 5120)]
+             (16384, 320, 1280), (4096, 640, 2560), (1024, 1280, 5120), (256, 1280, 5120),
+             (65536, 320, 1280), (16384, 640, 2560), (4096, 1280, 5120), (1000, 320, 1280)]
 # (B, N, H, D): the training sites that take K3 (N > 256) at batch 4
 BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # bf16 rounds to 8 mantissa bits (2^-9 relative) at P or h, at dS and at the
@@ -199,6 +208,9 @@ INT8_FF_SHAPES = [(2048, 640, 2560), (16384, 640, 2560), (4096, 1280, 5120),
 # (B, N, H, D, mode): the UNet's N=4096 sites and the decoder's mid-block
 INT8_FLASH_SHAPES = [(2, 4096, 8, 40, "qk"), (16, 4096, 8, 40, "qk"), (1, 4096, 1, 512, "qk"),
                      (1, 4096, 1, 512, "qkpv"), (8, 4096, 1, 512, "qk")]
+# K5 "qkpv" at d <= 48 (its narrow kernel), which no serving path takes
+# (attn_pv gives "qkpv" at d >= 256 only): checked within INT8_TOL, not timed
+INT8_FLASH_OFF_PATH = [(2, 4096, 8, 40, "qkpv")]
 # (M, C, F): the proj bucket's self-attention QKV (F = 3C), cross q and
 # to_out (F = C), batch 1 then batch 8
 INT8_DENSE_SHAPES = [(b * n, c, f * c) for b in (2, 16)
@@ -303,9 +315,10 @@ def build() -> None:
         elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
             log(f"[build]   {kernel}: {line}")
         elif "Used" in line and kernel not in seen:
-            # K1's, K3's, K8's and X3's kernels by name and template arguments
-            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel",
-                             kernel or "")
+            # K1's, K3's, K5's, K8's, X3's and K2's kernels by name and
+            # template arguments
+            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel|"
+                             r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel", kernel or "")
             if name:
                 args = ",".join(re.findall(r"L[ib](\d+)E", kernel))
                 log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
@@ -407,12 +420,12 @@ def by_batch(fn, *tensors):
 
 
 def log_plan(which: str, shape) -> None:
-    """The launch plan of K1 or of a K3 pass at ``shape``: its blocks and
+    """The launch plan of K1, of a K3 pass or of K5 at ``shape``: its blocks and
     the waves they take on this card."""
     from sd_tpu_torch.ops.cuda.flash_attention import kernel_plan
 
     b, n, h, d = shape
-    plan = kernel_plan(d, which)
+    plan = kernel_plan(d, which, (b, n, h))
     blocks = -(-n // plan["rows"]) * h * b
     slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
     log(f"[{which} plan] {shape}: {plan['rows']} rows a block, tiles of {plan['tile']}, "
@@ -469,25 +482,62 @@ def check_flash(randn) -> list:
     return rows
 
 
-def check_geglu(randn) -> list:
+def log_ff_plan(shape) -> None:
+    """K2's plan at ``shape`` per GEMM: a tile's rows and columns, the
+    stages, the tiles (k splits counted), the persistent blocks and their
+    clusters, and the tiles the busiest block runs."""
+    from sd_tpu_torch.ops.cuda.geglu_ff import kernel_plan
+
+    parts = []
+    for name, p in kernel_plan(*shape).items():
+        parts.append(f"{name} {p['rows']}x{p['cols']} tiles, {p['stages']} stages, "
+                     f"{p['tiles']} tiles ({p['splits']} k splits) over {p['blocks']} blocks "
+                     f"in clusters of {p['cluster']}, {-(-p['tiles'] // p['blocks'])} a block "
+                     f"at most")
+    log(f"[K2 plan] {shape}: " + "; ".join(parts))
+
+
+def unfused_ff(x, w1, b1, w2, b2):
+    """The FF as five bf16 library calls (cuBLAS): the yardstick of K2."""
+    a, g = F.linear(x, w1, b1.to(x.dtype)).chunk(2, dim=-1)
+    return F.linear(a * F.gelu(g), w2, b2.to(x.dtype))
+
+
+def geglu_case(randn, shape, timed: bool = True) -> dict:
+    """K2 at one (M, C, inner) against its plain version (fp32 on the same
+    bf16 inputs). Timed: the kernel, the plain version, the unfused bf16 FF
+    and the bound (h's round trip beside it)."""
     from sd_tpu_torch.ops.cuda import geglu_ff, geglu_ff_plain
 
+    m, c, inner = shape
+    args = [randn(m, c), randn(2 * inner, c) * c**-0.5, 0.1 * randn(2 * inner),
+            randn(c, inner) * inner**-0.5, 0.1 * randn(c)]
+    bf = [a.to(torch.bfloat16) if a.ndim == 2 else a for a in args]
+    out = geglu_ff(*bf)
+    torch.cuda.synchronize()
+    err = check_error("K2 geglu_ff", shape, out, geglu_ff_plain(*[a.float() for a in bf]),
+                      scale_floor=1.0)
+    if not timed:
+        return dict(err=err)
+    ms = time_ms(lambda: geglu_ff(*bf))
+    plain_ms = time_ms(lambda: geglu_ff_plain(*bf))
+    unfused_ms = time_ms(lambda: unfused_ff(*bf))
+    nbytes = (2 * m * c + 3 * inner * c) * 2 + (2 * inner + c) * 4 + m * c * 2
+    bnd = bound(6 * m * c * inner, nbytes)
+    h_ms = 2 * m * inner * 2 / PEAK_BYTES * 1e3
+    log(f"[K2 geglu_ff] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+        f"{unfused_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); h's round "
+        f"trip {h_ms:.4f} ms of bytes")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
+                **bnd)
+
+
+def check_geglu(randn) -> list:
     rows = []
-    for m, c, inner in FF_SHAPES:
-        args = [randn(m, c), randn(2 * inner, c) * c**-0.5, 0.1 * randn(2 * inner),
-                randn(c, inner) * inner**-0.5, 0.1 * randn(c)]
-        bf = [a.to(torch.bfloat16) if a.ndim == 2 else a for a in args]
-        out = geglu_ff(*bf)
-        torch.cuda.synchronize()
-        err = check_error("K2 geglu_ff", (m, c, inner), out,
-                          geglu_ff_plain(*[a.float() for a in bf]), scale_floor=1.0)
-        ms = time_ms(lambda: geglu_ff(*bf))
-        plain_ms = time_ms(lambda: geglu_ff_plain(*bf))
-        nbytes = (2 * m * c + 3 * inner * c) * 2 + (2 * inner + c) * 4 + m * c * 2
-        bnd = bound(6 * m * c * inner, nbytes)
-        log(f"[K2 geglu_ff] {(m, c, inner)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, **bnd))
+    for shape in FF_SHAPES:
+        log_ff_plan(shape)
+        rows.append(geglu_case(randn, shape))
+        free_memory()
     return rows
 
 
@@ -577,35 +627,51 @@ def check_int8_ff(randn) -> list:
     return rows
 
 
-def check_int8_flash(randn) -> list:
+def int8_flash_case(randn, shape, timed: bool = True, gate: bool = True) -> dict:
+    """K5 at one (B, N, H, D, mode) against its plain version (fp32 on the
+    same bf16 inputs) within INT8_TOL; with ``gate``, K1's output (and in
+    "qkpv" K5 "qk"'s) must read outside that bound. Timed: the kernel, the
+    plain version, K1, sdpa and the bound."""
     from sd_tpu_torch.ops.cuda import (flash_attention, flash_attention_int8,
                                        flash_attention_int8_plain)
 
+    b, n, h, d, mode = shape
+    shape = (b, n, h, d)
+    scale = d**-0.5
+    bf = [randn(*shape).to(torch.bfloat16) for _ in range(3)]
+    out = flash_attention_int8(*bf, scale, mode)
+    torch.cuda.synchronize()
+    unquantized = {"K1": flash_attention(*bf, scale)} if gate else {}
+    if gate and mode == "qkpv":
+        unquantized["K5 qk"] = flash_attention_int8(*bf, scale, "qk")
+    err = check_int8_error(f"K5 {mode}", shape, out,
+                           flash_attention_int8_plain(*[t.float() for t in bf], scale, mode),
+                           unquantized)
+    if not timed:
+        return dict(err=err)
+    ms = time_ms(lambda: flash_attention_int8(*bf, scale, mode))
+    plain_ms = time_ms(lambda: flash_attention_int8_plain(*bf, scale, mode), iters=5)
+    bf16_ms = time_ms(lambda: flash_attention(*bf, scale))
+    library_ms = time_ms(lambda: sdpa(*bf, scale))
+    products = 2 * b * h * n * n * d
+    bnd = bound(0 if mode == "qkpv" else products, 4 * b * n * h * d * 2,
+                int8_ops=2 * products if mode == "qkpv" else products)
+    log(f"[K5 flash_attention_int8 {mode}] {shape}: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bf16 K1 {bf16_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, bf16_ms=bf16_ms,
+                **bnd)
+
+
+def check_int8_flash(randn) -> list:
     rows = []
-    for b, n, h, d, mode in INT8_FLASH_SHAPES:
-        shape = (b, n, h, d)
-        scale = d**-0.5
-        bf = [randn(*shape).to(torch.bfloat16) for _ in range(3)]
-        out = flash_attention_int8(*bf, scale, mode)
-        torch.cuda.synchronize()
-        unquantized = {"K1": flash_attention(*bf, scale)}
-        if mode == "qkpv":
-            unquantized["K5 qk"] = flash_attention_int8(*bf, scale, "qk")
-        err = check_int8_error(f"K5 {mode}", shape, out,
-                               flash_attention_int8_plain(*[t.float() for t in bf], scale, mode),
-                               unquantized)
-        ms = time_ms(lambda: flash_attention_int8(*bf, scale, mode))
-        plain_ms = time_ms(lambda: flash_attention_int8_plain(*bf, scale, mode), iters=5)
-        bf16_ms = time_ms(lambda: flash_attention(*bf, scale))
-        library_ms = time_ms(lambda: sdpa(*bf, scale))
-        products = 2 * b * h * n * n * d
-        bnd = bound(0 if mode == "qkpv" else products, 4 * b * n * h * d * 2,
-                    int8_ops=2 * products if mode == "qkpv" else products)
-        log(f"[K5 flash_attention_int8 {mode}] {shape}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bf16 K1 {bf16_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                         bf16_ms=bf16_ms, **bnd))
+    for shape in INT8_FLASH_SHAPES:
+        log_plan(f"K5 {shape[4]}", shape[:4])
+        rows.append(int8_flash_case(randn, shape))
+        free_memory()
+    for shape in INT8_FLASH_OFF_PATH:
+        log_plan(f"K5 {shape[4]}", shape[:4])
+        int8_flash_case(randn, shape, timed=False, gate=False)
     return rows
 
 

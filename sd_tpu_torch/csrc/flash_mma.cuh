@@ -1,9 +1,11 @@
 // Register-level building blocks of the flash-attention kernels K1
-// (flash_attention.cu) and K3 (flash_attention_bwd.cu) and of K8/X3
-// (winograd_conv.cu) for Hopper (sm_90a): asynchronous 16-byte copies into
+// (flash_attention.cu), K3 (flash_attention_bwd.cu) and K5
+// (flash_attention_int8.cu), of K8/X3 (winograd_conv.cu) and of K2
+// (geglu_ff.cu) for Hopper (sm_90a): asynchronous 16-byte copies into
 // shared memory, ldmatrix, the mma.sync.m16n8k16 bf16 product with fp32
-// accumulators, the softmax pieces K1 and K3 share, and the warpgroup
-// product wgmma.mma_async with both operands in shared memory.
+// accumulators and the m16n8k32 s8 one with s32 accumulators, the softmax
+// pieces K1, K3 and K5 share, and the warpgroup product wgmma.mma_async
+// with both operands in shared memory, MN-major (K8) or K-major (K2).
 //
 // Fragments of m16n8k16 (PTX ISA, "Matrix Fragments for mma.m16n8k16"), with
 // g = lane / 4 and t = lane % 4:
@@ -52,14 +54,22 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Four 8x8 bf16 matrices; lane i gives the address of row i % 8 of matrix i / 8.
-__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
 }
 
+// Two 8x8 bf16 matrices; lanes 0-15 give the addresses of rows i % 8 of
+// matrix i / 8 (the other lanes' addresses are not read).
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(smem_addr(p)));
+}
+
 // The same, each matrix transposed on the way into the registers.
-__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const bf16* p) {
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(p)));
@@ -134,6 +144,14 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Keeps the compiler from moving or copying a wgmma accumulator across the
+// point where this is called (after wgmma_wait, before the registers are read).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
 // d (+)= A B, m64nNk16, bf16 operands MN-major in shared memory, fp32
 // accumulators; accumulate = 0 overwrites d.
 template <int N>
@@ -197,6 +215,114 @@ __device__ __forceinline__ void wgmma_bf16<64>(float (&d)[32], uint64_t a, uint6
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
         "+f"(d[31])
       : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// The same product with both operands K-major (trans-a = trans-b = 0): the
+// layout of K2 (geglu_ff.cu), whose x [M, K] and torch-layout weights
+// [N, K] are both contiguous along k. A K-major operand of MN x 64 bf16 is
+// made of atoms of 8 MN-rows of 128 bytes (64 k values), 16-byte chunks
+// permuted by swizzle<128>() (the row's chunk index XOR the row % 8), atoms
+// 1024 bytes apart (SBO = 1024; LBO is not read for this swizzle). The k16
+// step kk of a 64-deep tile starts kk * 32 bytes into the atom: the
+// hardware applies the swizzle to the address it computes, so the atoms
+// must be 1024-byte aligned. Descriptor: wgmma_desc<128>(p + kk * 32, 1024).
+template <int N>
+__device__ __forceinline__ void wgmma_bf16_k(float (&d)[N / 2], uint64_t a, uint64_t b,
+                                             int accumulate);
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_k<128>(float (&d)[64], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_bf16_k<256>(float (&d)[128], uint64_t a, uint64_t b,
+                                               int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]),
+        "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
+        "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// m16n8k32 with s8 operands and s32 accumulators (PTX ISA, "Matrix
+// Fragments for mma.m16n8k32"), g = lane / 4, t = lane % 4; four s8 values
+// to a register, the lowest k in the low byte:
+//   A (16 x 32, row-major): a0 = (g, k 4t..4t+3), a1 = (g+8, 4t..),
+//     a2 = (g, 16+4t..), a3 = (g+8, 16+4t..)
+//   B (32 x 8, "col"): b0 = (k 4t..4t+3, n g), b1 = (k 16+4t.., n g)
+//   C: as m16n8k16's, c0, c1 = (g, 2t..2t+1), c2, c3 = (g+8, 2t..2t+1)
+// So ldmatrix (b16 matrices of 8 rows x 16 bytes) reads both operands from
+// rows of s8 that run along k: lane i receives bytes 4 (i % 4) .. of row
+// i / 4, which is the fragment. m16n8k16 s8 takes a0, a1 and b0 alone (k
+// 0..15): the tail of a contraction padded to a multiple of 16.
+__device__ __forceinline__ void mma_s8(int (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8_k16(int (&d)[4], unsigned a0, unsigned a1, unsigned b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a0), "r"(a1), "r"(b0));
 }
 
 // The maximum and the sum over the four threads of a quad (one fragment row).

@@ -38,8 +38,12 @@ _SIGNATURES = {
     "sdt_flash_plan": [_I, _P],
     # d, pass (1 dK/dV, 2 dQ), int[5] out: K3's launch plan
     "sdt_flash_bwd_plan": [_I, _I, _P],
-    # x, w1, b1, w2, b2, h, y, m, c, inner, c_out, stream
-    "sdt_geglu_ff": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w1, b1, w2, b2, h, ws, y, m, c, inner, c_out, stream
+    "sdt_geglu_ff": [_P] * 8 + [_I] * 4 + [_P],
+    # m, c, inner, c_out, int64 out: the fp32 elements of K2's k-split scratch
+    "sdt_geglu_ff_workspace": [_I] * 4 + [_P],
+    # m, c, inner, c_out, int[14] out: K2's plan, per GEMM
+    "sdt_geglu_ff_plan": [_I] * 4 + [_P],
     # x, wq, sw, b, out, m, c, f, stream
     "sdt_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
     # x, w1aq, s1a, b1a, w1gq, s1g, b1g, w2q, s2, b2, h, rowmax, hq, sh, y,
@@ -50,6 +54,8 @@ _SIGNATURES = {
     "sdt_flash_attention_int8": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P],
     # d -> the padded head dim of the int8 attention (0: not taken)
     "sdt_flash_int8_padded_dim": [_I],
+    # batch, n, heads, d, pv8, int[5] out: K5's launch plan
+    "sdt_flash_int8_plan": [_I] * 5 + [_P],
     # x, w, a, d, bias, skip, y, m1, m2, batch, c, h, w, n, stream
     "sdt_fused_conv3x3": [_P] * 9 + [_I] * 5 + [_P],
     # in (K8: the parity buffer; X3: x), u, y, batch, c, h, w, k, s1p, split,

@@ -32,7 +32,10 @@ the kernel for a CUDA tensor (``flash_attention_int8.launches``; of them
 ``.pv_launches`` in "qkpv") and uses
 :func:`flash_attention_int8_plain`, which walks 1024-key chunks in the TPU
 kernel's order, for a CPU tensor only. It has no backward and raises where
-autograd would record.
+autograd would record. :func:`int8_scratch_shapes` gives the codes and
+scales the wrapper allocates for the kernel (V's codes transposed, keys
+contiguous per feature), and ``kernel_plan(d, "K5 qk" | "K5 qkpv", (B, N,
+H))`` its launch plan at a shape.
 """
 
 from __future__ import annotations
@@ -50,7 +53,8 @@ from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_ro
 __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plain",
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "differentiable_flash_attention", "resolve_int8", "flash_attention_int8",
-           "flash_attention_int8_plain", "kernel_plan"]
+           "flash_attention_int8_plain", "int8_padded_dim", "int8_scratch_shapes",
+           "kernel_plan"]
 
 _MAX_HEAD_DIM = 512
 _MAX_BWD_HEAD_DIM = 128
@@ -161,15 +165,19 @@ def _check_scale(scale: float, what: str) -> None:
         raise ValueError(f"{what}: scale must be positive, got {scale}")
 
 
-def kernel_plan(d: int, which: str = "K1") -> dict:
-    """The launch plan of K1 ("K1") or of one of K3's passes ("K3 dK/dV",
-    "K3 dQ") at head dim ``d``, from the loaded library: the rows a block
-    owns, the rows of the tile it streams, threads and shared-memory bytes
-    per block, and the blocks that fit on one SM. Needs the card."""
+def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]] = None
+                ) -> dict:
+    """The launch plan of K1 ("K1"), of one of K3's passes ("K3 dK/dV",
+    "K3 dQ") at head dim ``d``, or of K5 ("K5 qk", "K5 qkpv") at head dim
+    ``d`` and ``shape`` = (B, N, H), from the loaded library: the rows a
+    block owns, the rows of the tile it streams, threads and shared-memory
+    bytes per block, and the blocks that fit on one SM. Needs the card."""
     out = (ctypes.c_int * 5)()
     lib = kernels()
     if which == "K1":
         err = lib.sdt_flash_plan(d, out)
+    elif which.startswith("K5"):
+        err = lib.sdt_flash_int8_plan(*shape, d, int(which == "K5 qkpv"), out)
     else:
         err = lib.sdt_flash_bwd_plan(d, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
     check(err, f"{which} plan at d={d}")
@@ -342,6 +350,42 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
         return (acc / l).to(q.dtype).transpose(1, 2)
 
 
+def int8_padded_dim(d: int) -> int:
+    """The head dim K5 pads the contraction to (0: a head dim it does not
+    take): 48 up to d = 48, 512 above, d a multiple of 8 up to 512. The
+    library's ``sdt_flash_int8_padded_dim`` is the same rule."""
+    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM:
+        return 0
+    return 48 if d <= 48 else 512
+
+
+def _check_int8_inputs(q, k, v) -> int:
+    """The checks a CUDA tensor meets before K5 launches, past
+    ``_check_inputs``: self-attention, N a multiple of the chunk, a head dim
+    K5 pads; returns the padded head dim."""
+    _check_inputs(q, k, v)
+    b, n, h, d = q.shape
+    dp = int8_padded_dim(d)
+    if k.shape[1] != n or n % INT8_CHUNK or dp == 0:
+        raise ValueError(f"flash_attention_int8: self-attention with N a multiple of "
+                         f"{INT8_CHUNK} and a head dim the kernel takes, got q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}")
+    return dp
+
+
+def int8_scratch_shapes(b: int, n: int, h: int, d: int, mode: str) -> dict:
+    """The scratch K5 reads and writes besides q, k, v and the output: Q's
+    and K's int8 codes ``[B, H, N, DP]`` and fp32 scales ``[B, H, N]``; in
+    "qkpv" V's codes transposed, ``[B, H, DP, N]`` (each feature's keys
+    contiguous, in P's fragment order within each 32), and V's fp32 scales
+    per chunk ``[B, H, N / 1024, DP]``."""
+    dp = int8_padded_dim(d)
+    shapes = {"qq": (b, h, n, dp), "sq": (b, h, n), "kq": (b, h, n, dp), "sk": (b, h, n)}
+    if mode == "qkpv":
+        shapes.update(vq=(b, h, dp, n), sv=(b, h, n // INT8_CHUNK, dp))
+    return shapes
+
+
 def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None, mode: str = "qk") -> torch.Tensor:
     """Self-attention over ``[B, N, H, D]`` with int8 QKᵀ ("qk") or int8 QKᵀ
@@ -356,28 +400,24 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8: no path for device {q.device}")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    _check_inputs(q, k, v)
+    dp = _check_int8_inputs(q, k, v)
     b, n, h, d = q.shape
     lib = kernels()
-    dp = lib.sdt_flash_int8_padded_dim(d)
-    if k.shape[1] != n or n % INT8_CHUNK or dp == 0:
-        raise ValueError(f"flash_attention_int8: self-attention with N a multiple of "
-                         f"{INT8_CHUNK} and a head dim the kernel takes, got q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
+    if lib.sdt_flash_int8_padded_dim(d) != dp:
+        raise RuntimeError(f"flash_attention_int8: the library pads d={d} to "
+                           f"{lib.sdt_flash_int8_padded_dim(d)}, the wrapper to {dp}")
     dev = q.device
     out = torch.empty_like(q)
-    codes = lambda: torch.empty((b, h, n, dp), dtype=torch.int8, device=dev)
-    scales = lambda *s: torch.empty(s, dtype=torch.float32, device=dev)
-    qq, kq, sq, sk = codes(), codes(), scales(b, h, n), scales(b, h, n)
     pv8 = mode == "qkpv"
-    vq = codes() if pv8 else None
-    sv = scales(b, h, n // INT8_CHUNK, dp) if pv8 else None
+    t = {name: torch.empty(shape, dtype=torch.int8 if name in ("qq", "kq", "vq") else torch.float32,
+                           device=dev)
+         for name, shape in int8_scratch_shapes(b, n, h, d, mode).items()}
+    ptr = lambda name: t[name].data_ptr() if name in t else None
     with torch.cuda.device(dev):
         err = lib.sdt_flash_attention_int8(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qq.data_ptr(),
-            sq.data_ptr(), kq.data_ptr(), sk.data_ptr(), vq.data_ptr() if pv8 else None,
-            sv.data_ptr() if pv8 else None, b, n, h, d, float(scale) * _LOG2E, int(pv8),
-            stream_of(q))
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), ptr("qq"), ptr("sq"),
+            ptr("kq"), ptr("sk"), ptr("vq"), ptr("sv"), b, n, h, d, float(scale) * _LOG2E,
+            int(pv8), stream_of(q))
     check(err, "flash_attention_int8")
     flash_attention_int8.launches += 1
     flash_attention_int8.pv_launches += pv8

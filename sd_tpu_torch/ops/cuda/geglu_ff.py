@@ -3,7 +3,9 @@
 Replaces the TPU kernel ``_kernel`` of ``sd_tpu/ops/pallas/geglu_ff.py``
 (through ``_geglu_ff``, entry ``geglu_ff``). The CUDA kernels are in
 ``sd_tpu_torch/csrc/geglu_ff.cu``; its header says what bounds them on the
-H100 and why the TPU kernel's single pass became two launches there.
+H100, why the TPU kernel's single pass became two launches there (three
+where the second GEMM splits over k) and how both GEMMs run on ``wgmma``.
+:func:`kernel_plan` reads the plan the library takes at a shape.
 
 Weights are in torch ``Linear`` layout: ``w1`` is ``[2·inner, C]`` with the
 value rows first and the gate rows second (the reference's
@@ -33,6 +35,8 @@ fused FF's row rule (M >= 1024, M % 256 == 0); other sites keep K2.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -44,7 +48,7 @@ from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_ro
 
 __all__ = ["geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff", "geglu_ff_int8",
            "geglu_ff_int8_plain", "quantize_cols", "quantize_ff_weights", "gelu_fast",
-           "int8_ff_supported"]
+           "int8_ff_supported", "kernel_plan"]
 
 # sd_tpu's _ERF_FAST: erf(x) ~ x * P6(x^2) on |x| <= 3, coefficients low to high
 _ERF_FAST = (
@@ -84,10 +88,37 @@ def _check_inputs(x, w1, b1, w2, b2):
             f"geglu_ff: shapes x {tuple(x.shape)}, w1 {tuple(w1.shape)}, b1 "
             f"{tuple(b1.shape)}, w2 {tuple(w2.shape)}, b2 {tuple(b2.shape)} "
             f"do not match")
-    if c % 8 or inner % 8:
-        raise ValueError(f"geglu_ff: C={c} and inner={inner} must be multiples of 8")
+    if c % 8 or inner % 8 or c_out % 8:
+        raise ValueError(f"geglu_ff: C={c}, inner={inner} and C_out={c_out} must be "
+                         f"multiples of 8")
     if x.numel() == 0:
         raise ValueError("geglu_ff: empty input")
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace(device: int, m: int, c: int, inner: int, c_out: int) -> int:
+    """The fp32 elements of the second GEMM's k-split scratch at this shape
+    (0: it does not split), from the library's plan on ``device``."""
+    out = ctypes.c_longlong()
+    lib = kernels()
+    with torch.cuda.device(device):
+        err = lib.sdt_geglu_ff_workspace(m, c, inner, c_out, ctypes.byref(out))
+    check(err, f"geglu_ff workspace at {(m, c, inner, c_out)}")
+    return out.value
+
+
+def kernel_plan(m: int, c: int, inner: int, c_out: Optional[int] = None) -> dict:
+    """K2's plan at ``x [m, c]``, inner ``inner`` (``c_out`` defaults to
+    ``c``), from the loaded library: for each GEMM ("gemm1", "gemm2") the
+    rows and output columns of a tile, the stages of its operand ring, its
+    tiles (k splits counted), the persistent blocks that walk over them (one
+    an SM at most), its k splits and the CTAs of a cluster that share each
+    weight tile. Needs the card."""
+    out = (ctypes.c_int * 14)()
+    err = kernels().sdt_geglu_ff_plan(m, c, inner, c if c_out is None else c_out, out)
+    check(err, f"geglu_ff plan at {(m, c, inner, c_out)}")
+    keys = ("rows", "cols", "stages", "tiles", "blocks", "splits", "cluster")
+    return {"gemm1": dict(zip(keys, out[:7])), "gemm2": dict(zip(keys, out[7:]))}
 
 
 def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -107,6 +138,8 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     m = x2.shape[0]
     h = torch.empty((m, inner), dtype=x.dtype, device=x.device)
     y = torch.empty((m, c_out), dtype=x.dtype, device=x.device)
+    ws_elems = _workspace(x.device.index, m, c, inner, c_out)
+    ws = torch.empty((ws_elems,), dtype=torch.float32, device=x.device) if ws_elems else None
     for name, t in (("x", x2), ("w1", w1), ("w2", w2)):
         if t.data_ptr() % 16:
             raise ValueError(f"geglu_ff: {name} is not 16-byte aligned")
@@ -114,8 +147,8 @@ def geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     with torch.cuda.device(x.device):
         err = lib.sdt_geglu_ff(
             x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), h.data_ptr(), y.data_ptr(), m, c, inner, c_out,
-            stream_of(x))
+            b2.data_ptr(), h.data_ptr(), ws.data_ptr() if ws is not None else None,
+            y.data_ptr(), m, c, inner, c_out, stream_of(x))
     check(err, "geglu_ff")
     geglu_ff.launches += 1
     return y.view(*x.shape[:-1], c_out)

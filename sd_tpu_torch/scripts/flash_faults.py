@@ -1,7 +1,8 @@
-"""Plant faults in copies of K1's, K3's, K8's and X3's sources and show
-that ``chip_smoke.py``'s checks fail on each, at every shape they cover.
+"""Plant faults in copies of K1's, K3's, K5's, K8's, X3's and K2's sources
+and show that ``chip_smoke.py``'s checks fail on each, at every shape they
+cover.
 
-    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K8|X3 ...]   (from the repository root)
+    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2 ...]   (from the repository root)
 
 For each fault in :data:`FAULTS` (those of the kernels named, or all) the
 package is copied into ``build/flash_faults/<name>/`` (git-ignored), the
@@ -11,7 +12,10 @@ child process with that copy first on ``sys.path`` builds its kernels and
 runs the smoke's checks: ``flash_case`` (K1 faults) or ``flash_bwd_case``
 (K3 faults) at every N=4096 shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``,
 with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
-source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both. A run
+source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both;
+``int8_flash_case`` (K5 faults) at every shape of ``INT8_FLASH_SHAPES``
+whose mode the fault touches ("K5": both modes, "K5 qkpv": that mode
+only); ``geglu_case`` (K2 faults) at every shape of ``FF_SHAPES``. A run
 "fails" where a check raises ``CheckFailed``; its margin is the error over
 the check's bound. The script prints one JSON line of every margin, last,
 and exits 1 unless every fault failed at every shape. Needs a card.
@@ -29,7 +33,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K8 or X3, [(source file, text, replacement, count)])
+# name: (K1, K3, K5, K5 qkpv, K8, X3 or K2, [(source file, text, replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
@@ -53,6 +57,27 @@ FAULTS = {
     "X3's top halo row read from row 0": ("X3", [
         ("winograd_conv.cu", "const int yy = 2 * r0 - 1 + pr;",
          "const int yy = max(2 * r0 - 1 + pr, 0);", 1)]),
+    "the key scale sk dropped from the logits": ("K5", [
+        ("flash_attention_int8.cu",
+         "const float2 kc = *reinterpret_cast<const float2*>(sks + j * 8 + 2 * tq);",
+         "const float2 kc = make_float2(1.f, 1.f);", 1),
+        ("flash_attention_int8.cu", "const float2 kc = *reinterpret_cast<const float2*>(\n"
+         "        reinterpret_cast<const float*>(st + P::SK) + cg * 8 + 2 * tq);",
+         "const float2 kc = make_float2(1.f, 1.f);", 1)]),
+    "P's codes against the tile's max in place of the chunk's": ("K5 qkpv", [
+        ("flash_attention_int8.cu", "const float pr0 = m0, pr1 = m1;",
+         "const float pr0 = PV8 ? t0 : m0, pr1 = PV8 ? t1 : m1;", 1)]),
+    "two keys swapped between P's packing and V's staging": ("K5 qkpv", [
+        ("flash_attention_int8.cu", "const int slot = (kr / 32) * 32 + pv_slot(kr % 32);",
+         "const int slot = (kr / 32) * 32 + pv_slot(kr % 32 < 2 ? 1 - kr % 32 : kr % 32);",
+         1)]),
+    "the gate's bias dropped": ("K2", [
+        ("geglu_ff.cu",
+         "      if (MODE == GEGLU) bg = *reinterpret_cast<const float2*>(bias + n + col);\n",
+         "", 1)]),
+    "the first GEMM's last k tile dropped": ("K2", [
+        ("geglu_ff.cu", "  return min(ktiles, kt0 + tiles_per_split);",
+         "  return min(ktiles, kt0 + tiles_per_split) - (MODE == GEGLU);", 1)]),
 }
 
 
@@ -76,14 +101,29 @@ def _smoke():
 
 def run_checks(kernel: str) -> dict:
     """In the child: the smoke's K1 or K3 case at every N=4096 shape, plain
-    and sharp, or its Winograd case (K8 and X3) at every UNet shape; returns
-    {shape (sharp): margin, or None where it passed}."""
+    and sharp, its Winograd case (K8 and X3) at every UNet shape, its K5
+    case at every int8 attention shape of the fault's modes or its K2 case
+    at every FF shape; returns {shape (sharp): margin, or None where it
+    passed}."""
     import torch
 
     smoke = _smoke()
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     margins = {}
+    if kernel in ("K5", "K5 qkpv", "K2"):
+        shapes = (smoke.FF_SHAPES if kernel == "K2" else
+                  [s for s in smoke.INT8_FLASH_SHAPES if kernel == "K5" or s[4] == "qkpv"])
+        case = smoke.geglu_case if kernel == "K2" else smoke.int8_flash_case
+        for shape in shapes:
+            label = "x".join(map(str, shape))
+            try:
+                case(randn, shape, timed=False)
+                margins[label] = None
+            except smoke.CheckFailed as failed:
+                margins[label] = failed.err / failed.limit
+            smoke.free_memory()
+        return margins
     if kernel in ("K8", "X3"):
         for b, c, hw, k in (s for s in smoke.WINO_SHAPES if s[0] == 2):
             label = "x".join(map(str, (b, c, hw, hw, k)))
@@ -108,13 +148,13 @@ def run_checks(kernel: str) -> dict:
 
 
 def main() -> None:
-    if len(sys.argv) == 3 and sys.argv[1] == "--child":
-        print(json.dumps(run_checks(sys.argv[2])))
+    if len(sys.argv) >= 3 and sys.argv[1] == "--child":
+        print(json.dumps(run_checks(" ".join(sys.argv[2:]))))
         return
-    wanted = set(sys.argv[1:]) or {kernel for kernel, _ in FAULTS.values()}
+    wanted = set(sys.argv[1:]) or {kernel.split()[0] for kernel, _ in FAULTS.values()}
     results, ok = {}, True
     for name, (kernel, edits) in FAULTS.items():
-        if kernel not in wanted:
+        if kernel.split()[0] not in wanted:
             continue
         copy = ROOT / "build" / "flash_faults" / name.replace(" ", "_").replace("'", "")
         shutil.rmtree(copy, ignore_errors=True)
@@ -122,7 +162,7 @@ def main() -> None:
                         ignore=shutil.ignore_patterns("__pycache__"))
         plant(copy / "sd_tpu_torch" / "csrc", edits)
         env = dict(os.environ, PYTHONPATH=str(copy))
-        proc = subprocess.run([sys.executable, __file__, "--child", kernel], env=env,
+        proc = subprocess.run([sys.executable, __file__, "--child", *kernel.split()], env=env,
                               capture_output=True, text=True, cwd=copy)
         if proc.returncode != 0:
             raise RuntimeError(f"{name}: the check run failed ({proc.returncode}):\n"

@@ -30,7 +30,10 @@ TOP = 12
 GROUPS: List[Tuple[str, Tuple[str, ...]]] = [
     ("K1 flash_attention", ("flash_fwd_kernel",)),
     ("K3 flash_attention_bwd", ("flash_bwd_",)),
-    ("K2 geglu_ff", ("gemm_nt_kernel",)),
+    ("K5 flash_attention_int8", ("int8_attn_kernel", "flash_int8_kernel", "quant_heads_kernel",
+                                 "quant_v_kernel")),
+    ("K2 geglu_ff", ("geglu_gemm_kernel", "geglu_splitk_reduce", "gemm_nt_kernel")),
+    ("K4/K6 int8 GEMMs", ("int8_gemm_kernel", "quant_rows_kernel")),
     ("K8/X3 winograd_conv3x3", ("winograd_kernel<",)),
     ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
     ("convs (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit_", "winograd")),

@@ -23,6 +23,8 @@ Tolerances:
 """
 
 import importlib
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -53,8 +55,9 @@ from sd_tpu_torch.ops.cuda.geglu_ff import (gelu_fast, int8_ff_supported, quanti
 from sd_tpu_torch.utils import convert
 from sd_tpu_torch.utils.testing import load_numpy_state_dict, randomize_tree
 
-# the module: the package exports a function of the same name
+# the modules: the package exports functions of the same names
 port_ff = importlib.import_module("sd_tpu_torch.ops.cuda.geglu_ff")
+port_flash = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -283,6 +286,85 @@ def test_flash_int8_qk_single_softmax_equals_chunks():
     logits = logits * sq.permute(0, 2, 1, 3) * 0.25 * sk.permute(0, 2, 3, 1)
     want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1), v)
     _close(got.numpy(), want.numpy())
+
+
+def _smoke_constants():
+    """chip_smoke.py's bounds, which hold K5 on the card."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def test_flash_int8_qk_one_pass_rounding_within_bound():
+    """K5's "qk" runs one pass with a running max per 64-key tile, so it
+    rounds P to bf16 against that max where the chunked plain version (and
+    sd_tpu's kernel) round it against the max after each 1024-key chunk.
+    Written out here on the same int8 logits, with sharp logits (q times
+    chip_smoke's SHARP) so that the running max moves within chunks, the
+    difference stays within chip_smoke's INT8_TOL["K5 qk"] of the output's
+    scale, against both."""
+    smoke = _smoke_constants()
+    tol = smoke.INT8_TOL["K5 qk"]
+    shape = (1, 2048, 2, 40)
+    q, k, v = (_np(70 + i, shape) for i in range(3))
+    q = q * smoke.SHARP
+    scale = shape[-1] ** -0.5
+    qt, kt, vt = map(torch.from_numpy, (q, k, v))
+    plain = flash_attention_int8_plain(qt, kt, vt, scale, "qk").numpy()
+    want = np.asarray(pallas_flash(*map(jnp.asarray, (q, k, v)), interpret=True, int8="qk"))
+
+    qq, sq = quant.quantize_rows(qt.transpose(1, 2))
+    kq, sk = quant.quantize_rows(kt.transpose(1, 2))
+    logits = (quant.int8_matmul_exact(qq, kq.transpose(-1, -2))
+              * (sq * (scale * np.log2(np.e))) * sk.transpose(-1, -2))
+    vh = vt.transpose(1, 2)
+    m = torch.full(sq.shape, -np.inf)
+    l = torch.zeros(sq.shape)
+    acc = torch.zeros(vh.shape)
+    for k0 in range(0, shape[1], 64):
+        s = logits[..., k0:k0 + 64]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp2(s - m_new)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        acc = acc * corr + p.to(torch.bfloat16).float() @ vh[..., k0:k0 + 64, :]
+        m = m_new
+    one_pass = (acc / l).transpose(1, 2).numpy()
+    for ref in (plain, want):
+        err = np.abs(one_pass - ref).max()
+        assert 0 < err <= tol * np.abs(ref).max()
+
+
+@pytest.mark.parametrize("q_shape,k_shape,why", [
+    ((1, 1536, 1, 40), (1, 1536, 1, 40), "N not a multiple of the 1024-key chunk"),
+    ((1, 2048, 1, 40), (1, 1024, 1, 40), "cross-attention"),
+    ((1, 2048, 1, 12), (1, 2048, 1, 12), "d not a multiple of 8"),
+    ((1, 2048, 1, 520), (1, 2048, 1, 520), "d past the padded dims"),
+])
+def test_flash_int8_wrapper_rejects_what_the_kernel_does_not_take(q_shape, k_shape, why):
+    """The checks a CUDA tensor meets before K5 launches, run on CPU tensors."""
+    bf = lambda s: torch.zeros(s, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        port_flash._check_int8_inputs(bf(q_shape), bf(k_shape), bf(k_shape))
+
+
+def test_flash_int8_padded_dims_and_scratch_shapes():
+    """d pads to 48 up to 48 and to 512 above; "qkpv"'s V codes are
+    transposed, [B, H, DP, N], with per-chunk scales [B, H, N / 1024, DP]."""
+    assert [port_flash.int8_padded_dim(d) for d in (8, 40, 48, 56, 512, 520, 44)] == [
+        48, 48, 48, 512, 512, 0, 0]
+    bf = lambda s: torch.zeros(s, dtype=torch.bfloat16)
+    assert port_flash._check_int8_inputs(*(bf((2, 4096, 8, 40)),) * 3) == 48
+    assert port_flash._check_int8_inputs(*(bf((1, 4096, 1, 512)),) * 3) == 512
+    qk = port_flash.int8_scratch_shapes(2, 4096, 8, 40, "qk")
+    assert qk == {"qq": (2, 8, 4096, 48), "sq": (2, 8, 4096), "kq": (2, 8, 4096, 48),
+                  "sk": (2, 8, 4096)}
+    pv = port_flash.int8_scratch_shapes(1, 4096, 1, 512, "qkpv")
+    assert pv["vq"] == (1, 1, 512, 4096) and pv["sv"] == (1, 1, 4, 512)
+    assert {k: pv[k] for k in qk} == {"qq": (1, 1, 4096, 512), "sq": (1, 1, 4096),
+                                      "kq": (1, 1, 4096, 512), "sk": (1, 1, 4096)}
 
 
 @pytest.mark.parametrize("m,c,f,bias", [(256, 64, 192, False), (512, 128, 128, True),

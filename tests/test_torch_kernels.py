@@ -152,6 +152,32 @@ def test_geglu_wrapper_rejects_what_the_kernel_does_not_take(x, w1, error):
                              torch.zeros(x.shape[-1]))
 
 
+# SD v1's FF sites (M, C, inner = 4C) at batch 1, 4 (training) and 8, and a
+# ragged M: K2 takes every one
+_SD_V1_FF = [(b * n, c, 4 * c) for b in (2, 4, 16)
+             for n, c in ((4096, 320), (1024, 640), (256, 1280), (64, 1280))] + [(1000, 320, 1280)]
+
+
+@pytest.mark.parametrize("m,c,inner", _SD_V1_FF)
+def test_geglu_wrapper_takes_every_sd_v1_ff_shape(m, c, inner):
+    meta = lambda *s, dtype=torch.bfloat16: torch.empty(s, dtype=dtype, device="meta")
+    importlib.import_module("sd_tpu_torch.ops.cuda.geglu_ff")._check_inputs(
+        meta(m, c), meta(2 * inner, c), meta(2 * inner, dtype=torch.float32), meta(c, inner),
+        meta(c, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("w2_shape,error", [
+    ((16, 36), ValueError),   # inner not a multiple of 8 (w1 is [2 * inner, C] to match)
+    ((12, 32), ValueError),   # C_out not a multiple of 8
+])
+def test_geglu_wrapper_rejects_ragged_widths(w2_shape, error):
+    module = importlib.import_module("sd_tpu_torch.ops.cuda.geglu_ff")
+    c_out, inner = w2_shape
+    with pytest.raises(error):
+        module._check_inputs(_bf16(4, 16), _bf16(2 * inner, 16), torch.zeros(2 * inner),
+                             _bf16(c_out, inner), torch.zeros(c_out))
+
+
 def test_wrappers_accept_the_path_shapes():
     importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")._check_inputs(
         _bf16(2, 64, 8, 40), _bf16(2, 64, 8, 40), _bf16(2, 64, 8, 40))
