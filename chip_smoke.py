@@ -57,7 +57,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    dense: each kernel against its plain PyTorch version (fp32 on the same
    bf16 inputs, the same int8 codes) at every shape of the int8 serving
    path at batch 1 and batch 8, with the ms of the bf16 path the site takes
-   otherwise (K2, K1, F.linear), and K5's launch plan at each shape; each
+   otherwise (K2, K1, F.linear; for K6 also torch._int_mm on the same
+   codes, the library's int8 product alone), and K5's and K6's launch plans
+   at each shape; each
    kernel within its own bound (INT8_TOL), which the bf16 path's output
    (and, for K5 "qkpv", K5 "qk"'s) must exceed at every shape, so that a
    kernel skipping its quantization fails; K5 "qkpv" at d=40 too (its
@@ -78,10 +80,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 13. K7 fused GroupNorm-apply + SiLU + conv3x3: against its plain version
    (fp32 on the same bf16 inputs) at every launch shape and flag set of the
    fused serving path (a block's first launch: prologue + moments; its
-   second: prologue + bias + skip), with the ms of the unfused site
-   (GroupNorm32, SiLU, F.conv2d with bias, + skip, and the next GroupNorm's
-   statistics); one gradient through K7's autograd function against the
-   plain backward;
+   second: prologue + bias + skip), given its weight repacked as the
+   resnet blocks give it, with its launch plan and the ms of the unfused
+   site (GroupNorm32, SiLU, F.conv2d with bias, + skip, and the next
+   GroupNorm's statistics) and of cuDNN's conv alone on h; one gradient
+   through K7's autograd function against the plain backward;
 14. K8 and X3 Winograd F(2x2,3x3): given U (as Conv3x3 keeps it), against
    their plain versions and F.conv2d (cuDNN, the library yardstick) at
    every K8 site shape of the serving path, at the X3 experiment of
@@ -121,6 +124,7 @@ The line before the last is the kernels' JSON; the last line is
 import contextlib
 import copy
 import gc
+import importlib
 import json
 import os
 import re
@@ -315,10 +319,11 @@ def build() -> None:
         elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
             log(f"[build]   {kernel}: {line}")
         elif "Used" in line and kernel not in seen:
-            # K1's, K3's, K5's, K8's, X3's and K2's kernels by name and
-            # template arguments
+            # K1's, K3's, K5's, K8's, X3's, K2's, K7's and K6's kernels by
+            # name and template arguments
             name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel|"
-                             r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel", kernel or "")
+                             r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel|"
+                             r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel", kernel or "")
             if name:
                 args = ",".join(re.findall(r"L[ib](\d+)E", kernel))
                 log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
@@ -675,30 +680,55 @@ def check_int8_flash(randn) -> list:
     return rows
 
 
-def check_int8_dense(randn) -> list:
+def int8_dense_case(randn, shape, timed: bool = True) -> dict:
+    """K6 at one shape (M, C, F) against its plain version (fp32 on the same
+    bf16 inputs) within INT8_TOL["K6"], which bf16 F.linear must fail; raises
+    CheckFailed. Timed: the kernel, the plain version, F.linear,
+    torch._int_mm on the same codes (the library's int8 product without the
+    quantization or the epilogue: a yardstick only) and the bound."""
     from sd_tpu_torch.ops.cuda import int8_dense, int8_dense_plain
     from sd_tpu_torch.ops.cuda.geglu_ff import quantize_cols
+    from sd_tpu_torch.ops.quant import quantize_rows
 
+    m, c, f = shape
+    x = randn(m, c).to(torch.bfloat16)
+    w = (randn(f, c) * c**-0.5).to(torch.bfloat16)
+    b = 0.1 * randn(f)
+    wq, sw = quantize_cols(w)
+    out = int8_dense(x, w, b, prequant=(wq, sw))
+    torch.cuda.synchronize()
+    bf16_b = b.to(torch.bfloat16)
+    err = check_int8_error("K6", shape, out, int8_dense_plain(x.float(), wq, sw, b),
+                           {"F.linear": F.linear(x, w, bf16_b)}, scale_floor=1.0)
+    if not timed:
+        return dict(err=err)
+    xq = quantize_rows(x)[0]
+    ms = time_ms(lambda: int8_dense(x, w, b, prequant=(wq, sw)))
+    plain_ms = time_ms(lambda: int8_dense_plain(x, wq, sw, b))
+    bf16_ms = time_ms(lambda: F.linear(x, w, bf16_b))
+    int_mm_ms = time_ms(lambda: torch._int_mm(xq, wq.t()))
+    bnd = bound(0, m * c * 2 + f * c + f * 8 + m * f * 2, int8_ops=2 * m * c * f)
+    log(f"[K6 int8_dense] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 F.linear "
+        f"{bf16_ms:.4f} ms, torch._int_mm on the codes {int_mm_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bf16_ms=bf16_ms,
+                int_mm_ms=int_mm_ms, **bnd)
+
+
+def log_int8_dense_plan(shape) -> None:
+    """The plan the library chooses for K6 at (M, C, F)."""
+    dense = importlib.import_module("sd_tpu_torch.ops.cuda.int8_dense")
+    p = dense.kernel_plan(*shape)
+    log(f"[K6 plan] {shape}: {p['rows']} rows x {p['cols']} columns a tile, {p['stages']} "
+        f"weight stages, {p['blocks']} blocks ({p['runs']} runs of F, {p['tiles_per_block']} "
+        f"tiles a block), {p['smem_bytes']} bytes of shared memory")
+
+
+def check_int8_dense(randn) -> list:
     rows = []
-    for m, c, f in INT8_DENSE_SHAPES:
-        x = randn(m, c).to(torch.bfloat16)
-        w = (randn(f, c) * c**-0.5).to(torch.bfloat16)
-        b = 0.1 * randn(f)
-        wq, sw = quantize_cols(w)
-        out = int8_dense(x, w, b, prequant=(wq, sw))
-        torch.cuda.synchronize()
-        bf16_b = b.to(torch.bfloat16)
-        err = check_int8_error("K6", (m, c, f), out,
-                               int8_dense_plain(x.float(), wq, sw, b),
-                               {"F.linear": F.linear(x, w, bf16_b)}, scale_floor=1.0)
-        ms = time_ms(lambda: int8_dense(x, w, b, prequant=(wq, sw)))
-        plain_ms = time_ms(lambda: int8_dense_plain(x, wq, sw, b))
-        bf16_ms = time_ms(lambda: F.linear(x, w, bf16_b))
-        bnd = bound(0, m * c * 2 + f * c + f * 8 + m * f * 2, int8_ops=2 * m * c * f)
-        log(f"[K6 int8_dense] {(m, c, f)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bf16 "
-            f"F.linear {bf16_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bf16_ms=bf16_ms,
-                         **bnd))
+    for shape in INT8_DENSE_SHAPES:
+        log_int8_dense_plan(shape)
+        rows.append(int8_dense_case(randn, shape))
     return rows
 
 
@@ -735,53 +765,86 @@ def _fused_bound(b, c, hw, n, second):
     return bound(2 * px * 9 * c * n, nbytes)
 
 
-def check_fused_conv(randn) -> list:
-    """K7 at every launch of the fused serving path, against its plain
-    version in fp32 on the same bf16 inputs, beside the unfused site."""
+@torch.no_grad()
+def fused_conv_case(randn, shape, timed: bool = True) -> dict:
+    """K7 at one launch (B, C, H=W, N, "first" | "second") of the fused
+    serving path, as the resnet blocks call it when serving (no autograd,
+    the weight repacked beforehand), against its plain version in fp32 on
+    the same bf16 inputs (y and the moments); raises CheckFailed. Timed: the
+    kernel, the plain version, the unfused site, cuDNN's conv alone on h and
+    the bound."""
     from sd_tpu_torch.ops.cuda import fused_conv3x3, fused_conv3x3_plain
-    from sd_tpu_torch.ops.cuda.fused_conv import fold_gn_affine
+    from sd_tpu_torch.ops.cuda.fused_conv import fold_gn_affine, repack_weight
     from sd_tpu_torch.ops.norms import GroupNorm32, group_stats
 
-    rows = []
-    for b, c, hw, n, launch in FUSED_SHAPES:
-        shape = (b, c, hw, hw, n, launch)
-        second = launch == "second"
-        x = randn(b, c, hw, hw).to(torch.bfloat16)
-        w = (randn(n, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
-        gn = GroupNorm32(c).to(x.device, torch.bfloat16)
-        with torch.no_grad():
-            gn.weight.copy_(1.0 + 0.1 * randn(c))
-            gn.bias.copy_(0.1 * randn(c))
-        a, d = fold_gn_affine(*group_stats(x, 32), gn.weight.float(), gn.bias.float(), gn.eps)
-        bias = 0.1 * randn(n)
-        skip = randn(b, n, hw, hw).to(torch.bfloat16)
-        kw = dict(a=a, d=d, bias=bias, skip=skip) if second else dict(a=a, d=d,
-                                                                      emit_moments=True)
-        got = fused_conv3x3(x, w, **kw)
-        torch.cuda.synchronize()
-        ref_kw = dict(kw, skip=skip.float()) if second else kw
-        ref = fused_conv3x3_plain(x.float(), w.float(), **ref_kw)
+    b, c, hw, n, launch = shape
+    shape = (b, c, hw, hw, n, launch)
+    second = launch == "second"
+    x = randn(b, c, hw, hw).to(torch.bfloat16)
+    w = (randn(n, c, 3, 3) * (9 * c) ** -0.5).to(torch.bfloat16)
+    gn = GroupNorm32(c).to(x.device, torch.bfloat16)
+    with torch.no_grad():
+        gn.weight.copy_(1.0 + 0.1 * randn(c))
+        gn.bias.copy_(0.1 * randn(c))
+    a, d = fold_gn_affine(*group_stats(x, 32), gn.weight.float(), gn.bias.float(), gn.eps)
+    bias = 0.1 * randn(n)
+    skip = randn(b, n, hw, hw).to(torch.bfloat16)
+    kw = dict(a=a, d=d, bias=bias, skip=skip) if second else dict(a=a, d=d, emit_moments=True)
+    wk = repack_weight(w)
+    got = fused_conv3x3(x, w, wk=wk, **kw)
+    torch.cuda.synchronize()
+    ref_kw = dict(kw, skip=skip.float()) if second else kw
+    ref = fused_conv3x3_plain(x.float(), w.float(), **ref_kw)
+    if second:
+        got, ref = (got,), (ref,)
+    # the second launch's bound scales with the branch it adds to skip, so
+    # that a fault in the conv shows however large the skip is
+    err = check_error("K7 fused_conv3x3", shape, got[0], ref[0], scale_floor=1.0,
+                      residual=skip if second else None)
+    for name, g, r in zip(("sum", "sum of squares"), got[1:], ref[1:]):
+        check_error(f"K7 fused_conv3x3 moments {name}", shape, g, r)
+    if not timed:
+        return dict(err=err)
+    bf16_b = bias.to(torch.bfloat16)
+
+    def unfused():
+        h = F.conv2d(F.silu(gn(x)), w, bf16_b, padding=1)
         if second:
-            got, ref = (got,), (ref,)
-        err = check_error("K7 fused_conv3x3", shape, got[0], ref[0], scale_floor=1.0)
-        for name, g, r in zip(("sum", "sum of squares"), got[1:], ref[1:]):
-            check_error(f"K7 fused_conv3x3 moments {name}", shape, g, r)
-        bf16_b = bias.to(torch.bfloat16)
+            return h + skip
+        return group_stats(h, 32)
 
-        def unfused():
-            h = F.conv2d(F.silu(gn(x)), w, bf16_b, padding=1)
-            if second:
-                return h + skip
-            return group_stats(h, 32)
+    h = F.silu(gn(x))
+    ms = time_ms(lambda: fused_conv3x3(x, w, wk=wk, **kw))
+    plain_ms = time_ms(lambda: fused_conv3x3_plain(x, w, **kw), iters=5)
+    unfused_ms = time_ms(unfused)
+    conv_ms = time_ms(lambda: F.conv2d(h, w, bf16_b, padding=1))
+    bnd = _fused_bound(b, c, hw, n, second)
+    log(f"[K7 fused_conv3x3] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
+        f"site {unfused_ms:.4f} ms, cuDNN conv alone {conv_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, unfused_ms=unfused_ms,
+                conv_ms=conv_ms, **bnd)
 
-        ms = time_ms(lambda: fused_conv3x3(x, w, **kw))
-        plain_ms = time_ms(lambda: fused_conv3x3_plain(x, w, **kw), iters=5)
-        unfused_ms = time_ms(unfused)
-        bnd = _fused_bound(b, c, hw, n, second)
-        log(f"[K7 fused_conv3x3] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, unfused "
-            f"site {unfused_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
-                         unfused_ms=unfused_ms, **bnd))
+
+def log_fused_plan(shape) -> None:
+    """The plan the library chooses for K7 at (B, C, H=W, N, launch)."""
+    from sd_tpu_torch.ops.cuda.fused_conv import kernel_plan
+
+    b, c, hw, n, _ = shape
+    p = kernel_plan(b, c, hw, hw, n)
+    log(f"[K7 plan] {shape[:4]}: {p['rows']} x {p['cols']} pixels x {p['channels']} channels "
+        f"a block, {p['stages']} weight stages, {p['splits']} split(s) over C of "
+        f"{p['steps_per_split']} 64-channel steps, {p['blocks']} blocks, {p['smem_bytes']} "
+        f"bytes of shared memory")
+
+
+def check_fused_conv(randn) -> list:
+    """K7 at every launch of the fused serving path, with its gradient."""
+    rows = []
+    for shape in FUSED_SHAPES:
+        log_fused_plan(shape)
+        rows.append(fused_conv_case(randn, shape))
+        free_memory()
     check_fused_grad(randn)
     return rows
 

@@ -61,8 +61,16 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "tma.cuh"
 
 using sdt::bf16;
+using sdt::cluster_rank;
+using sdt::cluster_sync;
+using sdt::mbar_arrive;
+using sdt::mbar_arrive_cluster;
+using sdt::mbar_expect_tx;
+using sdt::mbar_init;
+using sdt::mbar_wait;
 
 namespace {
 
@@ -92,85 +100,11 @@ __device__ __forceinline__ float gelu(float g) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(sdt::smem_addr(bar)), "r"(count)
-               : "memory");
-}
-
-// Waits for the phase of parity `parity` to complete; traps (a launch
-// error, not a hang) if it has not after about 2^24 tries.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
-  unsigned done = 0;
-  for (unsigned tries = 0;; ++tries) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(sdt::smem_addr(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (tries == (1u << 24)) __trap();
-  }
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(sdt::smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   sdt::smem_addr(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// The box of `map` at (column c, row r) into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, int c, int r,
-                                         uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n" ::"r"(sdt::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(sdt::smem_addr(bar))
-      : "memory");
-}
-
 // The end of a tile's k steps: the producer's copies and the consumers'
 // products both read it.
 template <int MODE>
 __device__ __forceinline__ int k_end(int ktiles, int kt0, int tiles_per_split) {
   return min(ktiles, kt0 + tiles_per_split);
-}
-
-// The same box into the same shared-memory offset of every CTA of the
-// cluster in `mask`, completing on each one's barrier at `bar`'s offset.
-__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map, int c, int r,
-                                                   uint64_t* bar, unsigned short mask) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(sdt::smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(sdt::smem_addr(bar)), "h"(mask)
-      : "memory");
-}
-
-// Arrives on the barrier at `bar`'s offset in CTA `rank` of the cluster.
-__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned rank) {
-  asm volatile(
-      "{\n .reg .b32 remote;\n mapa.shared::cluster.u32 remote, %0, %1;\n"
-      " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(
-          sdt::smem_addr(bar)),
-      "r"(rank)
-      : "memory");
-}
-
-__device__ __forceinline__ unsigned cluster_rank() {
-  unsigned r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n"
-               ::: "memory");
 }
 
 // The output tiles of one GEMM: a [m, k] (map `ma`, box 64 x 128) times rows
@@ -214,7 +148,7 @@ geglu_gemm_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], CONSUMER_WARPS * CL);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    sdt::mbar_init_fence();
   }
   if (CL > 1)
     cluster_sync();
@@ -237,18 +171,18 @@ geglu_gemm_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
           mbar_wait(&empty[stage], phase ^ 1);
           mbar_expect_tx(&full[stage], R::STAGE);
           unsigned char* sa = ring + stage * R::STAGE;
-          tma_load(sa, &ma, kt * BK, m0, &full[stage]);
+          sdt::tma_load_2d(sa, &ma, kt * BK, m0, &full[stage]);
           if (CL > 1) {
             // this CTA's half of the B tile, into both CTAs: GEGLU's value
             // (rank 0) or gate (rank 1) rows, or rows NT / 2 apart
             const int row = MODE == GEGLU ? rank * n + n0 : n0 + rank * (NT / 2);
-            tma_load_multicast(sa + R::A + rank * (NT / 2) * BK * 2, &mb, kt * BK, row,
+            sdt::tma_load_2d_multicast(sa + R::A + rank * (NT / 2) * BK * 2, &mb, kt * BK, row,
                                &full[stage], (1u << CL) - 1);
           } else if (MODE == GEGLU) {
-            tma_load(sa + R::A, &mb, kt * BK, n0, &full[stage]);
-            tma_load(sa + R::A + BN * BK * 2, &mb, kt * BK, n + n0, &full[stage]);
+            sdt::tma_load_2d(sa + R::A, &mb, kt * BK, n0, &full[stage]);
+            sdt::tma_load_2d(sa + R::A + BN * BK * 2, &mb, kt * BK, n + n0, &full[stage]);
           } else {
-            tma_load(sa + R::A, &mb, kt * BK, n0, &full[stage]);
+            sdt::tma_load_2d(sa + R::A, &mb, kt * BK, n0, &full[stage]);
           }
           if (++stage == R::STAGES) {
             stage = 0;
@@ -387,15 +321,15 @@ typedef void (*GemmFn)(CUtensorMap, CUtensorMap, const float*, void*, int, int, 
 // mainloop is assumed to reach (for `choose`).
 struct Plan {
   GemmFn kernel;
-  int id, nt, bn, cl, box_rows, stages, bytes;
+  int nt, bn, cl, box_rows, stages, bytes;
   float eff;
 };
 
 template <int NT, int MODE, int CL>
-Plan plan_of(int id, float eff) {
+Plan plan_of(float eff) {
   using R = Ring<NT, MODE>;
   static_assert(R::STAGES >= 3 && R::BYTES <= 232448, "shared memory per block");
-  return {geglu_gemm_kernel<NT, MODE, CL>, id, NT, MODE == GEGLU ? NT / 2 : NT, CL,
+  return {geglu_gemm_kernel<NT, MODE, CL>, NT, MODE == GEGLU ? NT / 2 : NT, CL,
           MODE == GEGLU || CL > 1 ? NT / 2 : NT, R::STAGES, R::BYTES, eff};
 }
 
@@ -406,31 +340,18 @@ Plan plan_of(int id, float eff) {
 constexpr int kPlans = 4;
 
 template <int MODE>
-Plan plan_at(int i, int id0) {
+Plan plan_at(int i) {
   switch (i) {
-    case 0: return plan_of<256, MODE, 1>(id0, MODE == GEGLU ? 0.75f : 0.8f);
-    case 1: return plan_of<256, MODE, 2>(id0 + 1, MODE == GEGLU ? 0.95f : 1.0f);
-    case 2: return plan_of<128, MODE, 1>(id0 + 2, MODE == GEGLU ? 0.65f : 0.65f);
-    default: return plan_of<128, MODE, 2>(id0 + 3, MODE == GEGLU ? 0.8f : 0.8f);
+    case 0: return plan_of<256, MODE, 1>(MODE == GEGLU ? 0.75f : 0.8f);
+    case 1: return plan_of<256, MODE, 2>(MODE == GEGLU ? 0.95f : 1.0f);
+    case 2: return plan_of<128, MODE, 1>(MODE == GEGLU ? 0.65f : 0.65f);
+    default: return plan_of<128, MODE, 2>(MODE == GEGLU ? 0.8f : 0.8f);
   }
 }
 
-Plan gemm1_plan(int i) { return plan_at<GEGLU>(i, 0); }
+Plan gemm1_plan(int i) { return plan_at<GEGLU>(i); }
 
-Plan gemm2_plan(int i, bool partial) {
-  return partial ? plan_at<PARTIAL>(i, 2 * kPlans) : plan_at<BIAS>(i, kPlans);
-}
-
-// Sets a kernel's shared-memory attribute once per device.
-cudaError_t prepare(const Plan& p, int dev) {
-  constexpr int kDevices = 16, kKernels = 3 * kPlans;
-  static bool done[kDevices][kKernels];
-  if (dev < kDevices && done[dev][p.id]) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(p.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, p.bytes);
-  if (err == cudaSuccess && dev < kDevices) done[dev][p.id] = true;
-  return err;
-}
+Plan gemm2_plan(int i, bool partial) { return partial ? plan_at<PARTIAL>(i) : plan_at<BIAS>(i); }
 
 // A chosen plan: the candidate, its k splits, the k tiles a split takes,
 // its tiles and the blocks launched (one an SM at most, a multiple of the
@@ -459,7 +380,7 @@ cudaError_t choose(bool second, int m, int n, int k, Choice* best) {
       if ((ktiles + tps - 1) / tps != splits) continue;  // a split with no k tile
       const Plan p = second ? gemm2_plan(i, splits > 1) : gemm1_plan(i);
       if (p.cl > 1 && m <= BM) continue;
-      err = prepare(p, dev);
+      err = sdt::smem_limit(reinterpret_cast<const void*>(p.kernel), p.bytes);
       if (err != cudaSuccess) return err;
       const int units = (m + BM * p.cl - 1) / (BM * p.cl) * ((n + p.bn - 1) / p.bn) * splits;
       const int clusters = units < sms / p.cl ? units : sms / p.cl;
@@ -475,59 +396,14 @@ cudaError_t choose(bool second, int m, int n, int k, Choice* best) {
   return best_t < 1e30 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// The driver's cuTensorMapEncodeTiled, reached through the runtime so that
-// the library needs no -lcuda.
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-cudaError_t encoder(EncodeTiled* fn) {
-  static EncodeTiled cached = nullptr;
-  if (cached == nullptr) {
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&cached), 12000, cudaEnableDefault,
-        &found);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&cached), cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess) return err;
-    if (found != cudaDriverEntryPointSuccess || cached == nullptr) {
-      cached = nullptr;
-      return cudaErrorSymbolNotFound;
-    }
-  }
-  *fn = cached;
-  return cudaSuccess;
-}
-
-// A 2-D bf16 [rows, cols] row-major tensor map with boxes of 64 columns x
-// box_rows rows, 128-byte swizzled, zero-filled out of bounds.
-cudaError_t tensor_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
-  EncodeTiled encode;
-  const cudaError_t err = encoder(&encode);
-  if (err != cudaSuccess) return err;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)BK, (cuuint32_t)box_rows};
-  const cuuint32_t elem[2] = {1, 1};
-  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-                             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // a [m, k] times w (w_rows rows of k) by the chosen plan, into out.
 cudaError_t gemm(const Choice& c, const bf16* a, const bf16* w, int w_rows, const float* bias,
                  void* out, float* ws, int m, int n, int k, cudaStream_t s) {
   const Plan& p = c.plan;
   CUtensorMap ma, mb;
-  cudaError_t err = tensor_map(&ma, a, m, k, BM);
-  if (err == cudaSuccess) err = tensor_map(&mb, w, w_rows, k, p.box_rows);
+  cudaError_t err = sdt::matrix_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, m, k, BK, BM);
+  if (err == cudaSuccess)
+    err = sdt::matrix_map(&mb, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, w, w_rows, k, BK, p.box_rows);
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(c.blocks);

@@ -46,6 +46,8 @@ _SIGNATURES = {
     "sdt_geglu_ff_plan": [_I] * 4 + [_P],
     # x, wq, sw, b, out, m, c, f, stream
     "sdt_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
+    # m, c, f, int[7] out: K6's plan
+    "sdt_int8_dense_plan": [_I] * 3 + [_P],
     # x, w1aq, s1a, b1a, w1gq, s1g, b1g, w2q, s2, b2, h, rowmax, hq, sh, y,
     # m, c, inner, c_out, stream
     "sdt_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
@@ -56,8 +58,10 @@ _SIGNATURES = {
     "sdt_flash_int8_padded_dim": [_I],
     # batch, n, heads, d, pv8, int[5] out: K5's launch plan
     "sdt_flash_int8_plan": [_I] * 5 + [_P],
-    # x, w, a, d, bias, skip, y, m1, m2, batch, c, h, w, n, stream
-    "sdt_fused_conv3x3": [_P] * 9 + [_I] * 5 + [_P],
+    # x, wk, a, d, bias, skip, y, m1, m2, ws, batch, c, h, w, n, stream
+    "sdt_fused_conv3x3": [_P] * 10 + [_I] * 5 + [_P],
+    # batch, c, h, w, n, int[8] out: K7's plan
+    "sdt_fused_conv_plan": [_I] * 5 + [_P],
     # in (K8: the parity buffer; X3: x), u, y, batch, c, h, w, k, s1p, split,
     # stream
     "sdt_winograd_conv3x3": [_P] * 3 + [_I] * 7 + [_P],

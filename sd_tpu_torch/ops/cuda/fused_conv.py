@@ -2,8 +2,11 @@
 
 Replaces the TPU kernel ``_kernel`` of ``sd_tpu/ops/pallas/fused_conv.py``
 (through ``_fused_pallas``, entry ``fused_conv3x3``). The CUDA source is
-``sd_tpu_torch/csrc/fused_conv.cu``; its header says what bounds it on the
-H100 and how it is laid out.
+``sd_tpu_torch/csrc/fused_conv.cu``, an implicit GEMM on ``wgmma``; its
+header says what bounds it on the H100 and how it is laid out. It reads the
+weight repacked as ``wk [9, N, C]`` (:func:`repack_weight`: ``sd_tpu``'s
+``w9 [9, C, N]`` with its last two axes swapped), which
+:func:`repacked_weight` caches per weight version for the resnet blocks.
 
 The function, in the port's NCHW / OIHW layout::
 
@@ -18,7 +21,8 @@ The SAME zero padding lies in the normalized domain: the border taps read
 ``fused_conv3x3`` launches the kernel for a CUDA tensor and computes
 :func:`fused_conv3x3_plain` for a CPU tensor only; a CUDA tensor that is
 not bf16, or a shape the kernel does not take, raises.
-``fused_conv3x3.launches`` counts launches. Where autograd records, a
+``fused_conv3x3.launches`` counts calls that launch it (one a call, where
+a split over C adds a second kernel). Where autograd records, a
 ``torch.autograd.Function`` runs the same forward and, backward, recomputes
 through the plain version, as ``sd_tpu``'s ``_fc_bwd`` recomputes through
 ``_reference``.
@@ -30,24 +34,28 @@ tiles), so that both packages take exactly the same sites.
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import os
 from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 
 __all__ = ["fused_conv3x3", "fused_conv3x3_plain", "fused_conv_supported",
-           "fused_conv_enabled", "parse_fused_conv", "fold_gn_affine"]
+           "fused_conv_enabled", "parse_fused_conv", "fold_gn_affine", "repack_weight",
+           "repacked_weight", "kernel_plan"]
 
 _LOG2E = 1.4426950408889634
 # sd_tpu's VMEM budget: part of the gate's definition, not a limit of the card
 _VMEM_BUDGET = 13 * 1024 * 1024
-# the CUDA kernel's block: 8 x 16 output pixels by 64 output channels, 32
-# input channels per k-step (csrc/fused_conv.cu)
+# the CUDA kernel's block: 8 x 16 output pixels, 64 input channels a step
+# (csrc/fused_conv.cu)
 _TILE_ROWS, _TILE_COLS = 8, 16
-_BLOCK_CHANNELS = 32
+_BLOCK_CHANNELS = 64
 _FUSED_MODES = {"": "auto", "auto": "auto", "0": "off", "off": "off", "1": "force",
                 "force": "force"}
 
@@ -142,6 +150,29 @@ def fold_gn_affine(mean: torch.Tensor, meansq: torch.Tensor, scale: torch.Tensor
     return a.float(), dd.float()
 
 
+def repack_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``w [N, C, 3, 3]`` as the kernel reads it: ``wk [9, N, C]``, tap
+    ``3 dy + dx`` major, each output channel's C contiguous (``sd_tpu``'s
+    ``w9 = hwio.reshape(9, C, N)`` with its last two axes swapped)."""
+    n, c = w.shape[:2]
+    return w.permute(2, 3, 0, 1).reshape(9, n, c).contiguous()
+
+
+def repacked_weight(conv: nn.Module, dtype: torch.dtype) -> torch.Tensor:
+    """:func:`repack_weight` of ``conv.weight`` in ``dtype``, computed once
+    per weight version and kept on the module (any ``nn.Conv2d``), keyed as
+    ``Conv3x3.winograd_u`` keys U: a replaced or in-place edited weight is
+    repacked again. For calls where autograd does not record."""
+    w = conv.weight
+    key = (w.data_ptr(), w.dtype, w.device, w._version, dtype)
+    cache = getattr(conv, "_fused_conv_cache", None)
+    if cache is None or cache[0] != key:
+        with torch.no_grad():
+            cache = (key, repack_weight(w.to(dtype)))
+        conv._fused_conv_cache = cache
+    return cache[1]
+
+
 def fused_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, a=None, d=None, bias=None,
                         skip=None, emit_moments: bool = False):
     """The same function in plain PyTorch (``sd_tpu``'s ``_reference``):
@@ -166,7 +197,7 @@ def fused_conv3x3_plain(x: torch.Tensor, w: torch.Tensor, a=None, d=None, bias=N
         return yb
 
 
-def _check_inputs(x, w, a, d, bias, skip):
+def _check_inputs(x, w, a, d, bias, skip, wk=None):
     if x.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
         raise TypeError(f"fused_conv3x3: x {x.dtype}, w {w.dtype}; the card's path is bfloat16")
     if x.ndim != 4:
@@ -182,6 +213,10 @@ def _check_inputs(x, w, a, d, bias, skip):
         raise ValueError(f"fused_conv3x3: unsupported shape x {tuple(x.shape)}, N={n} (W % 16, "
                          f"H % 8, C % {_BLOCK_CHANNELS}, N % 8) — gate with "
                          f"fused_conv_supported")
+    if wk is not None and (tuple(wk.shape) != (9, n, c) or wk.dtype != torch.bfloat16
+                           or wk.device != x.device):
+        raise ValueError(f"fused_conv3x3: wk {wk.dtype} {tuple(wk.shape)} on {wk.device} is not "
+                         f"bf16 [9, {n}, {c}] on {x.device}")
     for name, t, shape in (("a", a, (b, c)), ("d", d, (b, c)), ("bias", bias, (n,)),
                            ("skip", skip, (b, n, h_img, w_img))):
         if t is None:
@@ -194,43 +229,68 @@ def _check_inputs(x, w, a, d, bias, skip):
         raise TypeError(f"fused_conv3x3: skip is {skip.dtype}; the card's path is bfloat16")
 
 
-def _launch(x, w, a, d, bias, skip, emit_moments):
-    _check_inputs(x, w, a, d, bias, skip)
+@functools.lru_cache(maxsize=256)
+def _plan(b: int, c: int, h: int, w: int, n: int, device: int) -> tuple:
+    out = (ctypes.c_int * 8)()
+    with torch.cuda.device(device):
+        err = kernels().sdt_fused_conv_plan(b, c, h, w, n, out)
+    check(err, f"fused_conv3x3 plan at {(b, c, h, w, n)}")
+    return tuple(out)
+
+
+def kernel_plan(b: int, c: int, h: int, w: int, n: int) -> dict:
+    """K7's plan at ``x [b, c, h, w]`` and N = ``n``, from the loaded
+    library: a block's output rows, columns and channels, the stages of its
+    weight ring, the splits over C, the 64-channel steps a split takes, the
+    blocks launched and a block's shared memory. Needs the card."""
+    keys = ("rows", "cols", "channels", "stages", "splits", "steps_per_split", "blocks",
+            "smem_bytes")
+    return dict(zip(keys, _plan(b, c, h, w, n, torch.cuda.current_device())))
+
+
+def _launch(x, w, a, d, bias, skip, emit_moments, wk):
+    _check_inputs(x, w, a, d, bias, skip, wk)
     b, c, h_img, w_img = x.shape
     n = w.shape[0]
     tiles = (h_img // _TILE_ROWS) * (w_img // _TILE_COLS)
     x = x.contiguous()
-    w = w.contiguous()
-    if w.data_ptr() % 16:
-        raise ValueError("fused_conv3x3: w is not 16-byte aligned")
+    wk = repack_weight(w) if wk is None else wk.contiguous()
     f32 = lambda t: None if t is None else t.to(torch.float32).contiguous()
     a, d, bias = f32(a), f32(d), f32(bias)
     skip = None if skip is None else skip.contiguous()
+    plan = _plan(b, c, h_img, w_img, n, x.device.index if x.device.index is not None
+                 else torch.cuda.current_device())
     y = torch.empty((b, n, h_img, w_img), dtype=x.dtype, device=x.device)
-    m1 = m2 = None
+    ws = m1 = m2 = None
+    if plan[4] > 1:
+        ws = torch.empty((plan[4], b, n, h_img, w_img), dtype=torch.float32, device=x.device)
     if emit_moments:
-        m1 = torch.empty((b, tiles, n), dtype=torch.float32, device=x.device)
-        m2 = torch.empty_like(m1)
+        moments = torch.empty((2, b, tiles, n), dtype=torch.float32, device=x.device)
+        m1, m2 = moments
+    for name, t in (("x", x), ("wk", wk), ("skip", skip)):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"fused_conv3x3: {name} is not 16-byte aligned")
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = kernels()
     with torch.cuda.device(x.device):
-        err = lib.sdt_fused_conv3x3(ptr(x), ptr(w), ptr(a), ptr(d), ptr(bias), ptr(skip),
-                                    ptr(y), ptr(m1), ptr(m2), b, c, h_img, w_img, n,
+        err = lib.sdt_fused_conv3x3(ptr(x), ptr(wk), ptr(a), ptr(d), ptr(bias), ptr(skip),
+                                    ptr(y), ptr(m1), ptr(m2), ptr(ws), b, c, h_img, w_img, n,
                                     stream_of(x))
     check(err, "fused_conv3x3")
     fused_conv3x3.launches += 1
     if emit_moments:
         # per-tile partial sums, added in a fixed order (no float atomics)
-        return y, m1.sum(dim=1), m2.sum(dim=1)
+        s1, s2 = moments.sum(dim=2)
+        return y, s1, s2
     return y
 
 
-def _forward(x, w, a, d, bias, skip, emit_moments):
+def _forward(x, w, a, d, bias, skip, emit_moments, wk=None):
     if x.device.type == "cpu":
         return fused_conv3x3_plain(x, w, a, d, bias, skip, emit_moments)
     if x.device.type != "cuda":
         raise ValueError(f"fused_conv3x3: no path for device {x.device}")
-    return _launch(x, w, a, d, bias, skip, emit_moments)
+    return _launch(x, w, a, d, bias, skip, emit_moments, wk)
 
 
 class _FusedConv(torch.autograd.Function):
@@ -260,11 +320,14 @@ class _FusedConv(torch.autograd.Function):
 
 def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, *, a: Optional[torch.Tensor] = None,
                   d: Optional[torch.Tensor] = None, bias: Optional[torch.Tensor] = None,
-                  skip: Optional[torch.Tensor] = None, emit_moments: bool = False):
+                  skip: Optional[torch.Tensor] = None, emit_moments: bool = False,
+                  wk: Optional[torch.Tensor] = None):
     """(affine + SiLU) -> conv3x3 -> (+bias, +skip, moments) on NCHW ``x``
     ``[B, C, H, W]`` and an OIHW ``w [N, C, 3, 3]``; ``a``/``d`` ``[B, C]``
-    fp32 (both or neither), ``bias [N]``, ``skip [B, N, H, W]``. Returns
-    ``y`` or ``(y, sum [B, N], sumsq [B, N])`` of the rounded ``y``."""
+    fp32 (both or neither), ``bias [N]``, ``skip [B, N, H, W]``; ``wk`` the
+    kernel's :func:`repack_weight` of ``w`` where the caller keeps it (read
+    only where autograd does not record; else the call repacks ``w``).
+    Returns ``y`` or ``(y, sum [B, N], sumsq [B, N])`` of the rounded ``y``."""
     if (a is None) != (d is None):
         raise ValueError("fused_conv3x3: a and d must be given together")
     args = (x, w, a, d, bias, skip)
@@ -275,7 +338,7 @@ def fused_conv3x3(x: torch.Tensor, w: torch.Tensor, *, a: Optional[torch.Tensor]
             skip = None if skip is None else skip.to(dtype)
         with torch.autocast(x.device.type, enabled=False):
             return _FusedConv.apply(x, w, a, d, bias, skip, emit_moments)
-    return _forward(*args, emit_moments)
+    return _forward(*args, emit_moments, wk)
 
 
 fused_conv3x3.launches = 0

@@ -2,25 +2,30 @@
 
 Replaces the TPU kernel ``_kernel`` of ``sd_tpu/ops/pallas/int8_dense.py``
 (entry ``int8_dense``), the int8 serving mode's ``proj`` bucket. The CUDA
-source is ``sd_tpu_torch/csrc/int8_dense.cu`` (with ``int8_gemm.cuh``); its
-header says what bounds it on the H100.
+source is ``sd_tpu_torch/csrc/int8_dense.cu`` on the int8 ``wgmma`` GEMM of
+``int8_wgmma.cuh``, whose header says what bounds it on the H100: each row
+of x is quantized once, by the block that keeps its codes for a run of F
+(:func:`kernel_plan`).
 
 The weight is in torch ``Linear`` layout ``[F, C]`` and quantized per output
 channel (``prequant = (wq, sw)`` from load time, else here with the same
-math). ``x`` is quantized per row inside the kernel. A row count that
-``sd_tpu``'s ``_block_m`` finds no block for (M >= 256 and not a multiple
-of 8) takes the plain product in the input dtype instead, as ``sd_tpu``
-does, so the two agree there too.
+math). A row count that ``sd_tpu``'s ``_block_m`` finds no block for
+(M >= 256 and not a multiple of 8) takes the plain product in the input
+dtype instead, as ``sd_tpu`` does, so the two agree there too.
 
 ``int8_dense`` launches the kernel for a CUDA tensor and uses
 :func:`int8_dense_plain` for a CPU tensor only; a CUDA tensor that is not
-bf16, or a shape the kernel does not take, raises. ``int8_dense.launches``
-counts launches. Inference only: it raises where autograd would record.
+bf16, or a shape the kernel does not take (C a multiple of 32 up to 1280,
+F of 8), raises. ``int8_dense.launches`` counts launches. Inference only:
+it raises where autograd would record.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import ctypes
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -28,10 +33,10 @@ import torch.nn.functional as F
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_rows
 
-__all__ = ["int8_dense", "int8_dense_plain", "block_m"]
+__all__ = ["int8_dense", "int8_dense_plain", "block_m", "kernel_plan"]
 
 _DEFAULT_BM = 256
-_MAX_C = 2560
+_MAX_C = 1280
 
 
 def block_m(m: int, block: Optional[int] = None) -> Optional[int]:
@@ -75,10 +80,50 @@ def _check_inputs(x, wq, sw, b):
     for name, t in (("wq", wq), ("sw", sw), ("b", b)):
         if t is not None and t.device != x.device:
             raise ValueError(f"int8_dense: {name} is on {t.device}, x on {x.device}")
-    if c % 16 or c > _MAX_C:
-        raise ValueError(f"int8_dense: C={c} must be a multiple of 16 and at most {_MAX_C}")
+    if c % 32 or c > _MAX_C or f % 8:
+        raise ValueError(f"int8_dense: C={c} must be a multiple of 32 and at most {_MAX_C}, "
+                         f"F={f} a multiple of 8")
     if x.numel() == 0:
         raise ValueError("int8_dense: empty input")
+
+
+def kernel_plan(m: int, c: int, f: int) -> dict:
+    """K6's plan at ``x [m, c]``, ``F = f``, from the loaded library: the
+    rows a block keeps quantized, the columns of a tile, the stages of the
+    weight ring, the blocks launched, the runs F is split into, the tiles a
+    block walks and the block's shared memory. Needs the card."""
+    out = (ctypes.c_int * 7)()
+    check(kernels().sdt_int8_dense_plan(m, c, f, out), f"int8_dense plan at {(m, c, f)}")
+    keys = ("rows", "cols", "stages", "blocks", "runs", "tiles_per_block", "smem_bytes")
+    return dict(zip(keys, out))
+
+
+@functools.lru_cache(maxsize=64)
+def _zero_bias(f: int, device: torch.device) -> torch.Tensor:
+    return torch.zeros(f, dtype=torch.float32, device=device)
+
+
+def _launch(x2, wq, sw, bias) -> torch.Tensor:
+    """The kernel on ``x2 [m, c]`` (checked inputs; ``bias`` or None)."""
+    m, c = x2.shape
+    f = wq.shape[0]
+    if sw.dtype != torch.float32 or not sw.is_contiguous():
+        sw = sw.float().contiguous()
+    if bias is None:
+        bias = _zero_bias(f, x2.device)
+    elif bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    out = torch.empty((m, f), dtype=x2.dtype, device=x2.device)
+    for name, t in (("x", x2), ("wq", wq)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"int8_dense: {name} is not 16-byte aligned")
+    lib = kernels()
+    with torch.cuda.device(x2.device):
+        err = lib.sdt_int8_dense(x2.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
+                                 out.data_ptr(), m, c, f, stream_of(x2))
+    check(err, "int8_dense")
+    int8_dense.launches += 1
+    return out
 
 
 def int8_dense(x: torch.Tensor, w: Optional[torch.Tensor], b: Optional[torch.Tensor] = None,
@@ -99,23 +144,8 @@ def int8_dense(x: torch.Tensor, w: Optional[torch.Tensor], b: Optional[torch.Ten
         raise ValueError(f"int8_dense: no path for device {x.device}")
     _check_inputs(x, wq, sw, b)
     c = x.shape[-1]
-    f = wq.shape[0]
-    x2 = x.reshape(-1, c).contiguous()
-    wq = wq.contiguous()
-    sw = sw.to(torch.float32).contiguous()
-    bias = (torch.zeros(f, dtype=torch.float32, device=x.device) if b is None
-            else b.to(torch.float32).contiguous())
-    out = torch.empty((m, f), dtype=x.dtype, device=x.device)
-    for name, t in (("x", x2), ("wq", wq)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"int8_dense: {name} is not 16-byte aligned")
-    lib = kernels()
-    with torch.cuda.device(x.device):
-        err = lib.sdt_int8_dense(x2.data_ptr(), wq.data_ptr(), sw.data_ptr(), bias.data_ptr(),
-                                 out.data_ptr(), m, c, f, stream_of(x))
-    check(err, "int8_dense")
-    int8_dense.launches += 1
-    return out.view(*x.shape[:-1], f)
+    out = _launch(x.reshape(-1, c).contiguous(), wq.contiguous(), sw, b)
+    return out.view(*x.shape[:-1], wq.shape[0])
 
 
 int8_dense.launches = 0

@@ -35,7 +35,7 @@ from torch import nn
 from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.cuda.fused_conv import (fold_gn_affine, fused_conv3x3,
                                               fused_conv_enabled, fused_conv_supported,
-                                              parse_fused_conv)
+                                              parse_fused_conv, repacked_weight)
 from sd_tpu_torch.ops.cuda.winograd_conv import parse_conv_impl
 from sd_tpu_torch.ops.norms import GroupNorm32, group_stats
 
@@ -72,20 +72,29 @@ def _second_gn_folds(s1, s2, hw: int, offset, num_groups: int):
             e2_c.reshape(b, num_groups, c // num_groups).mean(-1))
 
 
+def _kernel_weight(conv: nn.Module, x: torch.Tensor):
+    """K7's repacked weight of ``conv``, kept on the module, where autograd
+    does not record (there the call repacks)."""
+    if torch.is_grad_enabled() and (x.requires_grad or conv.weight.requires_grad):
+        return None
+    return repacked_weight(conv, x.dtype)
+
+
 def _fused_pair(x, gn1, conv1, gn2, conv2, skip, offset_of):
     """The two K7 launches of a fused block. ``offset_of(b1)`` returns the
     second GroupNorm's channel offset [B, C] and its FiLM (scale, shift) or
     (None, None)."""
     m1, m2 = group_stats(x, gn1.num_groups)
     a1, d1 = fold_gn_affine(m1, m2, gn1.weight.float(), gn1.bias.float(), gn1.eps)
-    h_raw, s1, s2 = fused_conv3x3(x, conv1.weight.to(x.dtype), a=a1, d=d1, emit_moments=True)
+    h_raw, s1, s2 = fused_conv3x3(x, conv1.weight.to(x.dtype), a=a1, d=d1, emit_moments=True,
+                                  wk=_kernel_weight(conv1, x))
     offset, extra_scale, extra_shift = offset_of(conv1.bias.float())
     mg, m2g = _second_gn_folds(s1, s2, x.shape[2] * x.shape[3], offset, gn2.num_groups)
     a2, d2 = fold_gn_affine(mg, m2g, gn2.weight.float(), gn2.bias.float(), gn2.eps,
                             extra_scale=extra_scale, channel_offset=offset,
                             extra_shift=extra_shift)
     return fused_conv3x3(h_raw, conv2.weight.to(x.dtype), a=a2, d=d2, bias=conv2.bias.float(),
-                         skip=skip.to(x.dtype))
+                         skip=skip.to(x.dtype), wk=_kernel_weight(conv2, x))
 
 
 class Upsample(nn.Module):

@@ -1,8 +1,8 @@
-"""Plant faults in copies of K1's, K3's, K5's, K8's, X3's and K2's sources
-and show that ``chip_smoke.py``'s checks fail on each, at every shape they
-cover.
+"""Plant faults in copies of K1's, K3's, K5's, K8's, X3's, K2's, K7's and
+K6's sources and show that ``chip_smoke.py``'s checks fail on each, at every
+shape they cover.
 
-    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2 ...]   (from the repository root)
+    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2|K7|K6 ...]   (from the repository root)
 
 For each fault in :data:`FAULTS` (those of the kernels named, or all) the
 package is copied into ``build/flash_faults/<name>/`` (git-ignored), the
@@ -15,7 +15,9 @@ with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
 source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both;
 ``int8_flash_case`` (K5 faults) at every shape of ``INT8_FLASH_SHAPES``
 whose mode the fault touches ("K5": both modes, "K5 qkpv": that mode
-only); ``geglu_case`` (K2 faults) at every shape of ``FF_SHAPES``. A run
+only); ``geglu_case`` (K2 faults) at every shape of ``FF_SHAPES``;
+``fused_conv_case`` (K7 faults) at every shape of ``FUSED_SHAPES``;
+``int8_dense_case`` (K6 faults) at every shape of ``INT8_DENSE_SHAPES``. A run
 "fails" where a check raises ``CheckFailed``; its margin is the error over
 the check's bound. The script prints one JSON line of every margin, last,
 and exits 1 unless every fault failed at every shape. Needs a card.
@@ -33,7 +35,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K5, K5 qkpv, K8, X3 or K2, [(source file, text, replacement, count)])
+# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7 or K6, [(source file, text, replacement,
+# count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
@@ -78,6 +81,20 @@ FAULTS = {
     "the first GEMM's last k tile dropped": ("K2", [
         ("geglu_ff.cu", "  return min(ktiles, kt0 + tiles_per_split);",
          "  return min(ktiles, kt0 + tiles_per_split) - (MODE == GEGLU);", 1)]),
+    "the prologue applied to the border taps": ("K7", [
+        ("fused_conv.cu", "  return gy >= 0 && gy < H && gx >= 0 && gx < W;\n", "  return true;\n", 1)]),
+    "the last channel step of each split dropped": ("K7", [
+        ("fused_conv.cu", "const int nch = min(C / BC, ch0 + chunks_per_split) - ch0;",
+         "const int nch = min(C / BC, ch0 + chunks_per_split) - ch0 - 1;", 1)]),
+    "tap 5's column shift off by one": ("K7", [
+        ("fused_conv.cu", "const int dy = tap / 3, dx = tap % 3;",
+         "const int dy = tap / 3, dx = tap % 3 - (tap == 5);", 1)]),
+    "one row's scale taken from its neighbour": ("K6", [
+        ("int8_wgmma.cuh", "const float s_lo = scale[arow0 + rl],",
+         "const float s_lo = scale[arow0 + rl + (rl == 0)],", 1)]),
+    "the last k tile dropped": ("K6", [
+        ("int8_wgmma.cuh", "const int ksteps = c / 32;",
+         "const int ksteps = min(c / 32, (kblocks - 1) * (BK / 32));", 1)]),
 }
 
 
@@ -102,15 +119,28 @@ def _smoke():
 def run_checks(kernel: str) -> dict:
     """In the child: the smoke's K1 or K3 case at every N=4096 shape, plain
     and sharp, its Winograd case (K8 and X3) at every UNet shape, its K5
-    case at every int8 attention shape of the fault's modes or its K2 case
-    at every FF shape; returns {shape (sharp): margin, or None where it
-    passed}."""
+    case at every int8 attention shape of the fault's modes, its K2 case
+    at every FF shape, its K7 case at every fused-conv launch or its K6 case
+    at every int8 dense shape; returns {shape (sharp): margin, or None where
+    it passed}."""
     import torch
 
     smoke = _smoke()
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     margins = {}
+    if kernel in ("K7", "K6"):
+        shapes = smoke.FUSED_SHAPES if kernel == "K7" else smoke.INT8_DENSE_SHAPES
+        case = smoke.fused_conv_case if kernel == "K7" else smoke.int8_dense_case
+        for shape in shapes:
+            label = "x".join(map(str, shape))
+            try:
+                case(randn, shape, timed=False)
+                margins[label] = None
+            except smoke.CheckFailed as failed:
+                margins[label] = failed.err / failed.limit
+            smoke.free_memory()
+        return margins
     if kernel in ("K5", "K5 qkpv", "K2"):
         shapes = (smoke.FF_SHAPES if kernel == "K2" else
                   [s for s in smoke.INT8_FLASH_SHAPES if kernel == "K5" or s[4] == "qkpv"])

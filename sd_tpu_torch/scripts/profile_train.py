@@ -33,7 +33,12 @@ GROUPS: List[Tuple[str, Tuple[str, ...]]] = [
     ("K5 flash_attention_int8", ("int8_attn_kernel", "flash_int8_kernel", "quant_heads_kernel",
                                  "quant_v_kernel")),
     ("K2 geglu_ff", ("geglu_gemm_kernel", "geglu_splitk_reduce", "gemm_nt_kernel")),
-    ("K4/K6 int8 GEMMs", ("int8_gemm_kernel", "quant_rows_kernel")),
+    # K6: its kernels, and its first design's instance of K4's GEMM (quantizing A,
+    # bf16 out)
+    ("K6 int8_dense", ("int8_dense_kernel", "int8_dense_quant_kernel",
+                       "int8_gemm_kernel<true, (sdt_i8::(anonymous namespace)::Epi)0>")),
+    ("K4 geglu_ff_int8", ("int8_gemm_kernel", "quant_rows_kernel")),
+    ("K7 fused_conv3x3", ("fused_conv_kernel", "fused_conv_reduce_kernel")),
     ("K8/X3 winograd_conv3x3", ("winograd_kernel<",)),
     ("AdamW (multi-tensor)", ("multi_tensor_apply",)),
     ("convs (cuDNN)", ("conv", "fprop", "dgrad", "wgrad", "implicit_", "winograd")),

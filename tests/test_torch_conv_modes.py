@@ -301,8 +301,9 @@ def test_winograd_gate_matches_sd_tpu_on_shapes(monkeypatch):
 @pytest.mark.parametrize("shape,error", [
     ((1, 128, 8, 16), None),
     ((1, 128, 8, 24), ValueError),    # W % 16
-    ((1, 96 + 8, 8, 16), ValueError),  # C % 32
+    ((1, 96 + 8, 8, 16), ValueError),  # C % 64
     ((1, 128, 12, 32), ValueError),   # H % the kernel's 8 rows
+    ((1, 160, 8, 16), ValueError),    # C % 64: the kernel's 64-channel steps
 ])
 def test_fused_wrapper_checks(shape, error):
     """The checks a CUDA tensor meets before the launch, run on CPU tensors."""
@@ -317,6 +318,81 @@ def test_fused_wrapper_checks(shape, error):
     else:
         with pytest.raises(error):
             port_fused._check_inputs(x, w, None, None, None, None)
+
+
+def test_fused_wrapper_takes_every_site_sd_tpu_admits():
+    """Wherever sd_tpu's gate admits a bf16 site, the kernel's checks pass
+    (shapes only: tensors on the meta device)."""
+    admitted = 0
+    for xs, ws in _sd_v1_conv_shapes():
+        if not jfused.fused_conv_supported(_nhwc_shape(xs), _hwio(ws), jnp.bfloat16):
+            continue
+        admitted += 1
+        x = torch.empty(xs, dtype=torch.bfloat16, device="meta")
+        w = torch.empty(ws, dtype=torch.bfloat16, device="meta")
+        b, n = xs[0], ws[0]
+        ad = torch.empty((b, xs[1]), device="meta")
+        wk = torch.empty((9, n, xs[1]), dtype=torch.bfloat16, device="meta")
+        skip = torch.empty((b, n) + tuple(xs[2:]), dtype=torch.bfloat16, device="meta")
+        port_fused._check_inputs(x, w, ad, ad, torch.empty(n, device="meta"), skip, wk)
+    assert admitted >= 18
+
+
+def test_fused_weight_repack_is_sd_tpu_w9():
+    """The kernel's weight layout wk [9, N, C] is sd_tpu's w9 = HWIO
+    reshaped to [9, C, N] with its last two axes swapped, bit for bit."""
+    w_hwio = _np(20, (3, 3, 64, 48))
+    w9 = np.asarray(jnp.asarray(w_hwio).reshape(9, 64, 48))
+    wk = port_fused.repack_weight(_oihw(w_hwio).to(torch.bfloat16))
+    assert wk.shape == (9, 48, 64) and wk.is_contiguous()
+    want = torch.from_numpy(np.ascontiguousarray(w9.transpose(0, 2, 1))).to(torch.bfloat16)
+    assert torch.equal(wk, want)
+
+
+def test_fused_weight_cache_follows_the_weight():
+    """repacked_weight keeps one repack per weight version on the module: the
+    same tensor on a second call, a new one after an in-place edit or a
+    replaced weight, for any nn.Conv2d."""
+    conv = torch.nn.Conv2d(16, 24, 3, padding=1)
+    first = port_fused.repacked_weight(conv, torch.bfloat16)
+    assert port_fused.repacked_weight(conv, torch.bfloat16) is first
+    assert torch.equal(first, port_fused.repack_weight(conv.weight.to(torch.bfloat16)))
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    second = port_fused.repacked_weight(conv, torch.bfloat16)
+    assert second is not first
+    assert torch.equal(second, port_fused.repack_weight(conv.weight.to(torch.bfloat16)))
+    conv.weight = torch.nn.Parameter(torch.ones_like(conv.weight))
+    third = port_fused.repacked_weight(conv, torch.bfloat16)
+    assert torch.equal(third, port_fused.repack_weight(conv.weight.to(torch.bfloat16)))
+    assert port_fused.repacked_weight(conv, torch.float32).dtype == torch.float32
+
+
+def test_fused_block_reads_the_cache_only_without_autograd(monkeypatch):
+    """A fused ResBlock gives K7 the module's cached repack where autograd
+    does not record, and no repack (the call makes its own) where it does."""
+    torch.manual_seed(0)
+    block = ResBlock(128, 32, out_channels=128)
+    block.conv_impl = "force"
+    seen = []
+    real = port_res.fused_conv3x3
+
+    def spy(*args, **kwargs):
+        seen.append(kwargs.get("wk"))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_res, "fused_conv3x3", spy)
+    x, emb = torch.randn(1, 128, 8, 16), torch.randn(1, 32)
+    with torch.no_grad():
+        block(x, emb)
+        block(x, emb)
+    conv1, conv2 = block.in_layers[2], block.out_layers[3]
+    assert seen[0] is seen[2] and seen[1] is seen[3]
+    assert torch.equal(seen[0], port_fused.repack_weight(conv1.weight))
+    assert torch.equal(seen[1], port_fused.repack_weight(conv2.weight))
+    seen.clear()
+    block(x, emb).sum().backward()
+    assert seen == [None, None]
 
 
 # ---------------------------------------------------------- the blocks

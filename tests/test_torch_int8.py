@@ -380,6 +380,33 @@ def test_int8_dense_plain_matches_pallas(m, c, f, bias):
     _close(got.numpy(), np.asarray(want))
 
 
+def test_int8_dense_without_bias_matches_pallas_at_a_proj_site():
+    """K6's wrapper with b=None (the fused QKV call) against sd_tpu's
+    int8_dense in interpret mode, at the proj bucket's narrowest widths."""
+    x = _np(53, (2, 64, 320), 0.5)
+    w = _np(54, (320, 960), 0.05)  # sd_tpu: [C, F]
+    want = jdense.int8_dense(jnp.asarray(x), jnp.asarray(w), None, interpret=True)
+    wq, sw = quantize_cols(torch.from_numpy(w.T.copy()))
+    got = int8_dense(torch.from_numpy(x), None, prequant=(wq, sw))
+    assert got.shape == (2, 64, 960)
+    _close(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("c,f,ok", [(320, 960, True), (1280, 1280, True), (1312, 1312, False),
+                                    (336, 336, False), (320, 324, False)])
+def test_int8_dense_wrapper_checks(c, f, ok):
+    """The checks a CUDA tensor meets before K6's launch, run on CPU tensors:
+    C a multiple of 32 up to 1280 (the block's quantized rows), F of 8."""
+    dense = importlib.import_module("sd_tpu_torch.ops.cuda.int8_dense")
+    x = torch.zeros((256, c), dtype=torch.bfloat16)
+    wq, sw = torch.zeros((f, c), dtype=torch.int8), torch.ones(f)
+    if ok:
+        dense._check_inputs(x, wq, sw, None)
+    else:
+        with pytest.raises(ValueError):
+            dense._check_inputs(x, wq, sw, None)
+
+
 # ------------------------------------------------------------ grammar, gates
 
 

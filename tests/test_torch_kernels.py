@@ -119,7 +119,8 @@ def test_library_name_is_keyed_to_the_sources():
                                     "geglu_ff.cu", "flash_attention_int8.cu",
                                     "geglu_ff_int8.cu", "int8_dense.cu", "fused_conv.cu",
                                     "winograd_conv.cu", "fused_block.cu", "tail_fused.cu"}
-    assert {p.name for p in headers} == {"int8_gemm.cuh", "block_tile.cuh", "flash_mma.cuh"}
+    assert {p.name for p in headers} == {"int8_gemm.cuh", "block_tile.cuh", "flash_mma.cuh",
+                                         "int8_wgmma.cuh", "tma.cuh"}
 
 
 def _bf16(*shape):
