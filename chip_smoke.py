@@ -58,8 +58,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    bf16 inputs, the same int8 codes) at every shape of the int8 serving
    path at batch 1 and batch 8, with the ms of the bf16 path the site takes
    otherwise (K2, K1, F.linear; for K6 also torch._int_mm on the same
-   codes, the library's int8 product alone), and K5's and K6's launch plans
-   at each shape; each
+   codes, the library's int8 product alone), and K4's, K5's and K6's launch
+   plans at each shape; each
    kernel within its own bound (INT8_TOL), which the bf16 path's output
    (and, for K5 "qkpv", K5 "qk"'s) must exceed at every shape, so that a
    kernel skipping its quantization fails; K5 "qkpv" at d=40 too (its
@@ -111,7 +111,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    with the ms of the unfused yardstick (the port's LayerNormFp32,
    CrossAttention with K1, FeedForward with K2), and X1∘X2 on a port
    BasicTransformerBlock against the block itself in bf16 (relative L2
-   within BLOCK_AGREEMENT_TOL);
+   within BLOCK_AGREEMENT_TOL); each site logs X1's launch plans ([X1 plan]);
 18. the block experiment: `python -m sd_tpu_torch.scripts.exp_block_kernel`
    and `... tail` at their defaults (N=4096, C=320), through their main();
    the launches, reset just before each, must be exactly 2 + 2 x 30 X1 and
@@ -319,11 +319,12 @@ def build() -> None:
         elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
             log(f"[build]   {kernel}: {line}")
         elif "Used" in line and kernel not in seen:
-            # K1's, K3's, K5's, K8's, X3's, K2's, K7's and K6's kernels by
-            # name and template arguments
+            # K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's, K4's and X1's
+            # kernels by name and template arguments
             name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel|"
                              r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel|"
-                             r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel", kernel or "")
+                             r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel|k4_out_kernel|"
+                             r"x1_qkv_kernel|x1_attn_kernel", kernel or "")
             if name:
                 args = ",".join(re.findall(r"L[ib](\d+)E", kernel))
                 log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
@@ -604,31 +605,55 @@ def check_flash_bwd(randn) -> list:
     return rows
 
 
-def check_int8_ff(randn) -> list:
+def int8_ff_case(randn, shape, timed: bool = True) -> dict:
+    """K4 at one shape (M, C, inner) against its plain version (fp32 on the
+    same bf16 inputs) within INT8_TOL["K4"], which bf16 K2 must fail; raises
+    CheckFailed. Timed: the kernel, the plain version, bf16 K2 and the bound."""
     from sd_tpu_torch.ops.cuda import geglu_ff, geglu_ff_int8, geglu_ff_int8_plain
     from sd_tpu_torch.ops.cuda.geglu_ff import quantize_ff_weights
 
+    m, c, inner = shape
+    x = randn(m, c).to(torch.bfloat16)
+    w1 = (randn(2 * inner, c) * c**-0.5).to(torch.bfloat16)
+    w2 = (randn(c, inner) * inner**-0.5).to(torch.bfloat16)
+    b1, b2 = 0.1 * randn(2 * inner), 0.1 * randn(c)
+    qw = quantize_ff_weights(w1, w2, torch.bfloat16)
+    out = geglu_ff_int8(x, w1, b1, w2, b2, qw)
+    torch.cuda.synchronize()
+    err = check_int8_error("K4", shape, out, geglu_ff_int8_plain(x.float(), qw, b1, b2),
+                           {"K2": geglu_ff(x, w1, b1, w2, b2)}, scale_floor=1.0)
+    if not timed:
+        return dict(err=err)
+    ms = time_ms(lambda: geglu_ff_int8(x, w1, b1, w2, b2, qw))
+    plain_ms = time_ms(lambda: geglu_ff_int8_plain(x, qw, b1, b2))
+    bf16_ms = time_ms(lambda: geglu_ff(x, w1, b1, w2, b2))
+    nbytes = 2 * m * c * 2 + 3 * inner * c + (4 * inner + 2 * c) * 4
+    bnd = bound(0, nbytes, int8_ops=6 * m * c * inner)
+    log(f"[K4 geglu_ff_int8] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"bf16 K2 {bf16_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bf16_ms=bf16_ms, **bnd)
+
+
+def log_int8_ff_plan(shape) -> None:
+    """The plans the library chooses for K4's two GEMMs at (M, C, inner)."""
+    from sd_tpu_torch.ops.cuda.geglu_ff import int8_kernel_plan
+
+    p = int8_kernel_plan(*shape)
+    a, b = p["gemm1"], p["gemm2"]
+    log(f"[K4 plan] {shape}: GEGLU GEMM {a['rows']} rows x {a['cols']} interleaved columns a "
+        f"tile, {a['stages']} weight stages, {a['blocks']} blocks ({a['runs']} runs, "
+        f"{a['tiles_per_block']} tiles a block), {a['smem_bytes']} bytes; output GEMM "
+        f"{b['rows']} rows x {b['cols']} columns a block ({b['wgmma_cols']} a wgmma), "
+        f"{b['h_stages']} h and {b['w_stages']} W2 stages, {b['blocks']} blocks, "
+        f"{b['splits']} k splits, {b['smem_bytes']} bytes; scratch {p['scratch_ints']} int32")
+
+
+def check_int8_ff(randn) -> list:
     rows = []
-    for m, c, inner in INT8_FF_SHAPES:
-        x = randn(m, c).to(torch.bfloat16)
-        w1 = (randn(2 * inner, c) * c**-0.5).to(torch.bfloat16)
-        w2 = (randn(c, inner) * inner**-0.5).to(torch.bfloat16)
-        b1, b2 = 0.1 * randn(2 * inner), 0.1 * randn(c)
-        qw = quantize_ff_weights(w1, w2, torch.bfloat16)
-        out = geglu_ff_int8(x, w1, b1, w2, b2, qw)
-        torch.cuda.synchronize()
-        err = check_int8_error("K4", (m, c, inner), out,
-                               geglu_ff_int8_plain(x.float(), qw, b1, b2),
-                               {"K2": geglu_ff(x, w1, b1, w2, b2)}, scale_floor=1.0)
-        ms = time_ms(lambda: geglu_ff_int8(x, w1, b1, w2, b2, qw))
-        plain_ms = time_ms(lambda: geglu_ff_int8_plain(x, qw, b1, b2))
-        bf16_ms = time_ms(lambda: geglu_ff(x, w1, b1, w2, b2))
-        nbytes = 2 * m * c * 2 + 3 * inner * c + (4 * inner + 2 * c) * 4
-        bnd = bound(0, nbytes, int8_ops=6 * m * c * inner)
-        log(f"[K4 geglu_ff_int8] {(m, c, inner)}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bf16 K2 {bf16_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
-        rows.append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None, bf16_ms=bf16_ms,
-                         **bnd))
+    for shape in INT8_FF_SHAPES:
+        log_int8_ff_plan(shape)
+        rows.append(int8_ff_case(randn, shape))
+        free_memory()
     return rows
 
 
@@ -1032,6 +1057,7 @@ def check_block_kernels() -> dict:
     from sd_tpu_torch.ops.attention import BasicTransformerBlock
     from sd_tpu_torch.ops.cuda import (fused_block, fused_block_plain, tail_fused,
                                        tail_fused_plain)
+    from sd_tpu_torch.ops.cuda.fused_block import x1_plan
     from sd_tpu_torch.scripts import exp_block_kernel as exp
     from sd_tpu_torch.utils.config import init_random_
 
@@ -1041,6 +1067,9 @@ def check_block_kernels() -> dict:
     rows = {"fused_block": [], "tail_fused": []}
     for n, c in BLOCK_SITES:
         shape = (b, n, c)
+        plan = x1_plan(b, n, c, c // heads)
+        log(f"[X1 plan] {shape}: LN + QKV {plan['qkv']}; attention + out-projection "
+            f"{plan['attn']}")
         x, args, err = check_x1_site(n, c)
         mods = exp.self_attention_modules(**args, dtype=x.dtype)
         ms = time_ms(lambda: fused_block(x, **args))

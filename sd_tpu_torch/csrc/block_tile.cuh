@@ -1,7 +1,7 @@
-// Device pieces shared by X1 (fused_block.cu) and X2 (tail_fused.cu), the
-// fused transformer-block kernels: the single-pass LayerNorm of a row, the
-// copy of one head's rows into shared memory, and a block-wide GEMM whose
-// left operand is a tile of rows already in shared memory.
+// Device pieces of X2 (tail_fused.cu), a fused transformer-block kernel:
+// the single-pass LayerNorm of a row, the copy of one head's rows into
+// shared memory, and a block-wide GEMM whose left operand is a tile of rows
+// already in shared memory.
 //
 // Blocks have 4 warps. Tiles in shared memory keep a bf16 pitch that is a
 // multiple of 8 elements, so every 16-row WMMA tile starts on a 32-byte

@@ -24,8 +24,8 @@ extern "C" int sdt_int8_dense(const void* x, const void* wq, const void* sw, con
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(int8_dense(
       p, static_cast<const bf16*>(x), static_cast<const signed char*>(wq),
-      static_cast<const float*>(sw), static_cast<const float*>(b), static_cast<bf16*>(out), m, c,
-      f, static_cast<cudaStream_t>(stream)));
+      static_cast<const float*>(sw), static_cast<const float*>(b), out, nullptr, m, c, f,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K6's plan at this shape: out = {rows a block, columns a tile, stages,

@@ -5,7 +5,8 @@
 // with x [M, C] bf16 quantized per row (sd_tpu's math exactly: s = max(max|x|
 // / 127, 1e-12), q = clip(rint(x / s), -127, 127), a true division, round
 // half to even) and Wq [F, C] int8 quantized per output row at load time.
-// int8_gemm.cuh (K4's GEMM) is the earlier, WMMA version of this product.
+// K4's first GEMM (geglu_ff_int8.cu) is the same kernel with the GEGLU
+// epilogue (EPI_GEGLU, below): Wq is then K4's interleaved [2I, C] weight.
 //
 // Each row of x is quantized once for all of F. A block owns BM rows of x
 // (BM = 256, 128 or 64) and walks a run of F's BN-column tiles (BN = 256 or
@@ -37,6 +38,17 @@
 //
 // C must be a multiple of 32 (k32 steps) and at most 1280 (a lane holds at
 // most 5 chunks of 8 values of a row), F a multiple of 8.
+//
+// The GEGLU epilogue (K4's first GEMM, EPI_GEGLU): Wq [2I, C] holds W1a's
+// and W1g's rows interleaved in runs of 64 (rows 128 u .. 128 u + 63 are
+// W1a's rows 64 u .., the next 64 W1g's same rows), with the scales sw [2I]
+// interleaved alike; so each 128 columns of a tile give 64 value and their
+// 64 gate columns in the same threads (accumulators j and j + 8 of a run).
+// a = acc_a * (sx * sw) + b1a, g likewise with b1g (bias = b1 [2I] in its
+// own order, value half first), h = a * gelu_fast(g) in fp32, written to out
+// (fp32 [M, I], float2 stores); each thread keeps the max |h| of its rows
+// over the block's run of tiles and raises rowmax[row] once by atomicMax on
+// the non-negative float's bits (rowmax zeroed by the caller).
 
 #pragma once
 
@@ -188,36 +200,62 @@ __device__ __forceinline__ unsigned a_offset(int r, int i, int bm) {
 }
 
 // Shared memory: the resident codes (kblocks x BM x 128), the ring of
-// Wq stages (BN x 128 each), the output tile (BM x BN bf16), the row
-// scales (BM fp32), then the barriers: full[stages], empty[stages].
+// Wq stages (BN x 128 each), the output tile (BM x BN bf16; none for the
+// GEGLU epilogue, which stores from registers), the row scales (BM fp32),
+// then the barriers: full[stages], empty[stages].
 struct Smem {
   int a, ring, out, scale, bars, bytes;
-  __host__ __device__ Smem(int bm, int bn, int c, int stages) {
+  __host__ __device__ Smem(int bm, int bn, int c, int stages, bool staged = true) {
     a = 0;
     ring = ((c + BK - 1) / BK) * bm * BK;
     out = ring + stages * bn * BK;
-    scale = out + bm * bn * 2;
+    scale = out + (staged ? bm * bn * 2 : 0);
     bars = scale + bm * 4;
     bytes = bars + 2 * stages * 8 + 1024;  // + slack to align the base
   }
 };
 
-// One (m tile, run of n tiles) a block: grid (n runs, m tiles).
-template <int BM, int BN>
+constexpr int EPI_BF16 = 0;   // K6: out = bf16(acc * (sx * sw) + b)
+constexpr int EPI_GEGLU = 1;  // K4's first GEMM: h = a * gelu_fast(g) in fp32, row max
+
+// sd_tpu's _gelu_fast_f32: erf(x) ~ x * P6(x^2) on |x| <= 3 (_ERF_FAST),
+// +-1 beyond; the polynomial in fused multiply-adds (as K4's first design),
+// every other product and sum rounded as the plain version's.
+__device__ __forceinline__ float gelu_fast(float g) {
+  const float x = __fmul_rn(g, 0.70710678118654752f);
+  const float a = fminf(fabsf(x), 3.f);
+  const float t = __fmul_rn(a, a);
+  float p = 3.68124527e-06f;
+  p = fmaf(p, t, -0.000135903813f);
+  p = fmaf(p, t, 0.00211666563f);
+  p = fmaf(p, t, -0.0183764236f);
+  p = fmaf(p, t, 0.0998401577f);
+  p = fmaf(p, t, -0.366942461f);
+  p = fmaf(p, t, 1.12646408f);
+  const float r = fabsf(x) > 3.f ? 1.f : __fmul_rn(a, p);
+  const float sr = x > 0.f ? r : (x < 0.f ? -r : 0.f);
+  return __fmul_rn(__fmul_rn(0.5f, g), __fadd_rn(1.f, sr));
+}
+
+// One (m tile, run of n tiles) a block: grid (n runs, m tiles). EPI_BF16
+// writes bf16 out [M, F]; EPI_GEGLU writes fp32 h [M, F / 2] and raises rowmax.
+template <int BM, int BN, int EPI>
 __global__ void __launch_bounds__(THREADS, 1)
 int8_dense_kernel(const __grid_constant__ CUtensorMap mw, const bf16* __restrict__ x,
                   const float* __restrict__ sw, const float* __restrict__ bias,
-                  bf16* __restrict__ out, int m, int c, int f, int stages,
-                  int tiles_per_block) {
+                  void* __restrict__ out_, float* __restrict__ rowmax, int m, int c, int f,
+                  int stages, int tiles_per_block) {
   // a consumer warpgroup's rows and columns of a tile: half the rows (BM =
   // 128 or 256, in RW / 64 wgmma row blocks), or all 64 rows and half the
   // columns (BM = 64)
   constexpr int RW = BM == 64 ? 64 : BM / 2;
   constexpr int MT = RW / 64;
   constexpr int NW = BM == 64 ? BN / 2 : BN;
+  static_assert(EPI == EPI_BF16 || NW % 128 == 0, "GEGLU: whole runs of 64 value + 64 gate columns");
+  bf16* __restrict__ out = static_cast<bf16*>(out_);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (sdt::smem_addr(smem_raw) & 1023)) & 1023);
-  const Smem L(BM, BN, c, stages);
+  const Smem L(BM, BN, c, stages, EPI == EPI_BF16);
   unsigned char* as = base + L.a;
   unsigned char* ring = base + L.ring;
   float* scale = reinterpret_cast<float*>(base + L.scale);
@@ -316,6 +354,9 @@ int8_dense_kernel(const __grid_constant__ CUtensorMap mw, const bf16* __restrict
   const int bcol0 = BM == 64 ? cw * NW : 0;   // and columns of each tile
   const int ksteps = c / 32;
   unsigned char* stg = base + L.out + cw * RW * NW * 2;
+  float hmax[MT][2];  // GEGLU: this thread's max |h| of rows g and g + 8 of each m tile
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) hmax[mt][0] = hmax[mt][1] = 0.f;
   int stage = 0, phase = 0;
   for (int nt = nt0; nt < nt1; ++nt) {
     int acc[MT][NW / 2];
@@ -351,9 +392,54 @@ int8_dense_kernel(const __grid_constant__ CUtensorMap mw, const bf16* __restrict
     for (int mt = 0; mt < MT; ++mt) fence_iregs(acc[mt]);
     if (lane == 0) sdt::mbar_arrive(&empty[prev]);
 
+    const int n0 = nt * BN + bcol0;
+    if (EPI == EPI_GEGLU) {
+      // h columns n0 / 2 + 64 u + 8 j + 2 t + e from accumulators 4 (16 u + j)
+      // + 2 hh + e (value) and 4 (16 u + 8 + j) + 2 hh + e (gate)
+      const int inner = f / 2;
+      float* __restrict__ h = static_cast<float*>(out_);
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const int rl = mt * 64 + warp * 16 + g;
+        const float sx0 = scale[arow0 + rl], sx1 = scale[arow0 + rl + 8];
+#pragma unroll
+        for (int u = 0; u < NW / 128; ++u) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const int ic = n0 + u * 128 + j * 8 + 2 * t;  // the value column of Wq
+            const int col = n0 / 2 + u * 64 + j * 8 + 2 * t;
+            if (ic >= f) continue;
+            const float2 wa = *reinterpret_cast<const float2*>(sw + ic);
+            const float2 wg = *reinterpret_cast<const float2*>(sw + ic + 64);
+            const float2 ba = *reinterpret_cast<const float2*>(bias + col);
+            const float2 bg = *reinterpret_cast<const float2*>(bias + inner + col);
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh) {
+              const float sr = hh ? sx1 : sx0;
+              const int ia = 4 * (16 * u + j) + 2 * hh, ig = 4 * (16 * u + 8 + j) + 2 * hh;
+              const float a0 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][ia]),
+                                                   __fmul_rn(sr, wa.x)), ba.x);
+              const float a1 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][ia + 1]),
+                                                   __fmul_rn(sr, wa.y)), ba.y);
+              const float g0 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][ig]),
+                                                   __fmul_rn(sr, wg.x)), bg.x);
+              const float g1 = __fadd_rn(__fmul_rn(static_cast<float>(acc[mt][ig + 1]),
+                                                   __fmul_rn(sr, wg.y)), bg.y);
+              const float h0 = __fmul_rn(a0, gelu_fast(g0)), h1 = __fmul_rn(a1, gelu_fast(g1));
+              const int row = m0 + arow0 + rl + 8 * hh;
+              if (row < m) {
+                *reinterpret_cast<float2*>(h + (size_t)row * inner + col) = make_float2(h0, h1);
+                hmax[mt][hh] = fmaxf(hmax[mt][hh], fmaxf(fabsf(h0), fabsf(h1)));
+              }
+            }
+          }
+        }
+      }
+      continue;
+    }
+
     // epilogue: this warpgroup's RW rows x NW columns, 16-byte chunk j of
     // row r at chunk j ^ (r % 8); the barrier keeps the last tile's loads first
-    const int n0 = nt * BN + bcol0;
     sdt::named_sync(1 + cw, 128);
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
@@ -389,10 +475,21 @@ int8_dense_kernel(const __grid_constant__ CUtensorMap mw, const bf16* __restrict
             *reinterpret_cast<const uint4*>(stg + r * NW * 2 + ((cc ^ (r & 7)) * 16));
     }
   }
+  if (EPI == EPI_GEGLU) {
+    // the run's max |h| of each row, over the quad's columns, into rowmax
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const float v = sdt::quad_max(hmax[mt][hh]);
+        const int row = m0 + arow0 + mt * 64 + warp * 16 + g + 8 * hh;
+        if (t == 0 && row < m) atomicMax(reinterpret_cast<int*>(rowmax + row), __float_as_int(v));
+      }
+  }
 }
 
-typedef void (*DenseFn)(CUtensorMap, const bf16*, const float*, const float*, bf16*, int, int,
-                        int, int, int);
+typedef void (*DenseFn)(CUtensorMap, const bf16*, const float*, const float*, void*, float*,
+                        int, int, int, int, int);
 
 // A chosen plan: the kernel and its tile, its stages and shared memory, the
 // blocks launched (n runs x m tiles) and the n tiles a block walks.
@@ -401,10 +498,22 @@ struct Plan {
   int bm, bn, stages, bytes, runs, mtiles, tiles_per_block;
 };
 
+template <int EPI = EPI_BF16>
 DenseFn kernel_of(int bm, int bn) {
-  if (bm == 256) return int8_dense_kernel<256, 128>;
-  if (bm == 128) return bn == 256 ? int8_dense_kernel<128, 256> : int8_dense_kernel<128, 128>;
-  return bn == 256 ? int8_dense_kernel<64, 256> : int8_dense_kernel<64, 128>;
+  if (bm == 256) return int8_dense_kernel<256, 128, EPI>;
+  if (bm == 128)
+    return bn == 256 ? int8_dense_kernel<128, 256, EPI> : int8_dense_kernel<128, 128, EPI>;
+  return bn == 256 ? int8_dense_kernel<64, 256, EPI> : int8_dense_kernel<64, 128, EPI>;
+}
+
+template <>
+DenseFn kernel_of<EPI_GEGLU>(int bm, int bn) {
+  // 64 x 128 would split a run of 64 value and 64 gate columns between the warpgroups
+  if (bm == 256) return int8_dense_kernel<256, 128, EPI_GEGLU>;
+  if (bm == 128)
+    return bn == 256 ? int8_dense_kernel<128, 256, EPI_GEGLU>
+                     : int8_dense_kernel<128, 128, EPI_GEGLU>;
+  return int8_dense_kernel<64, 256, EPI_GEGLU>;
 }
 
 // The least estimated time over the tiles and the F splits. A block's time:
@@ -412,9 +521,13 @@ DenseFn kernel_of(int bm, int bn) {
 // and, per n tile, the larger of its products (an SM's share of the int8
 // peak at 70%) and its output's bytes, plus its weight tile's bytes at an
 // SM's share of 5 TB/s from L2 (which every block of a run reads again);
-// blocks run in waves of one an SM.
+// blocks run in waves of one an SM. With EPI_GEGLU (K4's first GEMM, F = 2I):
+// fewer tiles (below), no staged output tile, and each tile's epilogue adds
+// its fp32 h bytes and about 60 instructions an h value on an SM's 128 lanes.
+template <int EPI = EPI_BF16>
 cudaError_t choose(int m, int c, int f, Plan* best) {
-  if (c % 32 || c > MAX_C || f % 8 || m <= 0) return cudaErrorInvalidValue;
+  constexpr bool geglu = EPI == EPI_GEGLU;
+  if (c % 32 || c > MAX_C || f % (geglu ? 256 : 8) || m <= 0) return cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -424,7 +537,10 @@ cudaError_t choose(int m, int c, int f, Plan* best) {
   const int tiles[5][2] = {{256, 128}, {128, 256}, {128, 128}, {64, 256}, {64, 128}};
   for (const auto& tile : tiles) {
     const int bm = tile[0], bn = tile[1];
-    const int fixed = Smem(bm, bn, c, 0).bytes;
+    // GEGLU: no 64 x 128 (it would split a run of value and gate columns);
+    // above C = 640 only 64 x 256, which measured faster there (PERF.md)
+    if (geglu && ((bm == 64 && bn == 128) || (c > 640 && bm != 64))) continue;
+    const int fixed = Smem(bm, bn, c, 0, !geglu).bytes;
     const int stages = min(MAX_STAGES, (SMEM_MAX - fixed) / (bn * BK + 16));
     if (stages < 3) continue;  // fewer leave the products waiting on each copy
     const int mtiles = (m + bm - 1) / bm, ntiles = (f + bn - 1) / bn;
@@ -433,28 +549,32 @@ cudaError_t choose(int m, int c, int f, Plan* best) {
       if ((ntiles + tpb - 1) / tpb != runs) continue;
       const int waves = (mtiles * runs + sms - 1) / sms;
       const double t_rows = (double)bm * c * 2 / sm_bytes + 1e-6;
-      const double t_tile = fmax(2.0 * bm * bn * c / sm_ops, (double)bm * bn * 2 / sm_bytes) +
-                            (double)bn * c / sm_l2;
+      const double t_out = geglu ? (double)bm * bn / 2 * 4 / sm_bytes +
+                                       (double)bm * bn / 2 * 60 / (128 * 1.755e9)
+                                 : (double)bm * bn * 2 / sm_bytes;
+      const double t_tile = fmax(2.0 * bm * bn * c / sm_ops, t_out) + (double)bn * c / sm_l2;
       const double t = waves * (t_rows + tpb * (t_tile + 0.3e-6));
       if (t < best_t) {
         best_t = t;
-        *best = {kernel_of(bm, bn), bm, bn, stages, Smem(bm, bn, c, stages).bytes, runs, mtiles,
-                 tpb};
+        *best = {kernel_of<EPI>(bm, bn), bm, bn, stages, Smem(bm, bn, c, stages, !geglu).bytes,
+                 runs, mtiles, tpb};
       }
     }
   }
   return best_t < 1e30 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// out = the product by `plan`.
+// out = the product by `plan` (rowmax: null, or K4's row maxima with a
+// GEGLU plan).
 cudaError_t int8_dense(const Plan& p, const bf16* x, const signed char* wq, const float* sw,
-                       const float* bias, bf16* out, int m, int c, int f, cudaStream_t s) {
+                       const float* bias, void* out, float* rowmax, int m, int c, int f,
+                       cudaStream_t s) {
   CUtensorMap mw;
   cudaError_t err = sdt::matrix_map(&mw, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, wq, f, c, BK, p.bn);
   if (err == cudaSuccess) err = sdt::smem_limit(reinterpret_cast<const void*>(p.kernel), p.bytes);
   if (err != cudaSuccess) return err;
-  p.kernel<<<dim3(p.runs, p.mtiles), THREADS, p.bytes, s>>>(mw, x, sw, bias, out, m, c, f,
-                                                           p.stages, p.tiles_per_block);
+  p.kernel<<<dim3(p.runs, p.mtiles), THREADS, p.bytes, s>>>(mw, x, sw, bias, out, rowmax, m, c,
+                                                           f, p.stages, p.tiles_per_block);
   return cudaGetLastError();
 }
 

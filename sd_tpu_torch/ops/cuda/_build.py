@@ -48,9 +48,10 @@ _SIGNATURES = {
     "sdt_int8_dense": [_P] * 5 + [_I] * 3 + [_P],
     # m, c, f, int[7] out: K6's plan
     "sdt_int8_dense_plan": [_I] * 3 + [_P],
-    # x, w1aq, s1a, b1a, w1gq, s1g, b1g, w2q, s2, b2, h, rowmax, hq, sh, y,
-    # m, c, inner, c_out, stream
-    "sdt_geglu_ff_int8": [_P] * 15 + [_I] * 4 + [_P],
+    # x, w1q, s1, b1, w2q, s2, b2, h, scratch, y, m, c, inner, c_out, stream
+    "sdt_geglu_ff_int8": [_P] * 10 + [_I] * 4 + [_P],
+    # m, c, inner, c_out, int[17] out: K4's plans
+    "sdt_geglu_ff_int8_plan": [_I] * 4 + [_P],
     # q, k, v, o, qq, sq, kq, sk, vq, sv, batch, n, heads, d, scale * log2(e),
     # pv8, stream
     "sdt_flash_attention_int8": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P],
@@ -67,10 +68,13 @@ _SIGNATURES = {
     "sdt_winograd_conv3x3": [_P] * 3 + [_I] * 7 + [_P],
     # split, batch, h, w, k, int[9] out: K8's or X3's launch plan
     "sdt_winograd_plan": [_I] * 5 + [_P],
-    # x, gamma, beta, wqkv, wo, bo, qkv, out, batch, n, heads, d, stream
+    # x, gamma, beta, wqkv [3c, c], wo [c, c] (both out x in), bo, qkv, out,
+    # batch, n, heads, d, stream
     "sdt_fused_block": [_P] * 8 + [_I] * 4 + [_P],
     # c, d -> the row tile of X1's attention launch (0: not taken)
     "sdt_fused_block_q": [_I, _I],
+    # batch, n, c, d, int[17] out: X1's plans
+    "sdt_fused_block_plan": [_I] * 4 + [_P],
     # x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, x1, h, out,
     # batch, n, nk, kv_len, heads, d, inner, stream
     "sdt_tail_fused": [_P] * 17 + [_I] * 7 + [_P],

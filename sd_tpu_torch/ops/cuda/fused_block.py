@@ -23,7 +23,10 @@ last N mod block_q rows; see ROADMAP).
 
 The wrappers launch the kernels for a CUDA tensor (bf16 only; a shape the
 kernels do not take raises) and use the plain versions for a CPU tensor
-only. Both functions are forward-only, as the TPU kernels are: an input
+only. X1's kernels read the weights in torch ``Linear`` layout (out x in):
+:func:`x1_weights` makes ``[Wq' | Wk | Wv]ᵀ`` and ``Woᵀ`` once per weight
+version and keeps them (a weight edited in place or replaced is prepared
+again); :func:`x1_plan` reads X1's launch plans. Both functions are forward-only, as the TPU kernels are: an input
 that requires grad raises where autograd would record. ``fused_block.launches``
 and ``tail_fused.launches`` count calls that launched (one per call, whatever
 the internal launches).
@@ -31,7 +34,10 @@ the internal launches).
 
 from __future__ import annotations
 
+import ctypes
 import math
+import weakref
+from collections import OrderedDict
 
 import torch
 import torch.nn.functional as F
@@ -39,13 +45,19 @@ import torch.nn.functional as F
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 
 __all__ = ["fused_block", "fused_block_plain", "tail_fused", "tail_fused_plain",
-           "block_weights", "layer_norm_single_pass"]
+           "block_weights", "layer_norm_single_pass", "x1_weights", "x1_plan"]
 
 _LOG2E = math.log2(math.e)
 _LN_EPS = 1e-5
 # block_weights pads the context's K and V rows to a multiple of this (the
 # tool pads 77 to 128; the kernels read only the first kv_len rows)
 _KV_PAD = 16
+# X1's prepared weights kept: a few weight sets (the experiment's four sites)
+_X1_CACHE_SIZE = 8
+_x1_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+# the widest head and row X1's kernels take (csrc/fused_block.cu)
+_X1_MAX_D = 160
+_X1_MAX_C = 1280
 
 
 def layer_norm_single_pass(x: torch.Tensor, gamma: torch.Tensor,
@@ -155,6 +167,10 @@ def _check_common(name: str, x, heads: int, d: int, shapes: dict) -> None:
 
 def _check_block(x, gamma, beta, wq, wk, wv, wo, bo, heads, d) -> None:
     c = x.shape[-1]
+    if d > _X1_MAX_D or c > _X1_MAX_C:
+        raise ValueError(f"fused_block: the kernels take d <= {_X1_MAX_D} (a warp's output "
+                         f"rows in registers) and C <= {_X1_MAX_C} (a row's LayerNorm in a "
+                         f"warp), got d={d}, C={c}")
     _check_common("fused_block", x, heads, d,
                   {**{k: (t, (c, c)) for k, t in dict(wq=wq, wk=wk, wv=wv, wo=wo).items()},
                    **{k: (t, (c,)) for k, t in dict(gamma=gamma, beta=beta, bo=bo).items()}})
@@ -189,6 +205,50 @@ def _aligned(name: str, **tensors) -> None:
             raise ValueError(f"{name}: {label} is not 16-byte aligned")
 
 
+def _prepare_x1(wq, wk, wv, wo, d: int, dtype: torch.dtype):
+    """X1's kernel weights: ``[Wq' | Wk | Wv]ᵀ [3C, C]`` (Wq' scaled as
+    :func:`_scaled_q`) and ``Woᵀ [C, C]``, in ``dtype``, contiguous."""
+    wqkv = torch.cat([_scaled_q(wq, d, dtype), wk.to(dtype), wv.to(dtype)], dim=1)
+    return wqkv.t().contiguous(), wo.to(dtype).t().contiguous()
+
+
+def x1_weights(wq, wk, wv, wo, d: int, dtype: torch.dtype):
+    """:func:`_prepare_x1` of the tool's ``[in, out]`` weights, made once per
+    weight version and kept (the last ``_X1_CACHE_SIZE`` weight sets): a
+    weight edited in place (its version counter) or replaced (another
+    tensor) is prepared again, so a stale copy is never served."""
+    sources = (wq, wk, wv, wo)
+    versions = tuple(t._version for t in sources)
+    for key, (refs, seen, prepared) in _x1_cache.items():
+        if (key[0] == d and key[1] == dtype and seen == versions
+                and all(r() is t for r, t in zip(refs, sources))):
+            _x1_cache.move_to_end(key)
+            return prepared
+    with torch.no_grad():
+        prepared = _prepare_x1(wq, wk, wv, wo, d, dtype)
+    key = (d, dtype, tuple(id(t) for t in sources))
+    _x1_cache[key] = (tuple(weakref.ref(t) for t in sources), versions, prepared)
+    _x1_cache.move_to_end(key)
+    while len(_x1_cache) > _X1_CACHE_SIZE:
+        _x1_cache.popitem(last=False)
+    return prepared
+
+
+def x1_plan(b: int, n: int, c: int, d: int) -> dict:
+    """X1's plans at ``x [b, n, c]`` and head dim d, from the loaded library:
+    launch A's (LN + QKV: rows a block, columns a tile, weight stages,
+    blocks, column runs, tiles a block, shared memory bytes) and launch B's
+    (attention + out-projection: query rows a block, keys a tile, padded
+    head dim, output columns a step, weight stages, shared memory bytes,
+    blocks resident per SM, threads, column splits, blocks). Needs the card."""
+    out = (ctypes.c_int * 17)()
+    check(kernels().sdt_fused_block_plan(b, n, c, d, out), f"fused_block plan at {(b, n, c, d)}")
+    first = ("rows", "cols", "stages", "blocks", "runs", "tiles_per_block", "smem_bytes")
+    second = ("rows", "keys", "head_dim", "cols", "stages", "smem_bytes", "blocks_per_sm",
+              "threads", "column_splits", "blocks")
+    return {"qkv": dict(zip(first, out[:7])), "attn": dict(zip(second, out[7:]))}
+
+
 def fused_block(x, gamma, beta, wq, wk, wv, wo, bo, heads: int, d: int,
                 chunk: int = 1024) -> torch.Tensor:
     """X1 over ``x [B, N, C]``: ``LN → QKV → heads-way softmax attention →
@@ -207,8 +267,7 @@ def fused_block(x, gamma, beta, wq, wk, wv, wo, bo, heads: int, d: int,
         raise ValueError(f"fused_block: no row tile of the kernel fits C={c}, d={d}")
     dt = x.dtype
     x = x.contiguous()
-    wqkv = torch.cat([_scaled_q(wq, d, dt), wk.to(dt), wv.to(dt)], dim=1).contiguous()
-    wo = wo.to(dt).contiguous()
+    wqkv, wo = x1_weights(wq, wk, wv, wo, d, dt)
     gamma, beta, bo = _vec(gamma), _vec(beta), _vec(bo)
     qkv = torch.empty((b * n, 3 * c), dtype=dt, device=x.device)
     out = torch.empty_like(x)

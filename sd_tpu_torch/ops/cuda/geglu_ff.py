@@ -24,13 +24,19 @@ its vector-Jacobian product, as ``sd_tpu``'s ``_geglu_ff_bwd`` does through
 
 K4, the W8A8 variant of the int8 serving mode's ``ff`` bucket, replaces
 ``_kernel_int8`` through ``_geglu_ff_int8``; its source is
-``sd_tpu_torch/csrc/geglu_ff_int8.cu``. ``geglu_ff_int8`` quantizes x and h
-per row and reads weights quantized per output channel (``quantize_cols``,
-at load time or inline with the same math); ``geglu_ff_int8.launches``
-counts its calls that launched. The GELU there is always ``sd_tpu``'s
-short erf polynomial (:func:`gelu_fast`). :func:`int8_ff_supported` is
-the site gate: the ``ff`` bucket, inner >= ``_INT8_MIN_INNER`` and the
-fused FF's row rule (M >= 1024, M % 256 == 0); other sites keep K2.
+``sd_tpu_torch/csrc/geglu_ff_int8.cu`` (its first GEMM is K6's kernel of
+``int8_wgmma.cuh`` with a GEGLU epilogue), whose header says what bounds it
+and how h, kept in fp32, is quantized as the output GEMM loads it.
+``geglu_ff_int8`` quantizes x and h per row and reads weights quantized per
+output channel (``quantize_cols``, at load time or inline with the same
+math), with W1's value and gate rows interleaved in runs of 64
+(:func:`interleave_runs`, built once by :func:`quantize_ff_weights`);
+``geglu_ff_int8.launches`` counts its calls that launched (one a call: two
+kernels and a memset). :func:`int8_kernel_plan` reads its plans. The GELU
+there is always ``sd_tpu``'s short erf polynomial (:func:`gelu_fast`).
+:func:`int8_ff_supported` is the site gate: the ``ff`` bucket, inner >=
+``_INT8_MIN_INNER`` and the fused FF's row rule (M >= 1024, M % 256 == 0);
+other sites keep K2.
 """
 
 from __future__ import annotations
@@ -47,8 +53,8 @@ from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_rows
 
 __all__ = ["geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff", "geglu_ff_int8",
-           "geglu_ff_int8_plain", "quantize_cols", "quantize_ff_weights", "gelu_fast",
-           "int8_ff_supported", "kernel_plan"]
+           "geglu_ff_int8_plain", "quantize_cols", "quantize_ff_weights", "interleave_runs",
+           "gelu_fast", "int8_ff_supported", "kernel_plan", "int8_kernel_plan"]
 
 # sd_tpu's _ERF_FAST: erf(x) ~ x * P6(x^2) on |x| <= 3, coefficients low to high
 _ERF_FAST = (
@@ -58,7 +64,10 @@ _ERF_FAST = (
 _SQRT_HALF = 0.7071067811865476
 # the int8 FF only where sd_tpu measured it faster: inner 2560 and 5120
 _INT8_MIN_INNER = 2560
-_MAX_INT8_C = 2560
+# K4's first GEMM keeps a block's rows of x quantized whole (int8_wgmma.cuh)
+_MAX_INT8_C = 1280
+# the rows of W1a and W1g alternate in runs of this many in K4's weight
+_INT8_RUN = 64
 
 
 def geglu_ff_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
@@ -207,16 +216,32 @@ def quantize_cols(w: torch.Tensor):
     return q, s.view(-1)
 
 
+def interleave_runs(a: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The rows of ``a`` and ``g`` (``[I, ...]`` each, I a multiple of 64)
+    in alternating runs of 64: rows ``128·u .. 128·u + 63`` are ``a``'s rows
+    ``64·u ..``, the next 64 are ``g``'s same rows."""
+    inner, run = a.shape[0], _INT8_RUN
+    pair = torch.stack([a.reshape(inner // run, run, *a.shape[1:]),
+                        g.reshape(inner // run, run, *g.shape[1:])], dim=1)
+    return pair.reshape(2 * inner, *a.shape[1:])
+
+
 def quantize_ff_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype) -> dict:
-    """The six int8 tensors K4 reads: the value half, the gate half and the
+    """The int8 tensors of the W8A8 FF: the value half, the gate half and the
     output weight, each cast to the compute ``dtype`` first (as ``sd_tpu``'s
-    ``w.astype(x.dtype)``) and quantized per output channel."""
+    ``w.astype(x.dtype)``) and quantized per output channel; and, where
+    inner is a multiple of 64, K4's first weight ``w1_q [2I, C]`` with its
+    scales ``w1_s [2I]``: the value and gate halves' codes and scales
+    interleaved in runs of 64 (:func:`interleave_runs`)."""
     inner = w2.shape[1]
     w1c = w1.to(dtype)
     w1a_q, w1a_s = quantize_cols(w1c[:inner])
     w1g_q, w1g_s = quantize_cols(w1c[inner:])
     w2_q, w2_s = quantize_cols(w2.to(dtype))
-    return dict(w1a_q=w1a_q, w1a_s=w1a_s, w1g_q=w1g_q, w1g_s=w1g_s, w2_q=w2_q, w2_s=w2_s)
+    out = dict(w1a_q=w1a_q, w1a_s=w1a_s, w1g_q=w1g_q, w1g_s=w1g_s, w2_q=w2_q, w2_s=w2_s)
+    if inner % _INT8_RUN == 0:
+        out.update(w1_q=interleave_runs(w1a_q, w1g_q), w1_s=interleave_runs(w1a_s, w1g_s))
+    return out
 
 
 def int8_ff_supported(mode, x: torch.Tensor, inner: int) -> bool:
@@ -242,6 +267,54 @@ def geglu_ff_int8_plain(x: torch.Tensor, qw: dict, b1: torch.Tensor,
     return o.to(x.dtype)
 
 
+@functools.lru_cache(maxsize=256)
+def _int8_plan(device: int, m: int, c: int, inner: int, c_out: int) -> tuple:
+    """K4's 17 plan values at this shape on ``device`` (see :func:`int8_kernel_plan`)."""
+    out = (ctypes.c_int * 17)()
+    with torch.cuda.device(device):
+        err = kernels().sdt_geglu_ff_int8_plan(m, c, inner, c_out, out)
+    check(err, f"geglu_ff_int8 plan at {(m, c, inner, c_out)}")
+    return tuple(out)
+
+
+def int8_kernel_plan(m: int, c: int, inner: int, c_out: Optional[int] = None) -> dict:
+    """K4's plans at ``x [m, c]``, inner ``inner`` (``c_out`` defaults to
+    ``c``), from the loaded library: the first GEMM's (as K6's
+    ``kernel_plan``: rows a block, columns a tile of the interleaved weight,
+    stages, blocks, runs of F, tiles a block, shared memory bytes), the
+    output GEMM's (rows and columns a block, columns a wgmma, h and W2
+    stages, blocks, k splits, shared memory bytes) and the int32 scratch
+    (row maxima, and the split's counters and sums). Needs the card."""
+    v = _int8_plan(torch.cuda.current_device(), m, c, inner, c if c_out is None else c_out)
+    first = ("rows", "cols", "stages", "blocks", "runs", "tiles_per_block", "smem_bytes")
+    second = ("rows", "cols", "wgmma_cols", "h_stages", "w_stages", "blocks", "splits",
+              "smem_bytes")
+    return {"gemm1": dict(zip(first, v[:7])), "gemm2": dict(zip(second, v[7:15])),
+            "scratch_ints": v[15] + (v[16] << 31)}
+
+
+def _check_int8_inputs(x, qw, b1, b2) -> None:
+    """The checks a CUDA call of K4 meets before its launch (also run on CPU
+    tensors by the tests): bf16 x, the weights' shapes, C a multiple of 32
+    and at most ``_MAX_INT8_C`` (a block keeps its rows of x quantized), inner
+    of 128 (the output GEMM's k blocks), C_out of 8, x not empty."""
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"geglu_ff_int8: x is {x.dtype}; the card's path is bfloat16")
+    c = x.shape[-1]
+    c_out, inner = qw["w2_q"].shape
+    shapes = {"w1a_q": (inner, c), "w1g_q": (inner, c), "w1a_s": (inner,),
+              "w1g_s": (inner,), "w2_s": (c_out,), "w1_q": (2 * inner, c),
+              "w1_s": (2 * inner,)}
+    bad = [k for k, v in shapes.items() if k not in qw or tuple(qw[k].shape) != v]
+    if bad or b1.shape != (2 * inner,) or b2.shape != (c_out,):
+        raise ValueError(f"geglu_ff_int8: shapes of {bad or ['b1', 'b2']} do not match "
+                         f"x {tuple(x.shape)}, inner {inner}, C_out {c_out}")
+    if c % 32 or c > _MAX_INT8_C or inner % 128 or c_out % 8 or x.numel() == 0:
+        raise ValueError(f"geglu_ff_int8: C={c} must be a multiple of 32 and at most "
+                         f"{_MAX_INT8_C}, inner={inner} a multiple of 128, C_out={c_out} of 8, "
+                         f"and x not empty")
+
+
 def geglu_ff_int8(x: torch.Tensor, w1: Optional[torch.Tensor], b1: torch.Tensor,
                   w2: Optional[torch.Tensor], b2: torch.Tensor,
                   prequant: Optional[dict] = None) -> torch.Tensor:
@@ -254,42 +327,31 @@ def geglu_ff_int8(x: torch.Tensor, w1: Optional[torch.Tensor], b1: torch.Tensor,
         return geglu_ff_int8_plain(x, qw, b1, b2)
     if x.device.type != "cuda":
         raise ValueError(f"geglu_ff_int8: no path for device {x.device}")
+    _check_int8_inputs(x, qw, b1, b2)
     c = x.shape[-1]
     c_out, inner = qw["w2_q"].shape
-    if x.dtype != torch.bfloat16:
-        raise TypeError(f"geglu_ff_int8: x is {x.dtype}; the card's path is bfloat16")
-    shapes = {"w1a_q": (inner, c), "w1g_q": (inner, c), "w1a_s": (inner,),
-              "w1g_s": (inner,), "w2_s": (c_out,)}
-    bad = [k for k, v in shapes.items() if tuple(qw[k].shape) != v]
-    if bad or b1.shape != (2 * inner,) or b2.shape != (c_out,):
-        raise ValueError(f"geglu_ff_int8: shapes of {bad or ['b1', 'b2']} do not match "
-                         f"x {tuple(x.shape)}, inner {inner}, C_out {c_out}")
-    if c % 16 or inner % 16 or c > _MAX_INT8_C or x.numel() == 0:
-        raise ValueError(f"geglu_ff_int8: C={c} and inner={inner} must be multiples of 16, "
-                         f"C at most {_MAX_INT8_C}, and x not empty")
     dev = x.device
     x2 = x.reshape(-1, c).contiguous()
     m = x2.shape[0]
-    w = {k: v.contiguous() for k, v in qw.items()}
-    for k in ("w1a_s", "w1g_s", "w2_s"):
-        w[k] = w[k].to(torch.float32).reshape(-1)
+    w1q = qw["w1_q"].contiguous()
+    s1 = qw["w1_s"].to(torch.float32).reshape(-1).contiguous()
+    w2q = qw["w2_q"].contiguous()
+    s2 = qw["w2_s"].to(torch.float32).reshape(-1).contiguous()
     b1 = b1.to(torch.float32).contiguous()
     b2 = b2.to(torch.float32).contiguous()
+    plan = _int8_plan(dev.index if dev.index is not None else torch.cuda.current_device(),
+                      m, c, inner, c_out)
     h = torch.empty((m, inner), dtype=torch.float32, device=dev)
-    rowmax = torch.zeros((m,), dtype=torch.float32, device=dev)
-    hq = torch.empty((m, inner), dtype=torch.int8, device=dev)
-    sh = torch.empty((m,), dtype=torch.float32, device=dev)
+    scratch = torch.empty((plan[15] + (plan[16] << 31),), dtype=torch.int32, device=dev)
     y = torch.empty((m, c_out), dtype=x.dtype, device=dev)
-    if x2.data_ptr() % 16 or any(w[k].data_ptr() % 16 for k in ("w1a_q", "w1g_q", "w2_q")):
+    if x2.data_ptr() % 16 or w1q.data_ptr() % 16 or w2q.data_ptr() % 16:
         raise ValueError("geglu_ff_int8: x and the int8 weights must be 16-byte aligned")
     lib = kernels()
     with torch.cuda.device(dev):
         err = lib.sdt_geglu_ff_int8(
-            x2.data_ptr(), w["w1a_q"].data_ptr(), w["w1a_s"].data_ptr(), b1.data_ptr(),
-            w["w1g_q"].data_ptr(), w["w1g_s"].data_ptr(), b1.data_ptr() + 4 * inner,
-            w["w2_q"].data_ptr(), w["w2_s"].data_ptr(), b2.data_ptr(), h.data_ptr(),
-            rowmax.data_ptr(), hq.data_ptr(), sh.data_ptr(), y.data_ptr(), m, c, inner, c_out,
-            stream_of(x))
+            x2.data_ptr(), w1q.data_ptr(), s1.data_ptr(), b1.data_ptr(), w2q.data_ptr(),
+            s2.data_ptr(), b2.data_ptr(), h.data_ptr(), scratch.data_ptr(), y.data_ptr(), m, c,
+            inner, c_out, stream_of(x))
     check(err, "geglu_ff_int8")
     geglu_ff_int8.launches += 1
     return y.view(*x.shape[:-1], c_out)

@@ -95,15 +95,17 @@ def _norm_params(g: torch.Generator, c: int):
 
 
 def block_inputs(n: int, c: int, device, seed: int = 0):
-    """X1's inputs: x0 N(0, X_SCALE²) bf16; γ, β, the fp32 ``[in, out]``
-    weights (wq with the gain Q_GAIN) and bo N(0, 0.1²) as the module's
-    comment sets out."""
+    """X1's inputs: x0 N(0, X_SCALE²) plus a per-row offset N(0, X_SCALE²)
+    (drawn last), in bf16, so that each row's mean weighs in LayerNorm as
+    much as its spread; γ, β, the fp32 ``[in, out]`` weights (wq with the
+    gain Q_GAIN) and bo N(0, 0.1²) as the module's comment sets out."""
     g = torch.Generator(device=device).manual_seed(seed)
-    x0 = _randn(g, B, n, c, scale=X_SCALE).to(torch.bfloat16)
+    x0 = _randn(g, B, n, c, scale=X_SCALE)
     gamma, beta = _norm_params(g, c)
     args = dict(gamma=gamma, beta=beta, wq=_weight(g, c, c, Q_GAIN),
                 **{k: _weight(g, c, c) for k in ("wk", "wv", "wo")},
                 bo=_randn(g, c, scale=0.1), heads=HEADS, d=c // HEADS)
+    x0 = (x0 + _randn(g, B, n, 1, scale=X_SCALE)).to(torch.bfloat16)
     return x0, args
 
 

@@ -1,8 +1,8 @@
-"""Plant faults in copies of K1's, K3's, K5's, K8's, X3's, K2's, K7's and
-K6's sources and show that ``chip_smoke.py``'s checks fail on each, at every
-shape they cover.
+"""Plant faults in copies of K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's,
+K4's and X1's sources and show that ``chip_smoke.py``'s checks fail on each,
+at every shape they cover.
 
-    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2|K7|K6 ...]   (from the repository root)
+    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2|K7|K6|K4|X1 ...]   (from the repository root)
 
 For each fault in :data:`FAULTS` (those of the kernels named, or all) the
 package is copied into ``build/flash_faults/<name>/`` (git-ignored), the
@@ -17,7 +17,9 @@ source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both;
 whose mode the fault touches ("K5": both modes, "K5 qkpv": that mode
 only); ``geglu_case`` (K2 faults) at every shape of ``FF_SHAPES``;
 ``fused_conv_case`` (K7 faults) at every shape of ``FUSED_SHAPES``;
-``int8_dense_case`` (K6 faults) at every shape of ``INT8_DENSE_SHAPES``. A run
+``int8_dense_case`` (K6 faults) at every shape of ``INT8_DENSE_SHAPES``;
+``int8_ff_case`` (K4 faults) at every shape of ``INT8_FF_SHAPES``;
+``check_x1_site`` (X1 faults) at every site of ``BLOCK_SITES``. A run
 "fails" where a check raises ``CheckFailed``; its margin is the error over
 the check's bound. The script prints one JSON line of every margin, last,
 and exits 1 unless every fault failed at every shape. Needs a card.
@@ -35,8 +37,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7 or K6, [(source file, text, replacement,
-# count)])
+# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7, K6, K4 or X1, [(source file, text,
+# replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
@@ -95,6 +97,23 @@ FAULTS = {
     "the last k tile dropped": ("K6", [
         ("int8_wgmma.cuh", "const int ksteps = c / 32;",
          "const int ksteps = min(c / 32, (kblocks - 1) * (BK / 32));", 1)]),
+    "the row max of h taken over one column tile only": ("K4", [
+        ("int8_wgmma.cuh", "hmax[mt][hh] = fmaxf(hmax[mt][hh],",
+         "hmax[mt][hh] = nt > 0 ? hmax[mt][hh] : fmaxf(hmax[mt][hh],", 1)]),
+    "a row's scale of h taken from its neighbour": ("K4", [
+        ("geglu_ff_int8.cu", "quant_scale(rowmax[m0 + qr])", "quant_scale(rowmax[m0 + (qr ^ 1)])",
+         1)]),
+    "the second GEMM's last k stage dropped": ("K4", [
+        ("geglu_ff_int8.cu", "const int kb1 = min(kblocks, kb0 + kb_per_split);",
+         "const int kb1 = min(kblocks, kb0 + kb_per_split) - (kb0 + kb_per_split >= kblocks);",
+         1)]),
+    "X1's last key tile dropped": ("X1", [
+        ("fused_block.cu", "const int ntiles = (n + BK - 1) / BK;",
+         "const int ntiles = (n + BK - 1) / BK - 1;", 1)]),
+    "a head's output written into another head's columns": ("X1", [
+        ("fused_block.cu", "const int hcol = h * d;", "const int hcol = (h ^ 1) * d;", 1)]),
+    "LayerNorm's variance without the mean squared": ("X1", [
+        ("fused_block.cu", "fmaxf(sumsq / c - mean * mean, 0.f)", "fmaxf(sumsq / c, 0.f)", 1)]),
 }
 
 
@@ -120,8 +139,9 @@ def run_checks(kernel: str) -> dict:
     """In the child: the smoke's K1 or K3 case at every N=4096 shape, plain
     and sharp, its Winograd case (K8 and X3) at every UNet shape, its K5
     case at every int8 attention shape of the fault's modes, its K2 case
-    at every FF shape, its K7 case at every fused-conv launch or its K6 case
-    at every int8 dense shape; returns {shape (sharp): margin, or None where
+    at every FF shape, its K7 case at every fused-conv launch, its K6 case
+    at every int8 dense shape, its K4 case at every int8 FF shape or its X1
+    check at every block site; returns {shape (sharp): margin, or None where
     it passed}."""
     import torch
 
@@ -129,9 +149,20 @@ def run_checks(kernel: str) -> dict:
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     margins = {}
-    if kernel in ("K7", "K6"):
-        shapes = smoke.FUSED_SHAPES if kernel == "K7" else smoke.INT8_DENSE_SHAPES
-        case = smoke.fused_conv_case if kernel == "K7" else smoke.int8_dense_case
+    if kernel == "X1":
+        for n, c in smoke.BLOCK_SITES:
+            label = "x".join(map(str, (16, n, c)))
+            try:
+                smoke.check_x1_site(n, c)
+                margins[label] = None
+            except smoke.CheckFailed as failed:
+                margins[label] = failed.err / failed.limit
+            smoke.free_memory()
+        return margins
+    if kernel in ("K7", "K6", "K4"):
+        shapes, case = {"K7": (smoke.FUSED_SHAPES, smoke.fused_conv_case),
+                        "K6": (smoke.INT8_DENSE_SHAPES, smoke.int8_dense_case),
+                        "K4": (smoke.INT8_FF_SHAPES, smoke.int8_ff_case)}[kernel]
         for shape in shapes:
             label = "x".join(map(str, shape))
             try:

@@ -24,6 +24,7 @@ Tolerances (max abs difference over the reference's scale, max(1, max |ref|)):
 """
 
 import importlib
+import math
 import pathlib
 import runpy
 import sys
@@ -377,6 +378,8 @@ def test_tail_fused_checks(change, error):
 
 @pytest.mark.parametrize("c,heads,d,error", [
     (64, 2, 32, None), (48, 2, 24, None), (40, 2, 20, ValueError), (64, 4, 32, ValueError),
+    (1280, 8, 160, None), (1344, 8, 168, ValueError),   # d past the kernels' 160
+    (1536, 12, 128, ValueError),                        # C past the kernels' 1280
 ])
 def test_fused_block_checks(c, heads, d, error):
     x = torch.zeros(2, 8, c, dtype=torch.bfloat16)
@@ -480,3 +483,29 @@ def test_tile_size_arguments_change_nothing(wrapper):
     want = step(x0)
     for tile in (16, 64, 4096):
         assert torch.equal(fn(x0, **args, **{keyword: tile}), want)
+
+
+def test_x1_weights_are_the_transposed_sources_kept_per_version():
+    """X1's prepared weights: [Wq' | Wk | Wv]ᵀ and Woᵀ in the working type,
+    kept while the sources are the same tensors at the same versions, made
+    again after an in-place edit or for another tensor."""
+    port._x1_cache.clear()
+    rng = np.random.default_rng(14)
+    c, d = 32, 16
+    wq, wk, wv, wo = (torch.from_numpy(_np(rng, c, c)) for _ in range(4))
+    wqkv, wo_t = port.x1_weights(wq, wk, wv, wo, d, torch.bfloat16)
+    scaled = (wq * (d**-0.5 * math.log2(math.e))).to(torch.bfloat16)
+    assert torch.equal(wqkv, torch.cat([scaled, wk.to(torch.bfloat16),
+                                        wv.to(torch.bfloat16)], dim=1).t())
+    assert torch.equal(wo_t, wo.to(torch.bfloat16).t()) and wo_t.is_contiguous()
+    assert port.x1_weights(wq, wk, wv, wo, d, torch.bfloat16)[0] is wqkv   # kept
+    with torch.no_grad():
+        wk.mul_(2.0)
+    again = port.x1_weights(wq, wk, wv, wo, d, torch.bfloat16)
+    assert again[0] is not wqkv
+    assert torch.equal(again[0][c:2 * c], wk.to(torch.bfloat16).t())
+    wo2 = wo.clone()
+    assert torch.equal(port.x1_weights(wq, wk, wv, wo2, d, torch.bfloat16)[1],
+                       wo2.to(torch.bfloat16).t())
+    assert port.x1_weights(wq, wk, wv, wo, d, torch.float32)[0].dtype == torch.float32
+    port._x1_cache.clear()

@@ -186,6 +186,63 @@ def test_load_time_weights_follow_replaced_weights():
     assert torch.equal(conv.int8_weights()["kq"], want[0])
 
 
+def test_interleaved_ff_weight_deinterleaves_to_the_halves():
+    """K4's first weight from quantize_ff_weights: W1a's and W1g's rows in
+    alternating runs of 64, codes and scales, which de-interleave bit for
+    bit to the halves'; and FeedForward's load-time copy follows a replaced
+    weight."""
+    c, inner = 32, 256
+    w1 = torch.from_numpy(_np(30, (2 * inner, c), 0.1))
+    w2 = torch.from_numpy(_np(31, (c, inner), 0.1))
+    qw = quantize_ff_weights(w1, w2, torch.float32)
+    run = 64
+    codes = qw["w1_q"].view(inner // run, 2, run, c)
+    scales = qw["w1_s"].view(inner // run, 2, run)
+    assert torch.equal(codes[:, 0].reshape(inner, c), qw["w1a_q"])
+    assert torch.equal(codes[:, 1].reshape(inner, c), qw["w1g_q"])
+    assert torch.equal(scales[:, 0].reshape(inner), qw["w1a_s"])
+    assert torch.equal(scales[:, 1].reshape(inner), qw["w1g_s"])
+    # rows 128 u + j are the value rows 64 u + j, rows 128 u + 64 + j the gate's
+    assert torch.equal(qw["w1_q"][128 + 5], qw["w1a_q"][64 + 5])
+    assert torch.equal(qw["w1_q"][128 + 64 + 5], qw["w1g_q"][64 + 5])
+    ff = FeedForward(c, mult=inner // c)
+    first = ff.int8_weights()["w1_q"]
+    with torch.no_grad():
+        ff.net[0].proj.weight[inner:].mul_(-1.0)
+    second = ff.int8_weights()
+    assert torch.equal(second["w1_q"].view(inner // run, 2, run, c)[:, 0],
+                       first.view(inner // run, 2, run, c)[:, 0])
+    assert torch.equal(second["w1_q"].view(inner // run, 2, run, c)[:, 1],
+                       -first.view(inner // run, 2, run, c)[:, 1])
+
+
+@pytest.mark.parametrize("c,inner,c_out,ok", [
+    (640, 2560, 640, True), (1280, 5120, 1280, True), (320, 1280, 320, True),
+    (1312, 5248, 1312, False),   # C past 1280: a block keeps its rows of x quantized
+    (336, 1280, 336, False),     # C % 32
+    (640, 2624, 640, False),     # inner % 128: the output GEMM's k blocks
+])
+def test_geglu_int8_wrapper_checks(c, inner, c_out, ok):
+    """The checks a CUDA tensor meets before K4's launch, run on CPU tensors."""
+    x = torch.zeros((256, c), dtype=torch.bfloat16)
+    qw = {"w1a_q": torch.zeros((inner, c), dtype=torch.int8),
+          "w1g_q": torch.zeros((inner, c), dtype=torch.int8), "w1a_s": torch.ones(inner),
+          "w1g_s": torch.ones(inner), "w2_q": torch.zeros((c_out, inner), dtype=torch.int8),
+          "w2_s": torch.ones(c_out), "w1_q": torch.zeros((2 * inner, c), dtype=torch.int8),
+          "w1_s": torch.ones(2 * inner)}
+    b1, b2 = torch.zeros(2 * inner), torch.zeros(c_out)
+    if ok:
+        port_ff._check_int8_inputs(x, qw, b1, b2)
+    else:
+        with pytest.raises(ValueError):
+            port_ff._check_int8_inputs(x, qw, b1, b2)
+    with pytest.raises(TypeError):
+        port_ff._check_int8_inputs(x.float(), qw, b1, b2)
+    if ok:  # a weight dict without the interleaved first weight
+        with pytest.raises(ValueError):
+            port_ff._check_int8_inputs(x, {k: v for k, v in qw.items() if k != "w1_q"}, b1, b2)
+
+
 def test_gelu_fast_matches_sd_tpu():
     g = np.linspace(-6.0, 6.0, 4097, dtype=np.float32)
     _close(gelu_fast(torch.from_numpy(g)).numpy(), np.asarray(jff._gelu_fast_f32(jnp.asarray(g))))
