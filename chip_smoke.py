@@ -111,7 +111,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    with the ms of the unfused yardstick (the port's LayerNormFp32,
    CrossAttention with K1, FeedForward with K2), and X1∘X2 on a port
    BasicTransformerBlock against the block itself in bf16 (relative L2
-   within BLOCK_AGREEMENT_TOL); each site logs X1's launch plans ([X1 plan]);
+   within BLOCK_AGREEMENT_TOL); each site logs X1's launch plans ([X1 plan])
+   and X2's ([X2 plan]: the attention launch's row tile, blocks and column
+   split, LN3's route, K2's plan of each GEMM); then X2 off the row tiles
+   (X2_OFF_GRID: N = 100 against row tiles of 64 and 128, so a tile that
+   straddled two batch elements' contexts would fail), checked, not timed;
 18. the block experiment: `python -m sd_tpu_torch.scripts.exp_block_kernel`
    and `... tail` at their defaults (N=4096, C=320), through their main();
    the launches, reset just before each, must be exactly 2 + 2 x 30 X1 and
@@ -270,6 +274,9 @@ CONV_MODES_TOL = 5e-2
 # transformer sites (N, C), at its B=16 with 8 heads, inner 4C, and 77
 # context keys of 128 rows
 BLOCK_SITES = [(4096, 320), (1024, 640), (256, 1280), (64, 1280)]
+# X2 off every row tile (B, N, C), 77 keys of 128: checked within KERNEL_TOL,
+# not timed
+X2_OFF_GRID = [(3, 100, 320)]
 # X1∘X2 on a port BasicTransformerBlock against the block itself, both bf16
 # on the card: relative L2 of the outputs. They round at other points (the
 # single-pass LayerNorm variance, P against a per-tile or per-row max,
@@ -319,12 +326,12 @@ def build() -> None:
         elif "spill" in line and not line.startswith("0 bytes") and kernel not in seen:
             log(f"[build]   {kernel}: {line}")
         elif "Used" in line and kernel not in seen:
-            # K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's, K4's and X1's
-            # kernels by name and template arguments
+            # K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's, K4's, X1's and
+            # X2's kernels by name and template arguments
             name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel|"
                              r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel|"
                              r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel|k4_out_kernel|"
-                             r"x1_qkv_kernel|x1_attn_kernel", kernel or "")
+                             r"x1_qkv_kernel|x1_attn_kernel|ln_rows_kernel", kernel or "")
             if name:
                 args = ",".join(re.findall(r"L[ib](\d+)E", kernel))
                 log(f"[build]   {name.group(0)}<{args}>: {line.split(':', 1)[1].strip()}")
@@ -1036,13 +1043,13 @@ def check_x1_site(n: int, c: int):
     return x, args, err
 
 
-def check_x2_site(n: int, c: int):
-    """X2 as :func:`check_x1_site`, every context row non-zero: only the mask
-    keeps rows >= kv_len out."""
+def check_x2_site(n: int, c: int, batch: int = 16):
+    """X2 as :func:`check_x1_site` (at ``batch``), every context row non-zero:
+    only the mask keeps rows >= kv_len out."""
     from sd_tpu_torch.ops.cuda import tail_fused, tail_fused_plain
     from sd_tpu_torch.scripts import exp_block_kernel as exp
 
-    x, args = exp.tail_inputs(n, c, "cuda", seed=n + 1)
+    x, args = exp.tail_inputs(n, c, "cuda", seed=n + 1, batch=batch)
     got = tail_fused(x, **args)
     torch.cuda.synchronize()
     err = check_error("X2 tail_fused", tuple(x.shape), got,
@@ -1057,7 +1064,7 @@ def check_block_kernels() -> dict:
     from sd_tpu_torch.ops.attention import BasicTransformerBlock
     from sd_tpu_torch.ops.cuda import (fused_block, fused_block_plain, tail_fused,
                                        tail_fused_plain)
-    from sd_tpu_torch.ops.cuda.fused_block import x1_plan
+    from sd_tpu_torch.ops.cuda.fused_block import x1_plan, x2_plan
     from sd_tpu_torch.scripts import exp_block_kernel as exp
     from sd_tpu_torch.utils.config import init_random_
 
@@ -1081,6 +1088,7 @@ def check_block_kernels() -> dict:
         rows["fused_block"].append(dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
                                         unfused_ms=unfused_ms, **bnd))
 
+        log_x2_plan(b, n, c)
         x, args, err = check_x2_site(n, c)
         kc, vc = args["kc"], args["vc"]
         weights = {k: v for k, v in args.items() if k not in ("kc", "vc", "kv_len")}
@@ -1111,7 +1119,30 @@ def check_block_kernels() -> dict:
             raise AssertionError(f"X1∘X2 at {shape}: relative L2 {rel}")
         del x, args, mods, block, kc, vc, weights
         free_memory()
+    for b_off, n, c in X2_OFF_GRID:
+        log_x2_plan(b_off, n, c)
+        err = check_x2_site(n, c, batch=b_off)[2]
+        rows["tail_fused"][-1]["err"] = max(rows["tail_fused"][-1]["err"], err)
     return rows
+
+
+def log_x2_plan(b: int, n: int, c: int) -> None:
+    """X2's plans at [b, n, c] with the experiment's heads, keys and inner:
+    the attention launch's row tile, blocks and column split, LN3's route
+    and K2's plan per GEMM."""
+    from sd_tpu_torch.ops.cuda.fused_block import x2_plan
+    from sd_tpu_torch.scripts import exp_block_kernel as exp
+
+    p = x2_plan(b, n, c, c // exp.HEADS, exp.KV_LEN, 4 * c)
+    a = p["attn"]
+    ff = "; ".join(f"{k} {g['rows']}x{g['cols']} tiles, {g['tiles']} tiles ({g['splits']} k "
+                   f"splits) over {g['blocks']} blocks in clusters of {g['cluster']}"
+                   for k, g in (("gemm1", p["gemm1"]), ("gemm2", p["gemm2"])))
+    log(f"[X2 plan] {(b, n, c)}: LN2 + Q {p['q']['rows']}x{p['q']['cols']} tiles, "
+        f"{p['q']['blocks']} blocks; attention + out-projection {a['rows']} rows a block, "
+        f"{a['blocks']} blocks ({a['threads']} threads, {a['blocks_per_sm']} an SM), "
+        f"{a['column_splits']} column splits; LN3 "
+        f"{'in its own launch' if p['ln3_own_launch'] else 'in the attention launch'}; K2 {ff}")
 
 
 def block_experiment() -> dict:

@@ -13,7 +13,9 @@
 //      it; only h [M, I] bf16 is written, never the fp32 [M, 2I] projection;
 //   2. a GEMM h [M, I] times W2 [C_out, I]^T plus b2, written as bf16; at a
 //      small M it splits over k into fp32 partial sums [splits, M, C_out],
-//      which a third launch adds with b2.
+//      which a third launch adds with b2. For X2 (tail_fused.cu, through
+//      geglu_ff.cuh) the residual mode then adds x1: bf16(bf16(. + b2) +
+//      x1), in the epilogue's row stores or in the reduction.
 // GELU is the exact form with CUDA's erff, not the TPU kernel's short erf
 // polynomial (_ERF_FAST, max error 3.6e-4), which exists for the TPU's vector
 // unit.
@@ -61,6 +63,7 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "geglu_ff.cuh"
 #include "tma.cuh"
 
 using sdt::bf16;
@@ -79,7 +82,7 @@ constexpr int BK = 64;          // k a stage: one 128-byte swizzled row of bf16
 constexpr int THREADS = 384;    // a producer warpgroup and two consumers
 constexpr int CONSUMER_WARPS = 8;
 
-enum Mode { GEGLU = 0, BIAS = 1, PARTIAL = 2 };
+enum Mode { GEGLU = 0, BIAS = 1, PARTIAL = 2, RESID = 3 };
 
 // Shared memory: STAGES x (A [128 x 64], B [NT x 64]) in 1024-byte aligned
 // atoms, as many as fit beside the rest (at most 6), then the bf16 output
@@ -95,6 +98,19 @@ struct Ring {
   static constexpr int BARS = STAGES * STAGE + OUT;
   static constexpr int BYTES = BARS + 2 * STAGES * 8 + 1024;
 };
+
+// Two packed bf16 pairs added in fp32 and rounded: bf16(y + r), X2's
+// residual after its bias rounding.
+__device__ __forceinline__ unsigned add_rounded(unsigned y, unsigned r) {
+  const __nv_bfloat162 yv = *reinterpret_cast<const __nv_bfloat162*>(&y);
+  const __nv_bfloat162 rv = *reinterpret_cast<const __nv_bfloat162*>(&r);
+  return sdt::pack_bf16(__low2float(yv) + __low2float(rv), __high2float(yv) + __high2float(rv));
+}
+
+__device__ __forceinline__ uint4 add_rounded(uint4 y, uint4 r) {
+  return make_uint4(add_rounded(y.x, r.x), add_rounded(y.y, r.y), add_rounded(y.z, r.z),
+                    add_rounded(y.w, r.w));
+}
 
 __device__ __forceinline__ float gelu(float g) {
   return 0.5f * g * (1.f + erff(g * 0.70710678118654752f));
@@ -112,11 +128,12 @@ __device__ __forceinline__ int k_end(int ktiles, int kt0, int tiles_per_split) {
 // halves) over tiles (m tile, n tile, k split), n fastest. GEGLU: NT / 2
 // output columns a tile, value rows n0 + j and gate rows n + n0 + j of w;
 // h = bf16((acc_v + b[c]) * gelu(acc_g + b[n + c])) into out [m, n]. BIAS:
-// NT columns, bf16(acc + b[c]) into out [m, n]. PARTIAL: NT columns, the
-// fp32 sum over the tile's k split into out [splits, m, n]. CL = 2: the two
-// CTAs of a cluster take two tiles stacked along m (a unit) and each copies
-// half of the shared B tile into both (TMA multicast); a stage is free
-// again once the consumers of both have released it.
+// NT columns, bf16(acc + b[c]) into out [m, n]. RESID: as BIAS, then
+// bf16(. + resid) with resid [m, n] read with the row stores. PARTIAL: NT
+// columns, the fp32 sum over the tile's k split into out [splits, m, n].
+// CL = 2: the two CTAs of a cluster take two tiles stacked along m (a unit)
+// and each copies half of the shared B tile into both (TMA multicast); a
+// stage is free again once the consumers of both have released it.
 template <int CL>
 __device__ __forceinline__ void release(uint64_t* bar) {
   if (CL == 1) {
@@ -130,8 +147,8 @@ __device__ __forceinline__ void release(uint64_t* bar) {
 template <int NT, int MODE, int CL>
 __global__ void __launch_bounds__(THREADS, 1)
 geglu_gemm_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
-                  const float* __restrict__ bias, void* __restrict__ out, int m, int n, int k,
-                  int splits, int tiles_per_split) {
+                  const float* __restrict__ bias, const bf16* __restrict__ resid,
+                  void* __restrict__ out, int m, int n, int k, int splits, int tiles_per_split) {
   using R = Ring<NT, MODE>;
   constexpr int BN = MODE == GEGLU ? NT / 2 : NT;
   extern __shared__ unsigned char smem_raw[];
@@ -284,17 +301,23 @@ geglu_gemm_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant_
     for (int i = threadIdx.x % 128; i < 64 * (BN / 8); i += 128) {
       const int r = i / (BN / 8), c = i % (BN / 8);
       const int row = m0 + cw * 64 + r, col = n0 + c * 8;
-      if (row < m && col < n)
-        *reinterpret_cast<uint4*>(o + (size_t)row * n + col) =
-            *reinterpret_cast<const uint4*>(stg + r * BN * 2 + ((c ^ (r & 7)) * 16));
+      if (row < m && col < n) {
+        uint4 v = *reinterpret_cast<const uint4*>(stg + r * BN * 2 + ((c ^ (r & 7)) * 16));
+        if (MODE == RESID) v = add_rounded(v, *reinterpret_cast<const uint4*>(
+                                                  resid + (size_t)row * n + col));
+        *reinterpret_cast<uint4*>(o + (size_t)row * n + col) = v;
+      }
     }
   }
 }
 
-// y [m, n] = bf16(sum over splits of ws [splits, m, n] + b), 4 columns a thread
+// y [m, n] = bf16(sum over splits of ws [splits, m, n] + b), 4 columns a
+// thread; RESID: then bf16(. + resid [m, n])
+template <bool RESID>
 __global__ void __launch_bounds__(256)
 geglu_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict__ bias,
-                           bf16* __restrict__ y, int m, int n, int splits) {
+                           const bf16* __restrict__ resid, bf16* __restrict__ y, int m, int n,
+                           int splits) {
   const size_t total = (size_t)m * n;
   const size_t i = ((size_t)blockIdx.x * blockDim.x + threadIdx.x) * 4;
   if (i >= total) return;
@@ -310,10 +333,16 @@ geglu_splitk_reduce_kernel(const float* __restrict__ ws, const float* __restrict
   uint2 packed;
   packed.x = sdt::pack_bf16(s.x + b.x, s.y + b.y);
   packed.y = sdt::pack_bf16(s.z + b.z, s.w + b.w);
+  if (RESID) {
+    const uint2 r = *reinterpret_cast<const uint2*>(resid + i);
+    packed.x = add_rounded(packed.x, r.x);
+    packed.y = add_rounded(packed.y, r.y);
+  }
   *reinterpret_cast<uint2*>(y + i) = packed;
 }
 
-typedef void (*GemmFn)(CUtensorMap, CUtensorMap, const float*, void*, int, int, int, int, int);
+typedef void (*GemmFn)(CUtensorMap, CUtensorMap, const float*, const bf16*, void*, int, int, int,
+                       int, int);
 
 // One candidate plan of a GEMM: its kernel, the B rows a k step copies
 // (NT), the output columns a tile (BN), the CTAs of a cluster (CL), the
@@ -334,9 +363,10 @@ Plan plan_of(float eff) {
 }
 
 // The candidates, (NT, CL): the first GEMM (GEGLU) with 128 or 64 output
-// columns a tile, alone or in clusters of two; the second (BIAS, or PARTIAL
-// split over k) likewise with 128 or 64. A cluster cuts each SM's copies of
-// B by half, which the efficiency credits.
+// columns a tile, alone or in clusters of two; the second (BIAS or RESID, or
+// PARTIAL split over k) likewise with 128 or 64, RESID at BIAS's
+// efficiencies (its residual is one more 16-byte load a row store). A
+// cluster cuts each SM's copies of B by half, which the efficiency credits.
 constexpr int kPlans = 4;
 
 template <int MODE>
@@ -351,7 +381,9 @@ Plan plan_at(int i) {
 
 Plan gemm1_plan(int i) { return plan_at<GEGLU>(i); }
 
-Plan gemm2_plan(int i, bool partial) { return partial ? plan_at<PARTIAL>(i) : plan_at<BIAS>(i); }
+Plan gemm2_plan(int i, bool partial, bool resid) {
+  return partial ? plan_at<PARTIAL>(i) : resid ? plan_at<RESID>(i) : plan_at<BIAS>(i);
+}
 
 // A chosen plan: the candidate, its k splits, the k tiles a split takes,
 // its tiles and the blocks launched (one an SM at most, a multiple of the
@@ -365,8 +397,9 @@ struct Choice {
 // along m) one cluster runs, each tile's mainloop at the plan's efficiency
 // of an SM's share of the bf16 peak plus a fixed cost a tile, and for a
 // split the partial sums' round trip and the reduction's launch. Clusters
-// only where there are two m tiles to pair.
-cudaError_t choose(bool second, int m, int n, int k, Choice* best) {
+// only where there are two m tiles to pair. resid: the second GEMM's
+// residual mode.
+cudaError_t choose(bool second, bool resid, int m, int n, int k, Choice* best) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -378,7 +411,7 @@ cudaError_t choose(bool second, int m, int n, int k, Choice* best) {
     for (int splits = 1; splits <= (second ? 8 : 1); ++splits) {
       const int tps = (ktiles + splits - 1) / splits;
       if ((ktiles + tps - 1) / tps != splits) continue;  // a split with no k tile
-      const Plan p = second ? gemm2_plan(i, splits > 1) : gemm1_plan(i);
+      const Plan p = second ? gemm2_plan(i, splits > 1, resid) : gemm1_plan(i);
       if (p.cl > 1 && m <= BM) continue;
       err = sdt::smem_limit(reinterpret_cast<const void*>(p.kernel), p.bytes);
       if (err != cudaSuccess) return err;
@@ -396,9 +429,10 @@ cudaError_t choose(bool second, int m, int n, int k, Choice* best) {
   return best_t < 1e30 ? cudaSuccess : cudaErrorInvalidConfiguration;
 }
 
-// a [m, k] times w (w_rows rows of k) by the chosen plan, into out.
+// a [m, k] times w (w_rows rows of k) by the chosen plan, into out, plus
+// resid [m, n] where the plan is the residual mode's.
 cudaError_t gemm(const Choice& c, const bf16* a, const bf16* w, int w_rows, const float* bias,
-                 void* out, float* ws, int m, int n, int k, cudaStream_t s) {
+                 const bf16* resid, void* out, float* ws, int m, int n, int k, cudaStream_t s) {
   const Plan& p = c.plan;
   CUtensorMap ma, mb;
   cudaError_t err = sdt::matrix_map(&ma, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, a, m, k, BK, BM);
@@ -417,27 +451,57 @@ cudaError_t gemm(const Choice& c, const bf16* a, const bf16* w, int w_rows, cons
   cluster.val.clusterDim.z = 1;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, p.kernel, ma, mb, bias, c.splits > 1 ? ws : out, m, n, k,
+  err = cudaLaunchKernelEx(&cfg, p.kernel, ma, mb, bias, resid, c.splits > 1 ? ws : out, m, n, k,
                            c.splits, c.tiles_per_split);
   if (err == cudaSuccess) err = cudaGetLastError();
   if (err != cudaSuccess || c.splits == 1) return err;
   const size_t quads = (size_t)m * n / 4;
-  geglu_splitk_reduce_kernel<<<(unsigned)((quads + 255) / 256), 256, 0, s>>>(
-      ws, bias, static_cast<bf16*>(out), m, n, c.splits);
+  const unsigned blocks = (unsigned)((quads + 255) / 256);
+  bf16* y = static_cast<bf16*>(out);
+  if (resid)
+    geglu_splitk_reduce_kernel<true><<<blocks, 256, 0, s>>>(ws, bias, resid, y, m, n, c.splits);
+  else
+    geglu_splitk_reduce_kernel<false><<<blocks, 256, 0, s>>>(ws, bias, nullptr, y, m, n, c.splits);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+cudaError_t sdt::geglu_ff_plans(int m, int c, int inner, int c_out, bool resid, int* out,
+                                long long* ws_elems) {
+  if (m <= 0 || c % 8 || inner % 8 || c_out % 8) return cudaErrorInvalidValue;
+  Choice ch[2];
+  cudaError_t err = choose(false, false, m, inner, c, &ch[0]);
+  if (err == cudaSuccess) err = choose(true, resid, m, c_out, inner, &ch[1]);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < 2 && out; ++i) {
+    const int vals[7] = {BM,           ch[i].plan.bn, ch[i].plan.stages, ch[i].tiles,
+                         ch[i].blocks, ch[i].splits,  ch[i].plan.cl};
+    for (int j = 0; j < 7; ++j) out[7 * i + j] = vals[j];
+  }
+  if (ws_elems) *ws_elems = ch[1].splits > 1 ? (long long)ch[1].splits * m * c_out : 0;
+  return cudaSuccess;
+}
+
+cudaError_t sdt::geglu_ff_forward(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                                  const float* b2, const bf16* resid, bf16* h, float* ws, bf16* y,
+                                  int m, int c, int inner, int c_out, cudaStream_t s) {
+  if (m <= 0 || c % 8 || inner % 8 || c_out % 8) return cudaErrorInvalidValue;
+  Choice c1, c2;
+  cudaError_t err = choose(false, false, m, inner, c, &c1);
+  if (err == cudaSuccess) err = choose(true, resid != nullptr, m, c_out, inner, &c2);
+  if (err != cudaSuccess) return err;
+  if (c2.splits > 1 && ws == nullptr) return cudaErrorInvalidValue;
+  err = gemm(c1, x, w1, 2 * inner, b1, nullptr, h, nullptr, m, inner, c, s);
+  if (err != cudaSuccess) return err;
+  return gemm(c2, h, w2, c_out, b2, resid, y, ws, m, c_out, inner, s);
+}
+
 // The fp32 scratch the second GEMM's k split needs at this shape, in
 // elements (0: none), into *out: the wrapper allocates it. Returns a CUDA
 // error code.
 extern "C" int sdt_geglu_ff_workspace(int m, int c, int inner, int c_out, long long* out) {
-  if (m <= 0 || c % 8 || inner % 8 || c_out % 8) return static_cast<int>(cudaErrorInvalidValue);
-  Choice c2 = {};
-  const cudaError_t err = choose(true, m, c_out, inner, &c2);
-  *out = c2.splits > 1 ? (long long)c2.splits * m * c_out : 0;
-  return static_cast<int>(err);
+  return static_cast<int>(sdt::geglu_ff_plans(m, c, inner, c_out, false, nullptr, out));
 }
 
 // x [m, c], w1 [2 * inner, c] (value rows first), b1 [2 * inner] fp32,
@@ -449,33 +513,16 @@ extern "C" int sdt_geglu_ff_workspace(int m, int c, int inner, int c_out, long l
 extern "C" int sdt_geglu_ff(const void* x, const void* w1, const void* b1, const void* w2,
                             const void* b2, void* h, void* ws, void* y, int m, int c, int inner,
                             int c_out, void* stream) {
-  if (m <= 0 || c % 8 || inner % 8 || c_out % 8) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  Choice c1, c2;
-  cudaError_t err = choose(false, m, inner, c, &c1);
-  if (err == cudaSuccess) err = choose(true, m, c_out, inner, &c2);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (c2.splits > 1 && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  err = gemm(c1, static_cast<const bf16*>(x), static_cast<const bf16*>(w1), 2 * inner,
-             static_cast<const float*>(b1), h, nullptr, m, inner, c, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(gemm(c2, static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
-                               c_out, static_cast<const float*>(b2), y, static_cast<float*>(ws),
-                               m, c_out, inner, s));
+  return static_cast<int>(sdt::geglu_ff_forward(
+      static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
+      static_cast<const bf16*>(w2), static_cast<const float*>(b2), nullptr, static_cast<bf16*>(h),
+      static_cast<float*>(ws), static_cast<bf16*>(y), m, c, inner, c_out,
+      static_cast<cudaStream_t>(stream)));
 }
 
 // K2's plan at this shape, per GEMM (first, then second): out = {rows a
 // tile, output columns a tile, stages, tiles, blocks launched, k splits,
 // CTAs a cluster}, 14 values. Returns a CUDA error code.
 extern "C" int sdt_geglu_ff_plan(int m, int c, int inner, int c_out, int* out) {
-  if (m <= 0 || c % 8 || inner % 8 || c_out % 8) return static_cast<int>(cudaErrorInvalidValue);
-  Choice ch[2];
-  cudaError_t err = choose(false, m, inner, c, &ch[0]);
-  if (err == cudaSuccess) err = choose(true, m, c_out, inner, &ch[1]);
-  for (int i = 0; i < 2 && err == cudaSuccess; ++i) {
-    const int vals[7] = {BM,           ch[i].plan.bn, ch[i].plan.stages, ch[i].tiles,
-                         ch[i].blocks, ch[i].splits,  ch[i].plan.cl};
-    for (int j = 0; j < 7; ++j) out[7 * i + j] = vals[j];
-  }
-  return static_cast<int>(err);
+  return static_cast<int>(sdt::geglu_ff_plans(m, c, inner, c_out, false, out, nullptr));
 }

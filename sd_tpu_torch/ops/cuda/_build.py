@@ -75,11 +75,12 @@ _SIGNATURES = {
     "sdt_fused_block_q": [_I, _I],
     # batch, n, c, d, int[17] out: X1's plans
     "sdt_fused_block_plan": [_I] * 4 + [_P],
-    # x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, x1, h, out,
-    # batch, n, nk, kv_len, heads, d, inner, stream
-    "sdt_tail_fused": [_P] * 17 + [_I] * 7 + [_P],
-    # c, d, kv_len -> the row tile of X2's first launch (0: not taken)
-    "sdt_tail_fused_q": [_I] * 3,
+    # x, g2, b2, wq, wo (both out x in), bo, kc, vc, g3, b3, w1 [2·inner, c],
+    # b1, w2 [c, inner], bff, q, x1, xln, h, ws, out, batch, n, nk, kv_len,
+    # heads, d, inner, stream
+    "sdt_tail_fused": [_P] * 20 + [_I] * 7 + [_P],
+    # batch, n, c, d, kv_len, inner, int[33] out: X2's plans
+    "sdt_tail_fused_plan": [_I] * 6 + [_P],
 }
 
 

@@ -8,8 +8,12 @@ the context's K and V projected outside the kernel) + residual + ``norm3`` +
 arguments). X1 replaces the TPU kernel ``_kernel`` through ``fused_block``
 of ``tools/exp_block_kernel.py``, X2 ``_tail_kernel`` through
 ``tail_fused``; their CUDA sources are ``sd_tpu_torch/csrc/fused_block.cu``
-and ``sd_tpu_torch/csrc/tail_fused.cu``, whose headers say what bounds them
-on the H100 and why each is two launches there.
+and ``sd_tpu_torch/csrc/tail_fused.cu`` (the launches they share are in
+``fused_block.cuh``), whose headers say what bounds them on the H100 and
+why X1 is two launches there and X2 four or more: its attention half on
+X1's two launches, its feed-forward on K2's GEMM pair with x1 added in the
+second's epilogue (:func:`tail_attention_plain` and
+``geglu_ff_plain(..., residual=x1)`` are the two halves' functions).
 
 The arguments are the tool's: ``x [B, N, C]``, weights ``[in, out]`` in any
 float type (cast to ``x``'s, as the tool casts them), LayerNorm and bias
@@ -23,10 +27,12 @@ last N mod block_q rows; see ROADMAP).
 
 The wrappers launch the kernels for a CUDA tensor (bf16 only; a shape the
 kernels do not take raises) and use the plain versions for a CPU tensor
-only. X1's kernels read the weights in torch ``Linear`` layout (out x in):
-:func:`x1_weights` makes ``[Wq' | Wk | Wv]ᵀ`` and ``Woᵀ`` once per weight
-version and keeps them (a weight edited in place or replaced is prepared
-again); :func:`x1_plan` reads X1's launch plans. Both functions are forward-only, as the TPU kernels are: an input
+only. The kernels read the weights in torch ``Linear`` layout (out x in):
+:func:`x1_weights` makes X1's ``[Wq' | Wk | Wv]ᵀ`` and ``Woᵀ``,
+:func:`x2_weights` X2's ``Wq'ᵀ``, ``Woᵀ``, ``W1ᵀ`` and ``W2ᵀ``, once per
+weight version, and keeps them (a weight edited in place or replaced is
+prepared again); :func:`x1_plan` and :func:`x2_plan` read the launch plans.
+Both functions are forward-only, as the TPU kernels are: an input
 that requires grad raises where autograd would record. ``fused_block.launches``
 and ``tail_fused.launches`` count calls that launched (one per call, whatever
 the internal launches).
@@ -35,6 +41,7 @@ the internal launches).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import weakref
 from collections import OrderedDict
@@ -45,17 +52,20 @@ import torch.nn.functional as F
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 
 __all__ = ["fused_block", "fused_block_plain", "tail_fused", "tail_fused_plain",
-           "block_weights", "layer_norm_single_pass", "x1_weights", "x1_plan"]
+           "tail_attention_plain", "block_weights", "layer_norm_single_pass", "x1_weights",
+           "x2_weights", "x1_plan", "x2_plan"]
 
 _LOG2E = math.log2(math.e)
 _LN_EPS = 1e-5
 # block_weights pads the context's K and V rows to a multiple of this (the
 # tool pads 77 to 128; the kernels read only the first kv_len rows)
 _KV_PAD = 16
-# X1's prepared weights kept: a few weight sets (the experiment's four sites)
-_X1_CACHE_SIZE = 8
-_x1_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
-# the widest head and row X1's kernels take (csrc/fused_block.cu)
+# X1's and X2's prepared weights kept: a few weight sets of each (the
+# experiment's four sites)
+_CACHE_SIZE = 16
+_weight_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
+# the widest head and row X1's kernels take (csrc/fused_block.cuh), and so
+# X2's attention launches
 _X1_MAX_D = 160
 _X1_MAX_C = 1280
 
@@ -114,29 +124,38 @@ def fused_block_plain(x, gamma, beta, wq, wk, wv, wo, bo, heads: int, d: int,
         return (y + bo.float()).to(dt) + x
 
 
-def tail_fused_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, heads: int,
-                     d: int, kv_len: int, block_q: int = 1024) -> torch.Tensor:
-    """X2's function in plain PyTorch at the TPU kernel's rounding points:
-    cross-attention over the first ``kv_len`` of kc/vc's rows, out-projection
-    and residual (x1), then LN3 and the GEGLU (exact-erf GELU in fp32, h
-    rounded), ``bf16(bf16(h W2 + bff) + x1)``."""
+def tail_attention_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, heads: int, d: int,
+                         kv_len: int):
+    """X2's attention half in plain PyTorch, what its attention launches
+    write: ``x1 = bf16(bf16(attend(LN2(x) Wq', kc, vc) Wo + bo) + x)`` over
+    the first ``kv_len`` of kc/vc's rows, and ``LN3(x1)``. Returns both."""
     dt = x.dtype
     b, n, c = x.shape
     nk = kc.shape[1]
-    inner = w2.shape[0]
     with torch.autocast(x.device.type, enabled=False):
         xln = layer_norm_single_pass(x, g2, b2).float()
         q = (xln @ _scaled_q(wq, d, dt).float()).to(dt).view(b, n, heads, d)
         att = _attend(q, kc.view(b, nk, heads, d), vc.view(b, nk, heads, d), kv_len)
         y = att.float() @ wo.to(dt).float()
         x1 = (y + bo.float()).to(dt) + x
-        xln3 = layer_norm_single_pass(x1, g3, b3).float()
-        w1f, b1f = w1.to(dt).float(), b1.float()
-        a = xln3 @ w1f[:, :inner] + b1f[:inner]
-        g = xln3 @ w1f[:, inner:] + b1f[inner:]
+        return x1, layer_norm_single_pass(x1, g3, b3)
+
+
+def tail_fused_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, heads: int,
+                     d: int, kv_len: int, block_q: int = 1024) -> torch.Tensor:
+    """X2's function in plain PyTorch at the TPU kernel's rounding points:
+    cross-attention over the first ``kv_len`` of kc/vc's rows, out-projection
+    and residual (x1), then LN3 and the GEGLU (exact-erf GELU in fp32, h
+    rounded), ``bf16(bf16(h W2 + bff) + x1)``. The products take the tool's
+    ``[in, out]`` weights transposed, as ``F.linear`` takes them."""
+    dt = x.dtype
+    inner = w2.shape[0]
+    x1, xln3 = tail_attention_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, heads, d, kv_len)
+    with torch.autocast(x.device.type, enabled=False):
+        s = F.linear(xln3.float(), w1.to(dt).float().t(), b1.float())
+        a, g = s[..., :inner], s[..., inner:]
         h = (a * F.gelu(g)).to(dt)
-        o = h.float() @ w2.to(dt).float()
-        return (o + bff.float()).to(dt) + x1
+        return F.linear(h.float(), w2.to(dt).float().t(), bff.float()).to(dt) + x1
 
 
 def _check_no_grad(name: str, tensors) -> None:
@@ -181,6 +200,9 @@ def _check_tail(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, heads, d
     b, c = x.shape[0], x.shape[-1]
     inner = w2.shape[0]
     nk = kc.shape[1] if kc.ndim == 3 else -1
+    if d > _X1_MAX_D or c > _X1_MAX_C:
+        raise ValueError(f"tail_fused: the attention launches (X1's) take d <= {_X1_MAX_D} and "
+                         f"C <= {_X1_MAX_C}, got d={d}, C={c}")
     if inner < 8 or inner % 8:
         raise ValueError(f"tail_fused: inner={inner} must be a positive multiple of 8")
     if not 1 <= kv_len <= nk:
@@ -212,26 +234,45 @@ def _prepare_x1(wq, wk, wv, wo, d: int, dtype: torch.dtype):
     return wqkv.t().contiguous(), wo.to(dtype).t().contiguous()
 
 
-def x1_weights(wq, wk, wv, wo, d: int, dtype: torch.dtype):
-    """:func:`_prepare_x1` of the tool's ``[in, out]`` weights, made once per
-    weight version and kept (the last ``_X1_CACHE_SIZE`` weight sets): a
-    weight edited in place (its version counter) or replaced (another
-    tensor) is prepared again, so a stale copy is never served."""
-    sources = (wq, wk, wv, wo)
+def _prepare_x2(wq, wo, w1, w2, d: int, dtype: torch.dtype):
+    """X2's kernel weights in ``dtype``, contiguous, out x in: ``Wq'ᵀ`` and
+    ``Woᵀ [C, C]``, ``W1ᵀ [2·inner, C]`` (value rows first, as K2 takes
+    them) and ``W2ᵀ [C, inner]``."""
+    return (_scaled_q(wq, d, dtype).t().contiguous(),
+            *(w.to(dtype).t().contiguous() for w in (wo, w1, w2)))
+
+
+def _kept(kind: str, prepare, sources, d: int, dtype: torch.dtype):
+    """``prepare(*sources, d, dtype)``, made once per weight version and
+    kept (the last ``_CACHE_SIZE`` weight sets of X1 and X2): a weight edited
+    in place (its version counter) or replaced (another tensor) is prepared
+    again, so a stale copy is never served."""
     versions = tuple(t._version for t in sources)
-    for key, (refs, seen, prepared) in _x1_cache.items():
-        if (key[0] == d and key[1] == dtype and seen == versions
+    for key, (refs, seen, prepared) in _weight_cache.items():
+        if (key[:3] == (kind, d, dtype) and seen == versions
                 and all(r() is t for r, t in zip(refs, sources))):
-            _x1_cache.move_to_end(key)
+            _weight_cache.move_to_end(key)
             return prepared
     with torch.no_grad():
-        prepared = _prepare_x1(wq, wk, wv, wo, d, dtype)
-    key = (d, dtype, tuple(id(t) for t in sources))
-    _x1_cache[key] = (tuple(weakref.ref(t) for t in sources), versions, prepared)
-    _x1_cache.move_to_end(key)
-    while len(_x1_cache) > _X1_CACHE_SIZE:
-        _x1_cache.popitem(last=False)
+        prepared = prepare(*sources, d, dtype)
+    key = (kind, d, dtype, tuple(id(t) for t in sources))
+    _weight_cache[key] = (tuple(weakref.ref(t) for t in sources), versions, prepared)
+    _weight_cache.move_to_end(key)
+    while len(_weight_cache) > _CACHE_SIZE:
+        _weight_cache.popitem(last=False)
     return prepared
+
+
+def x1_weights(wq, wk, wv, wo, d: int, dtype: torch.dtype):
+    """:func:`_prepare_x1` of the tool's ``[in, out]`` weights, kept per
+    weight version (:func:`_kept`)."""
+    return _kept("x1", _prepare_x1, (wq, wk, wv, wo), d, dtype)
+
+
+def x2_weights(wq, wo, w1, w2, d: int, dtype: torch.dtype):
+    """:func:`_prepare_x2` of the tool's ``[in, out]`` weights, kept per
+    weight version (:func:`_kept`)."""
+    return _kept("x2", _prepare_x2, (wq, wo, w1, w2), d, dtype)
 
 
 def x1_plan(b: int, n: int, c: int, d: int) -> dict:
@@ -247,6 +288,34 @@ def x1_plan(b: int, n: int, c: int, d: int) -> dict:
     second = ("rows", "keys", "head_dim", "cols", "stages", "smem_bytes", "blocks_per_sm",
               "threads", "column_splits", "blocks")
     return {"qkv": dict(zip(first, out[:7])), "attn": dict(zip(second, out[7:]))}
+
+
+@functools.lru_cache(maxsize=64)
+def _x2_plan(device: int, b: int, n: int, c: int, d: int, kv_len: int, inner: int) -> tuple:
+    """The library's 33 plan values (``sdt_tail_fused_plan``), the last the
+    fp32 elements of K2's k-split scratch."""
+    out = (ctypes.c_int * 33)()
+    with torch.cuda.device(device):
+        err = kernels().sdt_tail_fused_plan(b, n, c, d, kv_len, inner, out)
+    check(err, f"tail_fused plan at {(b, n, c, d, kv_len, inner)}")
+    return tuple(out)
+
+
+def x2_plan(b: int, n: int, c: int, d: int, kv_len: int, inner: int) -> dict:
+    """X2's plans at ``x [b, n, c]``, head dim d, kv_len keys and inner, from
+    the loaded library: launch 1's (LN2 + Q, X1's launch A), launch 2's
+    (cross-attention + out-projection + residual, X1's launch B), whether
+    LN3 takes a launch of its own (where launch 2 splits its columns), K2's
+    plan of each GEMM and the fp32 elements of its k-split scratch. Needs
+    the card."""
+    v = _x2_plan(torch.cuda.current_device(), b, n, c, d, kv_len, inner)
+    gemm = ("rows", "cols", "stages", "tiles", "blocks", "splits", "cluster")
+    return {"q": dict(zip(("rows", "cols", "stages", "blocks", "runs", "tiles_per_block",
+                           "smem_bytes"), v[:7])),
+            "attn": dict(zip(("rows", "keys", "head_dim", "cols", "stages", "smem_bytes",
+                              "blocks_per_sm", "threads", "column_splits", "blocks"), v[7:17])),
+            "ln3_own_launch": bool(v[17]), "gemm1": dict(zip(gemm, v[18:25])),
+            "gemm2": dict(zip(gemm, v[25:32])), "workspace": v[32]}
 
 
 def fused_block(x, gamma, beta, wq, wk, wv, wo, bo, heads: int, d: int,
@@ -300,25 +369,24 @@ def tail_fused(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, heads: in
     b, n, c = x.shape
     nk = kc.shape[1]
     inner = w2.shape[0]
-    lib = kernels()
-    if lib.sdt_tail_fused_q(c, d, kv_len) == 0:
-        raise ValueError(f"tail_fused: no row tile of the kernel fits C={c}, d={d}, "
-                         f"kv_len={kv_len}")
     dt = x.dtype
+    ws_elems = _x2_plan(x.device.index, b, n, c, d, kv_len, inner)[-1]
     x, kc, vc = x.contiguous(), kc.contiguous(), vc.contiguous()
-    wq = _scaled_q(wq, d, dt).contiguous()
-    wo, w1, w2 = (t.to(dt).contiguous() for t in (wo, w1, w2))
+    wq, wo, w1, w2 = x2_weights(wq, wo, w1, w2, d, dt)
     g2, b2, bo, g3, b3, b1, bff = (_vec(t) for t in (g2, b2, bo, g3, b3, b1, bff))
-    x1 = torch.empty((b * n, c), dtype=dt, device=x.device)
+    q, x1, xln3 = (torch.empty((b * n, c), dtype=dt, device=x.device) for _ in range(3))
     h = torch.empty((b * n, inner), dtype=dt, device=x.device)
+    ws = torch.empty((ws_elems,), dtype=torch.float32, device=x.device) if ws_elems else None
     out = torch.empty_like(x)
     _aligned("tail_fused", x=x, kc=kc, vc=vc, wq=wq, wo=wo, w1=w1, w2=w2)
     with torch.cuda.device(x.device):
-        err = lib.sdt_tail_fused(
+        err = kernels().sdt_tail_fused(
             x.data_ptr(), g2.data_ptr(), b2.data_ptr(), wq.data_ptr(), wo.data_ptr(),
             bo.data_ptr(), kc.data_ptr(), vc.data_ptr(), g3.data_ptr(), b3.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), bff.data_ptr(), x1.data_ptr(),
-            h.data_ptr(), out.data_ptr(), b, n, nk, kv_len, c // d, d, inner, stream_of(x))
+            w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), bff.data_ptr(), q.data_ptr(),
+            x1.data_ptr(), xln3.data_ptr(), h.data_ptr(),
+            ws.data_ptr() if ws is not None else None, out.data_ptr(), b, n, nk, kv_len,
+            c // d, d, inner, stream_of(x))
     check(err, "tail_fused")
     tail_fused.launches += 1
     return out

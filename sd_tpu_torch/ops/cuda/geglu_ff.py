@@ -71,15 +71,19 @@ _INT8_RUN = 64
 
 
 def geglu_ff_plain(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
-                   w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
+                   w2: torch.Tensor, b2: torch.Tensor,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The same function in plain PyTorch: fp32 products, exact-erf GELU in
-    fp32, h rounded to the input dtype before the output projection."""
+    fp32, h rounded to the input dtype before the output projection. With
+    ``residual`` (K2's residual mode, which X2 runs), the rounded output
+    plus ``residual``, rounded: ``bf16(bf16(h W2ᵀ + b2) + residual)``."""
     inner = w2.shape[1]
     with torch.autocast(x.device.type, enabled=False):
         s = F.linear(x.float(), w1.float(), b1.float())
         a, g = s[..., :inner], s[..., inner:]
         h = (a * F.gelu(g)).to(x.dtype)
-        return F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+        y = F.linear(h.float(), w2.float(), b2.float()).to(x.dtype)
+        return y if residual is None else y + residual
 
 
 def _check_inputs(x, w1, b1, w2, b2):

@@ -109,20 +109,23 @@ def block_inputs(n: int, c: int, device, seed: int = 0):
     return x0, args
 
 
-def tail_inputs(n: int, c: int, device, seed: int = 0):
-    """X2's inputs at :func:`block_inputs`' scales, inner 4C, and kc/vc
-    N(0, 1) bf16 in all nk = 128 rows: the rows at or past kv_len = 77 are
-    not zero (the tool pads with zeros), so only the mask keeps them out."""
+def tail_inputs(n: int, c: int, device, seed: int = 0, batch: int = B):
+    """X2's inputs at :func:`block_inputs`' scales (x0 with its per-row
+    offset, drawn last, so that each row's mean weighs in LN2 and, through
+    x1, in LN3), inner 4C, and kc/vc N(0, 1) bf16 in all nk = 128 rows: the
+    rows at or past kv_len = 77 are not zero (the tool pads with zeros), so
+    only the mask keeps them out."""
     g = torch.Generator(device=device).manual_seed(seed)
     inner = 4 * c
-    x0 = _randn(g, B, n, c, scale=X_SCALE).to(torch.bfloat16)
+    x0 = _randn(g, batch, n, c, scale=X_SCALE)
     (g2, b2), (g3, b3) = _norm_params(g, c), _norm_params(g, c)
-    kc, vc = (_randn(g, B, NK, c).to(torch.bfloat16) for _ in range(2))
+    kc, vc = (_randn(g, batch, NK, c).to(torch.bfloat16) for _ in range(2))
     args = dict(g2=g2, b2=b2, wq=_weight(g, c, c, Q_GAIN), wo=_weight(g, c, c),
                 bo=_randn(g, c, scale=0.1), kc=kc, vc=vc, g3=g3, b3=b3,
                 w1=_weight(g, c, 2 * inner), b1=_randn(g, 2 * inner, scale=0.1),
                 w2=_weight(g, inner, c), bff=_randn(g, c, scale=0.1), heads=HEADS,
                 d=c // HEADS, kv_len=KV_LEN)
+    x0 = (x0 + _randn(g, batch, n, 1, scale=X_SCALE)).to(torch.bfloat16)
     return x0, args
 
 

@@ -1,8 +1,8 @@
 """Plant faults in copies of K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's,
-K4's and X1's sources and show that ``chip_smoke.py``'s checks fail on each,
-at every shape they cover.
+K4's, X1's and X2's sources and show that ``chip_smoke.py``'s checks fail on
+each, at every shape they cover.
 
-    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2|K7|K6|K4|X1 ...]   (from the repository root)
+    python -m sd_tpu_torch.scripts.flash_faults [K1|K3|K5|K8|X3|K2|K7|K6|K4|X1|X2 ...]   (from the repository root)
 
 For each fault in :data:`FAULTS` (those of the kernels named, or all) the
 package is copied into ``build/flash_faults/<name>/`` (git-ignored), the
@@ -19,7 +19,8 @@ only); ``geglu_case`` (K2 faults) at every shape of ``FF_SHAPES``;
 ``fused_conv_case`` (K7 faults) at every shape of ``FUSED_SHAPES``;
 ``int8_dense_case`` (K6 faults) at every shape of ``INT8_DENSE_SHAPES``;
 ``int8_ff_case`` (K4 faults) at every shape of ``INT8_FF_SHAPES``;
-``check_x1_site`` (X1 faults) at every site of ``BLOCK_SITES``. A run
+``check_x1_site`` (X1 faults) or ``check_x2_site`` (X2 faults) at every
+site of ``BLOCK_SITES``. A run
 "fails" where a check raises ``CheckFailed``; its margin is the error over
 the check's bound. The script prints one JSON line of every margin, last,
 and exits 1 unless every fault failed at every shape. Needs a card.
@@ -37,8 +38,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7, K6, K4 or X1, [(source file, text,
-# replacement, count)])
+# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7, K6, K4, X1 or X2, [(source file,
+# text, replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
@@ -108,12 +109,26 @@ FAULTS = {
          "const int kb1 = min(kblocks, kb0 + kb_per_split) - (kb0 + kb_per_split >= kblocks);",
          1)]),
     "X1's last key tile dropped": ("X1", [
-        ("fused_block.cu", "const int ntiles = (n + BK - 1) / BK;",
-         "const int ntiles = (n + BK - 1) / BK - 1;", 1)]),
+        ("fused_block.cuh", "const int ntiles = (nkeys + BK - 1) / BK;",
+         "const int ntiles = (nkeys + BK - 1) / BK - 1;", 1)]),
     "a head's output written into another head's columns": ("X1", [
-        ("fused_block.cu", "const int hcol = h * d;", "const int hcol = (h ^ 1) * d;", 1)]),
+        ("fused_block.cuh", "const int hcol = h * d;", "const int hcol = (h ^ 1) * d;", 1)]),
     "LayerNorm's variance without the mean squared": ("X1", [
-        ("fused_block.cu", "fmaxf(sumsq / c - mean * mean, 0.f)", "fmaxf(sumsq / c, 0.f)", 1)]),
+        ("fused_block.cuh", "fmaxf(sumsq / c - mean * mean, 0.f)", "fmaxf(sumsq / c, 0.f)", 1)]),
+    "X2's key mask widened to nk": ("X2", [
+        ("tail_fused.cu", "  a.nkeys = kv_len;", "  a.nkeys = nk;", 1)]),
+    "a head's logits against another head's K columns": ("X2", [
+        ("fused_block.cuh", "kb + h * d", "kb + (h ^ 1) * d", 2)]),
+    "X2's head output written into another head's columns": ("X2", [
+        ("fused_block.cuh", "const int hcol = h * d;", "const int hcol = (h ^ 1) * d;", 1)]),
+    "LN3's variance without the mean squared": ("X2", [
+        ("fused_block.cuh", "fmaxf(sq / c - mu * mu, 0.f)", "fmaxf(sq / c, 0.f)", 1)]),
+    "x in place of x1 in the residual epilogue": ("X2", [
+        ("tail_fused.cu", "const bf16* resid = x1p;", "const bf16* resid = xp;", 1)]),
+    "the second GEMM's last k stage dropped in X2": ("X2", [
+        ("geglu_ff.cu", "  return min(ktiles, kt0 + tiles_per_split);",
+         "  return min(ktiles, kt0 + tiles_per_split) -\n"
+         "         (MODE != GEGLU && kt0 + tiles_per_split >= ktiles);", 1)]),
 }
 
 
@@ -141,19 +156,20 @@ def run_checks(kernel: str) -> dict:
     case at every int8 attention shape of the fault's modes, its K2 case
     at every FF shape, its K7 case at every fused-conv launch, its K6 case
     at every int8 dense shape, its K4 case at every int8 FF shape or its X1
-    check at every block site; returns {shape (sharp): margin, or None where
-    it passed}."""
+    or X2 check at every block site; returns {shape (sharp): margin, or None
+    where it passed}."""
     import torch
 
     smoke = _smoke()
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     margins = {}
-    if kernel == "X1":
+    if kernel in ("X1", "X2"):
+        check = smoke.check_x1_site if kernel == "X1" else smoke.check_x2_site
         for n, c in smoke.BLOCK_SITES:
             label = "x".join(map(str, (16, n, c)))
             try:
-                smoke.check_x1_site(n, c)
+                check(n, c)
                 margins[label] = None
             except smoke.CheckFailed as failed:
                 margins[label] = failed.err / failed.limit

@@ -15,6 +15,9 @@ Tolerances (max abs difference over the reference's scale, max(1, max |ref|)):
 - bf16 against the interpret-mode kernels: 2e-2 (KERNEL_TOL): the same
   rounding points, where a 1-ulp difference of an fp32 sum can flip a bf16
   rounding of q, k, v, P, h or an output (2^-8 relative each);
+- X2's two halves (the attention launches' plain function, then K2's plain
+  version with the residual) against X2's plain version: bit for bit, in
+  fp32 and bf16 (the same operations in the same order);
 - X1∘X2 against sd_tpu's BasicTransformerBlock in fp32: 1e-4, the
   single-pass LayerNorm variance and the GELU polynomial;
 - X1∘X2 against the port's block in bf16: relative L2 1e-2, chip_smoke.py's
@@ -39,8 +42,8 @@ from jax.experimental import pallas as pl
 
 from sd_tpu.ops import attention as jattn
 from sd_tpu_torch.ops.attention import BasicTransformerBlock
-from sd_tpu_torch.ops.cuda import (block_weights, fused_block, fused_block_plain, tail_fused,
-                                   tail_fused_plain)
+from sd_tpu_torch.ops.cuda import (block_weights, fused_block, fused_block_plain, geglu_ff_plain,
+                                   tail_fused, tail_fused_plain)
 from sd_tpu_torch.ops.cuda.fused_block import layer_norm_single_pass
 from sd_tpu_torch.scripts import exp_block_kernel as exp
 from sd_tpu_torch.utils import convert
@@ -182,6 +185,9 @@ def test_fused_block_attends_over_every_key(jtool):
     ("float32", 2, 64, 2, 32, 16, 11, 64),
     ("bfloat16", 2, 64, 2, 32, 16, 11, 64),
     ("float32", 1, 32, 4, 20, 16, 16, 32),   # every row a key; d = 20
+    # N = 40 against the port's row tiles (64, 128), the tool's block_q = N
+    ("float32", 2, 40, 2, 16, 16, 11, 40),
+    ("bfloat16", 2, 40, 2, 16, 16, 11, 40),
 ])
 def test_tail_fused_matches_the_pallas_kernel(jtool, dtype, b, n, heads, d, nk, kv_len, block_q):
     """Non-zero padded K and V rows: the JAX kernel masks them, and so must
@@ -202,6 +208,28 @@ def test_tail_fused_matches_the_pallas_kernel(jtool, dtype, b, n, heads, d, nk, 
         unmasked = tail_fused(tx, *targs, heads, d, nk).float().numpy()
         want = np.asarray(want.astype(jnp.float32))
         assert np.abs(unmasked - want).max() > 10 * tol * max(1.0, np.abs(want).max())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_tail_halves_compose_to_the_plain_version(dtype):
+    """What X2's launches compute, half by half: the attention half (x1 and
+    LN3(x1)), then K2's plain version with the residual mode on the weights
+    as the kernels take them (out x in, value rows first), equals X2's plain
+    version bit for bit."""
+    b, n, heads, d, nk, kv_len = 2, 24, 2, 16, 16, 11
+    c, inner = heads * d, 4 * heads * d
+    x = _as(dtype, _np(np.random.default_rng(15), b, n, c))[1]
+    g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff = _torch_args(
+        _tail_args(16, b, c, inner, nk, kv_len), dtype, (5, 6))
+    x1, xln3 = port.tail_attention_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, heads, d, kv_len)
+    dt = x.dtype
+    got = geglu_ff_plain(xln3, w1.to(dt).t(), b1, w2.to(dt).t(), bff, residual=x1)
+    want = tail_fused_plain(x, g2, b2, wq, wo, bo, kc, vc, g3, b3, w1, b1, w2, bff, heads, d,
+                            kv_len)
+    assert got.dtype == dt and xln3.dtype == dt
+    assert torch.equal(got, want)
+    assert not torch.equal(got, geglu_ff_plain(xln3, w1.to(dt).t(), b1, w2.to(dt).t(), bff,
+                                               residual=x))
 
 
 # ------------------------------------------------ the whole block, X1∘X2
@@ -376,6 +404,26 @@ def test_tail_fused_checks(change, error):
             _checked_tail(**change)
 
 
+@pytest.mark.parametrize("heads,d,error", [
+    (8, 160, None), (8, 168, ValueError),   # d past the attention launches' 160
+    (12, 128, ValueError),                  # C past their 1280
+])
+def test_tail_fused_takes_what_the_attention_launches_take(heads, d, error):
+    """X2's attention half runs on X1's launches, so it takes their head dim
+    and row width (a row's LayerNorm in a warp); inner is K2's."""
+    c, inner = heads * d, 16
+    vec = torch.zeros(c)
+    kv = torch.zeros(1, 8, c, dtype=torch.bfloat16)
+    args = (torch.zeros(1, 4, c, dtype=torch.bfloat16), vec, vec, torch.zeros(c, c),
+            torch.zeros(c, c), vec, kv, kv, vec, vec, torch.zeros(c, 2 * inner),
+            torch.zeros(2 * inner), torch.zeros(inner, c), vec, heads, d, 8)
+    if error is None:
+        port._check_tail(*args)
+    else:
+        with pytest.raises(error, match="attention launches"):
+            port._check_tail(*args)
+
+
 @pytest.mark.parametrize("c,heads,d,error", [
     (64, 2, 32, None), (48, 2, 24, None), (40, 2, 20, ValueError), (64, 4, 32, ValueError),
     (1280, 8, 160, None), (1344, 8, 168, ValueError),   # d past the kernels' 160
@@ -489,7 +537,7 @@ def test_x1_weights_are_the_transposed_sources_kept_per_version():
     """X1's prepared weights: [Wq' | Wk | Wv]ᵀ and Woᵀ in the working type,
     kept while the sources are the same tensors at the same versions, made
     again after an in-place edit or for another tensor."""
-    port._x1_cache.clear()
+    port._weight_cache.clear()
     rng = np.random.default_rng(14)
     c, d = 32, 16
     wq, wk, wv, wo = (torch.from_numpy(_np(rng, c, c)) for _ in range(4))
@@ -508,4 +556,4 @@ def test_x1_weights_are_the_transposed_sources_kept_per_version():
     assert torch.equal(port.x1_weights(wq, wk, wv, wo2, d, torch.bfloat16)[1],
                        wo2.to(torch.bfloat16).t())
     assert port.x1_weights(wq, wk, wv, wo, d, torch.float32)[0].dtype == torch.float32
-    port._x1_cache.clear()
+    port._weight_cache.clear()

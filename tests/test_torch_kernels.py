@@ -119,8 +119,8 @@ def test_library_name_is_keyed_to_the_sources():
                                     "geglu_ff.cu", "flash_attention_int8.cu",
                                     "geglu_ff_int8.cu", "int8_dense.cu", "fused_conv.cu",
                                     "winograd_conv.cu", "fused_block.cu", "tail_fused.cu"}
-    assert {p.name for p in headers} == {"block_tile.cuh", "flash_mma.cuh", "int8_wgmma.cuh",
-                                         "tma.cuh"}
+    assert {p.name for p in headers} == {"flash_mma.cuh", "fused_block.cuh", "geglu_ff.cuh",
+                                         "int8_wgmma.cuh", "tma.cuh"}
 
 
 def _bf16(*shape):
