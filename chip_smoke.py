@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA card: txt2img
-serving in bf16, in the int8 serving mode and in the two conv modes, LDM
-training, and the fused transformer-block experiment, all at SD v1 full
-width.
+serving in bf16 (with PLMS, DDIM and DPM-Solver++, from random weights, a
+reference checkpoint file and a training run, with the safety checker), in
+the int8 serving mode and in the two conv modes, LDM training, and the
+fused transformer-block experiment, all at SD v1 full width.
 
     python3 chip_smoke.py
 
@@ -16,7 +17,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    at batch 8 (B=16), and (K2) at one ragged shape, bf16 inputs, the plain
    version computed in fp32
    from the same inputs (one batch element at a time where its logits would
-   pass 2 GiB); K1's row log-sum-exp (the statistic K3 reads) against its
+   pass 2 GiB); K1 also at the safety checker's vision towers (the
+   untrained one, N=50, 4 heads of 16, and ViT-L/14, N=257, 16 heads of 64,
+   at batch 1 and 8), its sums logged apart; K1's row log-sum-exp (the statistic K3 reads) against its
    plain version too, and every K1 shape a second time with sharp logits
    (q times SHARP); K1's launch plan at each shape (blocks, shared memory,
    blocks per SM, waves) and K2's per GEMM (a block's rows and columns,
@@ -34,7 +37,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    the fp32 opt-out: SD_TPU_PRECISION=fp32 builds the tiny model in fp32 on
    the card (TF32 off for matmul and cuDNN), which samples against its fp32
    CPU run, and one tiny training loss and its gradients in fp32 outside
-   autocast against the CPU, with no K1, K2 or K3 launch;
+   autocast against the CPU, with no K1, K2 or K3 launch; DDIM at eta 0 and
+   1 (its noise drawn on the CPU and moved) and DPM-Solver++ at orders 2 and
+   3, 5 steps each, on the tiny model against the CPU; the untrained safety
+   checker's embeddings (its tower in bf16, K1 at both layers) against the
+   CPU, and its flags equal at thresholds that flag none and all;
 7. serving: SD v1 at full width (860M UNet, kl-f8 decoder, CLIP ViT-L/14
    text tower) with seeded random weights in bf16 serves three one-prompt
    requests at 512x512, PLMS 50 steps, guidance 7.5, through
@@ -119,7 +126,24 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 18. the block experiment: `python -m sd_tpu_torch.scripts.exp_block_kernel`
    and `... tail` at their defaults (N=4096, C=320), through their main();
    the launches, reset just before each, must be exactly 2 + 2 x 30 X1 and
-   K1 launches, then 2 + 2 x 30 X2 and K2 launches.
+   K1 launches, then 2 + 2 x 30 X2 and K2 launches;
+19. [serve ckpt]: a reference-layout SD v1 checkpoint (the model's keys,
+   a UNet EMA shadow under model_ema.*, the schedule buffers, CLIP's
+   position_ids; seeded, fp32 storage) written to a temporary directory,
+   built through build_txt2img_pipeline(ckpt=...) with a synthetic CLIP
+   vocabulary and the default untrained safety checker; the UNet equal bit
+   for bit to the file's model keys in bf16; one batch-1 request at 512²,
+   guidance 7.5, each with DDIM 50 at eta 0 and 1, DPM-Solver++ 20 and PLMS
+   50 with negative prompts, with exactly K1 = 16 E + 1 + 2 and K2 = 16 E
+   for E UNet evaluations (S + 1 for PLMS, S for DDIM and DPM-Solver++);
+   map_batches over three requests equal to three calls in turn; then a
+   synthetic HF-layout ViT-L/14 safety checker through safety_ckpt serves
+   a batch-2 request (K1 = 16 E + 1 + 24, nothing flagged), and with its
+   thresholds at -2 flags and replaces every image;
+20. [serve run], after training (which keeps an EMA shadow for it): the
+   run directory built through build_txt2img_pipeline(ckpt=<logdir>), the
+   UNet equal to the EMA shadow in bf16, one DPM-Solver++ 20 request with
+   exact counts.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -128,6 +152,7 @@ The line before the last is the kernels' JSON; the last line is
 import contextlib
 import copy
 import gc
+import gzip
 import importlib
 import json
 import os
@@ -145,7 +170,15 @@ STEPS = 50
 REQUESTS = 3
 TRAIN_STEPS = 5
 PROMPT = "a painting of a virus monster playing guitar"
+NEGATIVE = "blurry, low quality"
 SITES_PER_UNET = 16  # SpatialTransformer blocks of the SD v1 UNet
+DPM_STEPS = 20
+# UNet evaluations per request of each sampler at S steps: PLMS S + 1 (its
+# bootstrap step calls twice), DDIM S, DPM-Solver++ 2M S (one at t_T, one at
+# t_1, one a step up to S - 1, none after the last update)
+EVALS = {"plms": lambda s: s + 1, "ddim": lambda s: s, "dpm": lambda s: s}
+# the self-attention layers of the safety checker's towers: one K1 launch each
+UNTRAINED_LAYERS, VIT_L_LAYERS = 2, 24
 
 # (B, N, H, D): the UNet's self-attention sites at 64x64, 32x32, 16x16 and
 # 8x8 latents, and the VAE mid-block: serving at batch 1 with guidance (B=2;
@@ -157,6 +190,11 @@ FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8,
                 (4, 4096, 1, 512),
                 (16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),
                 (8, 4096, 1, 512)]
+# (B, N, H, D): the safety checker's vision tower, the untrained one (7x7
+# patches of 32 and the class token, width 64, 4 heads) and ViT-L/14 (16x16
+# patches of 14 and the class token, 16 heads of 64), at batch 1 and 8: a new
+# head dim (16), a ragged key count (50) and N=257 at 16 heads
+SAFETY_FLASH_SHAPES = [(1, 50, 4, 16), (8, 50, 4, 16), (1, 257, 16, 64), (8, 257, 16, 64)]
 # (M, C, inner): the transformer FF blocks, M = B * tokens: serving at batch 1
 # (B=2), training at batch 4, serving at batch 8 (B=16; its 8x8 site,
 # M=1024, is training's 16x16 one), and one ragged shape (M not a multiple
@@ -184,8 +222,14 @@ SHARP = 4.0
 # UNet gradients (relative L2)
 FP32_TOL = 1e-3
 # tiny model, bf16 on the card vs fp32 on the CPU after 6 UNet calls with
-# guidance 7.5: max |diff| of the latents over max |fp32 latents|
+# guidance 7.5 (PLMS 5; DDIM at eta 0 and 1 and DPM-Solver++ at orders 2 and 3
+# make 5): max |diff| of the latents over max |fp32 latents|
 REFERENCE_TOL = 5e-2
+# the untrained safety checker's image embeddings, its tower in bf16 on the
+# card vs fp32 on the CPU from the same uint8 images: max |diff| / max |ref|.
+# Two layers and the projection, each rounding to bf16 (2^-9 relative) at its
+# outputs: about 1e-2 expected
+SAFETY_EMBED_TOL = 5e-2
 # tiny training step, bf16 autocast on the card vs fp32 on the CPU: the loss
 # (relative), all UNet gradients together (relative L2), and each tensor's
 # gradient: |diff| <= 0.25 |ref| + 1e-4 |all ref| (L2 norms), so a tensor that
@@ -486,12 +530,19 @@ def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
 
 def check_flash(randn) -> list:
     rows = []
-    for shape in FLASH_SHAPES:
+    for shape in FLASH_SHAPES + SAFETY_FLASH_SHAPES:
         log_plan("K1", shape)
         row = flash_case(randn, shape)
         row["err"] = max(row["err"], flash_case(randn, shape, sharp=True, timed=False)["err"])
         rows.append(row)
         free_memory()
+    sums = [{k: sum(r[k] for r in part) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+            for part in (rows[:len(FLASH_SHAPES)], rows[len(FLASH_SHAPES):])]
+    for label, part in zip((f"the {len(FLASH_SHAPES)} UNet and VAE shapes",
+                            f"the {len(SAFETY_FLASH_SHAPES)} safety-tower shapes"), sums):
+        log(f"[K1 flash_attention] over {label}: kernel {part['ms']:.4f} ms, plain "
+            f"{part['plain_ms']:.4f} ms, sdpa {part['library_ms']:.4f} ms, bound "
+            f"{part['bound_ms']:.4f} ms")
     return rows
 
 
@@ -1193,14 +1244,15 @@ def check_reference() -> None:
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
     from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 
-    cpu_pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False)
+    cpu_pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False,
+                                          safety=False)
     card_ldm = copy.deepcopy(cpu_pipe.ldm).to(device="cuda", dtype=torch.bfloat16)
     card_pipe = Txt2ImgPipeline(ldm=card_ldm, tokenizer=cpu_pipe.tokenizer,
                                 downsample=cpu_pipe.downsample)
     x_T = np.random.default_rng(0).standard_normal((2, hw // 2, hw // 2, 4)).astype(np.float32)
     run = dict(height=hw, width=hw, steps=5, guidance_scale=7.5)
     prompts = [PROMPT, "a red cube"]
-    cpu_pipe(prompts, x_T=torch.from_numpy(x_T), **run)
+    images = cpu_pipe(prompts, x_T=torch.from_numpy(x_T), **run)
     card_pipe(prompts, x_T=torch.from_numpy(x_T).cuda(), **run)
     want = cpu_pipe.last_latents
     got = card_pipe.last_latents.cpu()
@@ -1209,6 +1261,75 @@ def check_reference() -> None:
         f"= {rel:.3e} (bound {REFERENCE_TOL})")
     if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
         raise AssertionError(f"tiny model disagrees with its fp32 CPU reference: {rel}")
+    check_sampler_reference(cpu_pipe, card_pipe, x_T, prompts)
+    check_safety_reference(images)
+
+
+def check_sampler_reference(cpu_pipe, card_pipe, x_T: np.ndarray, prompts) -> None:
+    """DDIM at eta 0 and 1 and DPM-Solver++ at orders 2 and 3, 5 steps with
+    guidance 7.5, on the tiny model's weights in bf16 on the card against
+    fp32 on the CPU: the same x_T, and DDIM's noise drawn on the CPU once and
+    moved to the card."""
+    from sd_tpu_torch.samplers.ddim import ddim_sample
+    from sd_tpu_torch.samplers.dpm_solver import dpm_solver_sample
+
+    gen = torch.Generator().manual_seed(11)
+    noise = [torch.randn((len(prompts), 4) + x_T.shape[1:3], generator=gen) for _ in range(5)]
+    sched = cpu_pipe.ldm.schedule
+    runs = {"DDIM eta 0": lambda f, x, c, u, z: ddim_sample(f, sched, x, c, 5, 0.0, u, 7.5),
+            "DDIM eta 1": lambda f, x, c, u, z: ddim_sample(f, sched, x, c, 5, 1.0, u, 7.5,
+                                                            noise=z),
+            "DPM-Solver++ order 2": lambda f, x, c, u, z: dpm_solver_sample(
+                f, sched, x, c, 5, u, 7.5, order=2),
+            "DPM-Solver++ order 3": lambda f, x, c, u, z: dpm_solver_sample(
+                f, sched, x, c, 5, u, 7.5, order=3)}
+    for name, run in runs.items():
+        out = []
+        for pipe in (cpu_pipe, card_pipe):
+            device = pipe.device
+            x = torch.from_numpy(x_T).permute(0, 3, 1, 2).to(device)
+            with torch.inference_mode():
+                z = run(pipe.ldm.apply_model, x, pipe.encode_prompts(prompts),
+                        pipe.encode_prompts([""] * len(prompts)), [t.to(device) for t in noise])
+            out.append(z.float().cpu())
+        want, got = out
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        log(f"[reference] tiny model, bf16 card vs fp32 CPU, {name}, 5 steps: max |diff| / "
+            f"max |ref| = {rel:.3e} (bound {REFERENCE_TOL})")
+        if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
+            raise AssertionError(f"{name}: the card disagrees with the CPU: {rel}")
+
+
+def check_safety_reference(images: np.ndarray) -> None:
+    """The untrained safety checker, its tower in bf16 on the card (K1 at
+    its two self-attention layers) against fp32 on the CPU, on the tiny
+    model's CPU images: the embeddings within SAFETY_EMBED_TOL, the flags
+    equal at the untrained thresholds (none flagged) and at -2 (all)."""
+    from sd_tpu_torch.pipelines.safety import SafetyChecker
+
+    cpu = SafetyChecker.untrained()
+    card = copy.deepcopy(cpu).cuda()
+    card.vision_model.to(torch.bfloat16)
+    reset_launches()
+    got = card.image_embeds(torch.from_numpy(images).cuda()).cpu()
+    launches = read_launches()["flash_attention"]
+    want = cpu.image_embeds(torch.from_numpy(images))
+    rel = ((got - want).abs().max() / want.abs().max()).item()
+    log(f"[reference] untrained safety checker, bf16 tower on the card vs fp32 CPU, "
+        f"{images.shape}: embeddings max |diff| / max |ref| = {rel:.3e} (bound "
+        f"{SAFETY_EMBED_TOL}); K1 launches {launches}")
+    if not (np.isfinite(rel) and rel <= SAFETY_EMBED_TOL) or launches != UNTRAINED_LAYERS:
+        raise AssertionError(f"safety checker on the card: {rel}, {launches} K1 launches")
+    for threshold, want_flag in ((2.0, False), (-2.0, True)):
+        flags = []
+        for checker in (cpu, card):
+            with torch.no_grad():
+                checker.concept_embeds_weights.fill_(threshold)
+                checker.special_care_embeds_weights.fill_(threshold)
+            device = checker.concept_embeds.device
+            flags.append(checker.nsfw_scores(torch.from_numpy(images).to(device)).cpu())
+        if not (torch.equal(*flags) and bool((flags[0] == want_flag).all())):
+            raise AssertionError(f"safety flags at threshold {threshold}: {flags}")
 
 
 def check_fp32_reference() -> None:
@@ -1224,11 +1345,13 @@ def check_fp32_reference() -> None:
     from sd_tpu_torch.training.diffusion_loss import LDMTrainer
     from sd_tpu_torch.utils.config import build_latent_diffusion, train_config
 
-    cpu_pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False)
+    cpu_pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False,
+                                          safety=False)
     before = os.environ.get("SD_TPU_PRECISION")
     os.environ["SD_TPU_PRECISION"] = "fp32"
     try:
-        card_pipe, _ = build_txt2img_pipeline(tiny=True, device="cuda", seed=0, watermark=False)
+        card_pipe, _ = build_txt2img_pipeline(tiny=True, device="cuda", seed=0,
+                                              watermark=False, safety=False)
     finally:
         if before is None:
             del os.environ["SD_TPU_PRECISION"]
@@ -1344,7 +1467,8 @@ def check_int8_reference() -> None:
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
     from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 
-    cpu_pipe, _ = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False)
+    cpu_pipe, _ = build_txt2img_pipeline(tiny=True, device="cpu", seed=0, watermark=False,
+                                          safety=False)
     card_ldm = copy.deepcopy(cpu_pipe.ldm).to(device="cuda", dtype=torch.bfloat16)
     card_pipe = Txt2ImgPipeline(ldm=card_ldm, tokenizer=cpu_pipe.tokenizer,
                                 downsample=cpu_pipe.downsample)
@@ -1397,7 +1521,7 @@ def build_sd_v1(int8: str):
 
     t0 = time.perf_counter()
     pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8=int8,
-                                     fused_conv="auto", conv_impl="auto")
+                                     safety=False, fused_conv="auto", conv_impl="auto")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in pipe.ldm.parameters())
     label = int8_mode_label(pipe.ldm.int8_mode, "cuda")
@@ -1489,6 +1613,227 @@ def serve_conv_modes(pipe, bf16: dict) -> dict:
     for k, v in again["launches"].items():
         total[k] += v
     return total
+
+
+def serve_request(pipe, label: str, tower_layers: int, batch: int = 1, seed: int = 0,
+                  sampler: str = "dpm", steps: int = DPM_STEPS, **kwargs) -> tuple:
+    """One request of ``batch`` prompts at 512², guidance 7.5, through
+    ``pipe`` with its safety checker (a tower of ``tower_layers``), drawing
+    from a CUDA generator seeded ``seed``; the launch counters, reset just
+    before, must show K1 = 16 E + 1 + tower_layers and K2 = 16 E for the
+    sampler's E UNet evaluations. Returns (images, counts)."""
+    evals = EVALS[sampler](steps)
+    reset_launches()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = pipe([PROMPT] * batch, gen, height=512, width=512, steps=steps,
+                  guidance_scale=7.5, sampler=sampler, **kwargs)
+    counts = read_launches()
+    t = pipe.last_timings
+    log(f"[{label}] batch {batch}: {t['total_s']:.3f} s (encode {t['encode_s']:.3f}, sample "
+        f"{t['sample_s']:.3f}, decode {t['decode_s']:.3f}, safety {t['safety_s'] * 1e3:.2f} ms); "
+        f"{evals} UNet evaluations, {t['sample_s'] * 1e3 / evals:.2f} ms each (B={2 * batch}); "
+        f"{batch / t['total_s']:.3f} images/s; flags {pipe.last_safety_flags}")
+    want = expect(flash_attention=SITES_PER_UNET * evals + 1 + tower_layers,
+                  geglu_ff=SITES_PER_UNET * evals)
+    if counts != want:
+        raise AssertionError(f"{label}: launch counts {counts} != {want}")
+    if images.shape != (batch, 512, 512, 3) or images.dtype != np.uint8:
+        raise AssertionError(f"{label}: images {images.shape} {images.dtype}")
+    if any(img.min() == img.max() for img in images):
+        raise AssertionError(f"{label}: constant image")
+    if not torch.isfinite(pipe.last_latents).all():
+        raise AssertionError(f"{label}: latents not finite")
+    return images, counts
+
+
+def add_counts(total: dict, counts: dict) -> dict:
+    return {k: total.get(k, 0) + v for k, v in counts.items()}
+
+
+def write_reference_checkpoint(path: str) -> dict:
+    """SD v1 at full width in the reference's layout, as sd-v1-4-full-ema.ckpt
+    holds it: ``{"state_dict", "global_step"}`` with the model's keys
+    (seeded random weights, fp32), an EMA shadow of the UNet under
+    ``model_ema.*`` (other random values), ``model_ema.decay`` and
+    ``num_updates``, the schedule buffers and CLIP's ``position_ids``.
+    Returns the UNet's tensors as written."""
+    from sd_tpu_torch.core.schedules import DiffusionSchedule
+    from sd_tpu_torch.utils.config import (REFERENCE_EXTRA_KEYS, SD_V1_MODEL_CONFIG,
+                                           build_latent_diffusion, init_random_)
+
+    ldm = build_latent_diffusion(SD_V1_MODEL_CONFIG, device="cuda", seed=1)
+    sd = {k: v.cpu() for k, v in ldm.state_dict().items()}
+    ema = copy.deepcopy(ldm.model.diffusion_model)
+    init_random_(ema, torch.Generator(device="cuda").manual_seed(2))
+    for k, v in ema.state_dict().items():
+        sd["model_ema." + ("diffusion_model." + k).replace(".", "")] = v.cpu()
+    del ldm, ema
+    sd["model_ema.decay"] = torch.tensor(0.9999)
+    sd["model_ema.num_updates"] = torch.tensor(470000, dtype=torch.int32)
+    schedule = DiffusionSchedule.create(timesteps=1000, linear_start=0.00085, linear_end=0.012)
+    for name in REFERENCE_EXTRA_KEYS:
+        if "." not in name:  # the schedule buffers
+            sd[name] = torch.from_numpy(getattr(schedule, name))
+    sd["cond_stage_model.transformer.text_model.embeddings.position_ids"] = \
+        torch.arange(77)[None]
+    t0 = time.perf_counter()
+    torch.save({"state_dict": sd, "global_step": 470000}, path)
+    log(f"[serve ckpt] wrote a reference-layout SD v1 checkpoint, fp32 storage, "
+        f"{len(sd)} tensors, {os.path.getsize(path) / 2**30:.2f} GiB in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return {k[len("model.diffusion_model."):]: v for k, v in sd.items()
+            if k.startswith("model.diffusion_model.")}
+
+
+def write_bpe_vocab(path: str) -> None:
+    """A synthetic CLIP merges file (``bpe_simple_vocab_16e6.txt.gz``'s
+    format) whose merges make whole tokens of the smoke's prompts' words."""
+    from sd_tpu_torch.data.tokenizer import _clean, _clip_pattern, bytes_to_unicode
+
+    enc, merges = bytes_to_unicode(), []
+    for word in _clip_pattern().findall(_clean(f"{PROMPT} {NEGATIVE}")):
+        symbols = [enc[b] for b in word.encode("utf-8")]
+        symbols[-1] += "</w>"
+        while len(symbols) > 1:
+            if (pair := (symbols[0], symbols[1])) not in merges:
+                merges.append(pair)
+            symbols = ["".join(pair)] + symbols[2:]
+    with gzip.open(path, "wt", encoding="utf-8") as f:
+        f.write("\n".join(["#version: 0.2"] + [" ".join(m) for m in merges]))
+
+
+def serve_from_checkpoint() -> dict:
+    """[serve ckpt]: SD v1 from a reference-layout checkpoint file (written
+    to a temporary directory that goes whether the phase passes or fails)."""
+    with tempfile.TemporaryDirectory(prefix="sd_v1_ckpt_") as d:
+        return _serve_ckpt(d)
+
+
+def _serve_ckpt(d: str) -> dict:
+    from sd_tpu_torch.models.clip_vision import CLIP_VIT_L_14_VISION
+    from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
+    from sd_tpu_torch.pipelines.safety import SafetyChecker, placeholder_image
+    from sd_tpu_torch.utils.config import init_random_
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(d, "sd-v1.ckpt")
+    unet_sd = write_reference_checkpoint(ckpt)
+    free_memory()
+    write_bpe_vocab(os.path.join(d, "bpe.txt.gz"))
+    before = os.environ.get("SD_TPU_BPE_VOCAB")
+    os.environ["SD_TPU_BPE_VOCAB"] = os.path.join(d, "bpe.txt.gz")
+    try:
+        t0 = time.perf_counter()
+        pipe, _ = build_txt2img_pipeline(ckpt=ckpt, device="cuda", seed=0, watermark=False)
+        torch.cuda.synchronize()
+    finally:
+        if before is None:
+            os.environ.pop("SD_TPU_BPE_VOCAB")
+        else:
+            os.environ["SD_TPU_BPE_VOCAB"] = before
+    load_s = time.perf_counter() - t0
+    loaded = pipe.ldm.model.diffusion_model.state_dict()
+    bad = [k for k, v in loaded.items()
+           if not torch.equal(v, unet_sd[k].to("cuda", torch.bfloat16))]
+    log(f"[serve ckpt] built through build_txt2img_pipeline(ckpt=...) in {load_s:.1f} s (the "
+        f"file read, SD v1 loaded and cast to bf16, the untrained safety checker, the CLIP "
+        f"tokenizer on a synthetic vocabulary); UNet against the file's model.diffusion_model.* "
+        f"in bf16: {len(loaded) - len(bad)} of {len(loaded)} tensors equal bit for bit")
+    if bad:
+        raise AssertionError(f"the loaded UNet differs from the file at {bad[:8]}")
+    del unet_sd
+    total = {}
+    for label, kw in (("DDIM 50, eta 0", dict(sampler="ddim", steps=STEPS)),
+                      ("DDIM 50, eta 1", dict(sampler="ddim", steps=STEPS, eta=1.0)),
+                      (f"DPM-Solver++ {DPM_STEPS}", dict(sampler="dpm", steps=DPM_STEPS)),
+                      ("PLMS 50, negative prompts",
+                       dict(sampler="plms", steps=STEPS, negative_prompts=[NEGATIVE]))):
+        _, counts = serve_request(pipe, f"serve ckpt] [{label}", UNTRAINED_LAYERS, **kw)
+        total = add_counts(total, counts)
+
+    # map_batches against sequential calls with the same generators
+    requests = lambda: [dict(prompts=[PROMPT], generator=torch.Generator(
+        device="cuda").manual_seed(10 + r), height=512, width=512, steps=DPM_STEPS,
+        guidance_scale=7.5, sampler="dpm") for r in range(REQUESTS)]
+    t0 = time.perf_counter()
+    sequential = [pipe(**req) for req in requests()]
+    seq_s = time.perf_counter() - t0
+    reset_launches()
+    t0 = time.perf_counter()
+    mapped = list(pipe.map_batches(requests(), depth=2))
+    map_s = time.perf_counter() - t0
+    counts = read_launches()
+    equal = [np.array_equal(a, b) for a, b in zip(mapped, sequential)]
+    log(f"[serve ckpt] map_batches over {REQUESTS} DPM-Solver++ {DPM_STEPS} requests, depth 2: "
+        f"{map_s:.3f} s, {REQUESTS / map_s:.3f} images/s; the same requests one after another "
+        f"{seq_s:.3f} s, {REQUESTS / seq_s:.3f} images/s; images equal {equal}")
+    evals = EVALS["dpm"](DPM_STEPS)
+    want = expect(flash_attention=REQUESTS * (SITES_PER_UNET * evals + 1 + UNTRAINED_LAYERS),
+                  geglu_ff=REQUESTS * SITES_PER_UNET * evals)
+    if not all(equal) or len(mapped) != REQUESTS or counts != want:
+        raise AssertionError(f"map_batches: images equal {equal}, counts {counts} != {want}")
+    total = add_counts(total, counts)
+    del pipe, sequential, mapped
+    free_memory()
+
+    # the checker armed at full width: a synthetic HF-layout ViT-L/14
+    # StableDiffusionSafetyChecker state_dict, loaded through safety_ckpt
+    checker = SafetyChecker(CLIP_VIT_L_14_VISION).cuda()
+    init_random_(checker, torch.Generator(device="cuda").manual_seed(7))
+    with torch.no_grad():
+        checker.concept_embeds_weights.fill_(2.0)
+        checker.special_care_embeds_weights.fill_(2.0)
+    safety_ckpt = os.path.join(d, "safety_checker.pt")
+    torch.save({k: v.cpu() for k, v in checker.state_dict().items()}, safety_ckpt)
+    del checker
+    pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False,
+                                     safety_ckpt=safety_ckpt)
+    _, counts = serve_request(pipe, "serve ckpt] [ViT-L/14 checker, unreachable thresholds",
+                              VIT_L_LAYERS, batch=2)
+    total = add_counts(total, counts)
+    if pipe.last_safety_flags != [False, False]:
+        raise AssertionError(f"unreachable thresholds flagged {pipe.last_safety_flags}")
+    with torch.no_grad():
+        pipe.safety_checker.concept_embeds_weights.fill_(-2.0)
+        pipe.safety_checker.special_care_embeds_weights.fill_(-2.0)
+    images, counts = serve_request(pipe, "serve ckpt] [ViT-L/14 checker, thresholds -2",
+                                   VIT_L_LAYERS, batch=2)
+    total = add_counts(total, counts)
+    placeholder = placeholder_image(512, 512)
+    replaced = [np.array_equal(img, placeholder) for img in images]
+    if pipe.last_safety_flags != [True, True] or not all(replaced):
+        raise AssertionError(f"thresholds -2: flags {pipe.last_safety_flags}, replaced "
+                             f"{replaced}")
+    log(f"[serve ckpt] thresholds -2: every image flagged and replaced by the placeholder; "
+        f"phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+def serve_from_run(logdir: str) -> dict:
+    """[serve run]: SD v1 from the training phase's own run directory (the
+    UNet's EMA shadow, the run's config, its frozen stages drawn again from
+    the recorded seed), one DPM-Solver++ request with exact counts."""
+    from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
+    from sd_tpu_torch.utils.checkpoint import latest_checkpoint
+
+    t0 = time.perf_counter()
+    pipe, _ = build_txt2img_pipeline(ckpt=logdir, device="cuda", seed=0, watermark=False)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    shadow = torch.load(latest_checkpoint(os.path.join(logdir, "checkpoints")),
+                        map_location="cpu", weights_only=True, mmap=True)["state"]["ema"]["shadow"]
+    params = dict(pipe.ldm.model.diffusion_model.named_parameters())
+    bad = [k for k, v in params.items()
+           if not torch.equal(v, shadow[k].to("cuda", torch.bfloat16))]
+    log(f"[serve run] built through build_txt2img_pipeline(ckpt=<logdir>) in {load_s:.1f} s; "
+        f"UNet against the run's EMA shadow in bf16: {len(params) - len(bad)} of "
+        f"{len(params)} parameters equal bit for bit")
+    if bad or len(shadow) != len(params):
+        raise AssertionError(f"the UNet is not the EMA shadow at {bad[:8]}")
+    del shadow
+    _, counts = serve_request(pipe, "serve run", UNTRAINED_LAYERS)
+    log(f"[serve run] {time.perf_counter() - t0:.1f} s")
+    return counts
 
 
 def conv3x3_calls(ldm) -> int:
@@ -1603,15 +1948,20 @@ def check_training_reference() -> None:
         raise AssertionError(f"the loss did not fall: {losses}")
 
 
-def train_main_path() -> dict:
-    # Trainer.fit saves last.pt on exit (about 10 GB at this width): the
-    # directory goes whether the phase passes or fails
+def train_main_path() -> tuple:
+    """Training, then [serve run] from the run's checkpoint once the trainer
+    is freed. Trainer.fit saves last.pt on exit (about 14 GB at this width
+    with the EMA shadow): the directory goes whether the phase passes or
+    fails."""
     with tempfile.TemporaryDirectory(prefix="sd_v1_train_") as logdir:
-        return _train(logdir)
+        trained = _train(logdir)
+        free_memory()
+        return trained, serve_from_run(logdir)
 
 
 def _train(logdir: str) -> dict:
     from sd_tpu_torch.scripts.train import build_trainer, parse_args
+    from sd_tpu_torch.training.ema import ema_init
     from sd_tpu_torch.utils.checkpoint import latest_checkpoint
 
     t0 = time.perf_counter()
@@ -1619,8 +1969,11 @@ def _train(logdir: str) -> dict:
     harness, state, data = build_trainer(parse_args(
         ["--max_steps", str(TRAIN_STEPS), "--logdir", logdir, "--seed", "0", "--log_every", "1",
          "--ckpt_every", str(10 * TRAIN_STEPS)]))
-    torch.cuda.synchronize()
     unet = state.unet
+    # SD v1's config trains without EMA (use_ema: False); this run keeps the
+    # shadow, so that [serve run] samples from it as a released model would
+    state.ema = ema_init(dict(unet.named_parameters()))
+    torch.cuda.synchronize()
     n_params = sum(p.numel() for p in unet.parameters())
     batch = data.batch_size
     log(f"[train] SD v1 full width, {n_params / 1e6:.1f}M UNet parameters in fp32 (AdamW, "
@@ -1714,9 +2067,11 @@ def main() -> None:
     free_memory()
     served_int8 = serve_int8(served)
     free_memory()
+    served_ckpt = serve_from_checkpoint()
+    free_memory()
     check_training_reference()
     free_memory()
-    trained = train_main_path()
+    trained, served_run = train_main_path()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -1737,7 +2092,8 @@ def main() -> None:
                                          "tools/exp_winograd.py:271"),
               "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
-    runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches)
+    runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
+            served_ckpt, served_run)
     kernels = []
     for k, rows in timings.items():
         library = [r["library_ms"] for r in rows]

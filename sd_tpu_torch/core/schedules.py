@@ -1,9 +1,9 @@
 """Diffusion schedule tables (host numpy) and the timestep embedding.
 
-Port of ``sd_tpu/core/schedules.py``: the beta schedules, the uniform DDIM
-timestep subset and the :class:`DiffusionSchedule` buffers are computed once on the
-host in float64 and kept as float32 numpy arrays, exactly as there; the
-samplers read them as Python scalars.
+Port of ``sd_tpu/core/schedules.py``: the beta schedules, the DDIM
+timestep subsets (``uniform`` and ``quad``) and the :class:`DiffusionSchedule`
+buffers are computed once on the host in float64 and kept as float32 numpy
+arrays, exactly as there; the samplers read them as Python scalars.
 """
 
 from __future__ import annotations
@@ -46,19 +46,30 @@ def make_beta_schedule(schedule: str, n_timestep: int, linear_start: float = 1e-
     return betas
 
 
-def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int) -> np.ndarray:
-    """Uniform subset of DDPM timesteps, shifted by +1 and clamped to T-1."""
-    c = num_ddpm_timesteps // num_ddim_timesteps
-    ddim_timesteps = np.asarray(list(range(0, num_ddpm_timesteps, c)))
+def make_ddim_timesteps(num_ddim_timesteps: int, num_ddpm_timesteps: int,
+                        method: str = "uniform") -> np.ndarray:
+    """The DDIM subset of the DDPM timesteps, shifted by +1 and clamped to
+    T-1: every ``T // S``-th step (``uniform``) or a quadratic spacing over
+    the first 80% of the grid (``quad``)."""
+    if method == "uniform":
+        c = num_ddpm_timesteps // num_ddim_timesteps
+        ddim_timesteps = np.asarray(list(range(0, num_ddpm_timesteps, c)))
+    elif method == "quad":
+        ddim_timesteps = (np.linspace(0, np.sqrt(num_ddpm_timesteps * 0.8),
+                                      num_ddim_timesteps) ** 2).astype(int)
+    else:
+        raise NotImplementedError(f'There is no ddim discretization method called "{method}"')
     return np.minimum(ddim_timesteps + 1, num_ddpm_timesteps - 1)
 
 
-def make_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndarray
-                                  ) -> Tuple[np.ndarray, np.ndarray]:
-    """Per-step (alpha, alpha_prev) tables for DDIM at eta = 0."""
+def make_ddim_sampling_parameters(alphacums: np.ndarray, ddim_timesteps: np.ndarray,
+                                  eta: float = 0.0
+                                  ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Per-step (sigma, alpha, alpha_prev) tables for DDIM at ``eta``."""
     alphas = alphacums[ddim_timesteps]
     alphas_prev = np.asarray([alphacums[0]] + alphacums[ddim_timesteps[:-1]].tolist())
-    return alphas, alphas_prev
+    sigmas = eta * np.sqrt((1 - alphas_prev) / (1 - alphas) * (1 - alphas / alphas_prev))
+    return sigmas, alphas, alphas_prev
 
 
 def _f32(x) -> np.ndarray:

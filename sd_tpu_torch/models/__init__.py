@@ -1,1 +1,1 @@
-"""UNet, KL decoder, CLIP text tower and LatentDiffusion."""
+"""UNet, KL autoencoder, CLIP text and vision towers and LatentDiffusion."""

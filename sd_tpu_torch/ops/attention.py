@@ -59,7 +59,7 @@ from sd_tpu_torch.ops.cuda import (
 )
 from sd_tpu_torch.ops.cuda.geglu_ff import (geglu_ff_plain, int8_ff_supported, quantize_cols,
                                             quantize_ff_weights)
-from sd_tpu_torch.ops.cuda.int8_dense import block_m
+from sd_tpu_torch.ops.cuda.int8_dense import block_m, int8_width_ok
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
 __all__ = [
@@ -210,9 +210,11 @@ class CrossAttention(quant.Int8Weights, nn.Module):
         b, nq, _ = x.shape
         nk = context.shape[1]
         h, d = self.heads, self.dim_head
-        # sd_tpu's int8_dense takes the plain product where no row block fits
+        # sd_tpu's int8_dense takes the plain product where no row block fits;
+        # so do widths K6 does not take (the input's and to_out's)
         proj = (quant.int8_bucket_enabled(self.int8, "proj", x)
-                and block_m(b * nq) is not None)
+                and block_m(b * nq) is not None
+                and int8_width_ok(x.shape[-1]) and int8_width_ok(h * d))
         qw = self.int8_weights() if proj else None
         if proj and is_self:
             q, k, v = int8_dense(x, None, prequant=(qw["qkv_q"], qw["qkv_s"])).chunk(3, dim=-1)

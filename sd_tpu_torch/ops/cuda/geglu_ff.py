@@ -35,8 +35,8 @@ math), with W1's value and gate rows interleaved in runs of 64
 kernels and a memset). :func:`int8_kernel_plan` reads its plans. The GELU
 there is always ``sd_tpu``'s short erf polynomial (:func:`gelu_fast`).
 :func:`int8_ff_supported` is the site gate: the ``ff`` bucket, inner >=
-``_INT8_MIN_INNER`` and the fused FF's row rule (M >= 1024, M % 256 == 0);
-other sites keep K2.
+``_INT8_MIN_INNER``, a width K4 takes (C a multiple of 32 up to 1280) and
+the fused FF's row rule (M >= 1024, M % 256 == 0); other sites keep K2.
 """
 
 from __future__ import annotations
@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from sd_tpu_torch.ops import quant
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
+from sd_tpu_torch.ops.cuda.int8_dense import int8_width_ok
 from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_rows
 
 __all__ = ["geglu_ff", "geglu_ff_plain", "differentiable_geglu_ff", "geglu_ff_int8",
@@ -250,8 +251,12 @@ def quantize_ff_weights(w1: torch.Tensor, w2: torch.Tensor, dtype: torch.dtype) 
 
 def int8_ff_supported(mode, x: torch.Tensor, inner: int) -> bool:
     """The K4 site gate: the ``ff`` bucket on this tensor, inner >=
-    ``_INT8_MIN_INNER`` (and lane-aligned), M >= 1024 and M % 256 == 0."""
+    ``_INT8_MIN_INNER`` (and lane-aligned), a width C that K4 takes
+    (``int8_width_ok``: other widths take the bf16 FF), M >= 1024 and
+    M % 256 == 0."""
     if not quant.int8_bucket_enabled(mode, "ff", x) or inner < _INT8_MIN_INNER or inner % 128:
+        return False
+    if not int8_width_ok(x.shape[-1]):
         return False
     m = x.numel() // x.shape[-1]
     return m >= 1024 and m % 256 == 0

@@ -33,10 +33,16 @@ import torch.nn.functional as F
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
 from sd_tpu_torch.ops.quant import check_no_grad, int8_matmul_exact, quantize_rows
 
-__all__ = ["int8_dense", "int8_dense_plain", "block_m", "kernel_plan"]
+__all__ = ["int8_dense", "int8_dense_plain", "block_m", "kernel_plan", "int8_width_ok"]
 
 _DEFAULT_BM = 256
 _MAX_C = 1280
+
+
+def int8_width_ok(c: int) -> bool:
+    """Whether K6 and K4 take an input width ``c``: a multiple of 32, at
+    most 1280 (a block keeps its rows of x quantized in shared memory)."""
+    return c % 32 == 0 and c <= _MAX_C
 
 
 def block_m(m: int, block: Optional[int] = None) -> Optional[int]:
@@ -80,7 +86,7 @@ def _check_inputs(x, wq, sw, b):
     for name, t in (("wq", wq), ("sw", sw), ("b", b)):
         if t is not None and t.device != x.device:
             raise ValueError(f"int8_dense: {name} is on {t.device}, x on {x.device}")
-    if c % 32 or c > _MAX_C or f % 8:
+    if not int8_width_ok(c) or f % 8:
         raise ValueError(f"int8_dense: C={c} must be a multiple of 32 and at most {_MAX_C}, "
                          f"F={f} a multiple of 8")
     if x.numel() == 0:

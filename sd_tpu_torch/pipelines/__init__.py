@@ -1,1 +1,1 @@
-"""The txt2img pipeline and ``build_txt2img_pipeline``."""
+"""The txt2img pipeline, its safety checker and ``build_txt2img_pipeline``."""

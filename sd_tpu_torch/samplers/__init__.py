@@ -1,1 +1,1 @@
-"""Classifier-free guidance and the PLMS sampler."""
+"""Classifier-free guidance and the PLMS, DDIM and DPM-Solver++ samplers."""

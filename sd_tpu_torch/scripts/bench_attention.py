@@ -84,7 +84,7 @@ def time_serving(smoke) -> dict:
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 
     pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8="off",
-                                     fused_conv="auto", conv_impl="auto")
+                                     safety=False, fused_conv="auto", conv_impl="auto")
 
     def request(batch: int, seed: int) -> dict:
         gen = torch.Generator(device="cuda").manual_seed(seed)

@@ -153,7 +153,7 @@ def profile_modes(kernel_segments) -> dict:
     from sd_tpu_torch.scripts.profile_train import _busy_us, group_of
 
     pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8="all",
-                                     fused_conv="auto", conv_impl="auto")
+                                     safety=False, fused_conv="auto", conv_impl="auto")
     ldm = pipe.ldm
     g = torch.Generator(device="cuda").manual_seed(0)
 

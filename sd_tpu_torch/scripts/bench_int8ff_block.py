@@ -124,7 +124,7 @@ def profile(kernel_segments, unet: bool = True) -> dict:
     modes = ()
     if unet:
         pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8="all",
-                                         fused_conv="auto", conv_impl="auto")
+                                         safety=False, fused_conv="auto", conv_impl="auto")
         ldm = pipe.ldm
         g = torch.Generator(device="cuda").manual_seed(0)
         args = (torch.randn((16, 4, 64, 64), generator=g, device="cuda").to(torch.bfloat16),

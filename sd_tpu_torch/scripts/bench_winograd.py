@@ -76,7 +76,7 @@ def time_serving(smoke) -> dict:
     from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 
     pipe, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, int8="off",
-                                     fused_conv="auto", conv_impl="auto")
+                                     safety=False, fused_conv="auto", conv_impl="auto")
 
     def request(impl: str) -> dict:
         pipe.ldm.set_conv_modes("auto", impl)

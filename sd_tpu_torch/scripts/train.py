@@ -12,11 +12,16 @@ weights and datasets are not in the repository. The LR is
 LambdaLinear schedule where it has one; EMA follows the config's ``use_ema``.
 ``--device`` defaults to ``cuda``; a run that asks for the card and finds
 none fails. ``--resume`` continues from ``<logdir>/checkpoints/last.pt``.
+The run's config goes to ``<logdir>/configs/project.yaml`` (as JSON, which
+is YAML), so that ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img
+CLI's ``--ckpt <logdir>`` can sample from the run.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from typing import Optional, Sequence
 
 import torch
@@ -71,7 +76,17 @@ def build_trainer(opt: argparse.Namespace):
         use_ema=bool(mp.get("use_ema", True)))
     harness = Trainer(trainer_obj=trainer_obj, logdir=opt.logdir, max_steps=opt.max_steps,
                       ckpt_every=opt.ckpt_every, seed=opt.seed, log_every=opt.log_every)
+    write_project_config(opt.logdir, config)
     return harness, state, data
+
+
+def write_project_config(logdir: str, config: dict) -> str:
+    """``<logdir>/configs/project.yaml``: the run's config, as JSON."""
+    path = os.path.join(logdir, "configs", "project.yaml")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(config, f, indent=1)
+    return path
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:

@@ -74,7 +74,9 @@ class Trainer:
 
     def _meta(self) -> Dict[str, Any]:
         ldm = self.trainer_obj.ldm
-        return {"seed": int(self.seed), "scale_factor": float(ldm.scale_factor)}
+        # the frozen stages are drawn again from the seed on this device type
+        return {"seed": int(self.seed), "scale_factor": float(ldm.scale_factor),
+                "frozen_device": self.trainer_obj.device.type}
 
     def fit(self, state, data: DataModuleFromConfig, resume: bool = False):
         """Run the loop to ``max_steps``; returns ``state`` (updated in place)."""

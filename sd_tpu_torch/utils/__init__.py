@@ -1,1 +1,2 @@
-"""Configs, random init and sd_tpu parameter conversion."""
+"""Configs, checkpoint loading, random init, image files and sd_tpu
+parameter conversion."""

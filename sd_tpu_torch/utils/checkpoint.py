@@ -1,21 +1,27 @@
 """Training checkpoints (port of ``save_last``, ``latest_checkpoint`` and
-restore from ``sd_tpu/utils/checkpoint.py``).
+restore from ``sd_tpu/utils/checkpoint.py``), and run directories as
+inference inputs (its ``is_run_path``, ``resolve_run_checkpoint``,
+``run_config_path``, ``load_run_params`` and ``filter_state_dict``).
 
 A checkpoint is one ``torch.save`` file: the step, the UNet ``state_dict``,
 the optimizer, the LR schedule and the EMA shadow, and metadata (seed,
-scale_factor, step). The frozen stages are not in it: a resumed run rebuilds
-them from the config and the seed. ``<ckpt_dir>/last.pt`` is the resume
-entry; monitored top-k retention is not ported.
+scale_factor, step, and the device type the frozen stages were drawn on).
+The frozen stages are not in it: a resumed run, or a sampler loading the
+run, rebuilds them from the config and the seed. ``<ckpt_dir>/last.pt`` is
+the resume entry; monitored top-k retention is not ported. A run directory
+that cannot be resolved is an error: it never samples random weights.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["save_last", "latest_checkpoint", "restore_checkpoint"]
+__all__ = ["save_last", "latest_checkpoint", "restore_checkpoint", "is_run_path",
+           "resolve_run_checkpoint", "run_config_path", "load_run_params",
+           "filter_state_dict"]
 
 
 def save_last(ckpt_dir: str, state, metadata: Optional[Dict[str, Any]] = None) -> str:
@@ -42,3 +48,65 @@ def restore_checkpoint(path: str, state) -> Dict[str, Any]:
                       weights_only=True)
     state.load_state_dict(blob["state"])
     return blob["meta"]
+
+
+def is_run_path(path: Optional[str]) -> bool:
+    """Whether ``path`` names a training run's product (a directory holding
+    ``checkpoints/`` or ``last.pt``), not a torch file."""
+    if not path or not os.path.isdir(path):
+        return False
+    return (os.path.isdir(os.path.join(path, "checkpoints"))
+            or os.path.isfile(os.path.join(path, "last.pt")))
+
+
+def resolve_run_checkpoint(path: str) -> str:
+    """The ``last.pt`` of a run logdir (``<logdir>/checkpoints/last.pt``) or
+    of a checkpoint directory; raises ``FileNotFoundError`` otherwise."""
+    path = os.path.abspath(path)
+    for base in (os.path.join(path, "checkpoints"), path):
+        if os.path.isdir(base) and (ckpt := latest_checkpoint(base)):
+            return ckpt
+    raise FileNotFoundError(
+        f"{path!r} is not a loadable checkpoint: expected a run logdir with "
+        f"checkpoints/last.pt or a directory holding last.pt (refusing to sample "
+        f"random weights)")
+
+
+def run_config_path(path: str) -> Optional[str]:
+    """The config the run was trained with, ``<logdir>/configs/project.yaml``,
+    looked for at ``path`` and up to two directories above it."""
+    path = os.path.abspath(path)
+    for d in (path, os.path.dirname(path), os.path.dirname(os.path.dirname(path))):
+        cand = os.path.join(d, "configs", "project.yaml")
+        if os.path.isfile(cand):
+            return cand
+    return None
+
+
+def load_run_params(path: str, use_ema: bool = True
+                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """The UNet ``state_dict`` of a run's checkpoint, on the CPU: the EMA
+    shadow with ``use_ema`` where the run kept one (else the current
+    parameters, with a note), and its metadata with ``params_source``."""
+    ckpt = resolve_run_checkpoint(path)
+    # mmap: only the tensors used are read from a file that also holds AdamW
+    blob = torch.load(ckpt, map_location="cpu", weights_only=True, mmap=True)
+    state = blob.get("state") if isinstance(blob, dict) else None
+    if not isinstance(state, dict) or "unet" not in state:
+        raise ValueError(f"checkpoint {ckpt!r} does not look like a trainer state")
+    params, source = state["unet"], "current"
+    if use_ema:
+        ema = state.get("ema")
+        if ema is not None and ema.get("shadow") is not None:
+            params, source = {**params, **ema["shadow"]}, "EMA"
+        else:
+            print(f"load_run_params: {ckpt} has no EMA shadow; using the current parameters",
+                  flush=True)
+    meta = dict(blob.get("meta") or {})
+    meta["params_source"] = source
+    return params, meta
+
+
+def filter_state_dict(sd: Dict[str, Any], ignore_keys: Sequence[str] = ()) -> Dict[str, Any]:
+    """``sd`` without the keys that start with any of ``ignore_keys``."""
+    return {k: v for k, v in sd.items() if not any(k.startswith(ik) for ik in ignore_keys)}

@@ -1,18 +1,23 @@
 """Model and data configs and ``build_latent_diffusion`` (the slice of
-``sd_tpu/utils/config.py`` that builds SD v1 and the tiny test model).
+``sd_tpu/utils/config.py`` that builds SD v1 and the tiny test model, from
+random weights, a reference checkpoint's ``state_dict`` or a training run).
 
-The card has no YAML parser, so SD v1's model config lives here as a dict;
-a CPU test holds it equal to ``configs/stable-diffusion/v1-inference.yaml``.
+SD v1's model config lives here as a dict, so the card needs no YAML
+parser; a CPU test holds it equal to
+``configs/stable-diffusion/v1-inference.yaml``. :func:`load_yaml` reads a
+config file as JSON where it is JSON (JSON is YAML, and the port's trainer
+writes its ``configs/project.yaml`` so), else through ``yaml``.
 :func:`train_config` adds a ``data`` node to either model: synthetic images
 with token captions under the model's ``cond_stage_key`` (no dataset is in
 the repository). :func:`build_latent_diffusion` makes random weights on the
-target device from a seeded ``torch.Generator``.
+target device from a seeded ``torch.Generator``, or loads a ``state_dict``.
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Any, Dict, Optional
+import json
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import torch
 from torch import nn
@@ -21,9 +26,11 @@ from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.ldm import LatentDiffusion
 from sd_tpu_torch.models.unet import UNetConfig
+from sd_tpu_torch.utils.checkpoint import filter_state_dict, load_run_params, run_config_path
 
-__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "train_config",
-           "build_latent_diffusion", "init_random_"]
+__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "train_config", "load_yaml",
+           "build_latent_diffusion", "build_latent_diffusion_from_run", "init_random_",
+           "REFERENCE_EXTRA_KEYS"]
 
 # the `model:` node of configs/stable-diffusion/v1-inference.yaml
 SD_V1_MODEL_CONFIG: Dict[str, Any] = {
@@ -189,15 +196,41 @@ def _check_target(node: Dict[str, Any], target: str) -> Dict[str, Any]:
     return dict(node.get("params") or {})
 
 
+# what a reference LatentDiffusion checkpoint holds beside the modules'
+# weights: the schedule buffers (the port computes its schedule from the
+# config), the EMA shadow, and HF CLIP's position ids
+REFERENCE_EXTRA_KEYS = (
+    "betas", "alphas_cumprod", "alphas_cumprod_prev", "sqrt_alphas_cumprod",
+    "sqrt_one_minus_alphas_cumprod", "log_one_minus_alphas_cumprod",
+    "sqrt_recip_alphas_cumprod", "sqrt_recipm1_alphas_cumprod", "posterior_variance",
+    "posterior_log_variance_clipped", "posterior_mean_coef1", "posterior_mean_coef2",
+    "model_ema.", "cond_stage_model.transformer.text_model.embeddings.position_ids")
+
+
+def load_yaml(path: str) -> Dict[str, Any]:
+    """A config file: parsed as JSON where it is JSON, else as YAML."""
+    with open(path) as f:
+        text = f.read()
+    try:
+        return json.loads(text)
+    except json.JSONDecodeError:
+        import yaml
+
+        return yaml.safe_load(text)
+
+
 def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.float32,
-                           seed: int = 0, int8="off", fused_conv=None,
-                           conv_impl=None) -> LatentDiffusion:
+                           seed: int = 0, int8="off", fused_conv=None, conv_impl=None,
+                           state_dict: Optional[Mapping[str, torch.Tensor]] = None
+                           ) -> LatentDiffusion:
     """Build a :class:`LatentDiffusion` from a config's ``model`` node on
     ``device`` in ``dtype``, with random weights from
-    ``torch.Generator(device).manual_seed(seed)``, and the int8 serving mode
-    ``int8`` (``SD_TPU_INT8``'s grammar; off by default) held on its sites,
-    with the weights it reads quantized after the cast to ``dtype``
-    (``sd_tpu``'s ``maybe_weight_quant_overlay``), and the conv modes
+    ``torch.Generator(device).manual_seed(seed)``, or, given ``state_dict``
+    (a reference checkpoint's), its weights: loaded strictly once
+    :data:`REFERENCE_EXTRA_KEYS` are dropped, then cast to ``dtype``. The
+    int8 serving mode ``int8`` (``SD_TPU_INT8``'s grammar; off by default)
+    is held on its sites, with the weights it reads quantized after the
+    cast (``sd_tpu``'s ``maybe_weight_quant_overlay``), and the conv modes
     ``fused_conv`` and ``conv_impl`` (``SD_TPU_FUSED_CONV``'s and
     ``SD_TPU_CONV_IMPL``'s values; None reads the variable, here, once)."""
     p = copy.deepcopy(model_cfg.get("params") or {})
@@ -219,8 +252,49 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
                               cond_stage_key=p.get("cond_stage_key", "caption"))
     device = torch.device(device)
     ldm.to_empty(device=device)
-    init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
+    if state_dict is None:
+        init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
+    else:
+        ldm.load_state_dict(filter_state_dict(dict(state_dict), REFERENCE_EXTRA_KEYS))
     ldm = ldm.to(dtype).eval()
     ldm.set_int8_mode(int8)
     ldm.set_conv_modes(fused_conv, conv_impl)
     return ldm
+
+
+def build_latent_diffusion_from_run(run_path: str, config_path: Optional[str] = None, *,
+                                    device, dtype=torch.float32, use_ema: bool = True,
+                                    int8="off", fused_conv=None, conv_impl=None
+                                    ) -> Tuple[LatentDiffusion, Dict[str, Any]]:
+    """Build an inference model from one of the port's training runs.
+
+    The run's checkpoint gives the UNet (the EMA shadow by default, the
+    current parameters with ``use_ema=False``) and the ``scale_factor``;
+    the frozen stages, which the checkpoint does not hold, are drawn again
+    from the run's config (``<logdir>/configs/project.yaml``, or
+    ``config_path``) and its recorded seed, on the device type they were
+    drawn on: a torch generator draws other numbers on another device type,
+    so a build on another one is refused. Returns ``(ldm, meta)``; anything
+    unresolvable raises, so a run directory never samples random weights.
+    """
+    params, meta = load_run_params(run_path, use_ema=use_ema)
+    config_path = config_path or run_config_path(run_path)
+    if config_path is None:
+        raise FileNotFoundError(f"no model config for run {run_path!r}: the logdir has no "
+                                f"configs/project.yaml; pass the config explicitly")
+    cfg = load_yaml(config_path)
+    model_cfg = cfg["model"] if "model" in cfg else cfg
+    device = torch.device(device)
+    drawn_on = meta.get("frozen_device")
+    if drawn_on is not None and drawn_on != device.type:
+        raise ValueError(f"run {run_path!r} drew its frozen stages on {drawn_on}; rebuilding "
+                         f"them on {device.type} would draw other weights")
+    ldm = build_latent_diffusion(model_cfg, device=device, dtype=dtype, seed=int(meta["seed"]),
+                                 fused_conv=fused_conv, conv_impl=conv_impl)
+    ldm.model.diffusion_model.load_state_dict(params)
+    if meta.get("scale_factor") is not None:
+        ldm.scale_factor = float(meta["scale_factor"])
+    ldm.set_int8_mode(int8)
+    print(f"Restored {meta['params_source']} params from run {run_path} "
+          f"(step {meta.get('step')}, scale_factor={ldm.scale_factor})", flush=True)
+    return ldm, meta

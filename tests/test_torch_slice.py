@@ -4,9 +4,11 @@ The tiny UNet and f2 KL decoder and a narrow CLIP text tower, with one set of
 random weights, go into sd_tpu's LatentDiffusion (assembled directly) and,
 through sd_tpu_torch.utils.convert, into the port's. Both pipelines get the
 same prompts through the same HashTokenizer and the same x_T, and run PLMS
-for 5 steps at guidance 7.5 in fp32. Latents agree to rtol 1e-3 (atol 1e-3
-of their scale) and the uint8 images to 1 LSB (the rounding to uint8 may
-fall on either side of a .5 boundary).
+for 5 steps at guidance 7.5 in fp32 (then DDIM with negative prompts, and
+DPM-Solver++). Latents agree to rtol 1e-3 (atol 1e-3 of their scale) and
+the uint8 images to 1 LSB (the rounding to uint8 may fall on either side of
+a .5 boundary). ``map_batches`` gives the images of sequential calls, and
+the CLI writes its samples and grid with each sampler.
 """
 
 import os
@@ -18,23 +20,16 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import pytest
 
-from sd_tpu.core.schedules import DiffusionSchedule as JaxSchedule
 from sd_tpu.data.tokenizer import HashTokenizer
-from sd_tpu.models.clip import CLIPTextConfig as JaxCLIPConfig
-from sd_tpu.models.clip import CLIPTextModel as JaxCLIP
-from sd_tpu.models.ldm import LatentDiffusion as JaxLDM
-from sd_tpu.models.unet import UNetConfig as JaxUNetConfig
-from sd_tpu.models.unet import UNetModel as JaxUNet
-from sd_tpu.models.vae import AutoencoderKL as JaxKL
 from sd_tpu.pipelines.txt2img import Txt2ImgPipeline as JaxPipeline
 from sd_tpu.pipelines.txt2img import _to_uint8, latents_to_images
-from sd_tpu_torch.models.clip import CLIPTextConfig
-from sd_tpu_torch.models.unet import UNetConfig
+from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
-from sd_tpu_torch.utils import convert
 from sd_tpu_torch.utils.config import build_latent_diffusion, tiny_sd_model_config
-from sd_tpu_torch.utils.testing import load_numpy_state_dict, randomize_tree
+from sd_tpu_torch.utils.testing import load_numpy_state_dict
+from torch_parity import ldm_state_dict, tiny_jax_ldm
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -49,38 +44,12 @@ def _tokenizer():
 
 
 def _jax_ldm(cfg, rng):
-    p = cfg["params"]
-    unet = JaxUNet(JaxUNetConfig.from_dict(p["unet_config"]["params"]))
-    kl_p = p["first_stage_config"]["params"]
-    kl = JaxKL(ddconfig=kl_p["ddconfig"], embed_dim=kl_p["embed_dim"])
-    clip = JaxCLIP(JaxCLIPConfig(**p["cond_stage_config"]["params"]))
-    key = jax.random.PRNGKey(0)
-    unet_params = randomize_tree(unet.init(key, jnp.zeros((1, 16, 16, 4)),
-                                           jnp.zeros((1,), jnp.int32),
-                                           jnp.zeros((1, 8, 32)))["params"], rng)
-    kl_params = randomize_tree(kl.init(key, jnp.zeros((1, 32, 32, 3)))["params"], rng)
-    clip_params = randomize_tree(clip.init(key, jnp.zeros((1, 8), jnp.int32))["params"], rng)
-    schedule = JaxSchedule.create(timesteps=p["timesteps"], linear_start=p["linear_start"],
-                                  linear_end=p["linear_end"])
-    return JaxLDM(unet=unet, unet_params=unet_params, schedule=schedule,
-                  first_stage_model=kl, first_stage_params=kl_params,
-                  cond_stage_model=clip, cond_stage_params=clip_params,
-                  conditioning_key="crossattn", scale_factor=p["scale_factor"])
+    return tiny_jax_ldm(cfg, rng)
 
 
 def _port_ldm(cfg, jldm):
-    p = cfg["params"]
-    ldm = build_latent_diffusion(cfg, device="cpu")
-    unet_cfg = UNetConfig.from_dict(p["unet_config"]["params"])
-    load_numpy_state_dict(ldm.model.diffusion_model,
-                          convert.unet_state_dict(jldm.unet_params, unet_cfg))
-    ddconfig = p["first_stage_config"]["params"]["ddconfig"]
-    load_numpy_state_dict(ldm.first_stage_model,
-                          convert.vae_state_dict(jldm.first_stage_params, ddconfig))
-    clip_cfg = CLIPTextConfig(**p["cond_stage_config"]["params"])
-    load_numpy_state_dict(ldm.cond_stage_model.transformer,
-                          convert.clip_text_state_dict(jldm.cond_stage_params, clip_cfg))
-    return ldm
+    return load_numpy_state_dict(build_latent_diffusion(cfg, device="cpu"),
+                                 ldm_state_dict(cfg, jldm))
 
 
 def test_tiny_txt2img_matches_sd_tpu():
@@ -122,3 +91,53 @@ def test_cli_runs_the_tiny_port_without_jax(tmp_path):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert os.listdir(tmp_path / "samples") == ["00000.png"]
+
+
+@pytest.mark.parametrize("sampler,negative", [("ddim", ["blurry", "low quality"]),
+                                              ("dpm", None)])
+def test_tiny_pipeline_samplers_match_sd_tpu(sampler, negative):
+    cfg = tiny_sd_model_config()
+    jldm = _jax_ldm(cfg, np.random.default_rng(0))
+    x_T = np.random.default_rng(2).standard_normal((2, 32, 32, 4)).astype(np.float32)
+    run = dict(height=64, width=64, steps=4, guidance_scale=7.5, sampler=sampler)
+    jpipe = JaxPipeline(ldm=jldm, tokenizer=_tokenizer(), downsample=2)
+    want_z = jax.jit(lambda c, u, x: jpipe.sample_latents(
+        c, u, jax.random.PRNGKey(0), x_T=x, **run))(
+        jpipe.encode_prompts(PROMPTS), jpipe.encode_prompts(negative or [""] * 2),
+        jnp.asarray(x_T))
+    want_img = np.asarray(_to_uint8(latents_to_images(jldm, want_z)))
+    pipe = Txt2ImgPipeline(ldm=_port_ldm(cfg, jldm), tokenizer=_tokenizer(), downsample=2)
+    got_img = pipe(PROMPTS, x_T=torch.from_numpy(x_T), negative_prompts=negative, **run)
+    want_z = np.asarray(want_z)
+    np.testing.assert_allclose(pipe.last_latents.numpy(), want_z, rtol=1e-3,
+                               atol=1e-3 * np.abs(want_z).max())
+    assert np.abs(got_img.astype(int) - want_img.astype(int)).max() <= 1
+
+
+def test_map_batches_gives_the_images_of_sequential_calls():
+    pipe, hw = build_txt2img_pipeline(tiny=True, device="cpu", seed=0)
+    requests = lambda: [dict(prompts=[PROMPTS[r % 2]] * (r + 1),
+                             generator=torch.Generator().manual_seed(r), height=hw, width=hw,
+                             steps=3, sampler="ddim", eta=1.0) for r in range(3)]
+    sequential = []
+    for req in requests():
+        sequential.append(pipe(**req))
+        assert set(pipe.last_timings) == {"encode_s", "sample_s", "decode_s", "safety_s",
+                                          "total_s"}
+    for got, want in zip(pipe.map_batches(requests(), depth=2), sequential, strict=True):
+        np.testing.assert_array_equal(got, want)
+        assert pipe.last_safety_flags == [False] * len(want)
+
+
+@pytest.mark.parametrize("flags", [[], ["--dpm_solver"], ["--n_iter", "2", "--from-file"]])
+def test_cli_samplers_write_samples_and_grid(tmp_path, flags):
+    from sd_tpu_torch.scripts.txt2img import main
+
+    if "--from-file" in flags:
+        (tmp_path / "prompts.txt").write_text("a red cube\n\na blue ball\n")
+        flags = flags + [str(tmp_path / "prompts.txt")]
+    out = tmp_path / "out"
+    main(["--tiny", "--device", "cpu", "--ddim_steps", "2", "--outdir", str(out)] + flags)
+    n = 4 if "--n_iter" in flags else 1
+    assert sorted(os.listdir(out / "samples")) == [f"{i:05}.png" for i in range(n)]
+    assert (out / "grid-0000.png").is_file()

@@ -1,0 +1,71 @@
+"""Shared pieces of the port's parity tests against sd_tpu (not a test
+module): layout helpers, and the tiny model's sd_tpu parameters made with
+numpy from a seed over shapes that ``jax.eval_shape`` reads off the flax
+modules (initialising them would cost tens of seconds on the CPU)."""
+
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from sd_tpu.core.schedules import DiffusionSchedule as JaxSchedule
+from sd_tpu.models.clip import CLIPTextConfig as JaxCLIPConfig
+from sd_tpu.models.clip import CLIPTextModel as JaxCLIP
+from sd_tpu.models.ldm import LatentDiffusion as JaxLDM
+from sd_tpu.models.unet import UNetConfig as JaxUNetConfig
+from sd_tpu.models.unet import UNetModel as JaxUNet
+from sd_tpu.models.vae import AutoencoderKL as JaxKL
+from sd_tpu_torch.models.clip import CLIPTextConfig
+from sd_tpu_torch.models.unet import UNetConfig
+from sd_tpu_torch.utils import convert
+from sd_tpu_torch.utils.testing import randomize_tree
+
+
+def nchw(x) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x).transpose(0, 3, 1, 2)))
+
+
+def to_nhwc(t: torch.Tensor) -> np.ndarray:
+    return t.detach().permute(0, 2, 3, 1).numpy()
+
+
+def random_params(module, rng: np.random.Generator, *args):
+    """``randomize_tree`` over the parameter shapes of ``module.init(*args)``."""
+    shapes = jax.eval_shape(lambda: module.init(jax.random.PRNGKey(0), *args)["params"])
+    return randomize_tree(jax.tree.map(lambda s: np.zeros(s.shape, s.dtype), shapes), rng)
+
+
+def tiny_jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
+    """sd_tpu's LatentDiffusion for the port's tiny config (its narrow CLIP
+    text tower included), assembled directly, with random parameters."""
+    p = cfg["params"]
+    unet = JaxUNet(JaxUNetConfig.from_dict(p["unet_config"]["params"]))
+    kl_p = p["first_stage_config"]["params"]
+    kl = JaxKL(ddconfig=kl_p["ddconfig"], embed_dim=kl_p["embed_dim"])
+    clip = JaxCLIP(JaxCLIPConfig(**p["cond_stage_config"]["params"]))
+    schedule = JaxSchedule.create(timesteps=p["timesteps"], linear_start=p["linear_start"],
+                                  linear_end=p["linear_end"])
+    return JaxLDM(
+        unet=unet, schedule=schedule, first_stage_model=kl, cond_stage_model=clip,
+        unet_params=random_params(unet, rng, jnp.zeros((1, 16, 16, 4)),
+                                  jnp.zeros((1,), jnp.int32), jnp.zeros((1, 8, 32))),
+        first_stage_params=random_params(kl, rng, jnp.zeros((1, 32, 32, 3))),
+        cond_stage_params=random_params(clip, rng, jnp.zeros((1, 8), jnp.int32)),
+        conditioning_key="crossattn", scale_factor=p["scale_factor"])
+
+
+def ldm_state_dict(cfg, jldm: JaxLDM) -> dict:
+    """The reference checkpoint's model keys for ``jldm``'s parameters
+    (numpy): ``model.diffusion_model.*``, ``first_stage_model.*``,
+    ``cond_stage_model.transformer.text_model.*``."""
+    p = cfg["params"]
+    parts = {
+        "model.diffusion_model.": convert.unet_state_dict(
+            jldm.unet_params, UNetConfig.from_dict(p["unet_config"]["params"])),
+        "first_stage_model.": convert.vae_state_dict(
+            jldm.first_stage_params, p["first_stage_config"]["params"]["ddconfig"]),
+        "cond_stage_model.transformer.": convert.clip_text_state_dict(
+            jldm.cond_stage_params, CLIPTextConfig(**p["cond_stage_config"]["params"])),
+    }
+    return {prefix + k: v for prefix, sd in parts.items() for k, v in sd.items()}
