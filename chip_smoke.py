@@ -1,9 +1,11 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's main paths once on one NVIDIA card: txt2img
 serving in bf16 (with PLMS, DDIM and DPM-Solver++, from random weights, a
-reference checkpoint file and a training run, with the safety checker), in
-the int8 serving mode and in the two conv modes, LDM training, and the
-fused transformer-block experiment, all at SD v1 full width.
+reference checkpoint file and a training run, with the safety checker,
+through the pipeline and through the serving daemon), img2img, the int8
+serving mode and the two conv modes, LDM training with its image logger
+and validation, and the fused transformer-block experiment, all at SD v1
+full width.
 
     python3 chip_smoke.py
 
@@ -39,7 +41,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    CPU run, and one tiny training loss and its gradients in fp32 outside
    autocast against the CPU, with no K1, K2 or K3 launch; DDIM at eta 0 and
    1 (its noise drawn on the CPU and moved) and DPM-Solver++ at orders 2 and
-   3, 5 steps each, on the tiny model against the CPU; the untrained safety
+   3, 5 steps each, on the tiny model against the CPU; img2img at strength
+   0.5, DDIM 6, and the ancestral chain (p_sample_loop) over 8 timesteps,
+   each from draws made on the CPU, against the CPU; the untrained safety
    checker's embeddings (its tower in bf16, K1 at both layers) against the
    CPU, and its flags equal at thresholds that flag none and all;
 7. serving: SD v1 at full width (860M UNet, kl-f8 decoder, CLIP ViT-L/14
@@ -57,9 +61,15 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    batch 4 of 512² synthetic images with 77-token captions, 5 steps through
    Trainer.fit as `python -m sd_tpu_torch.scripts.train` builds it. Every
    step: a finite loss, a finite non-zero gradient on every UNet parameter,
-   and exactly K1 = 16 + 16 + 1, K2 = 32 and K3 = 10 launches; at the end,
-   non-zero AdamW moments on every parameter, and the time and size of
-   the checkpoint that fit saves on exit (in a temporary directory);
+   and exactly K1 = 16 + 16 + 1, K2 = 32 and K3 = 10 launches; after the
+   last step the image logger (its one PNG set; K1 = 16 x 20 + 9, K2 = 16 x
+   20) and validation over 2 batches with the current UNet and the EMA
+   shadow (both metrics finite; K1 = 4 x 17, K2 = 4 x 16, K3 = 0) with the
+   monitored save of step_5.pt; at the end, non-zero AdamW moments on every
+   parameter, the time and size of the checkpoint that fit saves on exit
+   (in a temporary directory), and val/loss_simple_ema against the loss of
+   the UNet holding the EMA shadow, recomputed in fresh autocast contexts
+   from validation's draws (within EMA_VAL_TOL);
 10. K4 int8 GEGLU-FF, K5 int8 attention ("qk" and "qkpv") and K6 int8
    dense: each kernel against its plain PyTorch version (fp32 on the same
    bf16 inputs, the same int8 codes) at every shape of the int8 serving
@@ -143,7 +153,25 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 20. [serve run], after training (which keeps an EMA shadow for it): the
    run directory built through build_txt2img_pipeline(ckpt=<logdir>), the
    UNet equal to the EMA shadow in bf16, one DPM-Solver++ 20 request with
-   exact counts.
+   exact counts;
+21. [img2img]: SD v1 in bf16 through Img2ImgPipeline from a synthetic 512²
+   init image, DDIM 50, guidance 7.5, batch 1, at strength 0.75 (K1 =
+   16 t_enc + 2 with t_enc = 37: the encoder's and the decoder's
+   mid-blocks; K2 = 16 t_enc) and at strength 0 (K1 = 2, K2 = 0); then
+   `python -m sd_tpu_torch.scripts.img2img`'s main() from a PNG, DDIM 10;
+22. [serve daemon]: sd_tpu_torch.scripts.serve's Server in this process
+   (DPM-Solver++ 20, max batch 2, buckets 512² and 256², a 500 ms window,
+   the default untrained safety checker, no watermark), both buckets
+   warmed; one-prompt requests in turn, two requests from threads that
+   share one execution, the same (prompt, seed) alone and coalesced (PNGs
+   equal bit for bit: the daemon runs without cuDNN, whose bf16 conv gives
+   a row a result that depends on its slot), a 256² request, a cold bucket
+   and an unknown field refused, and one HTTP POST through http_server on
+   127.0.0.1; exactly K1 = 16 E + 1 + 2 and K2 = 16 E per execution; then
+   one UNet evaluation with its rows swapped under cuDNN as it is, with
+   `deterministic`, with `benchmark` and without cuDNN (equal there), and
+   its ms at B=2 (the daemon's batch at --max-batch 1, where it keeps
+   cuDNN), 4 and 16 with and without cuDNN, in turns.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -154,6 +182,7 @@ import copy
 import gc
 import gzip
 import importlib
+import itertools
 import json
 import os
 import re
@@ -225,6 +254,11 @@ FP32_TOL = 1e-3
 # guidance 7.5 (PLMS 5; DDIM at eta 0 and 1 and DPM-Solver++ at orders 2 and 3
 # make 5): max |diff| of the latents over max |fp32 latents|
 REFERENCE_TOL = 5e-2
+# val/loss_simple_ema against the EMA shadow's loss recomputed from the same
+# draws with the same kernels (relative): a repeat, so only a reduction's
+# order may differ. The check logs the current weights' loss beside it: a
+# mix of the two weights lies between them
+EMA_VAL_TOL = 1e-5
 # the untrained safety checker's image embeddings, its tower in bf16 on the
 # card vs fp32 on the CPU from the same uint8 images: max |diff| / max |ref|.
 # Two layers and the projection, each rounding to bf16 (2^-9 relative) at its
@@ -1262,6 +1296,8 @@ def check_reference() -> None:
     if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
         raise AssertionError(f"tiny model disagrees with its fp32 CPU reference: {rel}")
     check_sampler_reference(cpu_pipe, card_pipe, x_T, prompts)
+    check_img2img_reference(cpu_pipe, card_pipe, prompts)
+    check_ancestral_reference(cpu_pipe, card_pipe, x_T, prompts)
     check_safety_reference(images)
 
 
@@ -1298,6 +1334,69 @@ def check_sampler_reference(cpu_pipe, card_pipe, x_T: np.ndarray, prompts) -> No
             f"max |ref| = {rel:.3e} (bound {REFERENCE_TOL})")
         if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
             raise AssertionError(f"{name}: the card disagrees with the CPU: {rel}")
+
+
+def _relative(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float().cpu() - want).abs().max() / want.abs().max()).item()
+
+
+def check_img2img_reference(cpu_pipe, card_pipe, prompts) -> None:
+    """Img2ImgPipeline at strength 0.5, DDIM 6 (t_enc 3), guidance 7.5, on
+    the tiny model's weights in bf16 on the card against fp32 on the CPU:
+    one synthetic 64² init image, and the posterior's and the stochastic
+    encode's noise drawn on the CPU once and moved; the latents it decodes
+    within REFERENCE_TOL."""
+    from sd_tpu_torch.pipelines.img2img import Img2ImgPipeline
+
+    hw = 64
+    gen = torch.Generator().manual_seed(12)
+    noise = [torch.randn((len(prompts), hw // 2, hw // 2, 4), generator=gen) for _ in range(2)]
+    out = []
+    for pipe in (cpu_pipe, card_pipe):
+        i2i = Img2ImgPipeline(pipe)
+        i2i(synthetic_image(hw, seed=1), prompts, strength=0.5, steps=6, guidance_scale=7.5,
+            noise=[n.to(pipe.device) for n in noise])
+        out.append(i2i.last_latents.float().cpu())
+    rel = _relative(out[1], out[0])
+    log(f"[reference] tiny model, bf16 card vs fp32 CPU, img2img at strength 0.5, DDIM 6: "
+        f"max |diff| / max |ref| = {rel:.3e} (bound {REFERENCE_TOL})")
+    if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
+        raise AssertionError(f"img2img: the card disagrees with the CPU: {rel}")
+
+
+def check_ancestral_reference(cpu_pipe, card_pipe, x_T: np.ndarray, prompts) -> None:
+    """p_sample_loop over the first 8 DDPM timesteps with guidance 7.5, on
+    the tiny model's weights in bf16 on the card against fp32 on the CPU:
+    the same x_T and per-step noise, drawn on the CPU once and moved."""
+    from sd_tpu_torch.samplers.ancestral import p_sample_loop
+
+    gen = torch.Generator().manual_seed(13)
+    shape = (len(prompts), 4) + x_T.shape[1:3]
+    noise = [torch.randn(shape, generator=gen) for _ in range(8)]
+    out = []
+    for pipe in (cpu_pipe, card_pipe):
+        device = pipe.device
+        x = torch.from_numpy(x_T).permute(0, 3, 1, 2).to(device)
+        with torch.inference_mode():
+            z = p_sample_loop(pipe.ldm.apply_model, pipe.ldm.schedule, shape,
+                              pipe.encode_prompts(prompts),
+                              uncond=pipe.encode_prompts([""] * len(prompts)),
+                              guidance_scale=7.5, x_T=x, timesteps=8,
+                              noise=[t.to(device) for t in noise])
+        out.append(z.float().cpu())
+    rel = _relative(out[1], out[0])
+    log(f"[reference] tiny model, bf16 card vs fp32 CPU, ancestral p_sample_loop over 8 "
+        f"timesteps: max |diff| / max |ref| = {rel:.3e} (bound {REFERENCE_TOL})")
+    if not (np.isfinite(rel) and rel <= REFERENCE_TOL):
+        raise AssertionError(f"p_sample_loop: the card disagrees with the CPU: {rel}")
+
+
+def synthetic_image(size: int, seed: int) -> np.ndarray:
+    """A seeded uint8 RGB gradient with noise, ``[size, size, 3]``."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.stack([xx, yy, 0.5 * (xx + yy)], -1) * 255 + rng.normal(0, 16, (size, size, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
 
 
 def check_safety_reference(images: np.ndarray) -> None:
@@ -1836,6 +1935,267 @@ def serve_from_run(logdir: str) -> dict:
     return counts
 
 
+def img2img_main_path() -> dict:
+    """[img2img]: SD v1 at full width in bf16 through Img2ImgPipeline from a
+    synthetic 512² init image, batch 1, DDIM 50, guidance 7.5: at strength
+    0.75 (t_enc 37) K1 = 16 t_enc + 2 (the encoder's and the decoder's
+    mid-blocks) and K2 = 16 t_enc; at strength 0 K1 = 2 and K2 = 0. Then
+    the CLI's main() once, from a PNG in a temporary directory, DDIM 10."""
+    from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
+    from sd_tpu_torch.pipelines.img2img import Img2ImgPipeline
+    from sd_tpu_torch.scripts import img2img as cli
+    from sd_tpu_torch.utils.image import load_image, save_image
+
+    t_phase = time.perf_counter()
+    base, _ = build_txt2img_pipeline(device="cuda", seed=0, watermark=False, safety=False)
+    pipe = Img2ImgPipeline(base)
+    init = synthetic_image(512, seed=0)
+    total = {}
+
+    def check(label, t_enc, counts, images, latents):
+        want = expect(flash_attention=SITES_PER_UNET * t_enc + 2,
+                      geglu_ff=SITES_PER_UNET * t_enc)
+        if counts != want:
+            raise AssertionError(f"[img2img] {label}: launch counts {counts} != {want}")
+        if images.shape != (1, 512, 512, 3) or images.dtype != np.uint8:
+            raise AssertionError(f"[img2img] {label}: images {images.shape} {images.dtype}")
+        if images.min() == images.max() or not torch.isfinite(latents).all():
+            raise AssertionError(f"[img2img] {label}: constant image or latents not finite")
+
+    for strength in (0.75, 0.0):
+        t_enc = int(strength * STEPS)
+        reset_launches()
+        images = pipe(init, [PROMPT], torch.Generator(device="cuda").manual_seed(0),
+                      strength=strength, steps=STEPS, guidance_scale=7.5)
+        counts = read_launches()
+        t = pipe.last_timings
+        log(f"[img2img] SD v1, 512², strength {strength}, DDIM {STEPS} (t_enc {t_enc}), "
+            f"guidance 7.5, batch 1: {t['total_s']:.3f} s (encode {t['encode_s']:.3f}, sample "
+            f"{t['sample_s']:.3f}, decode {t['decode_s']:.3f}); launches {counts}")
+        check(f"strength {strength}", t_enc, counts, images, pipe.last_latents)
+        total = add_counts(total, counts)
+    del pipe, base
+    free_memory()
+
+    with tempfile.TemporaryDirectory(prefix="img2img_cli_") as d:
+        save_image(init, os.path.join(d, "init.png"))
+        out = os.path.join(d, "out")
+        reset_launches()
+        t0 = time.perf_counter()
+        cli.main(["--init-img", os.path.join(d, "init.png"), "--outdir", out,
+                  "--ddim_steps", "10", "--prompt", PROMPT])
+        counts = read_launches()
+        names = sorted(os.listdir(out))
+        log(f"[img2img] the CLI's main(), DDIM 10 at strength 0.75 (build included): "
+            f"{time.perf_counter() - t0:.1f} s, wrote {names}; launches {counts}")
+        if names != ["00000.png"]:
+            raise AssertionError(f"[img2img] the CLI wrote {names}")
+        written = load_image(os.path.join(out, "00000.png"))
+        check("CLI", int(0.75 * 10), counts, written[None], torch.zeros(1))
+        total = add_counts(total, counts)
+    free_memory()
+    log(f"[img2img] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
+    return total
+
+
+def serve_daemon() -> dict:
+    """[serve daemon]: sd_tpu_torch.scripts.serve's Server in this process,
+    its outputs in a temporary directory that goes whether the phase passes
+    or fails, its worker stopped at the end."""
+    import io
+
+    from sd_tpu_torch.scripts import serve as daemon
+
+    with tempfile.TemporaryDirectory(prefix="serve_daemon_") as outdir:
+        opt = daemon.parse_args(
+            ["--sampler", "dpm", "--steps", str(DPM_STEPS), "--max-batch", "2", "--bucket",
+             f"256x256@{DPM_STEPS}", "--batch-window", "500", "--no-watermark", "--outdir",
+             outdir])
+        t0 = time.perf_counter()
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            server = daemon.Server(opt)
+        for line in err.getvalue().splitlines():
+            log(f"[serve daemon] {line}")
+        log(f"[serve daemon] SD v1 built and both buckets warm in {time.perf_counter() - t0:.1f}"
+            f" s; {server.effective_config()}")
+        try:
+            return _serve_daemon(server, daemon)
+        finally:
+            server.close()
+
+
+def _serve_daemon(server, daemon) -> dict:
+    import threading
+    import urllib.request
+
+    from sd_tpu_torch.utils.image import load_image
+
+    t_phase = time.perf_counter()
+    evals = EVALS["dpm"](DPM_STEPS)
+    reset_launches()
+
+    def request(req: dict) -> dict:
+        t0 = time.perf_counter()
+        resp = server.handle(req)
+        resp["client_s"] = time.perf_counter() - t0
+        if not resp.get("ok"):
+            raise AssertionError(f"[serve daemon] {req} answered {resp}")
+        return resp
+
+    alone = [request({"prompt": PROMPT, "seed": s}) for s in range(REQUESTS)]
+    alone.append(request({"prompt": "a red cube", "seed": 7}))
+    seconds = [r["seconds"] for r in alone]
+    client = [r["client_s"] for r in alone]
+    log(f"[serve daemon] {len(alone)} one-prompt requests in turn (each padded to batch 2, "
+        f"waiting out the 500 ms window), DPM-Solver++ {DPM_STEPS} at 512²: execution "
+        f"{' '.join(f'{x:.3f}' for x in seconds)} s (median {np.median(seconds):.3f}, max "
+        f"{max(seconds):.3f}); client {' '.join(f'{x:.3f}' for x in client)} s (median "
+        f"{np.median(client):.3f}, max {max(client):.3f})")
+
+    # two requests from threads, the second the same (prompt, seed) as the
+    # last one served alone
+    pair = [None, None]
+    threads = [threading.Thread(target=lambda i=i, req=req: pair.__setitem__(i, request(req)))
+               for i, req in enumerate(({"prompt": PROMPT, "seed": 3},
+                                        {"prompt": "a red cube", "seed": 7}))]
+    threads[0].start()
+    time.sleep(0.1)
+    threads[1].start()
+    for th in threads:
+        th.join()
+    if None in pair:
+        raise AssertionError(f"[serve daemon] a coalesced request failed: {pair}")
+    shared = pair[0]["exec_id"] == pair[1]["exec_id"]
+    batched = [r["batched_requests"] for r in pair]
+    same = load_image(pair[1]["paths"][0]).astype(int)
+    ref = load_image(alone[-1]["paths"][0]).astype(int)
+    max_diff = int(np.abs(same - ref).max())
+    log(f"[serve daemon] two requests from threads: exec_id {pair[0]['exec_id']} and "
+        f"{pair[1]['exec_id']}, batched_requests {batched}, execution {pair[0]['seconds']:.3f} "
+        f"s, client {pair[0]['client_s']:.3f} and {pair[1]['client_s']:.3f} s; the (prompt, "
+        f"seed) served alone in slot 0 and coalesced in slot 1: PNGs "
+        f"{'equal bit for bit' if max_diff == 0 else f'differ by up to {max_diff}/255'}")
+    if not shared or batched != [2, 2]:
+        raise AssertionError(f"[serve daemon] the pair did not share an execution: {pair}")
+    if max_diff:
+        raise AssertionError(f"[serve daemon] the same (prompt, seed) differs by {max_diff}/255")
+
+    small = request({"prompt": PROMPT, "seed": 5, "height": 256, "width": 256})
+    if load_image(small["paths"][0]).shape != (256, 256, 3):
+        raise AssertionError(f"[serve daemon] the 256² bucket wrote {small['paths']}")
+    for req, why in (({"prompt": PROMPT, "steps": 7}, "no warm bucket"),
+                     ({"prompt": PROMPT, "eta": 1.0}, "unsupported request fields")):
+        resp = server.handle(req)
+        if resp.get("ok") is not False or why not in resp.get("error", ""):
+            raise AssertionError(f"[serve daemon] {req} was not refused: {resp}")
+    log(f"[serve daemon] 256² bucket: execution {small['seconds']:.3f} s; a cold bucket and an "
+        f"unknown field refused")
+
+    httpd = daemon.http_server(server, 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    try:
+        url = f"http://127.0.0.1:{httpd.server_address[1]}/txt2img"
+        body = json.dumps({"prompt": PROMPT, "seed": 9}).encode()
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(urllib.request.Request(
+                url, data=body, headers={"Content-Type": "application/json"}), timeout=300) as r:
+            resp = json.loads(r.read())
+        http_s = time.perf_counter() - t0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    if not resp.get("ok") or resp["safety_flagged"] != [False]:
+        raise AssertionError(f"[serve daemon] HTTP answered {resp}")
+    log(f"[serve daemon] HTTP POST /txt2img on 127.0.0.1: {http_s:.3f} s round trip, "
+        f"execution {resp['seconds']:.3f} s")
+
+    counts = read_launches()
+    execs = server.exec_count
+    per_exec = dict(flash_attention=SITES_PER_UNET * evals + 1 + UNTRAINED_LAYERS,
+                    geglu_ff=SITES_PER_UNET * evals)
+    want = expect(**{k: execs * v for k, v in per_exec.items()})
+    log(f"[serve daemon] {execs} executions; launches {counts}, expected {per_exec} each; "
+        f"phase {time.perf_counter() - t_phase:.1f} s")
+    if execs != len(alone) + 3 or counts != want:
+        raise AssertionError(f"[serve daemon] {execs} executions, launches {counts} != {want}")
+    check_conv_slots(server.pipe, daemon.without_cudnn)
+    return counts
+
+
+@contextlib.contextmanager
+def cudnn_flag(name: str, value: bool):
+    """``torch.backends.cudnn.<name>`` set to ``value`` within the block."""
+    saved = getattr(torch.backends.cudnn, name)
+    setattr(torch.backends.cudnn, name, value)
+    try:
+        yield
+    finally:
+        setattr(torch.backends.cudnn, name, saved)
+
+
+def check_conv_slots(pipe, without_cudnn) -> None:
+    """Why the daemon runs without cuDNN where requests share an execution:
+    one SD v1 UNet evaluation in bf16 on a batch of two and on it with its
+    rows swapped, under cuDNN as it is, with ``deterministic``, with
+    ``benchmark`` and without cuDNN (each row's output must not depend on
+    its slot there); then the ms of a UNet evaluation (CUDA events, 10
+    after 3) at B=2 (the daemon's batch at --max-batch 1, where it keeps
+    cuDNN), B=4 (its padded batch of 2 with guidance) and B=16, with and
+    without cuDNN in turns. Not counted: these launches compare, they serve
+    nothing."""
+    unet = pipe.ldm.model.diffusion_model
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 4, 64, 64), generator=gen).cuda()
+    t = torch.tensor([500, 500], device="cuda")
+    scopes = {"cuDNN": contextlib.nullcontext,
+              "deterministic": lambda: cudnn_flag("deterministic", True),
+              "benchmark": lambda: cudnn_flag("benchmark", True),
+              "without cuDNN": without_cudnn}
+    with torch.inference_mode():
+        ctx = pipe.encode_prompts([PROMPT, "a red cube"])
+        diff = {}
+        for label, scope in scopes.items():
+            with scope():
+                a, b = unet(x, t, ctx), unet(x.flip(0), t, ctx.flip(0)).flip(0)
+            diff[label] = (a.float() - b.float()).abs().max().item()
+        ms = {}
+        for batch in (1, 2, 8):
+            xb, tb = x.repeat(batch, 1, 1, 1), t.repeat(batch)
+            cb = ctx.repeat(batch, 1, 1)
+            for label in ("cuDNN", "without cuDNN", "without cuDNN", "cuDNN"):
+                with scopes[label]():
+                    ms.setdefault((2 * batch, label), []).append(
+                        time_ms(lambda: unet(xb, tb, cb), iters=10))
+    log(f"[serve daemon] one UNet evaluation, rows swapped: max |diff| of a row's output "
+        + ", ".join(f"{v:.3e} {label}" for label, v in diff.items())
+        + "; ms per evaluation (in turns): " + "; ".join(
+            f"B={b} {label} {' '.join(f'{v:.2f}' for v in vals)}"
+            for (b, label), vals in ms.items()))
+    if diff["without cuDNN"] != 0:
+        raise AssertionError(f"without cuDNN a row's output depends on its slot: {diff}")
+
+
+class _Timed:
+    """A callable with each call's seconds (on the card, synchronised) and
+    launches recorded in ``calls``; its other attributes pass through."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, []
+
+    def __getattr__(self, name):
+        return getattr(self.fn, name)
+
+    def __call__(self, *args, **kwargs):
+        before, t0 = read_launches(), time.perf_counter()
+        out = self.fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        after = read_launches()
+        self.calls.append({"s": time.perf_counter() - t0, "out": out,
+                           "launches": {k: after[k] - before[k] for k in after}})
+        return out
+
+
 def conv3x3_calls(ldm) -> int:
     """int8 conv calls per request: each Conv3x3 of the UNet once per UNet
     evaluation, each of the decoder once."""
@@ -1961,6 +2321,7 @@ def train_main_path() -> tuple:
 
 def _train(logdir: str) -> dict:
     from sd_tpu_torch.scripts.train import build_trainer, parse_args
+    from sd_tpu_torch.training import trainer as trainer_module
     from sd_tpu_torch.training.ema import ema_init
     from sd_tpu_torch.utils.checkpoint import latest_checkpoint
 
@@ -1968,7 +2329,12 @@ def _train(logdir: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     harness, state, data = build_trainer(parse_args(
         ["--max_steps", str(TRAIN_STEPS), "--logdir", logdir, "--seed", "0", "--log_every", "1",
-         "--ckpt_every", str(10 * TRAIN_STEPS)]))
+         "--ckpt_every", str(10 * TRAIN_STEPS), "--val_every", str(TRAIN_STEPS)]))
+    # the hooks fire once, after the last step: the image logger at that
+    # step only, validation (and the monitored save) every TRAIN_STEPS
+    harness.image_logger = _Timed(trainer_module.ImageLogger(logdir, every=TRAIN_STEPS,
+                                                             log_first_n=False))
+    harness.validate = _Timed(harness.validate)
     unet = state.unet
     # SD v1's config trains without EMA (use_ema: False); this run keeps the
     # shadow, so that [serve run] samples from it as a released model would
@@ -2013,17 +2379,26 @@ def _train(logdir: str) -> dict:
         return aux
 
     harness.trainer_obj.train_step = checked_step
+    monitored_save = _Timed(trainer_module.save_monitored)
+    trainer_module.save_monitored = monitored_save
     reset_launches()
     last["launches"] = read_launches()
     last["t"] = time.perf_counter()
-    harness.fit(state, data)
-    # after the last step fit only saves last.pt
-    save_s = time.perf_counter() - last["t"]
+    try:
+        harness.fit(state, data)
+    finally:
+        trainer_module.save_monitored = monitored_save.fn
+    # after the last step fit logs images, validates (with the monitored
+    # save) and saves last.pt
+    logger, validation = harness.image_logger.calls, harness.validate.calls
+    hooks_s = sum(c["s"] for c in logger + validation)
+    save_s = time.perf_counter() - last["t"] - hooks_s
     launches = read_launches()
     ckpt = latest_checkpoint(harness.ckpt_dir)
     if ckpt is None:
         raise AssertionError("Trainer.fit saved no checkpoint on exit")
     log(f"[train] save on exit: {save_s:.2f} s, {os.path.getsize(ckpt) / 2**30:.2f} GiB")
+    check_training_hooks(harness, data, logger, validation, monitored_save.calls)
     moments = state.optimizer.state
     flat = [n for n, p in named.items()
             if not (moments[p]["exp_avg"].any() and moments[p]["exp_avg_sq"].any())]
@@ -2035,7 +2410,80 @@ def _train(logdir: str) -> dict:
         f"steps 2-{TRAIN_STEPS} {ms:.1f} ms per step, {batch / ms * 1e3:.3f} images/s; peak "
         f"memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; AdamW moments "
         f"non-zero on all {len(named)} parameters; launches {launches}")
+    check_ema_validation(harness, state, data, validation[0]["out"])
     return launches
+
+
+def check_ema_validation(harness, state, data, metrics: dict) -> None:
+    """Validation's two losses recomputed from its draws, each loss in an
+    autocast context of its own: the current UNet's, then the UNet's with
+    the EMA shadow copied into its parameters (which it keeps: the phase is
+    over). ``val/loss_simple_ema`` must be the shadow's loss within
+    ``EMA_VAL_TOL`` of it, not a mix with autocast's cached casts of the
+    current weights. Not counted: these launches check, they train nothing."""
+    from sd_tpu_torch.training.trainer import VAL_BATCHES, VAL_STREAM
+
+    trainer_obj, unet = harness.trainer_obj, harness.trainer_obj.unet
+    batches = list(itertools.islice(data.val_dataloader(), VAL_BATCHES))
+
+    def val_loss() -> float:
+        unet.eval()
+        with torch.no_grad():
+            losses = [trainer_obj.loss_fn(b, harness._generator(state.step, VAL_STREAM + i))[0]
+                      for i, b in enumerate(batches)]
+        unet.train()
+        return float(np.mean(torch.stack(losses).float().cpu().numpy()))
+
+    current = val_loss()
+    with torch.no_grad():
+        for name, p in unet.named_parameters():
+            p.copy_(state.ema.shadow[name])
+    ema = val_loss()
+    got = metrics["val/loss_simple_ema"]
+    log(f"[train] validation recomputed in fresh autocast contexts: current weights {current!r} "
+        f"(validation's {metrics['val/loss_simple']!r}), EMA shadow {ema!r} (validation's "
+        f"{got!r}); the shadow's loss {abs(ema - current):.3e} from the current weights'")
+    if abs(got - ema) > EMA_VAL_TOL * abs(ema):
+        raise AssertionError(f"val/loss_simple_ema {got!r} is not the EMA shadow's loss {ema!r}")
+
+
+def check_training_hooks(harness, data, logger: list, validation: list, saves: list) -> None:
+    """The image logger and validation after the training phase's last
+    step: one call each; the logger's PNG set (K1 = 16 x 20 + 9: the
+    encode, the reconstruction, six diffusion-row decodes and the samples'
+    decode; K2 = 16 x 20, DDIM 20 without guidance); validation over V
+    batches (K1 = 2V (16 + 1) and K2 = 2V x 16 for its losses with the
+    current UNet and the EMA shadow, K3 = 0), both metrics finite, and the
+    one monitored checkpoint kept beside last.pt."""
+    n_val = min(len(data.val_dataloader()), 8)
+    log_want = expect(flash_attention=SITES_PER_UNET * 20 + 9, geglu_ff=SITES_PER_UNET * 20)
+    val_want = expect(flash_attention=2 * n_val * (SITES_PER_UNET + 1),
+                      geglu_ff=2 * n_val * SITES_PER_UNET)
+    if len(logger) != 1 or len(validation) != 1 or len(saves) != 1:
+        raise AssertionError(f"hooks called {len(logger)}, {len(validation)} and {len(saves)} "
+                             f"times, not once each")
+    images = sorted(os.listdir(os.path.join(harness.logdir, "images")))
+    step = f"step{TRAIN_STEPS:08}"
+    want_images = sorted(f"train_{n}_{step}.png"
+                         for n in ("inputs", "reconstruction", "diffusion_row", "samples"))
+    metrics = validation[0]["out"]
+    ckpts = sorted(os.listdir(harness.ckpt_dir))
+    log(f"[train] image logger at step {TRAIN_STEPS}: {logger[0]['s']:.2f} s, wrote {images}; "
+        f"launches {logger[0]['launches']}")
+    log(f"[train] validation over {n_val} batches at step {TRAIN_STEPS}: "
+        f"{validation[0]['s'] - saves[0]['s']:.2f} s, {metrics}; launches "
+        f"{validation[0]['launches']}; monitored save ({harness.monitor}) {saves[0]['s']:.2f} s; "
+        f"checkpoints {ckpts}")
+    if images != want_images or logger[0]["launches"] != log_want:
+        raise AssertionError(f"image logger: {images}, launches {logger[0]['launches']} != "
+                             f"{log_want}")
+    if (set(metrics) != {"val/loss_simple", "val/loss_simple_ema"}
+            or not all(np.isfinite(v) for v in metrics.values())
+            or validation[0]["launches"] != val_want):
+        raise AssertionError(f"validation: {metrics}, launches {validation[0]['launches']} != "
+                             f"{val_want}")
+    if ckpts != ["last.pt", f"step_{TRAIN_STEPS}.pt"]:
+        raise AssertionError(f"checkpoints {ckpts}")
 
 
 def free_memory() -> None:
@@ -2069,6 +2517,9 @@ def main() -> None:
     free_memory()
     served_ckpt = serve_from_checkpoint()
     free_memory()
+    served_img2img = img2img_main_path()
+    served_daemon = serve_daemon()
+    free_memory()
     check_training_reference()
     free_memory()
     trained, served_run = train_main_path()
@@ -2093,7 +2544,7 @@ def main() -> None:
               "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
-            served_ckpt, served_run)
+            served_ckpt, served_run, served_img2img, served_daemon)
     kernels = []
     for k, rows in timings.items():
         library = [r["library_ms"] for r in rows]

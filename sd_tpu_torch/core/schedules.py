@@ -21,6 +21,8 @@ __all__ = [
     "make_ddim_sampling_parameters",
     "DiffusionSchedule",
     "q_sample",
+    "predict_start_from_noise",
+    "q_posterior",
     "timestep_embedding",
 ]
 
@@ -147,14 +149,35 @@ class DiffusionSchedule:
         )
 
 
+def _extract(table: np.ndarray, t: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``table[t]`` for timesteps ``t [B]``, shaped to broadcast against ``like``."""
+    out = torch.as_tensor(table, device=like.device)[t.long()].to(like.dtype)
+    return out.reshape((-1,) + (1,) * (like.ndim - 1))
+
+
 def q_sample(schedule: DiffusionSchedule, x0: torch.Tensor, t: torch.Tensor,
              noise: torch.Tensor) -> torch.Tensor:
     """Forward diffusion ``sqrt(ᾱ_t) x0 + sqrt(1 - ᾱ_t) noise`` at integer
     timesteps ``t [B]`` (``x0`` and ``noise`` ``[B, ...]``)."""
-    shape = (-1,) + (1,) * (x0.ndim - 1)
-    table = lambda arr: torch.as_tensor(arr, device=x0.device)[t.long()].to(x0.dtype)
-    return (table(schedule.sqrt_alphas_cumprod).reshape(shape) * x0
-            + table(schedule.sqrt_one_minus_alphas_cumprod).reshape(shape) * noise)
+    return (_extract(schedule.sqrt_alphas_cumprod, t, x0) * x0
+            + _extract(schedule.sqrt_one_minus_alphas_cumprod, t, x0) * noise)
+
+
+def predict_start_from_noise(schedule: DiffusionSchedule, x_t: torch.Tensor, t: torch.Tensor,
+                             noise: torch.Tensor) -> torch.Tensor:
+    """The x0 estimate ``sqrt(1/ᾱ_t) x_t - sqrt(1/ᾱ_t - 1) eps``."""
+    return (_extract(schedule.sqrt_recip_alphas_cumprod, t, x_t) * x_t
+            - _extract(schedule.sqrt_recipm1_alphas_cumprod, t, x_t) * noise)
+
+
+def q_posterior(schedule: DiffusionSchedule, x_start: torch.Tensor, x_t: torch.Tensor,
+                t: torch.Tensor):
+    """The Gaussian posterior q(x_{t-1} | x_t, x_0): ``(mean, variance,
+    log_variance_clipped)``, the last two shaped to broadcast."""
+    mean = (_extract(schedule.posterior_mean_coef1, t, x_t) * x_start
+            + _extract(schedule.posterior_mean_coef2, t, x_t) * x_t)
+    return (mean, _extract(schedule.posterior_variance, t, x_t),
+            _extract(schedule.posterior_log_variance_clipped, t, x_t))
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: int = 10000) -> torch.Tensor:

@@ -194,10 +194,16 @@ class _GegluFF(torch.autograd.Function):
 def differentiable_geglu_ff(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                             w2: torch.Tensor, b2: torch.Tensor) -> torch.Tensor:
     """:func:`geglu_ff` with a gradient: through the autograd function where
-    autograd records, else the inference wrapper."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w1, b1, w2, b2)):
-        return _GegluFF.apply(x, w1, b1, w2, b2)
-    return geglu_ff(x, w1, b1, w2, b2)
+    autograd records, else the inference wrapper, its inputs cast to
+    autocast's dtype where autocast is on (fp32 master weights evaluated
+    under no_grad, as validation and image logging do)."""
+    inputs = (x, w1, b1, w2, b2)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in inputs):
+        return _GegluFF.apply(*inputs)
+    if torch.is_autocast_enabled(x.device.type):
+        dtype = torch.get_autocast_dtype(x.device.type)
+        inputs = tuple(t.to(dtype) for t in inputs)
+    return geglu_ff(*inputs)
 
 
 def gelu_fast(g: torch.Tensor) -> torch.Tensor:

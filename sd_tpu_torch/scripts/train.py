@@ -12,6 +12,13 @@ weights and datasets are not in the repository. The LR is
 LambdaLinear schedule where it has one; EMA follows the config's ``use_ema``.
 ``--device`` defaults to ``cuda``; a run that asks for the card and finds
 none fails. ``--resume`` continues from ``<logdir>/checkpoints/last.pt``.
+The image logger writes its grids to ``<logdir>/images`` at steps 1, 2, 4,
+8 and every 750 (``--no_images`` turns it off); ``--val_every N`` runs
+validation every N steps on two batches of other synthetic images and
+keeps the best 3 checkpoints by the config's ``monitor``
+(``val/loss_simple_ema`` for SD v1, which needs the EMA shadow) as
+``<logdir>/checkpoints/step_<n>.pt``. SIGUSR1 saves ``last.pt`` at the end
+of the step it lands in.
 The run's config goes to ``<logdir>/configs/project.yaml`` (as JSON, which
 is YAML), so that ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img
 CLI's ``--ckpt <logdir>`` can sample from the run.
@@ -39,6 +46,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="default: the config's (4 for SD v1, 2 for --tiny)")
     p.add_argument("--ckpt_every", type=int, default=1000)
     p.add_argument("--log_every", type=int, default=50)
+    p.add_argument("--val_every", type=int, default=0,
+                   help="validate every N steps (0: never)")
+    p.add_argument("--no_images", action="store_true",
+                   help="skip the image logger's grids (each runs DDIM 20 and 9 decodes)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -48,7 +59,12 @@ def build_trainer(opt: argparse.Namespace):
     ``TrainState`` and the ``DataModuleFromConfig`` of this run."""
     from sd_tpu_torch.training.diffusion_loss import create_train_state
     from sd_tpu_torch.training.lr_schedules import lambda_linear
-    from sd_tpu_torch.training.trainer import DataModuleFromConfig, Trainer, scale_learning_rate
+    from sd_tpu_torch.training.trainer import (
+        DataModuleFromConfig,
+        ImageLogger,
+        Trainer,
+        scale_learning_rate,
+    )
     from sd_tpu_torch.utils.config import build_latent_diffusion, train_config
 
     device = torch.device(opt.device)
@@ -75,7 +91,9 @@ def build_trainer(opt: argparse.Namespace):
         original_elbo_weight=float(mp.get("original_elbo_weight", 0.0)),
         use_ema=bool(mp.get("use_ema", True)))
     harness = Trainer(trainer_obj=trainer_obj, logdir=opt.logdir, max_steps=opt.max_steps,
-                      ckpt_every=opt.ckpt_every, seed=opt.seed, log_every=opt.log_every)
+                      ckpt_every=opt.ckpt_every, seed=opt.seed, log_every=opt.log_every,
+                      val_every=opt.val_every, monitor=mp.get("monitor"),
+                      image_logger=None if opt.no_images else ImageLogger(opt.logdir))
     write_project_config(opt.logdir, config)
     return harness, state, data
 

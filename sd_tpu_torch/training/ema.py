@@ -2,17 +2,20 @@
 
 The shadow is an fp32 copy of a ``state_dict``; each update moves it toward
 the live weights with the warmup-adjusted decay ``min(decay, (1+n)/(10+n))``
-of the reference's ``LitEma``. Updates are in place.
+of the reference's ``LitEma``. Updates are in place. :func:`ema_scope`
+swaps the shadow into a module for a while (the reference's ``ema_scope``),
+by pointing the module's parameters at the shadow's storage.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Dict, Mapping
+from typing import Dict, Iterator, Mapping
 
 import torch
 
-__all__ = ["EmaState", "ema_init", "ema_update"]
+__all__ = ["EmaState", "ema_init", "ema_update", "ema_scope"]
 
 
 @dataclasses.dataclass
@@ -46,3 +49,35 @@ def ema_update(state: EmaState, params: Mapping[str, torch.Tensor]) -> EmaState:
     for name, s in state.shadow.items():
         s.sub_((1.0 - decay) * (s - params[name].float()))
     return state
+
+
+def _swap_in(params: Mapping[str, torch.nn.Parameter],
+             data: Mapping[str, torch.Tensor]) -> None:
+    """Points each parameter at ``data[name]``'s storage, without a copy.
+    Each parameter's version is bumped, so that caches keyed by a weight's
+    (pointer, version) miss, and autocast's cached casts, which are keyed by
+    the parameter and outlive a change of its values, are dropped."""
+    for name, p in params.items():
+        p.data = data[name]
+        torch.autograd.graph.increment_version(p)
+    torch.clear_autocast_cache()
+
+
+@contextlib.contextmanager
+def ema_scope(state: EmaState, module: torch.nn.Module) -> Iterator[None]:
+    """Within the block ``module``'s parameters named in the shadow hold the
+    shadow's values; afterwards they hold their own again, bit for bit. The
+    parameters share the shadow's storage meanwhile (no copy), so they must
+    have its dtype and shape, and the block must not write to them."""
+    params = {name: p for name, p in module.named_parameters() if name in state.shadow}
+    for name, p in params.items():
+        s = state.shadow[name]
+        if (s.dtype, s.shape, s.device) != (p.dtype, p.shape, p.device):
+            raise ValueError(f"ema_scope: {name} is {p.dtype} {tuple(p.shape)} on {p.device}, "
+                             f"its shadow {s.dtype} {tuple(s.shape)} on {s.device}")
+    own = {name: p.data for name, p in params.items()}
+    _swap_in(params, state.shadow)
+    try:
+        yield
+    finally:
+        _swap_in(params, own)

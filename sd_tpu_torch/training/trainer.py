@@ -1,47 +1,81 @@
 """The step-driven training loop (port of ``DataModuleFromConfig``,
-``scale_learning_rate`` and ``Trainer.fit`` from ``sd_tpu/training/trainer.py``).
+``scale_learning_rate``, ``log_images``, ``ImageLogger`` and ``Trainer``
+from ``sd_tpu/training/trainer.py``).
 
 ``Trainer.fit`` runs the steps, prints the loss and it/s every ``log_every``
-steps, saves ``last.pt`` every ``ckpt_every`` steps, on exit and on an
-exception, and resumes exactly: each step's random draws come from a
+steps, and after a step: logs images where the ``ImageLogger``'s cadence
+says so, saves ``last.pt`` every ``ckpt_every`` steps or when SIGUSR1 asked
+for it (the reference's "melk" save), and every ``val_every`` steps runs
+validation with the current UNet and the EMA shadow, keeping the top 3
+checkpoints by the ``monitor`` metric. It saves ``last.pt`` on exit and on
+an exception, and resumes exactly: each step's random draws come from a
 generator seeded with a function of (seed, step), and on resume the loader
 is fast-forwarded to the restored step's (epoch, position), so a resumed run
-reproduces the uninterrupted one. Image logging, validation with monitored
-top-k checkpoints and the SIGUSR1 save are not ported.
+reproduces the uninterrupted one. Image logging and validation draw from
+generators of their own, seeded from (seed, step) too, so they change
+nothing of the training run. They run with the UNet in ``eval()`` under
+``no_grad`` and the train step's autocast (bf16 on the card, where the
+kernels run), and give it back in ``train()``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
+import signal
 import time
-from typing import Any, Dict
+from typing import Any, Dict, List, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 
 from sd_tpu_torch.data.base import DataLoader
 from sd_tpu_torch.data.synthetic import SyntheticImages
-from sd_tpu_torch.utils.checkpoint import latest_checkpoint, restore_checkpoint, save_last
+from sd_tpu_torch.samplers.ancestral import progressive_denoising
+from sd_tpu_torch.samplers.common import randn
+from sd_tpu_torch.samplers.ddim import ddim_sample
+from sd_tpu_torch.training.ema import ema_scope
+from sd_tpu_torch.utils.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_last,
+    save_monitored,
+)
+from sd_tpu_torch.utils.image import make_grid, save_image, text_to_image
 
-__all__ = ["DataModuleFromConfig", "Trainer", "scale_learning_rate", "step_seed"]
+__all__ = ["DataModuleFromConfig", "ImageLogger", "Trainer", "log_images",
+           "scale_learning_rate", "step_seed"]
 
 # dataset config targets the port can build
 DATASETS = {"sd_tpu_torch.data.synthetic.SyntheticImages": SyntheticImages}
+# validation losses per pass: at most this many batches
+VAL_BATCHES = 8
+# the generator streams beside training's: image logging, validation
+LOG_STREAM, VAL_STREAM = 1, 2
 
 
 class DataModuleFromConfig:
-    """The shuffled train loader from a dataset config node
-    ``{"target": ..., "params": {...}}`` (validation waits)."""
+    """The shuffled train loader and the validation loader (in order) from
+    dataset config nodes ``{"target": ..., "params": {...}}``."""
 
-    def __init__(self, batch_size: int, train: Dict):
-        if train["target"] not in DATASETS:
-            raise NotImplementedError(f"no dataset {train['target']!r} in the port")
+    def __init__(self, batch_size: int, train: Dict, validation: Optional[Dict] = None):
         self.batch_size = batch_size
-        dataset = DATASETS[train["target"]](**(train.get("params") or {}))
-        self.loader = DataLoader(dataset, batch_size=batch_size, shuffle=True)
+        self.loaders = {}
+        for split, cfg in (("train", train), ("validation", validation)):
+            if cfg is None:
+                continue
+            if cfg["target"] not in DATASETS:
+                raise NotImplementedError(f"no dataset {cfg['target']!r} in the port")
+            dataset = DATASETS[cfg["target"]](**(cfg.get("params") or {}))
+            self.loaders[split] = DataLoader(dataset, batch_size=batch_size,
+                                             shuffle=split == "train")
 
     def train_dataloader(self) -> DataLoader:
-        return self.loader
+        return self.loaders["train"]
+
+    def val_dataloader(self) -> Optional[DataLoader]:
+        return self.loaders.get("validation")
 
 
 def scale_learning_rate(base_lr: float, batch_size: int, n_devices: int) -> float:
@@ -52,9 +86,110 @@ def scale_learning_rate(base_lr: float, batch_size: int, n_devices: int) -> floa
     return lr
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The seed of step ``step``'s generator: a function of (seed, step) only."""
-    return (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + 0x5D0) % (1 << 63)
+def step_seed(seed: int, step: int, stream: int = 0) -> int:
+    """The seed of step ``step``'s generator: a function of (seed, step)
+    only; ``stream`` 0 is the train step's, others are side streams."""
+    return (seed * 0x9E3779B97F4A7C15 + step * 0xBF58476D1CE4E5B9 + 0x5D0
+            + stream * 0x94D049BB133111EB) % (1 << 63)
+
+
+@torch.no_grad()
+def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generator] = None,
+               n_row: int = 4, sample_steps: int = 20, plot_denoise_rows: bool = False,
+               noise: Optional[Mapping[str, Any]] = None) -> Dict[str, np.ndarray]:
+    """The LDM ``log_images`` contract: named NHWC float32 image arrays in
+    [-1, 1] of the batch's first ``n_row`` images: ``inputs``,
+    ``reconstruction`` (a posterior sample decoded), ``conditioning`` (string
+    captions drawn as images; they give no samples), ``diffusion_row`` (the
+    latents noised to six timesteps from 0 to T-1 with one noise, decoded,
+    as one grid), ``samples`` (DDIM ``sample_steps`` from the token
+    captions' conditioning) and, with ``plot_denoise_rows``, ``denoise_row``
+    (the ancestral chain's x0 estimates from the samples' x_T every T/6
+    steps, as one grid).
+
+    Draws, in this order, from ``generator`` or from ``noise`` (NHWC, by
+    name): ``posterior``, ``diffusion``, ``sample`` (the x_T of both chains)
+    and ``denoise_steps`` (the ancestral chain's per-step noise)."""
+    device = next(ldm.parameters()).device
+    given = noise or {}
+    nchw = lambda a: torch.as_tensor(np.array(a), device=device).permute(0, 3, 1, 2)
+    nhwc = lambda t: t.float().permute(0, 2, 3, 1).cpu().numpy()
+
+    def draw(name, like):
+        return nchw(given[name]) if name in given else randn(like.shape, generator, device)
+
+    out: Dict[str, np.ndarray] = {}
+    n = min(n_row, len(batch["image"]))
+    x = np.asarray(batch["image"][:n], dtype=np.float32)
+    out["inputs"] = x
+    posterior = ldm.encode_first_stage(nchw(x))
+    z = ldm.scale_factor * posterior.sample(noise=draw("posterior", posterior.mean))
+    out["reconstruction"] = nhwc(ldm.decode_first_stage(z))
+
+    raw_cond = batch.get(ldm.cond_stage_key)
+    cond = None
+    if raw_cond is not None:
+        if isinstance(raw_cond, list) and isinstance(raw_cond[0], str):
+            # host strings need a tokenizer; the pipelines own it
+            out["conditioning"] = text_to_image((x.shape[2] * 4, x.shape[1] * 4), raw_cond[:n])
+        else:
+            tokens = torch.as_tensor(np.asarray(raw_cond[:n]), device=device).long()
+            cond = ldm.get_learned_conditioning(tokens)
+
+    z = z.float()
+    z_noise = draw("diffusion", z).to(z.dtype)
+    rows = []
+    for t_frac in np.linspace(0, ldm.schedule.num_timesteps - 1, 6):
+        t = torch.full((n,), int(t_frac), dtype=torch.long, device=device)
+        rows.append(nhwc(ldm.decode_first_stage(ldm.q_sample(z, t, z_noise))))
+    out["diffusion_row"] = make_grid(np.concatenate(rows), n_rows=n)[None]
+
+    if cond is not None:
+        x_T = draw("sample", z).to(z.dtype)
+        z_samp = ddim_sample(ldm.apply_model, ldm.schedule, x_T, cond, num_steps=sample_steps)
+        out["samples"] = nhwc(ldm.decode_first_stage(z_samp))
+        if plot_denoise_rows:
+            steps = given.get("denoise_steps")
+            _, x0_traj = progressive_denoising(
+                ldm.apply_model, ldm.schedule, z.shape, cond=cond, generator=generator,
+                x_T=x_T, log_every_t=ldm.schedule.num_timesteps // 6,
+                noise=None if steps is None else [nchw(s) for s in steps])
+            decoded = [nhwc(ldm.decode_first_stage(t)) for t in x0_traj]
+            out["denoise_row"] = make_grid(np.concatenate(decoded), n_rows=n)[None]
+    return out
+
+
+class ImageLogger:
+    """Image logging every ``every`` steps and, with ``log_first_n``, at
+    steps 1, 2, 4 and 8: each of :func:`log_images`' arrays as one PNG grid,
+    ``<logdir>/images/{split}_{name}_step{step:08}.png``."""
+
+    def __init__(self, logdir: str, every: int = 750, max_images: int = 4,
+                 log_first_n: bool = True):
+        self.dir = os.path.join(logdir, "images")
+        self.every = every
+        self.max_images = max_images
+        self.log_first_n = log_first_n
+        os.makedirs(self.dir, exist_ok=True)
+
+    def should_log(self, step: int) -> bool:
+        if step % self.every == 0:
+            return True
+        return self.log_first_n and step <= 8 and (step & (step - 1)) == 0
+
+    def __call__(self, ldm, batch: Mapping[str, Any], step: int,
+                 generator: Optional[torch.Generator] = None, split: str = "train") -> List[str]:
+        """Log ``batch`` at ``step`` where the cadence says so; returns the
+        paths written."""
+        if not self.should_log(step):
+            return []
+        paths = []
+        for name, arr in log_images(ldm, batch, generator, n_row=self.max_images).items():
+            grid = make_grid(np.clip((arr + 1.0) / 2.0, 0, 1))
+            path = os.path.join(self.dir, f"{split}_{name}_step{step:08}.png")
+            save_image((grid * 255).astype(np.uint8), path)
+            paths.append(path)
+        return paths
 
 
 @dataclasses.dataclass
@@ -67,6 +202,13 @@ class Trainer:
     ckpt_every: int = 1000
     seed: int = 42
     log_every: int = 50
+    val_every: int = 0
+    monitor: Optional[str] = None
+    image_logger: Optional[ImageLogger] = None
+    # this run's monitored checkpoints, (metric, path), best first
+    monitored: List[Tuple[float, str]] = dataclasses.field(default_factory=list, init=False)
+    # set by SIGUSR1: save last.pt at the end of the step
+    melk_requested: bool = dataclasses.field(default=False, init=False)
 
     @property
     def ckpt_dir(self) -> str:
@@ -77,6 +219,26 @@ class Trainer:
         # the frozen stages are drawn again from the seed on this device type
         return {"seed": int(self.seed), "scale_factor": float(ldm.scale_factor),
                 "frozen_device": self.trainer_obj.device.type}
+
+    def _melk(self, *args) -> None:
+        print("Summoning checkpoint (SIGUSR1).", flush=True)
+        self.melk_requested = True
+
+    @contextlib.contextmanager
+    def _eval_scope(self):
+        """The UNet in ``eval()`` under ``no_grad`` and the train step's
+        autocast; back in ``train()`` afterwards."""
+        unet = self.trainer_obj.unet
+        unet.eval()
+        try:
+            with torch.no_grad(), self.trainer_obj.autocast():
+                yield
+        finally:
+            unet.train()
+
+    def _generator(self, step: int, stream: int) -> torch.Generator:
+        return torch.Generator(self.trainer_obj.device).manual_seed(
+            step_seed(self.seed, step, stream))
 
     def fit(self, state, data: DataModuleFromConfig, resume: bool = False):
         """Run the loop to ``max_steps``; returns ``state`` (updated in place)."""
@@ -91,6 +253,10 @@ class Trainer:
         skip = 0
         if step and len(loader):
             loader.epoch, skip = divmod(step, len(loader))
+        try:
+            previous = signal.signal(signal.SIGUSR1, self._melk)
+        except ValueError:  # not the main thread: no melk save
+            previous = None
         t0, t0_step = time.perf_counter(), step
         try:
             while step < self.max_steps:
@@ -107,10 +273,52 @@ class Trainer:
                         loss = float(aux["loss"])
                         rate = (step - t0_step) / max(time.perf_counter() - t0, 1e-9)
                         print(f"step {step}: loss={loss:.4f} ({rate:.2f} it/s)")
-                    if step % self.ckpt_every == 0:
+                    if self.image_logger is not None and self.image_logger.should_log(step):
+                        with self._eval_scope():
+                            self.image_logger(self.trainer_obj.ldm, batch, step,
+                                              self._generator(step, LOG_STREAM))
+                    if step % self.ckpt_every == 0 or self.melk_requested:
                         save_last(self.ckpt_dir, state, self._meta())
+                        self.melk_requested = False
+                    if self.val_every and step % self.val_every == 0:
+                        self.validate(state, data)
         except BaseException:
             save_last(self.ckpt_dir, state, self._meta())
             raise
+        finally:
+            if previous is not None:
+                signal.signal(signal.SIGUSR1, previous)
         save_last(self.ckpt_dir, state, self._meta())
         return state
+
+    def validate(self, state, data: DataModuleFromConfig) -> Dict[str, float]:
+        """The loss over up to ``VAL_BATCHES`` validation batches with the
+        current UNet (``val/loss_simple``) and with the EMA shadow swapped in
+        (``val/loss_simple_ema``), both from the same draws; the losses stay
+        on the device and are fetched once. Then the monitored save."""
+        loader = data.val_dataloader()
+        if loader is None:
+            return {}
+        batches = []
+        for batch in loader:
+            if len(batches) == VAL_BATCHES:
+                break
+            batches.append(batch)
+        loss_fn = self.trainer_obj.loss_fn
+        streams = [VAL_STREAM + i for i in range(len(batches))]
+        with self._eval_scope():
+            losses = [loss_fn(b, self._generator(state.step, s))[0]
+                      for b, s in zip(batches, streams)]
+            if state.ema is not None:
+                with ema_scope(state.ema, self.trainer_obj.unet):
+                    losses += [loss_fn(b, self._generator(state.step, s))[0]
+                               for b, s in zip(batches, streams)]
+        fetched = torch.stack(losses).float().cpu().numpy()
+        n = len(batches)
+        metrics = {"val/loss_simple": float(np.mean(fetched[:n]))}
+        if state.ema is not None:
+            metrics["val/loss_simple_ema"] = float(np.mean(fetched[n:]))
+        print(f"validation @ step {state.step}: {metrics}", flush=True)
+        save_monitored(self.ckpt_dir, state, metrics, self.monitor, self.monitored,
+                       self._meta())
+        return metrics

@@ -1,38 +1,68 @@
-"""Training checkpoints (port of ``save_last``, ``latest_checkpoint`` and
-restore from ``sd_tpu/utils/checkpoint.py``), and run directories as
-inference inputs (its ``is_run_path``, ``resolve_run_checkpoint``,
-``run_config_path``, ``load_run_params`` and ``filter_state_dict``).
+"""Training checkpoints (port of ``save_last``, ``save_monitored``,
+``latest_checkpoint`` and restore from ``sd_tpu/utils/checkpoint.py``), and
+run directories as inference inputs (its ``is_run_path``,
+``resolve_run_checkpoint``, ``run_config_path``, ``load_run_params`` and
+``filter_state_dict``).
 
 A checkpoint is one ``torch.save`` file: the step, the UNet ``state_dict``,
 the optimizer, the LR schedule and the EMA shadow, and metadata (seed,
 scale_factor, step, and the device type the frozen stages were drawn on).
 The frozen stages are not in it: a resumed run, or a sampler loading the
 run, rebuilds them from the config and the seed. ``<ckpt_dir>/last.pt`` is
-the resume entry; monitored top-k retention is not ported. A run directory
+the resume entry; ``save_monitored`` keeps the top k checkpoints by a
+validation metric as ``<ckpt_dir>/step_<n>.pt``. A run directory
 that cannot be resolved is an error: it never samples random weights.
 """
 
 from __future__ import annotations
 
 import os
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["save_last", "latest_checkpoint", "restore_checkpoint", "is_run_path",
-           "resolve_run_checkpoint", "run_config_path", "load_run_params",
+__all__ = ["save_last", "save_monitored", "latest_checkpoint", "restore_checkpoint",
+           "is_run_path", "resolve_run_checkpoint", "run_config_path", "load_run_params",
            "filter_state_dict"]
 
 
-def save_last(ckpt_dir: str, state, metadata: Optional[Dict[str, Any]] = None) -> str:
+def _save(path: str, state, metadata: Optional[Dict[str, Any]]) -> str:
     """Write ``state.state_dict()`` and ``metadata`` (plus the step) to
-    ``<ckpt_dir>/last.pt``, atomically; returns the path."""
-    os.makedirs(ckpt_dir, exist_ok=True)
-    path = os.path.join(ckpt_dir, "last.pt")
+    ``path``, atomically."""
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.tmp{os.getpid()}"
     meta = {**(metadata or {}), "step": int(state.step)}
     torch.save({"state": state.state_dict(), "meta": meta}, tmp)
     os.replace(tmp, path)
+    return path
+
+
+def save_last(ckpt_dir: str, state, metadata: Optional[Dict[str, Any]] = None) -> str:
+    """Write the state to ``<ckpt_dir>/last.pt``; returns the path."""
+    return _save(os.path.join(ckpt_dir, "last.pt"), state, metadata)
+
+
+def save_monitored(ckpt_dir: str, state, metrics: Dict[str, float], monitor: Optional[str],
+                   tracked: List[Tuple[float, str]], metadata: Optional[Dict[str, Any]] = None,
+                   save_top_k: int = 3, mode: str = "min") -> Optional[str]:
+    """Keep the ``save_top_k`` best checkpoints by ``metrics[monitor]``
+    (lowest with ``mode`` "min", highest with "max"): write the state to
+    ``<ckpt_dir>/step_<n>.pt`` with the metrics in its metadata, add
+    ``(value, path)`` to ``tracked`` (the caller's list of this run's
+    monitored saves) and delete the files that fall out of the top k.
+    Nothing is saved where ``monitor`` is None or not in ``metrics``.
+    Returns the path written, or None."""
+    if monitor is None or monitor not in metrics:
+        return None
+    path = _save(os.path.join(ckpt_dir, f"step_{int(state.step)}.pt"), state,
+                 {**(metadata or {}), "metrics": dict(metrics)})
+    tracked[:] = [t for t in tracked if t[1] != path]  # this step saved again
+    tracked.append((float(metrics[monitor]), path))
+    tracked.sort(key=lambda t: t[0], reverse=mode == "max")
+    while len(tracked) > save_top_k:
+        _, drop = tracked.pop()
+        if os.path.isfile(drop):
+            os.remove(drop)
     return path
 
 

@@ -160,7 +160,8 @@ def tiny_sd_model_config() -> Dict[str, Any]:
 def train_config(tiny: bool = False, batch_size: Optional[int] = None) -> Dict[str, Any]:
     """``{"model": ..., "data": ...}`` for training SD v1 (512² images, 77
     token ids under ``txt``, batch 4) or the tiny model (32² images, 8 ids
-    under ``caption``, batch 2) on ``SyntheticImages``."""
+    under ``caption``, batch 2) on ``SyntheticImages``, with two batches of
+    other synthetic images for validation."""
     if tiny:
         model = tiny_sd_model_config()
         images = dict(size=32, length=64, caption_tokens=8, caption_vocab=64)
@@ -170,10 +171,12 @@ def train_config(tiny: bool = False, batch_size: Optional[int] = None) -> Dict[s
         images = dict(size=512, length=1024, caption_tokens=77, caption_vocab=49408)
         batch = 4
     key = model["params"].get("cond_stage_key", "caption")
-    train = {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
-             "params": dict(images, caption_key=key, seed=0)}
+    batch = batch_size or batch
+    dataset = lambda **kw: {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
+                            "params": dict(images, caption_key=key, **kw)}
     return {"model": model,
-            "data": {"params": {"batch_size": batch_size or batch, "train": train}}}
+            "data": {"params": {"batch_size": batch, "train": dataset(seed=0),
+                                "validation": dataset(seed=1, length=2 * batch)}}}
 
 
 @torch.no_grad()

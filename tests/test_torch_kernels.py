@@ -293,6 +293,20 @@ def test_no_grad_calls_take_the_inference_wrappers():
                                    torch.zeros((16, 32)), torch.zeros(16)).grad_fn is None
 
 
+def test_no_grad_feedforward_under_autocast_takes_the_autocast_dtype():
+    """fp32 master weights evaluated under no_grad and autocast (the
+    trainer's validation and image logging): the inference wrapper gets
+    inputs in autocast's dtype, as the autograd function's do."""
+    rng = np.random.default_rng(3)
+    args = [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            for s in ((4, 16), (64, 16), (64,), (16, 32), (16,))]
+    with torch.no_grad(), torch.autocast("cpu", dtype=torch.bfloat16):
+        got = differentiable_geglu_ff(*args)
+    want = geglu_ff_plain(*(a.to(torch.bfloat16) for a in args))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("d,lse_shape,error", [
     (136, (1, 2, 64), ValueError),   # K3 takes d up to 128
     (40, (1, 2, 32), ValueError),    # lse is not [B, H, Nq]

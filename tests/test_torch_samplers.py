@@ -1,10 +1,13 @@
 """The port's samplers against sd_tpu's on the CPU in fp32, from the same
-x_T and the same per-step draws.
+x_T and the same per-step draws (DDIM, PLMS, DPM-Solver++ and the ancestral
+DDPM chain with progressive denoising).
 
 JAX keys and torch generators cannot share a seed, so each test makes
 sd_tpu's draws itself, by sd_tpu's own key splits (DDIM: one split off the
 key, then four a step: noise, blend noise, dropout keep mask; PLMS: two
-splits, then one a step for the blend), and hands them to the port as its
+splits, then one a step for the blend; the ancestral chain: one split for
+x_T, then four a step: noise, blend noise, dropout keep mask), and hands
+them to the port as its
 per-step sequences. The toy model is elementwise and linear in x, so every
 option runs in milliseconds (tolerance rtol 1e-5, atol 1e-5 of the
 output's scale); the tiny UNet runs DDIM at eta 1 with a mask and
@@ -20,11 +23,13 @@ import jax
 import jax.numpy as jnp
 
 from sd_tpu.core.schedules import DiffusionSchedule as JaxSchedule
+from sd_tpu.samplers import ancestral as jancestral
 from sd_tpu.samplers import common as jcommon
 from sd_tpu.samplers import ddim as jddim
 from sd_tpu.samplers import dpm_solver as jdpm
 from sd_tpu.samplers.plms import plms_sample as jax_plms_sample
 from sd_tpu_torch.core.schedules import DiffusionSchedule
+from sd_tpu_torch.samplers import p_sample_loop, progressive_denoising
 from sd_tpu_torch.samplers.common import wrap_model_output
 from sd_tpu_torch.samplers.ddim import ddim_decode, ddim_sample, ddim_stochastic_encode
 from sd_tpu_torch.samplers.dpm_solver import (
@@ -260,3 +265,86 @@ def test_samplers_on_the_tiny_unet_match_sd_tpu(tiny, sampler):
                               eta=1.0, noise=noise, mask_noise=blend, mask=nchw(mask),
                               x0=nchw(x0), **t_args)
     _close(to_nhwc(got), want, rtol=1e-3)
+
+
+# ------------------------------------------------------------- ancestral
+
+
+def ancestral_draws(rng, steps, shape, p=0.0):
+    """sd_tpu's p_sample_loop draws, in NCHW: x_T (one split off the key),
+    then per step (noise, blend noise, keep) from a four-way split."""
+    key, k_init = jax.random.split(rng)
+    noise, blend, keep = [], [], []
+    for _ in range(steps):
+        key, k_noise, k_mask, k_drop = jax.random.split(key, 4)
+        noise.append(nchw(jax.random.normal(k_noise, shape)))
+        blend.append(nchw(jax.random.normal(k_mask, shape)))
+        keep.append(nchw(jax.random.bernoulli(k_drop, 1.0 - p, shape)))
+    return nchw(jax.random.normal(k_init, shape)), noise, blend, keep if p else None
+
+
+ANCESTRAL_CASES = {
+    "cfg_quantized_log": dict(timesteps=12, log_every_t=3, guided=True, quantized=True),
+    "mask_dropout_temperature_x0": dict(timesteps=10, mask=True, noise_dropout=0.3,
+                                        temperature=0.7, parameterization="x0",
+                                        clip_denoised=False),
+}
+
+
+@pytest.mark.parametrize("case", list(ANCESTRAL_CASES))
+def test_p_sample_loop_matches_sd_tpu(case):
+    kw = dict(ANCESTRAL_CASES[case])
+    rng = jax.random.PRNGKey(21)
+    j_kw, t_kw = {}, {}
+    if kw.pop("guided", False):
+        j_kw.update(_guided(True))
+        t_kw.update(_guided(False))
+    else:
+        j_kw["cond"], t_kw["cond"] = jnp.asarray(COND), torch.from_numpy(COND)
+    if kw.pop("mask", False):
+        mask = np.zeros(SHAPE, np.float32)
+        mask[:, :, :2] = 1.0
+        x0 = _rand(22)
+        j_kw.update(mask=jnp.asarray(mask), x0=jnp.asarray(x0))
+        t_kw.update(mask=nchw(mask), x0=nchw(x0))
+    if kw.pop("quantized", False):
+        j_kw["quantize_x0"] = lambda x: jnp.round(x * 4.0) / 4.0
+        t_kw["quantize_x0"] = lambda x: torch.round(x * 4.0) / 4.0
+    want = jancestral.p_sample_loop(toy_model, JSCHED, SHAPE, rng=rng, **kw, **j_kw)
+    steps = kw["timesteps"]
+    x_T, noise, blend, keep = ancestral_draws(rng, steps, SHAPE, kw.get("noise_dropout", 0.0))
+    got = p_sample_loop(toy_model, SCHED, x_T.shape, x_T=x_T, noise=noise, mask_noise=blend,
+                        dropout_keep=keep, **kw, **t_kw)
+    if kw.get("log_every_t"):
+        got, inter = got
+        for name in ("x_inter", "pred_x0"):
+            got_i = inter[name].permute(0, 1, 3, 4, 2).numpy()
+            assert got_i.shape == want[1][name].shape == (4,) + SHAPE
+            _close(got_i, want[1][name])
+    else:
+        assert want[1] is None
+    _close(to_nhwc(got), want[0])
+
+
+def test_p_sample_loop_draws_x_T_from_the_generator_and_no_noise_at_t0():
+    """Without x_T it draws one from the generator first; at t = 0 it adds
+    no noise, so a chain of one step is its x0 estimate's posterior mean."""
+    model = lambda x, t, c: 0.1 * x
+    gen = torch.Generator().manual_seed(5)
+    x_T = torch.randn((2, 3, 4, 4), generator=gen)
+    a = p_sample_loop(model, SCHED, (2, 3, 4, 4), generator=torch.Generator().manual_seed(5),
+                      timesteps=1)
+    b = p_sample_loop(model, SCHED, None, x_T=x_T, timesteps=1)
+    assert torch.equal(a, b)
+
+
+def test_progressive_denoising_matches_sd_tpu():
+    rng, steps = jax.random.PRNGKey(23), 12
+    want_img, want_x0 = jancestral.progressive_denoising(
+        toy_model, JSCHED, SHAPE, rng=rng, timesteps=steps, log_every_t=4, **_guided(True))
+    x_T, noise, _, _ = ancestral_draws(rng, steps, SHAPE)
+    got_img, got_x0 = progressive_denoising(toy_model, SCHED, SHAPE, x_T=x_T, noise=noise,
+                                            timesteps=steps, log_every_t=4, **_guided(False))
+    _close(to_nhwc(got_img), want_img)
+    assert got_x0.shape[0] == want_x0.shape[0] == 3
+    _close(got_x0.permute(0, 1, 3, 4, 2).numpy(), want_x0)

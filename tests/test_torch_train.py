@@ -21,7 +21,8 @@ noise go into both packages. Tolerances, each with its reason:
 
 Also: ``Trainer.fit`` resumes exactly (4 steps equal 2 steps, a checkpoint, a
 resume and 2 more), and the training CLI runs in a fresh interpreter that
-imports neither jax, flax nor sd_tpu.
+imports neither jax, flax nor sd_tpu. The training loop's hooks are in
+test_torch_train_hooks.py.
 """
 
 import ast
@@ -326,7 +327,7 @@ def test_watermark_copy_gives_the_same_images():
 def _tiny_run(logdir, max_steps, resume=False):
     harness, state, data = build_trainer(parse_args(
         ["--tiny", "--device", "cpu", "--seed", "3", "--logdir", str(logdir), "--max_steps",
-         str(max_steps), "--batch_size", "2", "--log_every", "1"]
+         str(max_steps), "--batch_size", "2", "--log_every", "1", "--no_images"]
         + (["--resume"] if resume else [])))
     harness.fit(state, data, resume=resume)
     return state
@@ -403,7 +404,7 @@ def test_training_cli_runs_without_jax(tmp_path):
     sd_tpu, and leaves a checkpoint at the last step."""
     code = (
         "import runpy, sys\n"
-        f"sys.argv = ['train', '--tiny', '--device', 'cpu', '--max_steps', '2',"
+        f"sys.argv = ['train', '--tiny', '--device', 'cpu', '--max_steps', '2', '--no_images',"
         f" '--logdir', {str(tmp_path)!r}]\n"
         "runpy.run_module('sd_tpu_torch.scripts.train', run_name='__main__')\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax', 'sd_tpu')]\n"
@@ -435,6 +436,9 @@ def _imported_roots(path):
 def test_port_imports_nothing_of_jax_or_sd_tpu():
     files = sorted((_REPO / "sd_tpu_torch").rglob("*.py")) + [_REPO / "chip_smoke.py"]
     assert len(files) > 30
+    for module in ("samplers/ancestral.py", "pipelines/img2img.py", "scripts/img2img.py",
+                   "scripts/serve.py", "training/trainer.py", "utils/image.py"):
+        assert _REPO / "sd_tpu_torch" / module in files
     bad = {str(f.relative_to(_REPO)): sorted(set(_imported_roots(f)) & _FORBIDDEN)
            for f in files}
     assert not {f: roots for f, roots in bad.items() if roots}
