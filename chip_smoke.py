@@ -5,7 +5,9 @@ reference checkpoint file and a training run, with the safety checker,
 through the pipeline and through the serving daemon), img2img, the int8
 serving mode and the two conv modes, LDM training with its image logger
 and validation, and the fused transformer-block experiment, all at SD v1
-full width.
+full width; then the training CLI's --base path at full width: VAE-GAN
+training of the kl-f8 first stage, and the LAION 1.4B LDM with its BERT
+trained.
 
     python3 chip_smoke.py
 
@@ -30,10 +32,17 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    computing the same function (scaled_dot_product_attention for K1; none
    for K2, whose yardstick is the unfused bf16 FF: F.linear, chunk, F.gelu,
    multiply, F.linear);
-5. K3 flash-attention backward: at the training path's two shapes, with
-   plain and with sharp logits, dQ, dK and dV from K1 + K3 against the plain
-   backward in fp32 on the same bf16 inputs; the yardstick is
-   scaled_dot_product_attention's forward+backward minus its forward;
+5. K3 flash-attention backward: at the training path's two shapes and at
+   the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's wide plan,
+   with K1's output and row log-sum-exp checked there too), with plain and
+   with sharp logits, dQ, dK and dV from K1 + K3 against the plain backward
+   in fp32 on the same bf16 inputs; the yardstick is
+   scaled_dot_product_attention's forward+backward minus its forward (the
+   backend it picks logged); then, untimed, K1 (with its lse) and K3 at the
+   1.4B phase's own attention shapes (LDM_1P4B_FLASH_SHAPES, _BWD_SHAPES:
+   its UNet at 32x32 latents, its BERT, its encoder's mid-block) with plain
+   and sharp logits, and K2 at its FF shapes (LDM_1P4B_FF_SHAPES), their
+   errors in each kernel's max_abs_err;
 6. reference: the tiny model in bf16 on the card against the same weights in
    fp32 on the CPU (plain versions), 5 PLMS steps, latents compared; then
    the fp32 opt-out: SD_TPU_PRECISION=fp32 builds the tiny model in fp32 on
@@ -171,7 +180,25 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    one UNet evaluation with its rows swapped under cuDNN as it is, with
    `deterministic`, with `benchmark` and without cuDNN (equal there), and
    its ms at B=2 (the daemon's batch at --max-batch 1, where it keeps
-   cuDNN), 4 and 16 with and without cuDNN, in turns.
+   cuDNN), 4 and 16 with and without cuDNN, in turns;
+23. [first stage]: `python -m sd_tpu_torch.scripts.train --base
+   sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml -t` in process with
+   `model.params.lossconfig.params.disc_start=1` (the discriminator and the
+   adaptive weight engaged from step 2): the kl-f8 VAE-GAN at batch 12,
+   256², 3 steps through Trainer.fit; every step finite losses and exactly
+   K1 = 4 and K3 = 2 (the mid-blocks at [12, 1024, 1, 512]); steps 1 and 2's
+   rec_loss, nll_loss, kl_loss, g_loss and disc_loss, and step 1's
+   gradients of both mid-blocks' q, k and v convs and of the encoder,
+   against the same steps of a second build from the same seed with the
+   plain attention, within FIRST_STAGE_LOSS_TOL and FIRST_STAGE_GRAD_TOL;
+   step times, peak memory, the save on exit;
+24. [1.4B]: `--base sd_tpu_torch/configs/txt2img-1p4B.yaml -t` in process
+   with learn_logvar, scale_by_std and scale_factor 1 by dotlist: the 872M
+   UNet and the 543M BERTEmbedder trained at batch 4, 256², 3 steps; the
+   calibrated scale_factor recomputed from the first batch's draw; every
+   step a finite loss, a finite non-zero gradient on every trained tensor
+   and exactly K1 = 16 + 16 + 32 + 1, K2 = 32 and K3 = 5; every BERT tensor
+   and the logvar table moved; step times, peak memory, the save on exit.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -233,6 +260,20 @@ FF_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280
              (65536, 320, 1280), (16384, 640, 2560), (4096, 1280, 5120), (1000, 320, 1280)]
 # (B, N, H, D): the training sites that take K3 (N > 256) at batch 4
 BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+# (B, N, H, D): the first stage's mid-blocks in VAE-GAN training (encoder and
+# decoder alike), K3's wide plan: 256² at the config's batch of 12, and 512²
+VAE_BWD_SHAPES = [(12, 1024, 1, 512), (2, 4096, 1, 512)]
+# the 1.4B LDM's training at batch 4, 256² (32x32 latents), where the lists
+# above do not hold its shapes. (B, N, H, D) of K1 (with the lse autograd
+# asks for): the UNet's self-attention at 32x32 and 16x16 (its 8x8 site is
+# FLASH_SHAPES' (4, 64, 8, 160)), BERT's 32 layers (77 tokens, 8 heads of 64;
+# their backward is the plain one) and the frozen encoder's mid-block
+LDM_1P4B_FLASH_SHAPES = [(4, 1024, 8, 40), (4, 256, 8, 80), (4, 77, 8, 64), (4, 1024, 1, 512)]
+# (B, N, H, D) of K3: its five N=1024 sites
+LDM_1P4B_BWD_SHAPES = [(4, 1024, 8, 40)]
+# (M, C, inner) of K2: the FF sites at 32x32 and 16x16 (its 8x8 site is
+# FF_SHAPES' (256, 1280, 5120))
+LDM_1P4B_FF_SHAPES = [(4096, 320, 1280), (1024, 640, 2560)]
 # bf16 rounds to 8 mantissa bits (2^-9 relative) at P or h, at dS and at the
 # outputs; the error bound is 2e-2 of the output's scale: max |plain| for K1
 # and K3, whose outputs are well below 1, and max(1, max |plain|) for K2
@@ -281,7 +322,46 @@ TRAIN_TENSOR_FLOOR = 1e-4
 # VAE encoder's mid-block; K3 at the five N=4096 and five N=1024 sites
 TRAIN_LAUNCHES = {"flash_attention": 2 * SITES_PER_UNET + 1, "geglu_ff": 2 * SITES_PER_UNET,
                   "flash_attention_bwd": 10}
-
+# the two --base training phases: the kl-f8 VAE-GAN at batch 12, 256²
+# (autoencoder_kl_32x32x4.yaml, the discriminator engaged from step 2 by
+# disc_start=1), and the LAION 1.4B LDM with its 32-layer BERT trained, at
+# batch 4, 256² (txt2img-1p4B.yaml, with learn_logvar and scale_by_std)
+FIRST_STAGE_CONFIG = "sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml"
+LDM_1P4B_CONFIG = "sd_tpu_torch/configs/txt2img-1p4B.yaml"
+FIRST_STAGE_STEPS = 3
+LDM_1P4B_STEPS = 3
+# per VAE-GAN step: the generator step's forward (the encoder's and the
+# decoder's mid-blocks, K1 with lse) and backward (K3 at both), then the
+# discriminator step's reconstruction without a gradient (K1 at both)
+FIRST_STAGE_LAUNCHES = {"flash_attention": 4, "flash_attention_bwd": 2}
+BERT_LAYERS = 32
+# per 1.4B LDM step: the UNet's 16 sites forward and again in the
+# checkpointed backward, BERT's 32 self-attentions (N=77: K1 forward, the
+# plain backward), the VAE encoder's mid-block; K3 at the five N=1024 sites
+# (32x32 latents); K2 at the 16 FF sites twice
+LDM_1P4B_LAUNCHES = {"flash_attention": 2 * SITES_PER_UNET + BERT_LAYERS + 1,
+                     "geglu_ff": 2 * SITES_PER_UNET, "flash_attention_bwd": 5}
+# the VAE-GAN's first two steps with K1 and K3 against the same steps with
+# the plain attention (fp32 softmax, autograd through plain torch ops), both
+# in bf16 autocast from the same weights, batch and posterior noise (the
+# discriminator step's reconstruction, without a gradient, takes K1 in
+# both). Compared: each step's losses but d_weight, which both clip to
+# 1e4 x disc_weight, relative; step 1's gradients, relative L2, of the
+# q, k and v convs of each mid-block's attention (K3's dQ, dK and dV through
+# a 1x1 conv) and of the whole encoder, which the loss reaches through both
+# mid-blocks. Step 2's losses follow one Adam step (about lr x sign(g)), so
+# the gradients are what K3 decides. The bounds are set from the readings
+# of `python -m sd_tpu_torch.scripts.flash_faults --first-stage` on an H100:
+# the sound sources read at most 3.5e-4 (losses) and 6.1e-3 (gradients);
+# each of the six K1 and K3 faults reads 0.11 or more (or a non-finite
+# value) on some gradient group, and five of them 5.2e-3 or more (or a
+# non-finite value) on a loss; K3's wide plan's dropped tile, at most
+# 4.9e-4 on the losses, shows in the gradients only
+FIRST_STAGE_COMPARED = ("rec_loss", "nll_loss", "kl_loss", "g_loss", "disc_loss")
+FIRST_STAGE_GRAD_GROUPS = tuple(f"{part}.mid.attn_1.{w}" for part in ("encoder", "decoder")
+                                for w in "qkv") + ("encoder",)
+FIRST_STAGE_LOSS_TOL = 2e-3
+FIRST_STAGE_GRAD_TOL = 2e-2
 # the H100 SXM's dense bf16 and int8 tensor-core rates and memory rate
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
@@ -681,19 +761,37 @@ def flash_bwd_case(randn, shape, sharp: bool = False, timed: bool = True) -> dic
     library_ms = time_ms(sdpa_fwd_bwd) - fwd_ms
     bnd = bound(10 * b * h * n * n * d, 8 * b * n * h * d * 2 + b * h * n * 4)
     log(f"[K3 flash_attention_bwd] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa fwd+bwd minus fwd {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']})")
+        f"sdpa fwd+bwd minus fwd {library_ms:.4f} ms ({sdpa_backend(q, k, v, scale)}), bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
 
 
+def sdpa_backend(q, k, v, scale) -> str:
+    """The backend scaled_dot_product_attention picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(*(t.transpose(1, 2) for t in (q, k, v)), scale=scale)
+        return f"sdpa backend {SDPBackend(choice).name}"
+    except (AttributeError, RuntimeError, TypeError, ValueError) as err:
+        return f"sdpa backend not read: {err}"
+
+
 def check_flash_bwd(randn) -> list:
+    """K3 at the UNet's training shapes and at the first stage's mid-blocks
+    (d = 512, its wide plan; K1's output and row log-sum-exp at those shapes
+    too, which K3 reads)."""
     rows = []
-    for shape in BWD_SHAPES:
+    for shape in BWD_SHAPES + VAE_BWD_SHAPES:
         log_plan("K3 dK/dV", shape)
         log_plan("K3 dQ", shape)
+        if shape in VAE_BWD_SHAPES:
+            for sharp in (False, True):
+                flash_case(randn, shape, sharp=sharp, timed=False)
         row = flash_bwd_case(randn, shape)
         row["err"] = max(row["err"], flash_bwd_case(randn, shape, sharp=True, timed=False)["err"])
         rows.append(row)
+        free_memory()
     return rows
 
 
@@ -1259,11 +1357,38 @@ def check_conv_kernels() -> dict:
     return timings
 
 
+def check_ldm_1p4b_shapes(randn) -> dict:
+    """K1 (output and lse) and K3 at LDM_1P4B_FLASH_SHAPES and
+    LDM_1P4B_BWD_SHAPES, plain and sharp, and K2 at LDM_1P4B_FF_SHAPES,
+    untimed: each kernel's rows, {"err": ...} each."""
+    rows = {"flash_attention": [], "flash_attention_bwd": [], "geglu_ff": []}
+    for shape in LDM_1P4B_FLASH_SHAPES:
+        log_plan("K1", shape)
+        rows["flash_attention"].append({"err": max(
+            flash_case(randn, shape, sharp=sharp, timed=False)["err"] for sharp in (False, True))})
+    for shape in LDM_1P4B_BWD_SHAPES:
+        log_plan("K3 dK/dV", shape)
+        log_plan("K3 dQ", shape)
+        rows["flash_attention_bwd"].append({"err": max(
+            flash_bwd_case(randn, shape, sharp=sharp, timed=False)["err"]
+            for sharp in (False, True))})
+    for shape in LDM_1P4B_FF_SHAPES:
+        log_ff_plan(shape)
+        rows["geglu_ff"].append(geglu_case(randn, shape, timed=False))
+    free_memory()
+    return rows
+
+
 def check_kernels() -> dict:
+    """K1, K2 and K3: rows timed at the serving and SD v1 training shapes,
+    then untimed rows at the 1.4B training's own shapes."""
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
-    return {"flash_attention": check_flash(randn), "geglu_ff": check_geglu(randn),
-            "flash_attention_bwd": check_flash_bwd(randn)}
+    timings = {"flash_attention": check_flash(randn), "geglu_ff": check_geglu(randn),
+               "flash_attention_bwd": check_flash_bwd(randn)}
+    for k, rows in check_ldm_1p4b_shapes(randn).items():
+        timings[k] += rows
+    return timings
 
 
 def check_int8_kernels() -> dict:
@@ -2486,6 +2611,251 @@ def check_training_hooks(harness, data, logger: list, validation: list, saves: l
         raise AssertionError(f"checkpoints {ckpts}")
 
 
+def first_stage_main_path() -> dict:
+    """VAE-GAN training of the kl-f8 autoencoder at full width through the
+    training CLI's --base path. Trainer.fit's save on exit goes to a
+    temporary directory, removed whether the phase passes or fails."""
+    with tempfile.TemporaryDirectory(prefix="kl_f8_train_") as logdir:
+        return _train_first_stage(logdir)
+
+
+def _vae_gan_losses(aux: dict) -> dict:
+    return {k: float(aux[k]) for k in ("rec_loss", "nll_loss", "kl_loss", "g_loss", "d_weight",
+                                       "disc_loss")}
+
+
+def first_stage_argv(logdir: str) -> list:
+    """The training CLI's arguments of the first-stage phase."""
+    return ["--base", FIRST_STAGE_CONFIG, "-t", "--logdir", logdir, "--seed", "0",
+            "--max_steps", str(FIRST_STAGE_STEPS), "--log_every", "1",
+            "model.params.lossconfig.params.disc_start=1"]
+
+
+def first_stage_grads(ae) -> dict:
+    """The gradients the last generator step left, each of
+    FIRST_STAGE_GRAD_GROUPS flattened into one fp32 vector."""
+    named = list(ae.named_parameters())
+    return {g: torch.cat([p.grad.detach().float().flatten() for n, p in named
+                          if n.startswith(g + ".")]) for g in FIRST_STAGE_GRAD_GROUPS}
+
+
+def first_stage_steps(argv: list, steps: int, plain: bool) -> tuple:
+    """The CLI's first-stage trainer for ``argv``, its first ``steps``
+    steps by ``train_step`` with fit's generators; with ``plain``, the
+    autograd attention through ``flash_attention_plain``. Returns each
+    step's losses and step 1's gradients (FIRST_STAGE_GRAD_GROUPS)."""
+    from sd_tpu_torch.ops import attention
+    from sd_tpu_torch.ops.cuda import flash_attention_plain
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+    from sd_tpu_torch.training.trainer import step_seed
+
+    opt = parse_args(argv)
+    harness, state, data = build_trainer(opt)
+    kernel_attention = attention.differentiable_flash_attention
+    if plain:
+        attention.differentiable_flash_attention = (
+            lambda q, k, v, scale=None: flash_attention_plain(q, k, v, scale))
+    losses, grads = [], None
+    try:
+        for step in range(steps):
+            generator = torch.Generator("cuda").manual_seed(step_seed(opt.seed, step))
+            losses.append(_vae_gan_losses(harness.trainer_obj.train_step(
+                state, data.train_dataloader().batch(step), generator)))
+            if step == 0:
+                grads = first_stage_grads(state.ae)
+    finally:
+        attention.differentiable_flash_attention = kernel_attention
+    del harness, state, data
+    free_memory()
+    return losses, grads
+
+
+def first_stage_gaps(losses: list, grads: dict, ref_losses: list, ref_grads: dict) -> dict:
+    """{what: (relative gap, its bound)} of the kernels' run against the
+    plain attention's: FIRST_STAGE_COMPARED at each step, the gradient
+    groups at step 1."""
+    gaps = {}
+    for step, (got, ref) in enumerate(zip(losses, ref_losses), 1):
+        for k in FIRST_STAGE_COMPARED:
+            gaps[f"step {step} {k}"] = (abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12),
+                                        FIRST_STAGE_LOSS_TOL)
+    for g in FIRST_STAGE_GRAD_GROUPS:
+        gap = float((grads[g] - ref_grads[g]).norm() / ref_grads[g].norm())
+        gaps[f"step 1 grad {g}"] = (gap, FIRST_STAGE_GRAD_TOL)
+    return gaps
+
+
+def check_first_stage_gaps(gaps: dict) -> None:
+    """Logs every gap; raises CheckFailed at the worst (gap over bound)
+    where one exceeds its bound or is not finite."""
+    margin = lambda item: item[1][0] / item[1][1] if np.isfinite(item[1][0]) else np.inf
+    log("[first stage] against the plain attention (relative gap, bound): " + ", ".join(
+        f"{k} {gap:.3e} ({tol})" for k, (gap, tol) in gaps.items()))
+    worst, (gap, tol) = max(gaps.items(), key=margin)
+    log(f"[first stage] worst: {worst} {gap:.3e} against {tol}")
+    if not gap <= tol:
+        raise CheckFailed(f"first stage: {worst} {gap} above {tol}", gap, tol)
+
+
+def _train_first_stage(logdir: str) -> dict:
+    argv = first_stage_argv(logdir)
+    # the plain attention's first two steps, from a build of the same seed:
+    # the same weights, batches and posterior noise
+    ref_losses, ref_grads = first_stage_steps(argv, 2, plain=True)
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+
+    t0 = time.perf_counter()
+    harness, state, data = build_trainer(parse_args(argv))
+    trainer = harness.trainer_obj
+    n_params = sum(p.numel() for p in state.ae.parameters())
+    log(f"[first stage] kl-f8 VAE-GAN ({FIRST_STAGE_CONFIG}, disc_start=1 by dotlist), "
+        f"{n_params / 1e6:.1f}M autoencoder parameters in fp32 (Adam, bf16 autocast), batch "
+        f"{data.batch_size} of 256² images; built in {time.perf_counter() - t0:.1f} s; "
+        f"{FIRST_STAGE_STEPS} steps (no cut)")
+    got, times, grads = [], [], {}
+    last = {"t": time.perf_counter(), "launches": read_launches()}
+    train_step = trainer.train_step
+
+    def checked_step(state_, batch_, generator):
+        aux = train_step(state_, batch_, generator)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        delta = {k: launches[k] - last["launches"][k] for k in launches}
+        times.append(time.perf_counter() - last["t"])
+        losses = _vae_gan_losses(aux)
+        got.append(losses)
+        if state_.step == 1:
+            grads.update(first_stage_grads(state_.ae))
+        log(f"[first stage] step {state_.step}: {losses}, disc_factor "
+            f"{float(aux['disc_factor'])}, logvar {float(aux['logvar']):.6f}, "
+            f"{times[-1] * 1e3:.1f} ms, launches {delta}")
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"first-stage step {state_.step}: {losses}")
+        if delta != expect(**FIRST_STAGE_LAUNCHES):
+            raise AssertionError(f"first-stage step {state_.step}: launches {delta} != "
+                                 f"{FIRST_STAGE_LAUNCHES}")
+        last["t"] = time.perf_counter()
+        last["launches"] = launches
+        return aux
+
+    trainer.train_step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last["launches"], last["t"] = read_launches(), time.perf_counter()
+    harness.fit(state, data)
+    launches = read_launches()
+    save_s = time.perf_counter() - last["t"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if got[1]["disc_loss"] == 0.0 or got[0]["d_weight"] <= 0.0:
+        raise AssertionError(f"the discriminator or the adaptive weight was not engaged: {got}")
+    log(f"[first stage] the plain attention's steps 1-2: {ref_losses}")
+    check_first_stage_gaps(first_stage_gaps(got[:2], grads, ref_losses, ref_grads))
+    steady = times[1:]
+    log(f"[first stage] {FIRST_STAGE_STEPS} steps: {' '.join(f'{t * 1e3:.1f}' for t in times)} "
+        f"ms; median of steps 2-{FIRST_STAGE_STEPS} {1e3 * float(np.median(steady)):.1f} ms per "
+        f"step; peak memory allocated {peak:.2f} GiB; save on exit {save_s:.2f} s; launches "
+        f"{launches}")
+    return launches
+
+
+def ldm_1p4b_main_path() -> dict:
+    """Training of the LAION 1.4B LDM with its BERT through the training
+    CLI's --base path; Trainer.fit's save on exit goes to a temporary
+    directory, removed whether the phase passes or fails."""
+    with tempfile.TemporaryDirectory(prefix="txt2img_1p4b_train_") as logdir:
+        return _train_1p4b(logdir)
+
+
+def _train_1p4b(logdir: str) -> dict:
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+    from sd_tpu_torch.training.trainer import CAL_STREAM
+
+    t0 = time.perf_counter()
+    harness, state, data = build_trainer(parse_args(
+        ["--base", LDM_1P4B_CONFIG, "-t", "--logdir", logdir, "--seed", "0", "--max_steps",
+         str(LDM_1P4B_STEPS), "--log_every", "1", "--no_images", "--ckpt_every", "1000",
+         "model.params.learn_logvar=true", "model.params.scale_by_std=true",
+         "model.params.scale_factor=1.0"]))
+    trainer = harness.trainer_obj
+    bert = trainer.ldm.cond_stage_model
+    named = state.trainables()
+    n_unet = sum(p.numel() for p in state.unet.parameters())
+    n_bert = sum(p.numel() for p in bert.parameters())
+    log(f"[1.4B] txt2img-1p4B ({LDM_1P4B_CONFIG}; learn_logvar, scale_by_std, scale_factor 1 by "
+        f"dotlist): {n_unet / 1e6:.1f}M UNet and {n_bert / 1e6:.1f}M BERTEmbedder parameters "
+        f"trained in fp32 (AdamW, bf16 autocast, use_checkpoint "
+        f"{state.unet.config.use_checkpoint}), frozen kl-f8 encoder in bf16; batch "
+        f"{data.batch_size} of 256² images, 77 token ids; built in "
+        f"{time.perf_counter() - t0:.1f} s; {LDM_1P4B_STEPS} steps (no cut)")
+    before = {n: p.detach().clone() for n, p in bert.named_parameters()}
+    trainer.calibrate_scale_by_std = _Timed(trainer.calibrate_scale_by_std)
+    times = []
+    last = {"t": time.perf_counter(), "launches": read_launches()}
+    train_step = trainer.train_step
+
+    def checked_step(state_, batch_, generator):
+        aux = train_step(state_, batch_, generator)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        delta = {k: launches[k] - last["launches"][k] for k in launches}
+        if state_.step == 1:  # fit calibrated scale_factor before it
+            cal = trainer.calibrate_scale_by_std.calls[0]["launches"]
+            delta = {k: v - cal[k] for k, v in delta.items()}
+        times.append(time.perf_counter() - last["t"])
+        loss = float(aux["loss"])
+        bad = [n for n, p in named.items()
+               if p.grad is None or not torch.isfinite(p.grad).all() or not p.grad.any()]
+        log(f"[1.4B] step {state_.step}: loss {loss:.5f}, {times[-1] * 1e3:.1f} ms, launches "
+            f"{delta}, trained tensors without a finite non-zero gradient: {len(bad)} of "
+            f"{len(named)}")
+        if not np.isfinite(loss) or bad:
+            raise AssertionError(f"1.4B step {state_.step}: loss {loss}, no gradient on {bad[:8]}")
+        if delta != expect(**LDM_1P4B_LAUNCHES):
+            raise AssertionError(f"1.4B step {state_.step}: launches {delta} != "
+                                 f"{LDM_1P4B_LAUNCHES}")
+        last["t"], last["launches"] = time.perf_counter(), launches
+        return aux
+
+    trainer.train_step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last["launches"] = read_launches()
+    fit_t0 = last["t"] = time.perf_counter()
+    harness.fit(state, data)
+    launches = read_launches()
+    save_s = time.perf_counter() - last["t"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    (cal,) = trainer.calibrate_scale_by_std.calls
+    scale = cal["out"]
+    # the calibration again: the first batch's latents from the same draw
+    images = torch.from_numpy(data.train_dataloader().batch(0)["image"]).cuda()
+    with torch.no_grad(), trainer.autocast():
+        posterior = trainer.ldm.encode_first_stage(images.permute(0, 3, 1, 2))
+    z = posterior.sample(harness._generator(0, CAL_STREAM)).float()
+    want = 1.0 / float(z.flatten().std())
+    log(f"[1.4B] scale_by_std: scale_factor {scale!r} in {cal['s']:.2f} s (launches "
+        f"{cal['launches']}); recomputed {want!r}; the trainer holds "
+        f"{trainer.ldm.scale_factor!r}")
+    if not (abs(scale - want) <= 1e-3 * want and trainer.ldm.scale_factor == scale
+            and cal["launches"] == expect(flash_attention=1)):
+        raise AssertionError(f"scale_by_std: {scale} against {want}")
+    moved = {n: (p.detach() - before[n]).abs().max().item() for n, p in bert.named_parameters()}
+    still = [n for n, m in moved.items() if not m > 0]
+    logvar_moved = int((state.logvar.detach() != 0).sum())
+    log(f"[1.4B] BERTEmbedder: {len(moved) - len(still)} of {len(moved)} tensors moved (largest "
+        f"move {max(moved.values()):.3e}); logvar moved at {logvar_moved} timesteps")
+    if still or logvar_moved == 0:
+        raise AssertionError(f"BERT tensors that did not move: {still[:8]}; logvar moved at "
+                             f"{logvar_moved}")
+    steady = times[1:]
+    log(f"[1.4B] {LDM_1P4B_STEPS} steps: {' '.join(f'{t * 1e3:.1f}' for t in times)} ms "
+        f"(the first with the calibration); median of steps 2-{LDM_1P4B_STEPS} "
+        f"{1e3 * float(np.median(steady)):.1f} ms per step; peak memory allocated {peak:.2f} "
+        f"GiB; fit {time.perf_counter() - fit_t0:.1f} s with the save on exit {save_s:.2f} s; "
+        f"launches {launches}")
+    return launches
+
+
 def free_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2523,6 +2893,10 @@ def main() -> None:
     check_training_reference()
     free_memory()
     trained, served_run = train_main_path()
+    free_memory()
+    first_stage = first_stage_main_path()
+    free_memory()
+    trained_1p4b = ldm_1p4b_main_path()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -2544,18 +2918,20 @@ def main() -> None:
               "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
-            served_ckpt, served_run, served_img2img, served_daemon)
+            served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b)
     kernels = []
     for k, rows in timings.items():
-        library = [r["library_ms"] for r in rows]
-        ops_ms = sum(r["bound_ms"] for r in rows if r["bound_by"] == "operations")
+        # the times sum the timed shapes; the error is the worst of all
+        timed = [r for r in rows if "ms" in r]
+        library = [r["library_ms"] for r in timed]
+        ops_ms = sum(r["bound_ms"] for r in timed if r["bound_by"] == "operations")
         kernels.append({
             "name": k, "route": "cuda", "source": source[k][0], "replaces": source[k][1],
             "launches": sum(run[k] for run in runs),
             "max_abs_err": max(r["err"] for r in rows),
-            "ms": sum(r["ms"] for r in rows), "plain_ms": sum(r["plain_ms"] for r in rows),
-            "bound_ms": sum(r["bound_ms"] for r in rows),
-            "bound_by": "operations" if 2 * ops_ms >= sum(r["bound_ms"] for r in rows)
+            "ms": sum(r["ms"] for r in timed), "plain_ms": sum(r["plain_ms"] for r in timed),
+            "bound_ms": sum(r["bound_ms"] for r in timed),
+            "bound_by": "operations" if 2 * ops_ms >= sum(r["bound_ms"] for r in timed)
             else "bytes",
             "library_ms": None if None in library else sum(library)})
     print(json.dumps({"kernels": kernels}))

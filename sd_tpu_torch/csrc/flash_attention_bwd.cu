@@ -47,8 +47,22 @@
 // its columns), with one __syncthreads per tile. The contraction over the
 // head dim is zero-padded in shared memory to a multiple of 16 (d = 40 ->
 // 48); the ragged edges are zero-filled, and p and dS are set to 0 outside
-// the valid rows and columns (selected, never computed from -inf). d must be
-// a multiple of 8 and at most 128.
+// the valid rows and columns (selected, never computed from -inf).
+//
+// At d > 128 (the VAE mid-block's single head, d = 512, at [12, 1024, 1, 512]
+// for a 256² batch of 12 and [B, 4096, 1, 512] at 512²) a warp's fp32 dK and
+// dV for 16 keys would be 2 x 32 KiB, more than its registers, and a 64-key
+// K and V tile alone 128 KiB of shared memory. Both passes then take one
+// plan (flash_bwd_wide_kernel): a block of 8 warps owns 16 rows (keys, or
+// queries for dQ) and streams 32-row tiles, double-buffered. Per tile the
+// warps split S and dP by n8 tiles, each over the whole contraction, into
+// fp32 shared memory; P and dS are formed there elementwise and rounded to
+// bf16 shared tiles; then each warp accumulates its DK / 8 columns of dK and
+// dV (or dQ) in registers (64 of them at d = 512). Three __syncthreads per
+// tile, 174 KiB of shared memory, one block per SM. Its bound at [12, 1024,
+// 1, 512] is 0.065 ms of operations (10 * B * Nq * Nk * D flops) against
+// 0.030 ms of bytes. d must be a multiple of 8 and at most 512 (padded to
+// 256, 384 or 512 in shared memory above 128).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,10 +93,10 @@ __device__ __forceinline__ float ds_of(float p, float dp, float delta, float sca
 
 // Copies rows [row0, row0 + ROWS) of one (batch, head) slice, the first d
 // columns, into shared memory at pitch LD; rows at or past n are zero-filled.
-template <int ROWS, int LD>
+template <int ROWS, int LD, int THREADS = kThreads>
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, int n,
                                           int row_stride, int chunks) {
-  for (int i = threadIdx.x; i < ROWS * chunks; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS * chunks; i += THREADS) {
     const int r = i / chunks;
     const int c = (i - r * chunks) * 8;
     const bool valid = row0 + r < n;
@@ -92,18 +106,18 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
 }
 
 // Copies ROWS fp32 row statistics from row0; rows at or past n read as 0.
-template <int ROWS>
+template <int ROWS, int THREADS = kThreads>
 __device__ __forceinline__ void load_stats(float* dst, const float* src, int row0, int n) {
-  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
+  for (int i = threadIdx.x; i < ROWS; i += THREADS) {
     const bool valid = row0 + i < n;
     sdt::cp_async4(dst + i, src + (valid ? row0 + i : 0), valid);
   }
 }
 
-template <int DK, int LD>
+template <int DK, int LD, int THREADS = kThreads>
 __device__ __forceinline__ void zero_padding(bf16* base, int rows, int d) {
   const int pad = (DK - d) / 8;
-  for (int i = threadIdx.x; i < rows * pad; i += kThreads) {
+  for (int i = threadIdx.x; i < rows * pad; i += THREADS) {
     const int r = i / pad;
     *reinterpret_cast<uint4*>(base + r * LD + d + (i - r * pad) * 8) = make_uint4(0, 0, 0, 0);
   }
@@ -462,6 +476,214 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      lane);
 }
 
+// The plan of the d > 128 passes: 8 warps, 16 owned rows, 32 streamed rows
+// per tile. Shared memory: the two owned tiles, two stages of the streamed
+// pair, the fp32 X and Y tiles [2][16][LDS], the bf16 P and dS tiles
+// [2][16][LDP], and two stages of the streamed rows' lse and delta.
+template <int DK>
+struct WidePlan {
+  static constexpr int THREADS = 256;
+  static constexpr int OWNED = 16;
+  static constexpr int BT = 32;
+  static constexpr int LD = DK + 8;
+  static constexpr int LDS = BT + 4;
+  static constexpr int LDP = BT + 8;
+  static constexpr int ROWS = 2 * OWNED + 4 * BT;
+  static constexpr int XY = ROWS * LD * 2;
+  static constexpr int PD = XY + 2 * OWNED * LDS * 4;
+  static constexpr int STATS = PD + 2 * OWNED * LDP * 2;
+  static constexpr int BYTES = STATS + 2 * 2 * BT * 4;
+};
+
+// Both passes at d > 128 (the VAE mid-block's single head, d = 512). A block
+// owns 16 rows of two tensors A and B and streams 32-row tiles of two others,
+// C and D; with KV it owns keys (A = K, B = V; C = Q, D = dO) and writes dK
+// and dV, else it owns queries (A = Q, B = dO; C = K, D = V) and writes dQ.
+// Per tile: X = A C^T (S^T or S) and Y = B D^T (dP^T or dP), each 16 x 32
+// over the whole contraction, one n8 tile per warp (warps 0-3 X, 4-7 Y),
+// into fp32 shared memory; then P and dS elementwise, two columns a thread,
+// into bf16 shared tiles; then each warp accumulates its DK / 8 columns:
+// dV += P^T dO and dK += dS^T Q, or dQ += dS K.
+template <int DK, bool KV>
+__global__ void __launch_bounds__(256)
+flash_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      bf16* __restrict__ out_ds, bf16* __restrict__ out_p, int nq, int nk,
+                      int heads, int d, float scale, float sl) {
+  using P = WidePlan<DK>;
+  constexpr int T = P::THREADS;
+  constexpr int LD = P::LD;
+  constexpr int BT = P::BT;
+  constexpr int NW = DK / 64;  // n8 tiles of each accumulator per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  float* xy = reinterpret_cast<float*>(smem_raw + P::XY);
+  bf16* pd = reinterpret_cast<bf16*>(smem_raw + P::PD);
+  float* stats = reinterpret_cast<float*>(smem_raw + P::STATS);
+
+  const int r0 = blockIdx.x * P::OWNED;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int row_stride = heads * d;
+  const int chunks = d / 8;
+  const int n_own = KV ? nk : nq;
+  const int n_str = KV ? nq : nk;
+  const size_t q_off = ((size_t)b * nq * heads + h) * d;
+  const size_t k_off = ((size_t)b * nk * heads + h) * d;
+  const bf16* ab = KV ? k + k_off : q + q_off;
+  const bf16* bb = KV ? v + k_off : dout + q_off;
+  const bf16* cb = KV ? q + q_off : k + k_off;
+  const bf16* db = KV ? dout + q_off : v + k_off;
+  const float* lseb = lse + ((size_t)b * heads + h) * nq;
+  const float* deltab = delta + ((size_t)b * heads + h) * nq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int col0 = warp * (DK / 8);     // this warp's first accumulator column
+  const int nv = (d - col0 + 7) / 8;    // its n8 tiles inside d (may be <= 0)
+  const int kpairs = (d + 31) / 32;     // pairs of k16 steps inside d
+
+  if (d < DK) zero_padding<DK, LD, T>(smem, P::ROWS, d);
+  load_rows<P::OWNED, LD, T>(smem, ab, r0, n_own, row_stride, chunks);
+  load_rows<P::OWNED, LD, T>(smem + P::OWNED * LD, bb, r0, n_own, row_stride, chunks);
+  bf16* streamed = smem + 2 * P::OWNED * LD;
+  load_rows<BT, LD, T>(streamed, cb, 0, n_str, row_stride, chunks);
+  load_rows<BT, LD, T>(streamed + BT * LD, db, 0, n_str, row_stride, chunks);
+  if (KV) {
+    load_stats<BT, T>(stats, lseb, 0, nq);
+    load_stats<BT, T>(stats + BT, deltab, 0, nq);
+  }
+  sdt::cp_async_commit();
+
+  // the elementwise step's row and first column
+  const int er = threadIdx.x / 16, ec = threadIdx.x % 16 * 2;
+  const bool row_ok = r0 + er < n_own;
+  float lse_r = 0.f, delta_r = 0.f;
+  if (!KV && row_ok) {
+    lse_r = lseb[r0 + er];
+    delta_r = deltab[r0 + er];
+  }
+
+  // acc[0]: dS C (dK or dQ); acc[1]: P D (dV)
+  float acc[KV ? 2 : 1][NW][4];
+#pragma unroll
+  for (int a = 0; a < (KV ? 2 : 1); ++a)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) acc[a][j][0] = acc[a][j][1] = acc[a][j][2] = acc[a][j][3] = 0.f;
+
+  const int ntiles = (n_str + BT - 1) / BT;
+  for (int t = 0; t < ntiles; ++t) {
+    sdt::cp_async_wait<0>();
+    __syncthreads();
+    if (t + 1 < ntiles) {
+      const int st = (t + 1) & 1;
+      bf16* next = streamed + st * 2 * BT * LD;
+      load_rows<BT, LD, T>(next, cb, (t + 1) * BT, n_str, row_stride, chunks);
+      load_rows<BT, LD, T>(next + BT * LD, db, (t + 1) * BT, n_str, row_stride, chunks);
+      if (KV) {
+        load_stats<BT, T>(stats + st * 2 * BT, lseb, (t + 1) * BT, nq);
+        load_stats<BT, T>(stats + st * 2 * BT + BT, deltab, (t + 1) * BT, nq);
+      }
+      sdt::cp_async_commit();
+    }
+    const bf16* cs = streamed + (t & 1) * 2 * BT * LD;
+    const bf16* d_tile = cs + BT * LD;
+
+    // X (warps 0-3) or Y (warps 4-7): one n8 tile over the whole
+    // contraction; ldmatrix_x4 on the streamed rows gives the B fragments of
+    // two k16 steps
+    {
+      const int which = warp / 4, nt = warp % 4;
+      const bf16* arow = smem + (which * P::OWNED + lane % 16) * LD + lane / 16 * 8;
+      const bf16* brow = (which ? d_tile : cs) + (nt * 8 + lane % 8) * LD + lane / 8 * 8;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int kk = 0; kk < DK / 32; ++kk) {
+        if (kk < kpairs) {
+          unsigned bf[4], a0[4], a1[4];
+          sdt::ldmatrix_x4(bf, brow + kk * 32);
+          sdt::ldmatrix_x4(a0, arow + kk * 32);
+          sdt::ldmatrix_x4(a1, arow + kk * 32 + 16);
+          sdt::mma(c, a0, bf[0], bf[1]);
+          sdt::mma(c, a1, bf[2], bf[3]);
+        }
+      }
+      float* xr = xy + (which * P::OWNED + g) * P::LDS + nt * 8 + 2 * tq;
+      xr[0] = c[0];
+      xr[1] = c[1];
+      xr[8 * P::LDS] = c[2];
+      xr[8 * P::LDS + 1] = c[3];
+    }
+    __syncthreads();
+
+    // P and dS, bf16, set to 0 outside the valid rows and columns
+    {
+      const float* lses = stats + (t & 1) * 2 * BT;
+      const float* deltas = lses + BT;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = ec + e;
+        const bool valid = row_ok && t * BT + col < n_str;
+        const float s = xy[er * P::LDS + col];
+        const float dp = xy[(P::OWNED + er) * P::LDS + col];
+        const float l = KV ? lses[col] : lse_r;
+        const float dl = KV ? deltas[col] : delta_r;
+        const float pe = sdt::exp2_approx(fmaf(s, sl, -l));
+        p[e] = valid ? pe : 0.f;
+        ds[e] = valid ? ds_of(pe, dp, dl, scale) : 0.f;
+      }
+      *reinterpret_cast<unsigned*>(pd + er * P::LDP + ec) = sdt::pack_bf16(p[0], p[1]);
+      *reinterpret_cast<unsigned*>(pd + (P::OWNED + er) * P::LDP + ec) =
+          sdt::pack_bf16(ds[0], ds[1]);
+    }
+    __syncthreads();
+
+    // this warp's columns: acc[0] += dS C and, with KV, acc[1] += P D
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      unsigned sa[4], pa[4];
+      sdt::ldmatrix_x4(sa, pd + (P::OWNED + lane % 16) * P::LDP + kk * 16 + lane / 16 * 8);
+      if (KV) sdt::ldmatrix_x4(pa, pd + (lane % 16) * P::LDP + kk * 16 + lane / 16 * 8);
+      const int brow = (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LD + col0 + lane / 16 * 8;
+#pragma unroll
+      for (int dp = 0; dp < NW / 2; ++dp) {
+        if (2 * dp < nv) {
+          unsigned f[4];
+          sdt::ldmatrix_x4_trans(f, cs + brow + dp * 16);
+          sdt::mma(acc[0][2 * dp], sa, f[0], f[1]);
+          if (2 * dp + 1 < nv) sdt::mma(acc[0][2 * dp + 1], sa, f[2], f[3]);
+          if (KV) {
+            sdt::ldmatrix_x4_trans(f, d_tile + brow + dp * 16);
+            sdt::mma(acc[KV ? 1 : 0][2 * dp], pa, f[0], f[1]);
+            if (2 * dp + 1 < nv) sdt::mma(acc[KV ? 1 : 0][2 * dp + 1], pa, f[2], f[3]);
+          }
+        }
+      }
+    }
+  }
+
+  const size_t own_off = KV ? k_off : q_off;
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int a = 0; a < (KV ? 2 : 1); ++a) {
+    bf16* out = (a == 0 ? out_ds : out_p) + own_off;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < nv) {
+        const int col = col0 + j * 8 + 2 * tq;
+        if (ra < n_own)
+          *reinterpret_cast<unsigned*>(out + (size_t)ra * row_stride + col) =
+              sdt::pack_bf16(acc[a][j][0], acc[a][j][1]);
+        if (rb < n_own)
+          *reinterpret_cast<unsigned*>(out + (size_t)rb * row_stride + col) =
+              sdt::pack_bf16(acc[a][j][2], acc[a][j][3]);
+      }
+    }
+  }
+}
+
 // The two passes' plans at padded head dim DK.
 template <int DK>
 struct Passes {
@@ -504,21 +726,59 @@ cudaError_t launch(const bf16* q, const bf16* k, const bf16* v, const bf16* o, c
   return cudaGetLastError();
 }
 
+template <int DK>
+cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                        const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
+                        bf16* dv, int batch, int nq, int nk, int heads, int d, float scale,
+                        cudaStream_t stream) {
+  using P = WidePlan<DK>;
+  static_assert(P::BYTES <= 232448, "shared memory per block");
+  const auto kv_kernel = flash_bwd_wide_kernel<DK, true>;
+  const auto q_kernel = flash_bwd_wide_kernel<DK, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  const float sl = scale * 1.4426950408889634f;
+
+  const long long rows = (long long)batch * nq * heads;
+  const unsigned delta_blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  flash_bwd_delta_kernel<<<delta_blocks, kThreads, 0, stream>>>(o, dout, delta, nq, heads, d,
+                                                                rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 grid_kv((nk + P::OWNED - 1) / P::OWNED, heads, batch);
+  kv_kernel<<<grid_kv, P::THREADS, P::BYTES, stream>>>(q, k, v, dout, lse, delta, dk, dv, nq,
+                                                       nk, heads, d, scale, sl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 grid_q((nq + P::OWNED - 1) / P::OWNED, heads, batch);
+  q_kernel<<<grid_q, P::THREADS, P::BYTES, stream>>>(q, k, v, dout, lse, delta, dq, nullptr,
+                                                     nq, nk, heads, d, scale, sl);
+  return cudaGetLastError();
+}
+
+// The padded head dim of the d > 128 passes: 256, 384 or 512.
+__host__ __device__ constexpr int wide_dim(int d) { return d <= 256 ? 256 : d <= 384 ? 384 : 512; }
+
 template <typename Kernel>
-cudaError_t occupancy(Kernel kernel, int bytes, int* blocks) {
+cudaError_t occupancy(Kernel kernel, int threads, int bytes, int* blocks) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreads, bytes);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, bytes);
 }
 
 template <typename P, typename Kernel>
-cudaError_t plan_of(Kernel kernel, int* out) {
+cudaError_t plan_of(Kernel kernel, int* out, int threads = kThreads) {
   int blocks = 0;
-  const cudaError_t err = occupancy(kernel, P::BYTES, &blocks);
+  const cudaError_t err = occupancy(kernel, threads, P::BYTES, &blocks);
   out[0] = P::OWNED;
   out[1] = P::BT;
-  out[2] = kThreads;
+  out[2] = threads;
   out[3] = P::BYTES;
   out[4] = blocks;
   return err;
@@ -532,12 +792,20 @@ cudaError_t plan(int which, int* out) {
                     : plan_of<typename X::DQ>(flash_bwd_dq_kernel<DK, X::DQ::MT>, out);
 }
 
+template <int DK>
+cudaError_t plan_wide(int which, int* out) {
+  using P = WidePlan<DK>;
+  return which == 1 ? plan_of<P>(flash_bwd_wide_kernel<DK, true>, out, P::THREADS)
+                    : plan_of<P>(flash_bwd_wide_kernel<DK, false>, out, P::THREADS);
+}
+
 }  // namespace
 
 #define SDT_BWD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#define SDT_BWD_WIDE_DIMS(X) X(256) X(384) X(512)
 
 // Returns the CUDA error code of the launches (0 on success). `delta` is fp32
-// scratch of [B, H, Nq]. d must be a multiple of 8 and at most 128; the
+// scratch of [B, H, Nq]. d must be a multiple of 8 and at most 512; the
 // wrapper checks shapes, types and alignment.
 extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
@@ -555,7 +823,13 @@ extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void*
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 8 || d <= 0 || d > 128) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 8 || d <= 0 || d > 512) return static_cast<int>(cudaErrorInvalidValue);
+#define SDT_BWD_WIDE(DK)                                                                    \
+  if (d > 128 && wide_dim(d) == DK)                                                        \
+    return static_cast<int>(launch_wide<DK>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp, batch, \
+                                            nq, nk, heads, d, scale, s));
+  SDT_BWD_WIDE_DIMS(SDT_BWD_WIDE)
+#undef SDT_BWD_WIDE
 #define SDT_BWD(DK)                                                                        \
   if (round_up(d, 16) == DK)                                                               \
     return static_cast<int>(                                                               \
@@ -570,8 +844,12 @@ extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void*
 // block owns, rows of the streamed tile, threads, shared-memory bytes,
 // resident blocks per SM}.
 extern "C" int sdt_flash_bwd_plan(int d, int which, int* out) {
-  if (d % 8 || d <= 0 || d > 128 || (which != 1 && which != 2))
+  if (d % 8 || d <= 0 || d > 512 || (which != 1 && which != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+#define SDT_PLAN_WIDE(DK) \
+  if (d > 128 && wide_dim(d) == DK) return static_cast<int>(plan_wide<DK>(which, out));
+  SDT_BWD_WIDE_DIMS(SDT_PLAN_WIDE)
+#undef SDT_PLAN_WIDE
 #define SDT_PLAN(DK) \
   if (round_up(d, 16) == DK) return static_cast<int>(plan<DK>(which, out));
   SDT_BWD_DIMS(SDT_PLAN)

@@ -14,7 +14,7 @@ from __future__ import annotations
 import abc
 import queue
 import threading
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -59,16 +59,26 @@ class DataLoader:
     def __len__(self) -> int:
         return len(self.dataset) // self.batch_size
 
-    def __iter__(self):
+    def order(self) -> np.ndarray:
+        """This epoch's order of the dataset's indices."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + self.epoch).shuffle(idx)
+        return idx
+
+    def batch(self, b: int, order: Optional[np.ndarray] = None) -> Dict[str, Any]:
+        """Batch ``b`` of this epoch (of ``order``, where given)."""
+        idx = self.order() if order is None else order
+        sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
+        return collate([self.dataset[int(i)] for i in sel])
+
+    def __iter__(self):
+        idx = self.order()
         q: queue.Queue = queue.Queue(maxsize=2)
 
         def produce():
             for b in range(len(self)):
-                sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-                q.put(collate([self.dataset[int(i)] for i in sel]))
+                q.put(self.batch(b, idx))
             q.put(None)
 
         threading.Thread(target=produce, daemon=True).start()

@@ -1,11 +1,16 @@
-"""LatentDiffusion: the UNet, the first stage and the text encoder in one
+"""LatentDiffusion: the UNet, the first stage and the cond stage in one
 module (port of ``sd_tpu/models/ldm.py``, ``crossattn`` conditioning only).
 
 Submodule names follow the SD checkpoint: ``model.diffusion_model.*`` (the
 UNet), ``first_stage_model.*`` (the KL autoencoder: ``encoder``,
-``quant_conv``, ``post_quant_conv``, ``decoder``) and
-``cond_stage_model.transformer.text_model.*`` (CLIP), so the module's
-``state_dict`` keys are the checkpoint's keys.
+``quant_conv``, ``post_quant_conv``, ``decoder``; or the parameterless
+``IdentityFirstStage`` of pixel-space diffusion) and ``cond_stage_model.*``
+(CLIP's ``transformer.text_model.*``, a ``ClassEmbedder``'s ``embedding``,
+a ``BERTEmbedder``'s ``transformer.*``), so the module's ``state_dict``
+keys are the checkpoint's keys. The cond stage reads the batch entry named
+by ``cond_stage_key``. ``scale_factor`` is a float that the trainer's
+``scale_by_std`` calibration sets and checkpoint
+metadata carries, as ``sd_tpu`` carries it.
 
 Images are NCHW here; the batch contract at the trainer is ``sd_tpu``'s
 NHWC.
@@ -30,8 +35,7 @@ from torch import nn
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
 from sd_tpu_torch.models.clip import CLIPTextConfig, CLIPTextModel
-from sd_tpu_torch.models.unet import UNetConfig, UNetModel
-from sd_tpu_torch.models.vae import AutoencoderKL
+from sd_tpu_torch.models.unet import UNetModel
 from sd_tpu_torch.ops import quant
 from sd_tpu_torch.ops.resblock import set_conv_modes
 
@@ -39,9 +43,9 @@ __all__ = ["LatentDiffusion", "FrozenCLIPEmbedder", "DiffusionWrapper"]
 
 
 class DiffusionWrapper(nn.Module):
-    def __init__(self, unet_config: UNetConfig):
+    def __init__(self, unet: UNetModel):
         super().__init__()
-        self.diffusion_model = UNetModel(unet_config)
+        self.diffusion_model = unet
 
 
 class FrozenCLIPEmbedder(nn.Module):
@@ -56,14 +60,13 @@ class FrozenCLIPEmbedder(nn.Module):
 
 
 class LatentDiffusion(nn.Module):
-    def __init__(self, unet_config: UNetConfig, ddconfig: dict, embed_dim: int,
-                 clip_config: CLIPTextConfig, schedule: DiffusionSchedule,
-                 scale_factor: float = 1.0, parameterization: str = "eps",
-                 cond_stage_key: str = "caption"):
+    def __init__(self, unet: UNetModel, first_stage: nn.Module, cond_stage: nn.Module,
+                 schedule: DiffusionSchedule, scale_factor: float = 1.0,
+                 parameterization: str = "eps", cond_stage_key: str = "caption"):
         super().__init__()
-        self.model = DiffusionWrapper(unet_config)
-        self.first_stage_model = AutoencoderKL(ddconfig, embed_dim)
-        self.cond_stage_model = FrozenCLIPEmbedder(clip_config)
+        self.model = DiffusionWrapper(unet)
+        self.first_stage_model = first_stage
+        self.cond_stage_model = cond_stage
         self.schedule = schedule
         self.scale_factor = scale_factor
         self.parameterization = parameterization
@@ -95,16 +98,18 @@ class LatentDiffusion(nn.Module):
         """eps prediction for latents ``x [B, C, h, w]`` at timesteps ``t [B]``."""
         return self.model.diffusion_model(x, t, context=cond)
 
-    def encode_first_stage(self, x: torch.Tensor) -> DiagonalGaussian:
-        """Images ``[B, 3, H, W]`` in [-1, 1] → the unscaled latent posterior."""
+    def encode_first_stage(self, x: torch.Tensor):
+        """Images ``[B, 3, H, W]`` in [-1, 1] → the unscaled latent posterior
+        (the images themselves through an ``IdentityFirstStage``)."""
         return self.first_stage_model.encode(x)
 
-    def get_first_stage_encoding(self, encoding: DiagonalGaussian,
+    def get_first_stage_encoding(self, encoding,
                                  generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """A posterior sample drawn from ``generator`` (the mode without
-        one), times ``scale_factor``."""
-        z = encoding.mode() if generator is None else encoding.sample(generator)
-        return self.scale_factor * z
+        one), or an identity stage's images, times ``scale_factor``."""
+        if isinstance(encoding, DiagonalGaussian):
+            encoding = encoding.mode() if generator is None else encoding.sample(generator)
+        return self.scale_factor * encoding
 
     def encode_to_latent(self, x: torch.Tensor,
                          generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -118,5 +123,6 @@ class LatentDiffusion(nn.Module):
         """Latents → images in [-1, 1] (``1 / scale_factor``, then decode)."""
         return self.first_stage_model.decode(z / self.scale_factor)
 
-    def get_learned_conditioning(self, input_ids: torch.Tensor) -> torch.Tensor:
-        return self.cond_stage_model.encode(input_ids)
+    def get_learned_conditioning(self, c: torch.Tensor) -> torch.Tensor:
+        """The cond stage's context for ``c`` (token ids or class ids)."""
+        return self.cond_stage_model.encode(c)

@@ -1,7 +1,10 @@
 """The KL autoencoder, NCHW (port of ``sd_tpu/models/vae.py``).
 
 ``Encoder``, ``Decoder`` and ``AutoencoderKL`` (``encode`` → a
-:class:`DiagonalGaussian`, ``decode``). Names follow the CompVis
+:class:`DiagonalGaussian`, ``decode``, and the training forward: encode, a
+posterior sample or its mode, decode; ``get_last_layer`` is the decoder's
+last conv weight, where the VAE-GAN loss takes its adaptive weight), and
+``IdentityFirstStage`` for pixel-space diffusion. Names follow the CompVis
 ``state_dict`` (``encoder.down.{i}.block.{j}``, ``encoder.mid.attn_1``,
 ``quant_conv``, ``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
 ``decoder.up.{i}.upsample.conv``, ``post_quant_conv`` ...), which is what
@@ -11,7 +14,7 @@ linear-attention variant are not ported.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -23,7 +26,7 @@ from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.norms import GroupNorm32
 from sd_tpu_torch.ops.resblock import Upsample, VAEDownsample, VAEResnetBlock
 
-__all__ = ["Encoder", "Decoder", "AutoencoderKL"]
+__all__ = ["Encoder", "Decoder", "AutoencoderKL", "IdentityFirstStage"]
 
 
 def _check_ddconfig(attn_type: str, use_linear_attn: bool, resamp_with_conv: bool) -> None:
@@ -159,3 +162,30 @@ class AutoencoderKL(nn.Module):
         """Latents ``[B, embed_dim, h, w]`` → images in the parameters' dtype."""
         z = z.to(self.post_quant_conv.weight.dtype)
         return self.decoder(self.post_quant_conv(z))
+
+    def forward(self, x: torch.Tensor, noise: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None, sample_posterior: bool = True
+                ) -> Tuple[torch.Tensor, DiagonalGaussian]:
+        """``(reconstruction, posterior)``: the posterior sampled with
+        ``noise`` (or a draw from ``generator``) where ``sample_posterior``,
+        else its mode."""
+        posterior = self.encode(x)
+        z = (posterior.sample(generator, noise) if sample_posterior else posterior.mode())
+        return self.decode(z), posterior
+
+    def get_last_layer(self) -> torch.Tensor:
+        return self.decoder.conv_out.weight
+
+
+class IdentityFirstStage(nn.Module):
+    """The first stage of pixel-space diffusion: encode and decode are the
+    identity."""
+
+    def encode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def decode(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x

@@ -57,7 +57,7 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "kernel_plan"]
 
 _MAX_HEAD_DIM = 512
-_MAX_BWD_HEAD_DIM = 128
+_MAX_BWD_HEAD_DIM = 512
 # sd_tpu's backward dispatch (_flash_bhnd_bwd): the kernel above 256 keys,
 # when the queries tile by 256; the plain backward otherwise
 _SMALL_KV = 256

@@ -10,8 +10,9 @@ fault's replacements are made in the copy's ``csrc`` (each must match its
 expected count, so a fault that no longer applies fails loudly), and a
 child process with that copy first on ``sys.path`` builds its kernels and
 runs the smoke's checks: ``flash_case`` (K1 faults) or ``flash_bwd_case``
-(K3 faults) at every N=4096 shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``,
-with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
+(K3 faults) at every N=4096 shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``
+and, for K3, at both ``VAE_BWD_SHAPES`` (its d = 512 plan; "K3 wide": at
+those only), with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
 source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both;
 ``int8_flash_case`` (K5 faults) at every shape of ``INT8_FLASH_SHAPES``
 whose mode the fault touches ("K5": both modes, "K5 qkpv": that mode
@@ -24,6 +25,16 @@ site of ``BLOCK_SITES``. A run
 "fails" where a check raises ``CheckFailed``; its margin is the error over
 the check's bound. The script prints one JSON line of every margin, last,
 and exits 1 unless every fault failed at every shape. Needs a card.
+
+    python -m sd_tpu_torch.scripts.flash_faults --first-stage [K1|K3 ...]
+
+reads the smoke's end-to-end first-stage comparison instead (the kl-f8
+VAE-GAN's first two steps at full width with K1 and K3 against the plain
+attention: ``first_stage_steps`` and ``first_stage_gaps``), on the sound
+sources and under each K1 and K3 fault (those of the kernels named, or
+all). It prints every gap against its bound, and exits 1 only where the
+sound sources exceed a bound: the readings set the bounds, and a fault the
+comparison cannot see is reported, not refused.
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K5, K5 qkpv, K8, X3, K2, K7, K6, K4, X1 or X2, [(source file,
+# name: (K1, K3, K3 wide, K5, K5 qkpv, K8, X3, K2, K7, K6, K4, X1 or X2, [(source file,
 # text, replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
@@ -50,11 +61,14 @@ FAULTS = {
     "lse without the max": ("K1", [
         ("flash_mma.cuh", "return m + log2f(l);", "return log2f(l);", 1)]),
     "dV without p_lo's rounding": ("K3", [
-        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[0], p[1])", "__float_as_uint(p[0])", 1),
+        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[0], p[1])", "__float_as_uint(p[0])", 2),
         ("flash_attention_bwd.cu", "sdt::pack_bf16(p[2], p[3])", "__float_as_uint(p[2])", 1)]),
     "dS without delta": ("K3", [
         ("flash_attention_bwd.cu", "return p * (dp - delta) * scale;", "return p * dp * scale;",
          1)]),
+    "the wide plan's last streamed tile dropped": ("K3 wide", [
+        ("flash_attention_bwd.cu", "const int ntiles = (n_str + BT - 1) / BT;",
+         "const int ntiles = (n_str + BT - 1) / BT - 1;", 1)]),
     "the last channel step dropped": ("K8", [
         ("winograd_conv.cu", "const int nsteps = (C + CS - 1) / CS;",
          "const int nsteps = (C + CS - 1) / CS - 1;", 1)]),
@@ -210,9 +224,13 @@ def run_checks(kernel: str) -> dict:
             except smoke.CheckFailed as failed:
                 margins[label] = failed.err / failed.limit
         return margins
-    shapes = smoke.FLASH_SHAPES if kernel == "K1" else smoke.BWD_SHAPES
+    if kernel == "K1":
+        shapes = [s for s in smoke.FLASH_SHAPES if s[1] == 4096]
+    else:  # K3's N=4096 shapes and its d = 512 plan's ("K3 wide": those only)
+        shapes = smoke.VAE_BWD_SHAPES + ([] if kernel == "K3 wide" else
+                                         [s for s in smoke.BWD_SHAPES if s[1] == 4096])
     case = smoke.flash_case if kernel == "K1" else smoke.flash_bwd_case
-    for shape in (s for s in shapes if s[1] == 4096):
+    for shape in shapes:
         for sharp in (False, True):
             label = "x".join(map(str, shape)) + ("/sharp" if sharp else "")
             try:
@@ -224,27 +242,80 @@ def run_checks(kernel: str) -> dict:
     return margins
 
 
+def first_stage_child() -> dict:
+    """In the child: the smoke's first-stage comparison, the kernels' two
+    steps against the plain attention's; {what: [gap, bound]}."""
+    import tempfile
+
+    smoke = _smoke()
+    with tempfile.TemporaryDirectory(prefix="kl_f8_faults_") as logdir:
+        argv = smoke.first_stage_argv(logdir)
+        got = smoke.first_stage_steps(argv, 2, plain=False)
+        ref = smoke.first_stage_steps(argv, 2, plain=True)
+    return {k: list(v) for k, v in smoke.first_stage_gaps(*got, *ref).items()}
+
+
+def faulted_copy(name: str, edits) -> Path:
+    """The package copied into ``build/flash_faults/<name>/`` with the
+    fault's replacements made in its sources."""
+    copy = ROOT / "build" / "flash_faults" / name.replace(" ", "_").replace("'", "")
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(ROOT / "sd_tpu_torch", copy / "sd_tpu_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    plant(copy / "sd_tpu_torch" / "csrc", edits)
+    return copy
+
+
+def run_child(name: str, tree: Path, args) -> dict:
+    """This script's child run with ``tree`` first on ``sys.path``: its
+    last line's JSON."""
+    proc = subprocess.run([sys.executable, __file__, *args], capture_output=True, text=True,
+                          env=dict(os.environ, PYTHONPATH=str(tree)), cwd=tree)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{name}: the check run failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def first_stage_readings(wanted) -> None:
+    """The first-stage comparison on the sound sources, then under each
+    K1 and K3 fault of the kernels in ``wanted``."""
+    runs = [("sound", "", [])] + [(name, kernel, edits) for name, (kernel, edits)
+                                  in FAULTS.items() if kernel.split()[0] in wanted]
+    results = {}
+    for name, kernel, edits in runs:
+        tree = faulted_copy(name, edits) if edits else ROOT
+        gaps = run_child(name, tree, ["--child-first-stage"])
+        over = [k for k, (gap, bound) in gaps.items() if not gap <= bound]
+        worst = max(gaps, key=lambda k: gaps[k][0] / gaps[k][1]
+                    if gaps[k][0] == gaps[k][0] else float("inf"))
+        results[name] = {"kernel": kernel, "gaps": gaps, "over": over}
+        print(f"[first stage, {name}] " + ", ".join(f"{k} {g:.3e} ({b})"
+                                                     for k, (g, b) in gaps.items())
+              + f"; worst {worst} at {gaps[worst][0] / gaps[worst][1]:.3g} of its bound; "
+              f"{'over its bound at ' + str(over) if over else 'within every bound'}",
+              flush=True)
+    print(json.dumps(results))
+    if results["sound"]["over"]:
+        raise SystemExit("flash_faults: the sound sources exceed a first-stage bound")
+
+
 def main() -> None:
     if len(sys.argv) >= 3 and sys.argv[1] == "--child":
         print(json.dumps(run_checks(" ".join(sys.argv[2:]))))
+        return
+    if sys.argv[1:] == ["--child-first-stage"]:
+        print(json.dumps(first_stage_child()))
+        return
+    if sys.argv[1:2] == ["--first-stage"]:
+        first_stage_readings(set(sys.argv[2:]) or {"K1", "K3"})
         return
     wanted = set(sys.argv[1:]) or {kernel.split()[0] for kernel, _ in FAULTS.values()}
     results, ok = {}, True
     for name, (kernel, edits) in FAULTS.items():
         if kernel.split()[0] not in wanted:
             continue
-        copy = ROOT / "build" / "flash_faults" / name.replace(" ", "_").replace("'", "")
-        shutil.rmtree(copy, ignore_errors=True)
-        shutil.copytree(ROOT / "sd_tpu_torch", copy / "sd_tpu_torch",
-                        ignore=shutil.ignore_patterns("__pycache__"))
-        plant(copy / "sd_tpu_torch" / "csrc", edits)
-        env = dict(os.environ, PYTHONPATH=str(copy))
-        proc = subprocess.run([sys.executable, __file__, "--child", *kernel.split()], env=env,
-                              capture_output=True, text=True, cwd=copy)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: the check run failed ({proc.returncode}):\n"
-                               f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
-        margins = json.loads(proc.stdout.strip().splitlines()[-1])
+        margins = run_child(name, faulted_copy(name, edits), ["--child", *kernel.split()])
         # a shape fails where its plain or its sharp run fails
         by_shape = {}
         for label, margin in margins.items():

@@ -1,45 +1,64 @@
-"""LDM training CLI of the PyTorch port (the counterpart of ``main.py``'s
-LDM path).
+"""Training CLI of the PyTorch port (the counterpart of ``main.py``).
 
+    python -m sd_tpu_torch.scripts.train --base <cfg.yaml> [<cfg2.yaml> ...] -t \
+        [--resume <logdir>] [-n name] [nested.key=value ...]
     python -m sd_tpu_torch.scripts.train --max_steps 5 --logdir logs/sd-v1
     python -m sd_tpu_torch.scripts.train --tiny --device cpu --max_steps 2 --logdir logs/tiny
 
-Trains SD v1 at full width (860M UNet; frozen kl-f8 encoder and CLIP ViT-L/14
-text tower; 512² images, batch 4) or, with ``--tiny``, the tiny model, from
-seeded random weights on synthetic images with token captions: real SD
-weights and datasets are not in the repository. The LR is
-``scale_learning_rate`` of the config's base LR, times the config's
-LambdaLinear schedule where it has one; EMA follows the config's ``use_ema``.
-``--device`` defaults to ``cuda``; a run that asks for the card and finds
-none fails. ``--resume`` continues from ``<logdir>/checkpoints/last.pt``.
-The image logger writes its grids to ``<logdir>/images`` at steps 1, 2, 4,
-8 and every 750 (``--no_images`` turns it off); ``--val_every N`` runs
-validation every N steps on two batches of other synthetic images and
-keeps the best 3 checkpoints by the config's ``monitor``
-(``val/loss_simple_ema`` for SD v1, which needs the EMA shadow) as
-``<logdir>/checkpoints/step_<n>.pt``. SIGUSR1 saves ``last.pt`` at the end
-of the step it lands in.
-The run's config goes to ``<logdir>/configs/project.yaml`` (as JSON, which
-is YAML), so that ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img
-CLI's ``--ckpt <logdir>`` can sample from the run.
+With ``--base`` the configs are merged left to right and the dotlist
+overrides applied, as ``main.py`` does; the run's directory is
+``<logdir>/<time>_<name>`` (``name``: ``-n``, else the first config's file
+name), or the directory given to ``--resume``, whose ``configs/`` are read
+again before the ``--base`` configs. A first-stage model (``AutoencoderKL``)
+trains as a VAE-GAN (``training/vae_gan.py``) with its ``lossconfig``'s
+parameters; a ``LatentDiffusion`` trains with the LDM trainer and the
+config's ``cond_stage_trainable``, ``learn_logvar``/``logvar_init``,
+``scale_by_std``, ``loss_type``, ``l_simple_weight``,
+``original_elbo_weight`` and ``use_ema``. Only ``-t`` trains; without it
+the run is built and its config written.
+
+Without ``--base`` the CLI trains SD v1 at full width (860M UNet; frozen
+kl-f8 encoder and CLIP ViT-L/14 text tower; 512² images, batch 4) or, with
+``--tiny``, the tiny model, in ``--logdir`` itself, with or without ``-t``.
+
+Every model starts from seeded random weights on synthetic data: real
+weights and datasets are not in the repository. The LR is the config's
+``base_learning_rate`` (in ``model.params``, else in ``model``) times the
+batch size (``--scale_lr false`` keeps it as it is), times the config's LR
+schedule where it has one. ``--device`` defaults to ``cuda``; a run that
+asks for the card and finds none fails. ``--resume`` without a directory
+continues the run in ``--logdir`` from ``checkpoints/last.pt``. The image
+logger (LDM runs) writes its grids to ``<logdir>/images`` at steps 1, 2, 4,
+8 and every 750 (``--no_images`` turns it off); ``--val_every N`` (LDM
+runs) validates every N steps and keeps the best 3 checkpoints by the
+config's ``monitor`` as ``checkpoints/step_<n>.pt``. SIGUSR1 saves
+``last.pt`` at the end of the step it lands in. The run's config goes to
+``<logdir>/configs/project.yaml`` (as JSON, which is YAML), so that
+``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img CLI's
+``--ckpt <logdir>`` can sample from an LDM run.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import os
-from typing import Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
+    p.add_argument("-b", "--base", nargs="*", default=[],
+                   help="config files, merged left to right")
+    p.add_argument("-t", "--train", action="store_true",
+                   help="train a --base run (the built-in configs always train)")
+    p.add_argument("-r", "--resume", nargs="?", const=True, default="",
+                   help="resume the run in the directory given, or in --logdir")
+    p.add_argument("-n", "--name", type=str, default="")
     p.add_argument("--tiny", action="store_true", help="train the tiny random-weight model")
     p.add_argument("-l", "--logdir", type=str, default="logs/train")
-    p.add_argument("-r", "--resume", action="store_true",
-                   help="resume from the logdir's last checkpoint")
     p.add_argument("-s", "--seed", type=int, default=23)
     p.add_argument("--max_steps", type=int, default=1000)
     p.add_argument("--batch_size", type=int, default=None,
@@ -50,52 +69,128 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                    help="validate every N steps (0: never)")
     p.add_argument("--no_images", action="store_true",
                    help="skip the image logger's grids (each runs DDIM 20 and 9 decodes)")
+    p.add_argument("--scale_lr", type=lambda v: v.lower() != "false", default=True,
+                   help="scale the base LR by the batch size (default true)")
     p.add_argument("--device", type=str, default="cuda")
-    return p.parse_args(argv)
+    opt, unknown = p.parse_known_args(argv)
+    opt.dotlist = [a for a in unknown if "=" in a and not a.startswith("-")]
+    rest = [a for a in unknown if a not in opt.dotlist]
+    if rest:
+        p.error(f"unrecognized arguments: {' '.join(rest)}")
+    return opt
+
+
+def from_base(opt: argparse.Namespace) -> bool:
+    """Whether the run's config comes from ``--base`` files (or a resumed
+    run directory's), not from the built-in SD v1 or tiny config."""
+    return bool(opt.base) or (isinstance(opt.resume, str) and bool(opt.resume))
+
+
+def assemble_config(opt: argparse.Namespace) -> Tuple[Dict[str, Any], str]:
+    """``(config, logdir)``: the merged configs (a resumed run's own, then
+    ``--base``'s) with the dotlist applied and the run's directory, or the
+    built-in config and ``--logdir``."""
+    from sd_tpu_torch.utils.config import apply_dotlist, load_yaml, merge_configs, train_config
+
+    if not from_base(opt):
+        return apply_dotlist(train_config(opt.tiny, opt.batch_size), opt.dotlist), opt.logdir
+    configs = [load_yaml(b) for b in opt.base]
+    if opt.resume:
+        logdir = (opt.logdir if opt.resume is True else opt.resume).rstrip("/")
+        cfgdir = os.path.join(logdir, "configs")
+        configs = [load_yaml(os.path.join(cfgdir, f)) for f in sorted(os.listdir(cfgdir))
+                   ] + configs
+    else:
+        now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
+        name = opt.name or os.path.splitext(os.path.basename(opt.base[0]))[0]
+        logdir = os.path.join(opt.logdir, f"{now}_{name}")
+    config = apply_dotlist(merge_configs(configs), opt.dotlist)
+    if opt.batch_size:
+        config["data"]["params"]["batch_size"] = opt.batch_size
+    return config, logdir
 
 
 def build_trainer(opt: argparse.Namespace):
-    """Returns ``(harness, state, data)``: the ``Trainer``, the initial
-    ``TrainState`` and the ``DataModuleFromConfig`` of this run."""
-    from sd_tpu_torch.training.diffusion_loss import create_train_state
-    from sd_tpu_torch.training.lr_schedules import lambda_linear
-    from sd_tpu_torch.training.trainer import (
-        DataModuleFromConfig,
-        ImageLogger,
-        Trainer,
-        scale_learning_rate,
-    )
-    from sd_tpu_torch.utils.config import build_latent_diffusion, train_config
+    """Returns ``(harness, state, data)``: the ``Trainer`` (its ``logdir``
+    the run's directory), the initial trainer state and the data module."""
+    from sd_tpu_torch.training.trainer import DataModuleFromConfig
 
     device = torch.device(opt.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
-    config = train_config(tiny=opt.tiny, batch_size=opt.batch_size)
-    model_cfg, data_cfg = config["model"], config["data"]["params"]
+    config, logdir = assemble_config(opt)
+    harness_args = dict(logdir=logdir, max_steps=opt.max_steps, ckpt_every=opt.ckpt_every,
+                        seed=opt.seed, log_every=opt.log_every)
+    model_cfg = config["model"]
+    data_cfg = dict(config["data"]["params"])
+    data = DataModuleFromConfig(**data_cfg)
+    if model_cfg["target"].split(".")[-1] in ("AutoencoderKL", "VQModel", "VQModelInterface"):
+        harness, state, data = _first_stage(opt, model_cfg, data, device, harness_args)
+    else:
+        harness, state = _latent_diffusion(opt, model_cfg, data_cfg["batch_size"], device,
+                                           harness_args)
+    write_project_config(logdir, config)
+    return harness, state, data
+
+
+def _learning_rate(opt, model_cfg: Dict[str, Any], batch_size: int, default: float) -> float:
+    from sd_tpu_torch.training.trainer import scale_learning_rate
+
+    base_lr = model_cfg.get("params", {}).get("base_learning_rate",
+                                              model_cfg.get("base_learning_rate", default))
+    return scale_learning_rate(base_lr, batch_size, 1, scale=opt.scale_lr)
+
+
+def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
+    from sd_tpu_torch.training.diffusion_loss import create_train_state
+    from sd_tpu_torch.training.trainer import ImageLogger, Trainer
+    from sd_tpu_torch.utils.config import build_latent_diffusion, instantiate_from_config
+
     mp = model_cfg["params"]
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=torch.float32, seed=opt.seed)
-    data = DataModuleFromConfig(**data_cfg)
-
-    base_lr = model_cfg.get("base_learning_rate", mp.get("base_learning_rate", 1e-4))
-    lr = scale_learning_rate(base_lr, data_cfg["batch_size"], 1)
-    schedule_fn = None
-    if sched := mp.get("scheduler_config"):
-        if sched["target"] != "ldm.lr_scheduler.LambdaLinearScheduler":
-            raise NotImplementedError(f"the port has LambdaLinearScheduler only, not "
-                                      f"{sched['target']!r}")
-        schedule_fn = lambda_linear(**sched["params"])
+    lr = _learning_rate(opt, model_cfg, batch_size, 1e-4)
+    sched = mp.get("scheduler_config")
+    schedule_fn = instantiate_from_config(sched) if sched else None
+    train_cond_stage = bool(mp.get("cond_stage_trainable", False))
+    if train_cond_stage:
+        print("LatentDiffusion: Also optimizing conditioner params!")
     trainer_obj, state = create_train_state(
-        ldm, lr, schedule_fn,
-        loss_type=mp.get("loss_type", "l2"),
+        ldm, lr, schedule_fn, loss_type=mp.get("loss_type", "l2"),
         l_simple_weight=float(mp.get("l_simple_weight", 1.0)),
         original_elbo_weight=float(mp.get("original_elbo_weight", 0.0)),
-        use_ema=bool(mp.get("use_ema", True)))
-    harness = Trainer(trainer_obj=trainer_obj, logdir=opt.logdir, max_steps=opt.max_steps,
-                      ckpt_every=opt.ckpt_every, seed=opt.seed, log_every=opt.log_every,
-                      val_every=opt.val_every, monitor=mp.get("monitor"),
-                      image_logger=None if opt.no_images else ImageLogger(opt.logdir))
-    write_project_config(opt.logdir, config)
-    return harness, state, data
+        use_ema=bool(mp.get("use_ema", True)), train_cond_stage=train_cond_stage,
+        learn_logvar=bool(mp.get("learn_logvar", False)),
+        logvar_init=float(mp.get("logvar_init", 0.0)),
+        scale_by_std=bool(mp.get("scale_by_std", False)))
+    logdir = harness_args["logdir"]
+    harness = Trainer(trainer_obj=trainer_obj, val_every=opt.val_every,
+                      monitor=mp.get("monitor"),
+                      image_logger=None if opt.no_images else ImageLogger(logdir),
+                      **harness_args)
+    return harness, state
+
+
+def _first_stage(opt, model_cfg, data, device, harness_args):
+    from sd_tpu_torch.training.trainer import Trainer
+    from sd_tpu_torch.training.vae_gan import BatchResizeWrapper, VAEGANTrainer, lpips_from_seed
+    from sd_tpu_torch.utils.config import init_random_, instantiate_from_config
+
+    p = model_cfg["params"]
+    with torch.device("meta"):
+        model = instantiate_from_config(model_cfg)
+    model.to_empty(device=device)
+    init_random_(model, torch.Generator(device=device).manual_seed(opt.seed))
+    # the trainer's loss arguments; refuses a loss the port has not ported
+    loss_kwargs = instantiate_from_config(p.get("lossconfig", {}))
+    if p.get("batch_resize_range") is not None:
+        data = BatchResizeWrapper(data, tuple(p["batch_resize_range"]))
+        print(f"{type(model).__name__}: Using per-batch resizing in range "
+              f"{tuple(p['batch_resize_range'])}.")
+    lr = _learning_rate(opt, model_cfg, data.batch_size, 4.5e-6)
+    trainer_obj = VAEGANTrainer(model=model, lpips=lpips_from_seed(opt.seed, device),
+                                learning_rate=lr, **loss_kwargs)
+    state = trainer_obj.init_state(seed=opt.seed)
+    return Trainer(trainer_obj=trainer_obj, **harness_args), state, data
 
 
 def write_project_config(logdir: str, config: dict) -> str:
@@ -110,8 +205,9 @@ def write_project_config(logdir: str, config: dict) -> str:
 def main(argv: Optional[Sequence[str]] = None) -> None:
     opt = parse_args(argv)
     harness, state, data = build_trainer(opt)
-    harness.fit(state, data, resume=opt.resume)
-    print(f"Done at step {state.step}. Logs at {opt.logdir}")
+    if opt.train or not from_base(opt):
+        harness.fit(state, data, resume=bool(opt.resume))
+    print(f"Done at step {state.step}. Logs at {harness.logdir}")
 
 
 if __name__ == "__main__":

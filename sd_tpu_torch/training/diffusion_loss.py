@@ -3,16 +3,23 @@
 
 - ``p_losses``: q_sample at the given t, eps/x0 target, l2 or l1, the
   per-timestep logvar weighting and the ELBO term through ``lvlb_weights``;
-- ``LDMTrainer``: the frozen first stage and text encoder, ``loss_fn``
-  (encode, draw t and noise, loss) and ``train_step`` (gradient accumulation
-  over microbatches, AdamW with its LR schedule, EMA);
+- ``LDMTrainer``: the frozen first stage and the cond stage (frozen, or
+  trained with the UNet: ``train_cond_stage``, the reference's
+  ``cond_stage_trainable``), ``loss_fn`` (encode, draw t and noise, loss)
+  and ``train_step`` (gradient accumulation over microbatches, AdamW with
+  its LR schedule, EMA over every trained weight); ``learn_logvar`` trains
+  the per-timestep logvar table (from ``logvar_init``) with the UNet, and
+  ``calibrate_scale_by_std`` sets ``scale_factor`` to one over the std of
+  a batch's latents (the reference's ``scale_by_std``), refusing a config
+  whose ``scale_factor`` is not 1;
 - ``create_train_state``: AdamW with optax.adamw's defaults (betas 0.9 and
   0.999, eps 1e-8, weight decay 1e-4, not PyTorch's 0.01).
 
-Precision. On the card the UNet keeps fp32 master weights and fp32 AdamW
-moments, its forward and backward run under ``torch.autocast`` in bf16 (the
-GroupNorm/LayerNorm/softmax islands stay fp32 inside the modules), and the
-frozen VAE and CLIP run in bf16 under ``no_grad``. On the CPU everything is
+Precision. On the card the UNet (and a trained cond stage, and the logvar
+table) keeps fp32 master weights and fp32 AdamW moments, its forward and
+backward run under ``torch.autocast`` in bf16 (the GroupNorm/LayerNorm/
+softmax islands stay fp32 inside the modules), and the frozen first stage
+and cond stage run in bf16 under ``no_grad``. On the CPU everything is
 fp32 on the plain versions of the kernels.
 """
 
@@ -28,6 +35,7 @@ from torch import nn
 from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
 from sd_tpu_torch.models.ldm import LatentDiffusion
 from sd_tpu_torch.training.ema import EmaState, ema_init, ema_update
+from sd_tpu_torch.utils.checkpoint import COND_STAGE_PREFIX
 
 __all__ = ["p_losses", "make_optimizer", "TrainState", "LDMTrainer", "create_train_state"]
 
@@ -75,16 +83,32 @@ def make_optimizer(params, base_lr: float, schedule_fn: Optional[Callable[[int],
 
 @dataclasses.dataclass
 class TrainState:
-    """The trainable UNet with its optimizer, LR schedule, EMA and step."""
+    """The trainable UNet (and the cond stage where it trains, and a learned
+    logvar table) with the optimizer, LR schedule, EMA and step."""
 
     unet: nn.Module
     optimizer: torch.optim.Optimizer
     scheduler: Optional[torch.optim.lr_scheduler.LambdaLR] = None
     ema: Optional[EmaState] = None
     step: int = 0
+    cond_stage: Optional[nn.Module] = None
+    logvar: Optional[nn.Parameter] = None
+
+    def trainables(self) -> Dict[str, nn.Parameter]:
+        """Every trained weight by its name in the EMA shadow: the UNet's
+        own names, the cond stage's under ``COND_STAGE_PREFIX``, and
+        ``logvar``."""
+        out = dict(self.unet.named_parameters())
+        if self.cond_stage is not None:
+            out.update({COND_STAGE_PREFIX + n: p for n, p in self.cond_stage.named_parameters()})
+        if self.logvar is not None:
+            out["logvar"] = self.logvar
+        return out
 
     def state_dict(self) -> Dict[str, Any]:
         return {"step": self.step, "unet": self.unet.state_dict(),
+                "cond_stage": self.cond_stage.state_dict() if self.cond_stage else None,
+                "logvar": None if self.logvar is None else self.logvar.detach(),
                 "optimizer": self.optimizer.state_dict(),
                 "scheduler": self.scheduler.state_dict() if self.scheduler else None,
                 "ema": self.ema.state_dict() if self.ema else None}
@@ -92,6 +116,11 @@ class TrainState:
     def load_state_dict(self, sd: Mapping[str, Any]) -> None:
         self.step = int(sd["step"])
         self.unet.load_state_dict(sd["unet"])
+        if self.cond_stage is not None:
+            self.cond_stage.load_state_dict(sd["cond_stage"])
+        if self.logvar is not None:
+            with torch.no_grad():
+                self.logvar.copy_(sd["logvar"])
         self.optimizer.load_state_dict(sd["optimizer"])
         if self.scheduler is not None:
             self.scheduler.load_state_dict(sd["scheduler"])
@@ -102,8 +131,9 @@ class TrainState:
 @dataclasses.dataclass
 class LDMTrainer:
     """Binds an LDM's frozen parts to its train step. The batch is ``sd_tpu``'s
-    contract: ``"image"`` NHWC float in [-1, 1] and the token ids under
-    ``ldm.cond_stage_key``, as numpy arrays or tensors."""
+    contract: ``"image"`` NHWC float in [-1, 1] and the cond stage's input
+    (token ids, class ids) under ``ldm.cond_stage_key``, as numpy arrays or
+    tensors."""
 
     ldm: LatentDiffusion
     base_lr: float
@@ -113,6 +143,12 @@ class LDMTrainer:
     original_elbo_weight: float = 0.0
     use_ema: bool = True
     accumulate_grad_batches: int = 1
+    train_cond_stage: bool = False
+    learn_logvar: bool = False
+    logvar_init: float = 0.0
+    scale_by_std: bool = False
+    # the learned logvar table (learn_logvar), made by init_state
+    logvar: Optional[nn.Parameter] = dataclasses.field(default=None, init=False)
 
     @property
     def unet(self) -> nn.Module:
@@ -128,35 +164,103 @@ class LDMTrainer:
             return torch.autocast("cuda", dtype=torch.bfloat16)
         return contextlib.nullcontext()
 
-    def init_state(self) -> TrainState:
-        """Freezes the first stage and the text encoder, puts the UNet in
-        training mode, and builds AdamW, its schedule and the EMA shadow."""
-        for frozen in (self.ldm.first_stage_model, self.ldm.cond_stage_model):
-            frozen.eval().requires_grad_(False)
-        self.unet.train().requires_grad_(True)
-        optimizer, scheduler = make_optimizer(self.unet.parameters(), self.base_lr,
-                                              self.schedule_fn)
-        ema = ema_init(dict(self.unet.named_parameters())) if self.use_ema else None
-        return TrainState(unet=self.unet, optimizer=optimizer, scheduler=scheduler, ema=ema)
+    def trained_modules(self) -> Tuple[nn.Module, ...]:
+        """The modules the optimizer trains: the UNet, and the cond stage
+        with ``train_cond_stage``."""
+        return (self.unet,) + ((self.ldm.cond_stage_model,) if self.train_cond_stage else ())
 
-    def loss_fn(self, batch: Mapping[str, Any], generator: torch.Generator
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-        """Frozen encode (a posterior sample), then t and noise, all drawn from
-        ``generator``; returns ``p_losses``' loss and dict."""
-        ldm, device = self.ldm, self.device
-        x = torch.as_tensor(batch["image"], device=device).float().permute(0, 3, 1, 2)
-        tokens = torch.as_tensor(batch[ldm.cond_stage_key], device=device).long()
+    def init_state(self) -> TrainState:
+        """Freezes the first stage (and the cond stage unless it trains),
+        puts the trained modules in training mode, and builds AdamW, its
+        schedule and the EMA shadow over every trained weight."""
+        frozen = [self.ldm.first_stage_model]
+        if not self.train_cond_stage:
+            frozen.append(self.ldm.cond_stage_model)
+        for module in frozen:
+            module.eval().requires_grad_(False)
+        for module in self.trained_modules():
+            module.train().requires_grad_(True)
+        if self.learn_logvar:
+            self.logvar = nn.Parameter(torch.full((self.ldm.schedule.num_timesteps,),
+                                                  float(self.logvar_init), device=self.device))
+        state = TrainState(unet=self.unet, optimizer=None,
+                           cond_stage=self.ldm.cond_stage_model if self.train_cond_stage else None,
+                           logvar=self.logvar)
+        params = state.trainables()
+        state.optimizer, state.scheduler = make_optimizer(list(params.values()), self.base_lr,
+                                                          self.schedule_fn)
+        state.ema = ema_init(params) if self.use_ema else None
+        return state
+
+    def _cond_input(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        c = torch.as_tensor(batch[self.ldm.cond_stage_key], device=self.device)
+        return c.float() if c.is_floating_point() else c.long()
+
+    def _images(self, batch: Mapping[str, Any]) -> torch.Tensor:
+        return torch.as_tensor(batch["image"], device=self.device).float().permute(0, 3, 1, 2)
+
+    @torch.no_grad()
+    def calibrate_scale_by_std(self, batch: Mapping[str, Any],
+                               generator: Optional[torch.Generator] = None,
+                               noise: Optional[torch.Tensor] = None) -> float:
+        """Sets ``ldm.scale_factor`` to one over the (unbiased) std of
+        ``batch``'s latents, encoded at scale 1 as a posterior sample from
+        ``generator`` (or with ``noise``); returns it. Refuses a config that
+        set its own ``scale_factor``."""
+        if float(self.ldm.scale_factor) != 1.0:
+            raise ValueError("rather not use custom rescaling and std-rescaling simultaneously")
+        print("### USING STD-RESCALING ###")
+        with self.autocast():
+            encoding = self.ldm.encode_first_stage(self._images(batch))
+        z = encoding if torch.is_tensor(encoding) else encoding.sample(generator, noise)
+        scale = 1.0 / float(z.float().flatten().std())
+        self.ldm.scale_factor = scale
+        print(f"setting self.scale_factor to {scale}")
+        print("### USING STD-RESCALING ###")
+        return scale
+
+    def _logvar(self) -> Optional[torch.Tensor]:
+        if self.learn_logvar:
+            return self.logvar
+        if self.logvar_init != 0.0:  # a fixed table
+            return torch.full((self.ldm.schedule.num_timesteps,), float(self.logvar_init),
+                              device=self.device)
+        return None
+
+    def latents_and_cond(self, batch: Mapping[str, Any],
+                         generator: Optional[torch.Generator] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The frozen first stage's latents (a posterior sample drawn from
+        ``generator``, the mode without one) and the conditioning (with a
+        gradient where the cond stage trains)."""
+        x = self._images(batch)
+        c = self._cond_input(batch)
         with torch.no_grad(), self.autocast():
-            z = ldm.encode_to_latent(x, generator=generator).float()
-            cond = ldm.get_learned_conditioning(tokens)
-        t = torch.randint(0, ldm.schedule.num_timesteps, (z.shape[0],), generator=generator,
-                          device=device)
-        noise = torch.randn(z.shape, generator=generator, device=device)
+            z = self.ldm.encode_to_latent(x, generator=generator).float()
+        with torch.set_grad_enabled(self.train_cond_stage and torch.is_grad_enabled()), \
+                self.autocast():
+            cond = self.ldm.get_learned_conditioning(c)
+        return z, cond
+
+    def loss_at(self, z: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
+                noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """``p_losses`` at the given t and noise under the trainer's autocast."""
+        ldm = self.ldm
         with self.autocast():
             return p_losses(ldm.apply_model, ldm.schedule, z, cond, t, noise,
                             parameterization=ldm.parameterization, loss_type=self.loss_type,
-                            l_simple_weight=self.l_simple_weight,
+                            logvar=self._logvar(), l_simple_weight=self.l_simple_weight,
                             original_elbo_weight=self.original_elbo_weight)
+
+    def loss_fn(self, batch: Mapping[str, Any], generator: torch.Generator
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """Latents and conditioning, then t and noise, all drawn from
+        ``generator``; returns ``p_losses``' loss and dict."""
+        z, cond = self.latents_and_cond(batch, generator)
+        t = torch.randint(0, self.ldm.schedule.num_timesteps, (z.shape[0],),
+                          generator=generator, device=self.device)
+        noise = torch.randn(z.shape, generator=generator, device=self.device)
+        return self.loss_at(z, cond, t, noise)
 
     def train_step(self, state: TrainState, batch: Mapping[str, Any],
                    generator: torch.Generator) -> Dict[str, torch.Tensor]:
@@ -181,7 +285,7 @@ class LDMTrainer:
         if state.scheduler is not None:
             state.scheduler.step()
         if state.ema is not None:
-            ema_update(state.ema, dict(self.unet.named_parameters()))
+            ema_update(state.ema, state.trainables())
         state.step += 1
         return {k: v.detach() for k, v in aux.items()}
 
@@ -189,12 +293,13 @@ class LDMTrainer:
 def create_train_state(ldm: LatentDiffusion, base_lr: float,
                        schedule_fn: Optional[Callable[[int], float]] = None,
                        **kwargs) -> Tuple[LDMTrainer, TrainState]:
-    """Applies the precision policy (on the card: the UNet in fp32, the frozen
-    VAE and CLIP in bf16), then builds the trainer and its state: AdamW at
-    ``base_lr`` times ``schedule_fn(step)``."""
+    """Applies the precision policy (on the card: the UNet and a trained cond
+    stage in fp32, the frozen stages in bf16), then builds the trainer and
+    its state: AdamW at ``base_lr`` times ``schedule_fn(step)``."""
     if next(ldm.parameters()).device.type == "cuda":
         ldm.model.float()
         ldm.first_stage_model.to(torch.bfloat16)
-        ldm.cond_stage_model.to(torch.bfloat16)
+        trained = kwargs.get("train_cond_stage", False)
+        ldm.cond_stage_model.to(torch.float32 if trained else torch.bfloat16)
     trainer = LDMTrainer(ldm=ldm, base_lr=base_lr, schedule_fn=schedule_fn, **kwargs)
     return trainer, trainer.init_state()

@@ -3,8 +3,8 @@
 The shadow is an fp32 copy of a ``state_dict``; each update moves it toward
 the live weights with the warmup-adjusted decay ``min(decay, (1+n)/(10+n))``
 of the reference's ``LitEma``. Updates are in place. :func:`ema_scope`
-swaps the shadow into a module for a while (the reference's ``ema_scope``),
-by pointing the module's parameters at the shadow's storage.
+swaps the shadow into named parameters for a while (the reference's
+``ema_scope``), by pointing them at the shadow's storage.
 """
 
 from __future__ import annotations
@@ -64,12 +64,12 @@ def _swap_in(params: Mapping[str, torch.nn.Parameter],
 
 
 @contextlib.contextmanager
-def ema_scope(state: EmaState, module: torch.nn.Module) -> Iterator[None]:
-    """Within the block ``module``'s parameters named in the shadow hold the
-    shadow's values; afterwards they hold their own again, bit for bit. The
-    parameters share the shadow's storage meanwhile (no copy), so they must
-    have its dtype and shape, and the block must not write to them."""
-    params = {name: p for name, p in module.named_parameters() if name in state.shadow}
+def ema_scope(state: EmaState, params: Mapping[str, torch.nn.Parameter]) -> Iterator[None]:
+    """Within the block the parameters ``params`` (their names in the
+    shadow → parameter) hold the shadow's values; afterwards they hold their
+    own again, bit for bit. They share the shadow's storage meanwhile (no
+    copy), so they must have its dtype and shape, and the block must not
+    write to them."""
     for name, p in params.items():
         s = state.shadow[name]
         if (s.dtype, s.shape, s.device) != (p.dtype, p.shape, p.device):

@@ -1,6 +1,12 @@
 """The step-driven training loop (port of ``DataModuleFromConfig``,
-``scale_learning_rate``, ``log_images``, ``ImageLogger`` and ``Trainer``
-from ``sd_tpu/training/trainer.py``).
+``scale_learning_rate``, ``log_images``, ``log_images_vae``, ``ImageLogger``
+and ``Trainer`` from ``sd_tpu/training/trainer.py``).
+
+``Trainer`` drives either trainer: the LDM's (``LDMTrainer``) or the KL
+first stage's (``VAEGANTrainer``), whose state holds both optimizers, the
+discriminator's BatchNorm statistics and the NLL's logvar. For an LDM
+whose trainer has ``scale_by_std``, a fresh run first sets ``scale_factor``
+from the first train batch (a resumed run takes it from its checkpoint).
 
 ``Trainer.fit`` runs the steps, prints the loss and it/s every ``log_every``
 steps, and after a step: logs images where the ``ImageLogger``'s cadence
@@ -30,8 +36,8 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.data.base import DataLoader
-from sd_tpu_torch.data.synthetic import SyntheticImages
 from sd_tpu_torch.samplers.ancestral import progressive_denoising
 from sd_tpu_torch.samplers.common import randn
 from sd_tpu_torch.samplers.ddim import ddim_sample
@@ -44,30 +50,30 @@ from sd_tpu_torch.utils.checkpoint import (
 )
 from sd_tpu_torch.utils.image import make_grid, save_image, text_to_image
 
-__all__ = ["DataModuleFromConfig", "ImageLogger", "Trainer", "log_images",
+__all__ = ["DataModuleFromConfig", "ImageLogger", "Trainer", "log_images", "log_images_vae",
            "scale_learning_rate", "step_seed"]
 
-# dataset config targets the port can build
-DATASETS = {"sd_tpu_torch.data.synthetic.SyntheticImages": SyntheticImages}
 # validation losses per pass: at most this many batches
 VAL_BATCHES = 8
-# the generator streams beside training's: image logging, validation
-LOG_STREAM, VAL_STREAM = 1, 2
+# the generator streams beside training's: image logging, validation, and
+# (at step 0) scale_by_std's calibration
+LOG_STREAM, VAL_STREAM, CAL_STREAM = 1, 2, 3
 
 
 class DataModuleFromConfig:
     """The shuffled train loader and the validation loader (in order) from
-    dataset config nodes ``{"target": ..., "params": {...}}``."""
+    dataset config nodes ``{"target": ..., "params": {...}}``, built through
+    the config registry."""
 
     def __init__(self, batch_size: int, train: Dict, validation: Optional[Dict] = None):
+        from sd_tpu_torch.utils.config import instantiate_from_config
+
         self.batch_size = batch_size
         self.loaders = {}
         for split, cfg in (("train", train), ("validation", validation)):
             if cfg is None:
                 continue
-            if cfg["target"] not in DATASETS:
-                raise NotImplementedError(f"no dataset {cfg['target']!r} in the port")
-            dataset = DATASETS[cfg["target"]](**(cfg.get("params") or {}))
+            dataset = instantiate_from_config(cfg)
             self.loaders[split] = DataLoader(dataset, batch_size=batch_size,
                                              shuffle=split == "train")
 
@@ -78,8 +84,12 @@ class DataModuleFromConfig:
         return self.loaders.get("validation")
 
 
-def scale_learning_rate(base_lr: float, batch_size: int, n_devices: int) -> float:
-    """``lr = ndev x bs x base_lr`` (gradient accumulation 1)."""
+def scale_learning_rate(base_lr: float, batch_size: int, n_devices: int,
+                        scale: bool = True) -> float:
+    """``lr = ndev x bs x base_lr`` (gradient accumulation 1); ``base_lr``
+    as it is without ``scale``."""
+    if not scale:
+        return base_lr
     lr = n_devices * batch_size * base_lr
     print(f"Setting learning rate to {lr:.2e} = {n_devices} (devices) * {batch_size} "
           f"(batchsize) * {base_lr:.2e} (base_lr)")
@@ -108,8 +118,9 @@ def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generato
     steps, as one grid).
 
     Draws, in this order, from ``generator`` or from ``noise`` (NHWC, by
-    name): ``posterior``, ``diffusion``, ``sample`` (the x_T of both chains)
-    and ``denoise_steps`` (the ancestral chain's per-step noise)."""
+    name): ``posterior`` (none for an identity first stage), ``diffusion``,
+    ``sample`` (the x_T of both chains) and ``denoise_steps`` (the ancestral
+    chain's per-step noise)."""
     device = next(ldm.parameters()).device
     given = noise or {}
     nchw = lambda a: torch.as_tensor(np.array(a), device=device).permute(0, 3, 1, 2)
@@ -122,8 +133,10 @@ def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generato
     n = min(n_row, len(batch["image"]))
     x = np.asarray(batch["image"][:n], dtype=np.float32)
     out["inputs"] = x
-    posterior = ldm.encode_first_stage(nchw(x))
-    z = ldm.scale_factor * posterior.sample(noise=draw("posterior", posterior.mean))
+    encoding = ldm.encode_first_stage(nchw(x))
+    if isinstance(encoding, DiagonalGaussian):
+        encoding = encoding.sample(noise=draw("posterior", encoding.mean))
+    z = ldm.scale_factor * encoding
     out["reconstruction"] = nhwc(ldm.decode_first_stage(z))
 
     raw_cond = batch.get(ldm.cond_stage_key)
@@ -157,6 +170,24 @@ def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generato
             decoded = [nhwc(ldm.decode_first_stage(t)) for t in x0_traj]
             out["denoise_row"] = make_grid(np.concatenate(decoded), n_rows=n)[None]
     return out
+
+
+@torch.no_grad()
+def log_images_vae(model, batch: Mapping[str, Any], noise: torch.Tensor,
+                   n_row: int = 4) -> Dict[str, np.ndarray]:
+    """The first stage's ``log_images`` contract: NHWC float32 arrays in
+    [-1, 1] of the batch's first ``n_row`` images: ``inputs``,
+    ``reconstructions`` (a posterior sample decoded) and ``samples`` (the
+    decode of standard normal latents); ``noise`` (NCHW, the posterior's
+    shape) is both the posterior sample's draw and the latents, as
+    ``sd_tpu`` draws both from one key."""
+    device = model.get_last_layer().device
+    n = min(n_row, len(batch["image"]))
+    x = np.asarray(batch["image"][:n], dtype=np.float32)
+    noise = noise[:n].to(device)
+    rec, _ = model(torch.as_tensor(x, device=device).permute(0, 3, 1, 2), noise=noise)
+    nhwc = lambda t: t.float().permute(0, 2, 3, 1).cpu().numpy()
+    return {"inputs": x, "samples": nhwc(model.decode(noise)), "reconstructions": nhwc(rec)}
 
 
 class ImageLogger:
@@ -194,9 +225,10 @@ class ImageLogger:
 
 @dataclasses.dataclass
 class Trainer:
-    """``fit(state, data, resume)`` drives ``trainer_obj.train_step``."""
+    """``fit(state, data, resume)`` drives ``trainer_obj.train_step``. The
+    image logger and validation are the LDM's."""
 
-    trainer_obj: Any  # LDMTrainer
+    trainer_obj: Any  # LDMTrainer or VAEGANTrainer
     logdir: str
     max_steps: int = 1000
     ckpt_every: int = 1000
@@ -214,11 +246,17 @@ class Trainer:
     def ckpt_dir(self) -> str:
         return os.path.join(self.logdir, "checkpoints")
 
+    @property
+    def ldm(self):
+        """The LDM of an LDM trainer, else None."""
+        return getattr(self.trainer_obj, "ldm", None)
+
     def _meta(self) -> Dict[str, Any]:
-        ldm = self.trainer_obj.ldm
         # the frozen stages are drawn again from the seed on this device type
-        return {"seed": int(self.seed), "scale_factor": float(ldm.scale_factor),
-                "frozen_device": self.trainer_obj.device.type}
+        meta = {"seed": int(self.seed), "frozen_device": self.trainer_obj.device.type}
+        if self.ldm is not None:
+            meta["scale_factor"] = float(self.ldm.scale_factor)
+        return meta
 
     def _melk(self, *args) -> None:
         print("Summoning checkpoint (SIGUSR1).", flush=True)
@@ -226,15 +264,17 @@ class Trainer:
 
     @contextlib.contextmanager
     def _eval_scope(self):
-        """The UNet in ``eval()`` under ``no_grad`` and the train step's
-        autocast; back in ``train()`` afterwards."""
-        unet = self.trainer_obj.unet
-        unet.eval()
+        """The trained modules in ``eval()`` under ``no_grad`` and the train
+        step's autocast; back in ``train()`` afterwards."""
+        modules = self.trainer_obj.trained_modules()
+        for module in modules:
+            module.eval()
         try:
             with torch.no_grad(), self.trainer_obj.autocast():
                 yield
         finally:
-            unet.train()
+            for module in modules:
+                module.train()
 
     def _generator(self, step: int, stream: int) -> torch.Generator:
         return torch.Generator(self.trainer_obj.device).manual_seed(
@@ -243,15 +283,24 @@ class Trainer:
     def fit(self, state, data: DataModuleFromConfig, resume: bool = False):
         """Run the loop to ``max_steps``; returns ``state`` (updated in place)."""
         os.makedirs(self.logdir, exist_ok=True)
-        if resume and (path := latest_checkpoint(self.ckpt_dir)):
-            meta = restore_checkpoint(path, state)
-            print(f"Restored from {path} (step {meta.get('step')})")
         device = self.trainer_obj.device
+        restored = False
+        if resume and (path := latest_checkpoint(self.ckpt_dir)):
+            meta = restore_checkpoint(path, state, device)
+            restored = True
+            print(f"Restored from {path} (step {meta.get('step')})")
+            if self.ldm is not None and meta.get("scale_factor") is not None:
+                self.ldm.scale_factor = float(meta["scale_factor"])
         loader = data.train_dataloader()
+        if getattr(self.trainer_obj, "scale_by_std", False) and not restored:
+            # the first train batch, encoded at scale 1
+            self.trainer_obj.calibrate_scale_by_std(loader.batch(0),
+                                                    self._generator(0, CAL_STREAM))
         step = state.step
-        # fast-forward the loader to the restored (epoch, position)
+        # fast-forward the loader to the restored (epoch, position); a data
+        # module's generator of batches (BatchResizeWrapper) is not
         skip = 0
-        if step and len(loader):
+        if step and hasattr(loader, "epoch") and len(loader):
             loader.epoch, skip = divmod(step, len(loader))
         try:
             previous = signal.signal(signal.SIGUSR1, self._melk)
@@ -260,7 +309,7 @@ class Trainer:
         t0, t0_step = time.perf_counter(), step
         try:
             while step < self.max_steps:
-                for batch in loader:
+                for batch in data.train_dataloader():
                     if skip:
                         skip -= 1
                         continue
@@ -270,12 +319,13 @@ class Trainer:
                     aux = self.trainer_obj.train_step(state, batch, generator)
                     step = state.step
                     if step % self.log_every == 0:
-                        loss = float(aux["loss"])
+                        loss = float(aux["loss"] if "loss" in aux else aux["total_loss"])
                         rate = (step - t0_step) / max(time.perf_counter() - t0, 1e-9)
                         print(f"step {step}: loss={loss:.4f} ({rate:.2f} it/s)")
-                    if self.image_logger is not None and self.image_logger.should_log(step):
+                    if (self.image_logger is not None and self.ldm is not None
+                            and self.image_logger.should_log(step)):
                         with self._eval_scope():
-                            self.image_logger(self.trainer_obj.ldm, batch, step,
+                            self.image_logger(self.ldm, batch, step,
                                               self._generator(step, LOG_STREAM))
                     if step % self.ckpt_every == 0 or self.melk_requested:
                         save_last(self.ckpt_dir, state, self._meta())
@@ -293,9 +343,10 @@ class Trainer:
 
     def validate(self, state, data: DataModuleFromConfig) -> Dict[str, float]:
         """The loss over up to ``VAL_BATCHES`` validation batches with the
-        current UNet (``val/loss_simple``) and with the EMA shadow swapped in
-        (``val/loss_simple_ema``), both from the same draws; the losses stay
-        on the device and are fetched once. Then the monitored save."""
+        current weights (``val/loss_simple``) and with the EMA shadow swapped
+        into every trained weight (``val/loss_simple_ema``), both from the
+        same draws; the losses stay on the device and are fetched once. Then
+        the monitored save. An LDM's only."""
         loader = data.val_dataloader()
         if loader is None:
             return {}
@@ -310,7 +361,7 @@ class Trainer:
             losses = [loss_fn(b, self._generator(state.step, s))[0]
                       for b, s in zip(batches, streams)]
             if state.ema is not None:
-                with ema_scope(state.ema, self.trainer_obj.unet):
+                with ema_scope(state.ema, state.trainables()):
                     losses += [loss_fn(b, self._generator(state.step, s))[0]
                                for b, s in zip(batches, streams)]
         fetched = torch.stack(losses).float().cpu().numpy()

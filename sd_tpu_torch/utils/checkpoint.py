@@ -4,9 +4,13 @@ run directories as inference inputs (its ``is_run_path``,
 ``resolve_run_checkpoint``, ``run_config_path``, ``load_run_params`` and
 ``filter_state_dict``).
 
-A checkpoint is one ``torch.save`` file: the step, the UNet ``state_dict``,
-the optimizer, the LR schedule and the EMA shadow, and metadata (seed,
-scale_factor, step, and the device type the frozen stages were drawn on).
+A checkpoint is one ``torch.save`` file: the trainer state's
+``state_dict`` (an LDM run's: the step, the UNet's and, where it trains,
+the cond stage's weights, the optimizer, the LR schedule, the EMA shadow and
+a learned logvar table; a first-stage run's: the autoencoder, the
+discriminator with its BatchNorm statistics, both optimizers and the NLL's
+logvar), and metadata (seed, scale_factor, step, and the device type the
+frozen stages were drawn on).
 The frozen stages are not in it: a resumed run, or a sampler loading the
 run, rebuilds them from the config and the seed. ``<ckpt_dir>/last.pt`` is
 the resume entry; ``save_monitored`` keeps the top k checkpoints by a
@@ -21,9 +25,14 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["save_last", "save_monitored", "latest_checkpoint", "restore_checkpoint",
-           "is_run_path", "resolve_run_checkpoint", "run_config_path", "load_run_params",
-           "filter_state_dict"]
+__all__ = ["COND_STAGE_PREFIX", "save_last", "save_monitored", "latest_checkpoint",
+           "restore_checkpoint", "is_run_path", "resolve_run_checkpoint", "run_config_path",
+           "load_run_params", "filter_state_dict"]
+
+
+# the EMA shadow's names for a trained cond stage's parameters (the UNet's
+# keep their own names, as in runs that train the UNet alone)
+COND_STAGE_PREFIX = "cond_stage_model."
 
 
 def _save(path: str, state, metadata: Optional[Dict[str, Any]]) -> str:
@@ -72,10 +81,10 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
     return last if os.path.isfile(last) else None
 
 
-def restore_checkpoint(path: str, state) -> Dict[str, Any]:
-    """Load a checkpoint into ``state`` (in place); returns its metadata."""
-    blob = torch.load(path, map_location=next(state.unet.parameters()).device,
-                      weights_only=True)
+def restore_checkpoint(path: str, state, device) -> Dict[str, Any]:
+    """Load a checkpoint onto ``device`` into ``state`` (in place); returns
+    its metadata."""
+    blob = torch.load(path, map_location=device, weights_only=True)
     state.load_state_dict(blob["state"])
     return blob["meta"]
 
@@ -114,21 +123,33 @@ def run_config_path(path: str) -> Optional[str]:
 
 
 def load_run_params(path: str, use_ema: bool = True
-                    ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
-    """The UNet ``state_dict`` of a run's checkpoint, on the CPU: the EMA
-    shadow with ``use_ema`` where the run kept one (else the current
-    parameters, with a note), and its metadata with ``params_source``."""
+                    ) -> Tuple[Dict[str, Dict[str, torch.Tensor]], Dict[str, Any]]:
+    """The trained weights of an LDM run's checkpoint, on the CPU:
+    ``{"unet": state_dict}`` and, where the run trained its cond stage,
+    ``"cond_stage"``; the EMA shadow's values with ``use_ema`` where the run
+    kept one (else the current parameters, with a note). Returns them and
+    the metadata with ``params_source``."""
     ckpt = resolve_run_checkpoint(path)
     # mmap: only the tensors used are read from a file that also holds AdamW
     blob = torch.load(ckpt, map_location="cpu", weights_only=True, mmap=True)
     state = blob.get("state") if isinstance(blob, dict) else None
     if not isinstance(state, dict) or "unet" not in state:
         raise ValueError(f"checkpoint {ckpt!r} does not look like a trainer state")
-    params, source = state["unet"], "current"
+    params = {"unet": state["unet"]}
+    if state.get("cond_stage") is not None:
+        params["cond_stage"] = state["cond_stage"]
+    source = "current"
     if use_ema:
         ema = state.get("ema")
         if ema is not None and ema.get("shadow") is not None:
-            params, source = {**params, **ema["shadow"]}, "EMA"
+            shadow, source = ema["shadow"], "EMA"
+            params["unet"] = {**params["unet"],
+                              **{k: v for k, v in shadow.items() if k in params["unet"]}}
+            if "cond_stage" in params:
+                n = len(COND_STAGE_PREFIX)
+                params["cond_stage"] = {**params["cond_stage"],
+                                        **{k[n:]: v for k, v in shadow.items()
+                                           if k.startswith(COND_STAGE_PREFIX)}}
         else:
             print(f"load_run_params: {ckpt} has no EMA shadow; using the current parameters",
                   flush=True)

@@ -1,6 +1,21 @@
-"""Model and data configs and ``build_latent_diffusion`` (the slice of
-``sd_tpu/utils/config.py`` that builds SD v1 and the tiny test model, from
-random weights, a reference checkpoint's ``state_dict`` or a training run).
+"""The config layer (port of ``sd_tpu/utils/config.py``): configs as plain
+dicts, ``merge_configs`` and ``apply_dotlist`` (OmegaConf's multi-base
+merge and CLI overrides), the target registry (``register_target``,
+``instantiate_from_config``) and ``build_latent_diffusion``, which builds
+an LDM from random weights, a reference checkpoint's ``state_dict`` or a
+training run.
+
+The registry resolves the reference's module paths and ``sd_tpu``'s to the
+port's classes: the UNet, the KL autoencoder and ``IdentityFirstStage``,
+the cond stages (``FrozenCLIPEmbedder``, ``ClassEmbedder``,
+``BERTEmbedder``, ``TransformerEmbedder``), the three LR schedules,
+``DataModuleFromConfig`` and the synthetic datasets,
+``LPIPSWithDiscriminator`` (the first-stage trainer's keyword arguments:
+its parameters that ``FIRST_STAGE_LOSS_KEYS`` names) and
+``torch.nn.Identity``. What the port has not ported yet raises
+``NotImplementedError`` naming the item of ``ROADMAP.md``'s "Modules to
+port" that ports it: the VQ model, concat, hybrid and adm conditioning, and
+the real datasets.
 
 SD v1's model config lives here as a dict, so the card needs no YAML
 parser; a CPU test holds it equal to
@@ -17,18 +32,21 @@ from __future__ import annotations
 
 import copy
 import json
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.models.clip import CLIPTextConfig
-from sd_tpu_torch.models.ldm import LatentDiffusion
-from sd_tpu_torch.models.unet import UNetConfig
+from sd_tpu_torch.models.encoders import BERTEmbedder, ClassEmbedder, TransformerEmbedder
+from sd_tpu_torch.models.ldm import FrozenCLIPEmbedder, LatentDiffusion
+from sd_tpu_torch.models.unet import UNetConfig, UNetModel
+from sd_tpu_torch.models.vae import AutoencoderKL, IdentityFirstStage
 from sd_tpu_torch.utils.checkpoint import filter_state_dict, load_run_params, run_config_path
 
 __all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "train_config", "load_yaml",
+           "merge_configs", "apply_dotlist", "register_target", "instantiate_from_config",
            "build_latent_diffusion", "build_latent_diffusion_from_run", "init_random_",
            "REFERENCE_EXTRA_KEYS"]
 
@@ -193,10 +211,162 @@ def init_random_(module: nn.Module, generator: torch.Generator) -> None:
             p.normal_(0.0, 0.02, generator=generator)
 
 
-def _check_target(node: Dict[str, Any], target: str) -> Dict[str, Any]:
-    if node.get("target") != target:
-        raise NotImplementedError(f"the port builds {target}, not {node.get('target')!r}")
-    return dict(node.get("params") or {})
+def merge_configs(configs: Sequence[Optional[Dict]]) -> Dict:
+    """Left-to-right deep merge (later wins), like OmegaConf.merge."""
+
+    def merge(a, b):
+        if isinstance(a, dict) and isinstance(b, dict):
+            out = dict(a)
+            for k, v in b.items():
+                out[k] = merge(a[k], v) if k in a else v
+            return out
+        return b
+
+    out: Dict = {}
+    for c in configs:
+        out = merge(out, c or {})
+    return out
+
+
+def apply_dotlist(cfg: Dict, dotlist: Sequence[str]) -> Dict:
+    """A copy of ``cfg`` with ``nested.key=value`` overrides (values parsed
+    as YAML)."""
+    import yaml
+
+    cfg = copy.deepcopy(cfg)
+    for item in dotlist:
+        key, _, raw = item.partition("=")
+        node = cfg
+        parts = key.strip().split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = yaml.safe_load(raw)
+    return cfg
+
+
+# ------------------------------------------------------------------ registry
+
+_REGISTRY: Dict[str, Callable[..., Any]] = {}
+
+# sentinels of the reference's cond_stage_config
+FIRST_STAGE_SENTINEL = "__is_first_stage__"
+UNCONDITIONAL_SENTINEL = "__is_unconditional__"
+# the items of ROADMAP.md's "Modules to port" that port what is refused here
+# the lossconfig parameters the first-stage trainer takes (sd_tpu's list,
+# without the VQ loss's codebook_weight)
+FIRST_STAGE_LOSS_KEYS = ("disc_start", "kl_weight", "pixelloss_weight", "perceptual_weight",
+                         "disc_num_layers", "disc_in_channels", "disc_factor", "disc_weight",
+                         "disc_loss", "logvar_init")
+
+_ROADMAP_VQ = "ROADMAP.md 'Modules to port' item 5 (the VQ model)"
+_ROADMAP_CONCAT = "ROADMAP.md 'Modules to port' item 5 (the concat route)"
+_ROADMAP_DATA = "ROADMAP.md 'Modules to port' item 3 (the datasets)"
+
+
+def register_target(*names: str):
+    """Register ``fn(params, **extra)``, which makes the object, under each target name."""
+
+    def deco(fn):
+        for n in names:
+            _REGISTRY[n] = fn
+        return fn
+
+    return deco
+
+
+def instantiate_from_config(cfg: Dict, **extra) -> Any:
+    """Build a ``{"target": ..., "params": {...}}`` node through the registry."""
+    if not isinstance(cfg, dict) or "target" not in cfg:
+        raise KeyError(f"Expected a config dict with 'target', got: {cfg!r}")
+    target = cfg["target"]
+    if target not in _REGISTRY:
+        raise KeyError(f"Unknown target {target!r}. Register it with "
+                       f"sd_tpu_torch.utils.config.register_target.")
+    return _REGISTRY[target](dict(cfg.get("params") or {}), **extra)
+
+
+def _not_ported(names: Sequence[str], what: str, item: str) -> None:
+    for name in names:
+        def refuse(p, _name=name, **extra):
+            raise NotImplementedError(f"{_name}: {what} is not ported yet; {item} ports it")
+
+        _REGISTRY[name] = refuse
+
+
+def _register_builtins() -> None:
+    from sd_tpu_torch.data import synthetic
+    from sd_tpu_torch.training import lr_schedules
+
+    register_target("ldm.modules.diffusionmodules.openaimodel.UNetModel",
+                    "sd_tpu.models.unet.UNetModel")(
+        lambda p: UNetModel(UNetConfig.from_dict(p)))
+    register_target("ldm.models.autoencoder.AutoencoderKL", "sd_tpu.models.vae.AutoencoderKL")(
+        lambda p: AutoencoderKL(p["ddconfig"], p["embed_dim"]))
+    register_target("ldm.models.autoencoder.IdentityFirstStage",
+                    "sd_tpu.models.vae.IdentityFirstStage")(lambda p: IdentityFirstStage())
+    register_target("ldm.modules.encoders.modules.FrozenCLIPEmbedder",
+                    "sd_tpu.models.clip.CLIPTextModel")(
+        lambda p: FrozenCLIPEmbedder(CLIPTextConfig(**p)))
+    register_target("ldm.modules.encoders.modules.ClassEmbedder",
+                    "sd_tpu.models.encoders.ClassEmbedder")(
+        lambda p: ClassEmbedder(p["embed_dim"], p.get("n_classes", 1000)))
+    register_target("ldm.modules.encoders.modules.BERTEmbedder",
+                    "sd_tpu.models.encoders.BERTEmbedder")(
+        lambda p: BERTEmbedder(p["n_embed"], p["n_layer"], p.get("vocab_size", 30522),
+                               p.get("max_seq_len", 77)))
+    register_target("ldm.modules.encoders.modules.TransformerEmbedder",
+                    "sd_tpu.models.encoders.TransformerEmbedder")(
+        lambda p: TransformerEmbedder(p["n_embed"], p["n_layer"], p.get("vocab_size", 30522),
+                                      p.get("max_seq_len", 77)))
+    register_target("ldm.lr_scheduler.LambdaLinearScheduler",
+                    "sd_tpu.training.lr_schedules.lambda_linear")(
+        lambda p: lr_schedules.lambda_linear(p["warm_up_steps"], p["f_min"], p["f_max"],
+                                             p["f_start"], p["cycle_lengths"]))
+    register_target("ldm.lr_scheduler.LambdaWarmUpCosineScheduler2",
+                    "sd_tpu.training.lr_schedules.lambda_warmup_cosine2")(
+        lambda p: lr_schedules.lambda_warmup_cosine2(p["warm_up_steps"], p["f_min"],
+                                                     p["f_max"], p["f_start"],
+                                                     p["cycle_lengths"]))
+    register_target("ldm.lr_scheduler.LambdaWarmUpCosineScheduler",
+                    "sd_tpu.training.lr_schedules.lambda_warmup_cosine")(
+        lambda p: lr_schedules.lambda_warmup_cosine(p["warm_up_steps"], p["lr_min"],
+                                                    p["lr_max"], p["lr_start"],
+                                                    p["max_decay_steps"]))
+
+    @register_target("sd_tpu.training.trainer.DataModuleFromConfig", "main.DataModuleFromConfig",
+                     "sd_tpu_torch.training.trainer.DataModuleFromConfig")
+    def _datamodule(p):
+        from sd_tpu_torch.training.trainer import DataModuleFromConfig
+
+        return DataModuleFromConfig(**p)
+
+    for name in ("SyntheticImages", "ColoredShapes"):
+        register_target(f"sd_tpu.data.synthetic.{name}", f"sd_tpu_torch.data.synthetic.{name}")(
+            lambda p, _cls=getattr(synthetic, name): _cls(**p))
+    register_target("ldm.modules.losses.LPIPSWithDiscriminator",
+                    "ldm.modules.losses.contperceptual.LPIPSWithDiscriminator")(
+        lambda p: {k: v for k, v in p.items() if k in FIRST_STAGE_LOSS_KEYS})
+    register_target("torch.nn.Identity")(lambda p: nn.Identity())
+
+    @register_target("ldm.models.diffusion.ddpm.LatentDiffusion",
+                     "sd_tpu.models.ldm.LatentDiffusion")
+    def _ldm(p, **extra):
+        return build_latent_diffusion(
+            {"target": "ldm.models.diffusion.ddpm.LatentDiffusion", "params": p}, **extra)
+
+    _not_ported(["ldm.models.autoencoder.VQModel", "ldm.models.autoencoder.VQModelInterface",
+                 "sd_tpu.models.vae.VQModel",
+                 "taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
+                 "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"],
+                "the VQ first stage", _ROADMAP_VQ)
+    _not_ported(["ldm.modules.encoders.modules.SpatialRescaler",
+                 "sd_tpu.models.encoders.SpatialRescaler"],
+                "SpatialRescaler (concat conditioning)", _ROADMAP_CONCAT)
+    _not_ported([f"ldm.data.{m}" for m in (
+        "lsun.LSUNChurchesTrain", "lsun.LSUNChurchesValidation", "lsun.LSUNBedroomsTrain",
+        "lsun.LSUNBedroomsValidation", "lsun.LSUNCatsTrain", "lsun.LSUNCatsValidation",
+        "imagenet.ImageNetTrain", "imagenet.ImageNetValidation", "imagenet.ImageNetSRTrain",
+        "imagenet.ImageNetSRValidation")], "a real dataset", _ROADMAP_DATA)
 
 
 # what a reference LatentDiffusion checkpoint holds beside the modules'
@@ -237,19 +407,24 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     ``fused_conv`` and ``conv_impl`` (``SD_TPU_FUSED_CONV``'s and
     ``SD_TPU_CONV_IMPL``'s values; None reads the variable, here, once)."""
     p = copy.deepcopy(model_cfg.get("params") or {})
-    if p.get("conditioning_key", "crossattn") != "crossattn":
-        raise NotImplementedError("the port has crossattn conditioning only")
-    unet_p = _check_target(p["unet_config"], _UNET_TARGET)
-    kl_p = _check_target(p["first_stage_config"], _KL_TARGET)
-    clip_p = _check_target(p["cond_stage_config"], _CLIP_TARGET)
+    cond_cfg = p.get("cond_stage_config")
+    if cond_cfg in (None, UNCONDITIONAL_SENTINEL, FIRST_STAGE_SENTINEL):
+        raise NotImplementedError(f"cond_stage_config {cond_cfg!r}: the port has crossattn "
+                                  f"conditioning on a cond stage only; {_ROADMAP_CONCAT} "
+                                  f"ports the rest")
+    key = p.get("conditioning_key") or "crossattn"
+    if key != "crossattn":
+        raise NotImplementedError(f"conditioning_key {key!r} is not ported yet; "
+                                  f"{_ROADMAP_CONCAT} ports it")
     schedule = DiffusionSchedule.create(
         timesteps=p.get("timesteps", 1000), beta_schedule=p.get("beta_schedule", "linear"),
         linear_start=p.get("linear_start", 1e-4), linear_end=p.get("linear_end", 2e-2),
         cosine_s=p.get("cosine_s", 8e-3), v_posterior=p.get("v_posterior", 0.0),
         parameterization=p.get("parameterization", "eps"))
     with torch.device("meta"):
-        ldm = LatentDiffusion(UNetConfig.from_dict(unet_p), kl_p["ddconfig"],
-                              kl_p["embed_dim"], CLIPTextConfig(**clip_p), schedule,
+        ldm = LatentDiffusion(instantiate_from_config(p["unet_config"]),
+                              instantiate_from_config(p["first_stage_config"]),
+                              instantiate_from_config(cond_cfg), schedule,
                               scale_factor=p.get("scale_factor", 1.0),
                               parameterization=p.get("parameterization", "eps"),
                               cond_stage_key=p.get("cond_stage_key", "caption"))
@@ -294,10 +469,15 @@ def build_latent_diffusion_from_run(run_path: str, config_path: Optional[str] = 
                          f"them on {device.type} would draw other weights")
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=dtype, seed=int(meta["seed"]),
                                  fused_conv=fused_conv, conv_impl=conv_impl)
-    ldm.model.diffusion_model.load_state_dict(params)
+    ldm.model.diffusion_model.load_state_dict(params["unet"])
+    if "cond_stage" in params:  # a run that trained its cond stage
+        ldm.cond_stage_model.load_state_dict(params["cond_stage"])
     if meta.get("scale_factor") is not None:
         ldm.scale_factor = float(meta["scale_factor"])
     ldm.set_int8_mode(int8)
     print(f"Restored {meta['params_source']} params from run {run_path} "
           f"(step {meta.get('step')}, scale_factor={ldm.scale_factor})", flush=True)
     return ldm, meta
+
+
+_register_builtins()

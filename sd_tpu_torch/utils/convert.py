@@ -1,7 +1,10 @@
 """``sd_tpu`` parameter trees → the port's ``state_dict``.
 
 The exact inverse of ``sd_tpu``'s torch porters (``port_unet``,
-``port_encoder``/``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``): flax
+``port_encoder``/``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``,
+``port_transformer_wrapper``/``port_bert_embedder``, ``port_lpips``), and
+the same for what ``sd_tpu`` builds but does not port (``ClassEmbedder``,
+the discriminator with its BatchNorm statistics): flax
 ``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
 the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
 ``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
@@ -21,7 +24,8 @@ from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 
 __all__ = ["unet_state_dict", "vae_state_dict", "vae_encoder_state_dict",
-           "vae_decoder_state_dict", "clip_text_state_dict"]
+           "vae_decoder_state_dict", "clip_text_state_dict", "class_embedder_state_dict",
+           "transformer_embedder_state_dict", "lpips_state_dict", "discriminator_state_dict"]
 
 StateDict = Dict[str, np.ndarray]
 
@@ -213,4 +217,69 @@ def clip_text_state_dict(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
             _put(sd, f"{prefix}.self_attn.{proj}", _linear(p["self_attn"][proj]))
         _put(sd, f"{prefix}.mlp.fc1", _linear(p["mlp"]["fc1"]))
         _put(sd, f"{prefix}.mlp.fc2", _linear(p["mlp"]["fc2"]))
+    return sd
+
+
+# ------------------------------------------------------ trainable cond stages
+
+
+def class_embedder_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` ClassEmbedder params → the port's ``ClassEmbedder``."""
+    return {"embedding.weight": np.asarray(params["embedding"]["embedding"])}
+
+
+def transformer_embedder_state_dict(params: Mapping, n_layer: int) -> StateDict:
+    """``sd_tpu`` TransformerEmbedder params, or a BERTEmbedder's (which hold
+    them under ``transformer``) → the port's ``TransformerEmbedder`` /
+    ``BERTEmbedder`` (``transformer.*``, x-transformers' names)."""
+    p = params.get("transformer", params)
+    sd: StateDict = {
+        "transformer.token_emb.weight": np.asarray(p["token_emb"]["embedding"]),
+        "transformer.pos_emb.emb.weight": np.asarray(p["pos_emb"]),
+    }
+    _put(sd, "transformer.norm", _norm(p["norm"]["LayerNorm_0"]))
+    for i in range(n_layer):
+        layer = p[f"layers_{i}"]
+        attn = f"transformer.attn_layers.layers.{2 * i}"
+        ff = f"transformer.attn_layers.layers.{2 * i + 1}"
+        _put(sd, f"{attn}.0", _norm(layer["norm1"]["LayerNorm_0"]))
+        for proj in ("to_q", "to_k", "to_v", "to_out"):
+            _put(sd, f"{attn}.1.{proj}", _linear(layer[proj]))
+        _put(sd, f"{ff}.0", _norm(layer["norm2"]["LayerNorm_0"]))
+        _put(sd, f"{ff}.1.net.0.0", _linear(layer["ff_in"]))
+        _put(sd, f"{ff}.1.net.2", _linear(layer["ff_out"]))
+    return sd
+
+
+# ------------------------------------------------------ first-stage losses
+
+
+def lpips_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` LPIPS params → the port's ``LPIPS`` (``vgg.features.{i}``
+    at torchvision's indices, ``lin{i}.model.1``)."""
+    sd: StateDict = {}
+    layer = 0
+    for conv in range(13):
+        _put(sd, f"vgg.features.{layer}", _conv(params["vgg"][f"conv_{conv}"]))
+        # a conv and its ReLU, and a max pool after convs 1, 3, 6 and 9
+        layer += 3 if conv in (1, 3, 6, 9) else 2
+    for i in range(5):
+        sd[f"lin{i}.model.1.weight"] = np.asarray(params[f"lin_{i}"]["kernel"]).T[:, :, None, None]
+    return sd
+
+
+def discriminator_state_dict(params: Mapping, batch_stats: Mapping, n_layers: int = 3
+                             ) -> StateDict:
+    """``sd_tpu`` NLayerDiscriminator params and BatchNorm statistics → the
+    port's ``NLayerDiscriminator`` (taming's ``main.{i}``)."""
+    sd: StateDict = {}
+    _put(sd, "main.0", _conv(params["conv_0"]))
+    for n in range(1, n_layers + 1):
+        _put(sd, f"main.{3 * n - 1}", _conv(params[f"conv_{n}"]))
+        bn = f"main.{3 * n}"
+        _put(sd, bn, _norm(params[f"bn_{n}"]))
+        sd[f"{bn}.running_mean"] = np.asarray(batch_stats[f"bn_{n}"]["mean"])
+        sd[f"{bn}.running_var"] = np.asarray(batch_stats[f"bn_{n}"]["var"])
+        sd[f"{bn}.num_batches_tracked"] = np.asarray(0, np.int64)
+    _put(sd, f"main.{3 * n_layers + 2}", _conv(params["head"]))
     return sd

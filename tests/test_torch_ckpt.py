@@ -45,10 +45,16 @@ from sd_tpu_torch.utils.config import (
     tiny_sd_model_config,
 )
 from sd_tpu_torch.utils.port import demangle_ema_keys, load_torch_state_dict
-from torch_parity import ldm_state_dict, nchw, tiny_jax_ldm, to_nhwc
+from torch_parity import ldm_state_dict, nchw, tiny_jax_ldm, to_nhwc, torch_threads
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 UNET = "model.diffusion_model."
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 @pytest.fixture(scope="module")

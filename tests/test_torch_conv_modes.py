@@ -54,6 +54,7 @@ from sd_tpu_torch.ops.resblock import (ResBlock, VAEResnetBlock, _fused_pair_sup
                                        set_conv_modes)
 from sd_tpu_torch.utils import convert
 from sd_tpu_torch.utils.testing import load_numpy_state_dict, randomize_tree
+from torch_parity import torch_threads
 
 # the modules: the package exports functions of the same names
 port_fused = importlib.import_module("sd_tpu_torch.ops.cuda.fused_conv")
@@ -62,6 +63,13 @@ port_conv = importlib.import_module("sd_tpu_torch.ops.conv")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 KERNEL_TOL = 1e-5
 BLOCK_TOL = 2e-5

@@ -28,10 +28,17 @@ from sd_tpu_torch.pipelines.img2img import Img2ImgPipeline, preprocess_image, pr
 from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 from sd_tpu_torch.utils.config import build_latent_diffusion, tiny_sd_model_config
 from sd_tpu_torch.utils.testing import load_numpy_state_dict
-from torch_parity import ldm_state_dict, tiny_jax_ldm
+from torch_parity import ldm_state_dict, tiny_jax_ldm, torch_threads
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 PROMPTS = ["a fantasy landscape", "a red cube"]
 STEPS = 4

@@ -54,6 +54,7 @@ from sd_tpu_torch.ops.cuda.geglu_ff import (gelu_fast, int8_ff_supported, quanti
                                             quantize_ff_weights)
 from sd_tpu_torch.utils import convert
 from sd_tpu_torch.utils.testing import load_numpy_state_dict, randomize_tree
+from torch_parity import torch_threads
 
 # the modules: the package exports functions of the same names
 port_ff = importlib.import_module("sd_tpu_torch.ops.cuda.geglu_ff")
@@ -61,6 +62,13 @@ port_flash = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 KERNEL_TOL = 1e-5
 MODULE_TOL = 2e-3

@@ -203,6 +203,7 @@ def _t(x):
 @pytest.mark.parametrize("shape,reference", [
     ((1, 512, 2, 16), "pallas"),   # K3's branch: Nk > 256, Nq % 256 == 0
     ((1, 256, 2, 16), "xla"),      # the plain branch
+    ((1, 512, 1, 512), "pallas"),  # K3's branch at the VAE mid-block's head dim
 ])
 def test_flash_bwd_plain_matches_sd_tpu(shape, reference):
     q, k, v = _qkv(shape, 5)
@@ -308,7 +309,7 @@ def test_no_grad_feedforward_under_autocast_takes_the_autocast_dtype():
 
 
 @pytest.mark.parametrize("d,lse_shape,error", [
-    (136, (1, 2, 64), ValueError),   # K3 takes d up to 128
+    (520, (1, 2, 64), ValueError),   # K3 takes d up to 512
     (40, (1, 2, 32), ValueError),    # lse is not [B, H, Nq]
     (40, None, ValueError),          # no lse
 ])
@@ -322,6 +323,8 @@ def test_flash_bwd_wrapper_rejects_what_the_kernel_does_not_take(d, lse_shape, e
 
 def test_flash_bwd_wrapper_accepts_the_path_shapes():
     module = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
-    for b, n, h, d in ((4, 4096, 8, 40), (4, 1024, 8, 80)):
+    # the UNet's training sites, and the VAE mid-block's at 256² and 512²
+    for b, n, h, d in ((4, 4096, 8, 40), (4, 1024, 8, 80), (12, 1024, 1, 512),
+                       (2, 4096, 1, 512), (1, 64, 1, 136)):
         t = _bf16(b, n, h, d)
         module._check_bwd_inputs(t, t, t, t, t, torch.zeros((b, h, n)))

@@ -40,7 +40,14 @@ from sd_tpu_torch.samplers.dpm_solver import (
 from sd_tpu_torch.samplers.plms import plms_sample
 from sd_tpu_torch.utils.config import build_latent_diffusion, tiny_sd_model_config
 from sd_tpu_torch.utils.testing import load_numpy_state_dict
-from torch_parity import ldm_state_dict, nchw, tiny_jax_ldm, to_nhwc
+from torch_parity import ldm_state_dict, nchw, tiny_jax_ldm, to_nhwc, torch_threads
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 KW = dict(timesteps=1000, linear_start=0.00085, linear_end=0.012)
 SCHED, JSCHED = DiffusionSchedule.create(**KW), JaxSchedule.create(**KW)

@@ -8,7 +8,9 @@ for 5 steps at guidance 7.5 in fp32 (then DDIM with negative prompts, and
 DPM-Solver++). Latents agree to rtol 1e-3 (atol 1e-3 of their scale) and
 the uint8 images to 1 LSB (the rounding to uint8 may fall on either side of
 a .5 boundary). ``map_batches`` gives the images of sequential calls, and
-the CLI writes its samples and grid with each sampler.
+the CLI writes its samples and grid with each sampler. The two models and
+sd_tpu's decode (one jitted program for every test's latents) are built
+once for the module.
 """
 
 import os
@@ -29,10 +31,17 @@ from sd_tpu_torch.pipelines.build import build_txt2img_pipeline
 from sd_tpu_torch.pipelines.txt2img import Txt2ImgPipeline
 from sd_tpu_torch.utils.config import build_latent_diffusion, tiny_sd_model_config
 from sd_tpu_torch.utils.testing import load_numpy_state_dict
-from torch_parity import ldm_state_dict, tiny_jax_ldm
+from torch_parity import ldm_state_dict, tiny_jax_ldm, torch_threads
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PROMPTS = ["a painting of a virus monster playing guitar", "a red cube"]
@@ -43,18 +52,23 @@ def _tokenizer():
     return lambda texts: tok(texts, context_length=8)
 
 
-def _jax_ldm(cfg, rng):
-    return tiny_jax_ldm(cfg, rng)
-
-
 def _port_ldm(cfg, jldm):
     return load_numpy_state_dict(build_latent_diffusion(cfg, device="cpu"),
                                  ldm_state_dict(cfg, jldm))
 
 
-def test_tiny_txt2img_matches_sd_tpu():
+@pytest.fixture(scope="module")
+def models():
+    """The tiny config, sd_tpu's LDM with random weights, the port's with the
+    same, and sd_tpu's latents-to-uint8 decode, compiled once."""
     cfg = tiny_sd_model_config()
-    jldm = _jax_ldm(cfg, np.random.default_rng(0))
+    jldm = tiny_jax_ldm(cfg, np.random.default_rng(0))
+    decode = jax.jit(lambda z: _to_uint8(latents_to_images(jldm, z)))
+    return cfg, jldm, _port_ldm(cfg, jldm), decode
+
+
+def test_tiny_txt2img_matches_sd_tpu(models):
+    cfg, jldm, port, decode = models
     x_T = np.random.default_rng(1).standard_normal((2, 32, 32, 4)).astype(np.float32)
     run = dict(height=64, width=64, steps=5, guidance_scale=7.5)
 
@@ -63,9 +77,9 @@ def test_tiny_txt2img_matches_sd_tpu():
     uncond = jpipe.encode_prompts([""] * len(PROMPTS))
     want_z = jax.jit(lambda c, u, x: jpipe.sample_latents(
         c, u, jax.random.PRNGKey(0), x_T=x, **run))(cond, uncond, jnp.asarray(x_T))
-    want_img = np.asarray(_to_uint8(latents_to_images(jldm, want_z)))
+    want_img = np.asarray(decode(want_z))
 
-    pipe = Txt2ImgPipeline(ldm=_port_ldm(cfg, jldm), tokenizer=_tokenizer(), downsample=2)
+    pipe = Txt2ImgPipeline(ldm=port, tokenizer=_tokenizer(), downsample=2)
     got_img = pipe(PROMPTS, x_T=torch.from_numpy(x_T), **run)
     got_z = pipe.last_latents.numpy()
 
@@ -95,9 +109,8 @@ def test_cli_runs_the_tiny_port_without_jax(tmp_path):
 
 @pytest.mark.parametrize("sampler,negative", [("ddim", ["blurry", "low quality"]),
                                               ("dpm", None)])
-def test_tiny_pipeline_samplers_match_sd_tpu(sampler, negative):
-    cfg = tiny_sd_model_config()
-    jldm = _jax_ldm(cfg, np.random.default_rng(0))
+def test_tiny_pipeline_samplers_match_sd_tpu(models, sampler, negative):
+    cfg, jldm, port, decode = models
     x_T = np.random.default_rng(2).standard_normal((2, 32, 32, 4)).astype(np.float32)
     run = dict(height=64, width=64, steps=4, guidance_scale=7.5, sampler=sampler)
     jpipe = JaxPipeline(ldm=jldm, tokenizer=_tokenizer(), downsample=2)
@@ -105,8 +118,8 @@ def test_tiny_pipeline_samplers_match_sd_tpu(sampler, negative):
         c, u, jax.random.PRNGKey(0), x_T=x, **run))(
         jpipe.encode_prompts(PROMPTS), jpipe.encode_prompts(negative or [""] * 2),
         jnp.asarray(x_T))
-    want_img = np.asarray(_to_uint8(latents_to_images(jldm, want_z)))
-    pipe = Txt2ImgPipeline(ldm=_port_ldm(cfg, jldm), tokenizer=_tokenizer(), downsample=2)
+    want_img = np.asarray(decode(want_z))
+    pipe = Txt2ImgPipeline(ldm=port, tokenizer=_tokenizer(), downsample=2)
     got_img = pipe(PROMPTS, x_T=torch.from_numpy(x_T), negative_prompts=negative, **run)
     want_z = np.asarray(want_z)
     np.testing.assert_allclose(pipe.last_latents.numpy(), want_z, rtol=1e-3,

@@ -65,9 +65,17 @@ from sd_tpu_torch.utils import convert
 from sd_tpu_torch.utils.config import tiny_sd_model_config
 from sd_tpu_torch.utils.testing import load_numpy_state_dict, randomize_tree
 from sd_tpu_torch.utils.watermark import embed_watermark_batch
+from torch_parity import torch_threads
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
+
 
 _REPO = pathlib.Path(__file__).resolve().parents[1]
 _TINY = tiny_sd_model_config()["params"]
@@ -437,7 +445,10 @@ def test_port_imports_nothing_of_jax_or_sd_tpu():
     files = sorted((_REPO / "sd_tpu_torch").rglob("*.py")) + [_REPO / "chip_smoke.py"]
     assert len(files) > 30
     for module in ("samplers/ancestral.py", "pipelines/img2img.py", "scripts/img2img.py",
-                   "scripts/serve.py", "training/trainer.py", "utils/image.py"):
+                   "scripts/serve.py", "training/trainer.py", "utils/image.py",
+                   "models/encoders.py", "models/vgg.py", "training/lpips.py",
+                   "training/discriminator.py", "training/vae_gan.py", "scripts/train.py",
+                   "utils/config.py"):
         assert _REPO / "sd_tpu_torch" / module in files
     bad = {str(f.relative_to(_REPO)): sorted(set(_imported_roots(f)) & _FORBIDDEN)
            for f in files}

@@ -26,10 +26,16 @@ from sd_tpu_torch.utils.checkpoint import save_monitored
 from sd_tpu_torch.utils.config import build_latent_diffusion, tiny_sd_model_config
 from sd_tpu_torch.utils.image import segmentation_to_rgb, text_to_image
 from sd_tpu_torch.utils.testing import load_numpy_state_dict
-from torch_parity import ldm_state_dict, tiny_jax_ldm
+from torch_parity import ldm_state_dict, tiny_jax_ldm, torch_threads
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    with torch_threads(1):
+        yield
 
 
 class _Jitted:

@@ -3,6 +3,8 @@ module): layout helpers, and the tiny model's sd_tpu parameters made with
 numpy from a seed over shapes that ``jax.eval_shape`` reads off the flax
 modules (initialising them would cost tens of seconds on the CPU)."""
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -69,3 +71,17 @@ def ldm_state_dict(cfg, jldm: JaxLDM) -> dict:
             jldm.cond_stage_params, CLIPTextConfig(**p["cond_stage_config"]["params"])),
     }
     return {prefix + k: v for prefix, sd in parts.items() for k, v in sd.items()}
+
+
+@contextlib.contextmanager
+def torch_threads(n: int):
+    """torch's intra-op threads set to ``n`` within the block. The test
+    command runs six pytest workers on the machine's cores, and a worker's
+    default of one thread per core oversubscribes them: a file whose torch
+    work runs in seconds alone took minutes there."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
