@@ -7,7 +7,8 @@ serving mode and the two conv modes, LDM training with its image logger
 and validation, and the fused transformer-block experiment, all at SD v1
 full width; then the training CLI's --base path at full width: VAE-GAN
 training of the kl-f8 first stage, and the LAION 1.4B LDM with its BERT
-trained.
+trained; last the VQ-f4 models at full width: inpainting_big through the
+inpaint CLI's pipeline and CelebA-HQ through sample_diffusion's main().
 
     python3 chip_smoke.py
 
@@ -17,21 +18,23 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 2. build: nvcc builds sd_tpu_torch/csrc into build/sd_tpu_torch (git-ignored);
 3. K1 flash attention and 4. K2 GEGLU feed-forward: each kernel against its
    plain PyTorch version at every shape of the serving path at batch 1 with
-   guidance (B=2), of the training path at batch 4 and of the serving path
-   at batch 8 (B=16), and (K2) at one ragged shape, bf16 inputs, the plain
-   version computed in fp32
-   from the same inputs (one batch element at a time where its logits would
-   pass 2 GiB); K1 also at the safety checker's vision towers (the
-   untrained one, N=50, 4 heads of 16, and ViT-L/14, N=257, 16 heads of 64,
-   at batch 1 and 8), its sums logged apart; K1's row log-sum-exp (the statistic K3 reads) against its
-   plain version too, and every K1 shape a second time with sharp logits
-   (q times SHARP); K1's launch plan at each shape (blocks, shared memory,
-   blocks per SM, waves) and K2's per GEMM (a block's rows and columns,
-   stages, blocks, k splits, waves) at each shape; max abs error and the ms
-   of each (CUDA events), the bound, and the ms of one PyTorch call
-   computing the same function (scaled_dot_product_attention for K1; none
-   for K2, whose yardstick is the unfused bf16 FF: F.linear, chunk, F.gelu,
-   multiply, F.linear);
+   guidance (B=2), of the training path at batch 4 and of the serving path at
+   batch 8 (B=16), and (K2) at one ragged shape, bf16 inputs, the plain
+   version computed in fp32 from the same inputs (one batch element at a time
+   where its logits would pass 2 GiB); K1 also at the safety checker's vision
+   towers (the untrained one, N=50, 4 heads of 16, and ViT-L/14, N=257, 16
+   heads of 64, at batch 1 and 8) and at the VQ-f4 models' legacy attention
+   blocks (VQ_FLASH_SHAPES: inpainting_big's d = 64, 96 and 128 at batch 1,
+   CelebA-HQ's d = 32 at 14, 21 and 28 heads at batch 4, its decoder's
+   mid-block), each group's sums logged apart; K1's row log-sum-exp (the
+   statistic K3 reads) against its plain version too, and every K1 shape a
+   second time with sharp logits (q times SHARP); K1's launch plan at each
+   shape (blocks, shared memory, blocks per SM, waves) and K2's per GEMM (a
+   block's rows and columns, stages, blocks, k splits, waves) at each shape;
+   max abs error and the ms of each (CUDA events), the bound, and the ms of
+   one PyTorch call computing the same function (scaled_dot_product_attention
+   for K1; none for K2, whose yardstick is the unfused bf16 FF: F.linear,
+   chunk, F.gelu, multiply, F.linear);
 5. K3 flash-attention backward: at the training path's two shapes and at
    the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's wide plan,
    with K1's output and row log-sum-exp checked there too), with plain and
@@ -198,7 +201,25 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    calibrated scale_factor recomputed from the first batch's draw; every
    step a finite loss, a finite non-zero gradient on every trained tensor
    and exactly K1 = 16 + 16 + 32 + 1, K2 = 32 and K3 = 5; every BERT tensor
-   and the logvar table moved; step times, peak memory, the save on exit.
+   and the logvar table moved; step times, peak memory, the save on exit;
+25. [inpaint]: inpainting_big (sd_tpu_torch/configs/inpainting_big.yaml:
+   the VQ-f4 first stage without attention as the cond stage, a 387M UNet
+   with legacy attention of 8 heads, resblock up/down, concat) at full
+   width with seeded random bf16 weights, built as
+   `python -m sd_tpu_torch.scripts.inpaint` builds it; one synthetic 512²
+   image with a square mask, DDIM 50, batch 1, through InpaintPipeline:
+   encode, sample and decode seconds, exactly K1 = 16 x 50 (its VQ stage
+   has no attention), the pixels outside the mask equal to the input's,
+   and the sampled latents within relative L2 AGREEMENT_TOL of the same
+   request with K1 replaced by its plain version;
+26. [sample_diffusion]: `python -m sd_tpu_torch.scripts.sample_diffusion -c
+   sd_tpu_torch/configs/celebahq-ldm-vq-4.yaml` through its main() (the
+   unconditional CelebA-HQ LDM, 274M UNet with 32-channel heads, VQ-f4 with
+   a mid-block attention) at batch 4, 256², DDIM 50 at eta 1, writing its
+   .npz to a temporary directory: samples/s, exactly K1 = 16 x 50 + 1, the
+   latents within AGREEMENT_TOL of a second build sampling with the plain
+   attention, and the share of the card's code indices (fp32 distances)
+   that the CPU's fp32 quantizer gives on the same latents.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -246,6 +267,13 @@ FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8,
                 (4, 4096, 1, 512),
                 (16, 4096, 8, 40), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),
                 (8, 4096, 1, 512)]
+# (B, N, H, D): the legacy attention blocks of the VQ-f4 models at full width:
+# inpainting_big at 512² (128² latents, 8 heads; batch 1, no guidance) at
+# 64², 32² and 16², d = 64, 96 and 128; CelebA-HQ at batch 4 (64² latents,
+# heads of 32) at 32², 16² and 8², 14, 21 and 28 heads; its VQ decoder's
+# mid-block at batch 4
+VQ_FLASH_SHAPES = [(1, 4096, 8, 64), (1, 1024, 8, 96), (1, 256, 8, 128), (4, 1024, 14, 32),
+                   (4, 256, 21, 32), (4, 64, 28, 32), (4, 4096, 1, 512)]
 # (B, N, H, D): the safety checker's vision tower, the untrained one (7x7
 # patches of 32 and the class token, width 64, 4 heads) and ViT-L/14 (16x16
 # patches of 14 and the class token, 16 heads of 64), at batch 1 and 8: a new
@@ -322,6 +350,15 @@ TRAIN_TENSOR_FLOOR = 1e-4
 # VAE encoder's mid-block; K3 at the five N=4096 and five N=1024 sites
 TRAIN_LAUNCHES = {"flash_attention": 2 * SITES_PER_UNET + 1, "geglu_ff": 2 * SITES_PER_UNET,
                   "flash_attention_bwd": 10}
+# the VQ-f4 models' phases: inpainting_big at 512², batch 1, and CelebA-HQ at
+# 256², batch 4, DDIM 50 each; K1 at 16 sites a UNet evaluation, and at
+# CelebA-HQ's VQ decoder's mid-block once (inpainting_big's VQ stage has none)
+INPAINT_CONFIG = "sd_tpu_torch/configs/inpainting_big.yaml"
+CELEBAHQ_CONFIG = "sd_tpu_torch/configs/celebahq-ldm-vq-4.yaml"
+CELEBAHQ_BATCH = 4
+# the card's code indices against the CPU's fp32 quantizer on the same latents:
+# both compute the distances in fp32, so only the order of a sum differs
+CODE_AGREEMENT_MIN = 0.99
 # the two --base training phases: the kl-f8 VAE-GAN at batch 12, 256²
 # (autoencoder_kl_32x32x4.yaml, the discriminator engaged from step 2 by
 # disc_start=1), and the LAION 1.4B LDM with its 32-layer BERT trained, at
@@ -643,20 +680,23 @@ def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
 
 
 def check_flash(randn) -> list:
+    groups = {f"the {len(FLASH_SHAPES)} UNet and VAE shapes": FLASH_SHAPES,
+              f"the {len(SAFETY_FLASH_SHAPES)} safety-tower shapes": SAFETY_FLASH_SHAPES,
+              f"the {len(VQ_FLASH_SHAPES)} VQ-f4 model shapes": VQ_FLASH_SHAPES}
     rows = []
-    for shape in FLASH_SHAPES + SAFETY_FLASH_SHAPES:
-        log_plan("K1", shape)
-        row = flash_case(randn, shape)
-        row["err"] = max(row["err"], flash_case(randn, shape, sharp=True, timed=False)["err"])
-        rows.append(row)
-        free_memory()
-    sums = [{k: sum(r[k] for r in part) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-            for part in (rows[:len(FLASH_SHAPES)], rows[len(FLASH_SHAPES):])]
-    for label, part in zip((f"the {len(FLASH_SHAPES)} UNet and VAE shapes",
-                            f"the {len(SAFETY_FLASH_SHAPES)} safety-tower shapes"), sums):
-        log(f"[K1 flash_attention] over {label}: kernel {part['ms']:.4f} ms, plain "
-            f"{part['plain_ms']:.4f} ms, sdpa {part['library_ms']:.4f} ms, bound "
-            f"{part['bound_ms']:.4f} ms")
+    for label, shapes in groups.items():
+        part = []
+        for shape in shapes:
+            log_plan("K1", shape)
+            row = flash_case(randn, shape)
+            row["err"] = max(row["err"], flash_case(randn, shape, sharp=True, timed=False)["err"])
+            part.append(row)
+            free_memory()
+        sums = {k: sum(r[k] for r in part) for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[K1 flash_attention] over {label}: kernel {sums['ms']:.4f} ms, plain "
+            f"{sums['plain_ms']:.4f} ms, sdpa {sums['library_ms']:.4f} ms, bound "
+            f"{sums['bound_ms']:.4f} ms")
+        rows += part
     return rows
 
 
@@ -2639,32 +2679,42 @@ def first_stage_grads(ae) -> dict:
                           if n.startswith(g + ".")]) for g in FIRST_STAGE_GRAD_GROUPS}
 
 
+@contextlib.contextmanager
+def plain_attention(plain: bool = True):
+    """Within the block, with ``plain``, every self-attention call that would
+    reach K1 (with K3 behind it) takes ``flash_attention_plain`` instead:
+    the same function, no kernel."""
+    from sd_tpu_torch.ops import attention
+    from sd_tpu_torch.ops.cuda import flash_attention_plain
+
+    kernel_attention = attention.differentiable_flash_attention
+    if plain:
+        attention.differentiable_flash_attention = (
+            lambda q, k, v, scale=None: flash_attention_plain(q, k, v, scale))
+    try:
+        yield
+    finally:
+        attention.differentiable_flash_attention = kernel_attention
+
+
 def first_stage_steps(argv: list, steps: int, plain: bool) -> tuple:
     """The CLI's first-stage trainer for ``argv``, its first ``steps``
     steps by ``train_step`` with fit's generators; with ``plain``, the
     autograd attention through ``flash_attention_plain``. Returns each
     step's losses and step 1's gradients (FIRST_STAGE_GRAD_GROUPS)."""
-    from sd_tpu_torch.ops import attention
-    from sd_tpu_torch.ops.cuda import flash_attention_plain
     from sd_tpu_torch.scripts.train import build_trainer, parse_args
     from sd_tpu_torch.training.trainer import step_seed
 
     opt = parse_args(argv)
     harness, state, data = build_trainer(opt)
-    kernel_attention = attention.differentiable_flash_attention
-    if plain:
-        attention.differentiable_flash_attention = (
-            lambda q, k, v, scale=None: flash_attention_plain(q, k, v, scale))
     losses, grads = [], None
-    try:
+    with plain_attention(plain):
         for step in range(steps):
             generator = torch.Generator("cuda").manual_seed(step_seed(opt.seed, step))
             losses.append(_vae_gan_losses(harness.trainer_obj.train_step(
                 state, data.train_dataloader().batch(step), generator)))
             if step == 0:
                 grads = first_stage_grads(state.ae)
-    finally:
-        attention.differentiable_flash_attention = kernel_attention
     del harness, state, data
     free_memory()
     return losses, grads
@@ -2856,6 +2906,122 @@ def _train_1p4b(logdir: str) -> dict:
     return launches
 
 
+def check_latent_gate(label: str, got: torch.Tensor, plain: torch.Tensor) -> float:
+    """The kernels' latents against the plain attention's, relative L2
+    within AGREEMENT_TOL and not identical."""
+    got, plain = got.float().cpu(), plain.float().cpu()
+    rel = ((got - plain).norm() / plain.norm()).item()
+    log(f"[{label}] latents against K1's plain version: relative L2 {rel:.4e} (bound "
+        f"{AGREEMENT_TOL})")
+    if not (np.isfinite(rel) and rel < AGREEMENT_TOL) or torch.equal(got, plain):
+        raise AssertionError(f"[{label}] relative L2 {rel} against the plain attention "
+                             f"(or identical to it)")
+    return rel
+
+
+def inpaint_main_path() -> dict:
+    """[inpaint]: inpainting_big at full width, bf16, built as the inpaint
+    CLI builds it; one 512² request, DDIM 50, with the kernels and again
+    with the plain attention."""
+    from sd_tpu_torch.scripts import inpaint as cli
+
+    t_phase = time.perf_counter()
+    opt = cli.parse_args(["--indir", ".", "--outdir", ".", "--config", INPAINT_CONFIG])
+    pipe = cli.build_pipeline(opt)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in pipe.ldm.model.diffusion_model.parameters())
+    n_vq = sum(p.numel() for p in pipe.ldm.first_stage_model.parameters())
+    log(f"[inpaint] inpainting_big, {n_unet / 1e6:.1f}M UNet and {n_vq / 1e6:.1f}M VQ-f4 "
+        f"parameters in bf16, built in {time.perf_counter() - t_phase:.1f} s")
+    image = synthetic_image(512, seed=2)
+    mask = np.zeros((512, 512), np.float32)
+    mask[128:352, 160:416] = 1.0
+    latents = []
+    for plain in (False, True):
+        reset_launches()
+        with plain_attention(plain):
+            out = pipe(image, mask, torch.Generator(device="cuda").manual_seed(opt.seed),
+                       steps=STEPS)
+        counts = read_launches()
+        t = pipe.last_timings
+        label = "plain attention" if plain else "K1"
+        log(f"[inpaint] 512², DDIM {STEPS}, batch 1, {label}: {t['total_s']:.3f} s (encode "
+            f"{t['encode_s']:.3f}, sample {t['sample_s']:.3f}, decode {t['decode_s']:.3f}); "
+            f"{t['sample_s'] * 1e3 / STEPS:.2f} ms per UNet evaluation; launches {counts}")
+        want = expect(flash_attention=0 if plain else SITES_PER_UNET * STEPS)
+        if counts != want:
+            raise AssertionError(f"[inpaint] {label}: launch counts {counts} != {want}")
+        keep = mask == 0
+        if out.shape != (1, 512, 512, 3) or not np.array_equal(out[0][keep], image[keep]):
+            raise AssertionError(f"[inpaint] {label}: {out.shape}, or the pixels outside the "
+                                 f"mask changed")
+        if out[0][~keep].std() == 0 or not torch.isfinite(pipe.last_latents).all():
+            raise AssertionError(f"[inpaint] {label}: a constant fill or latents not finite")
+        latents.append(pipe.last_latents)
+        if not plain:
+            kernel_counts = counts
+    log("[inpaint] the pixels outside the mask equal the input's in both runs")
+    check_latent_gate("inpaint", *latents)
+    del pipe
+    free_memory()
+    log(f"[inpaint] phase {time.perf_counter() - t_phase:.1f} s")
+    return kernel_counts
+
+
+def check_code_agreement(quantize, latents: torch.Tensor) -> float:
+    """The share of the card's code indices (bf16 latents, fp32 distances)
+    that the same quantizer in fp32 on the CPU gives on the same latents."""
+    z = latents.to(quantize.embedding.weight.dtype)
+    got = quantize.indices(z).cpu()
+    cpu = copy.deepcopy(quantize).float().cpu()
+    want = cpu.indices(z.float().cpu())
+    same = int((got == want).sum())
+    share = same / want.numel()
+    log(f"[sample_diffusion] code indices: the card's equal the CPU fp32 quantizer's at "
+        f"{same} of {want.numel()} latents ({share:.6f}; bound {CODE_AGREEMENT_MIN}), "
+        f"{len(torch.unique(want))} distinct codes")
+    if share < CODE_AGREEMENT_MIN:
+        raise AssertionError(f"[sample_diffusion] code agreement {share}")
+    return share
+
+
+def sample_diffusion_main_path() -> dict:
+    """[sample_diffusion]: the CLI's main() on CelebA-HQ's config at batch
+    4, 256², DDIM 50 at eta 1, then a second build sampling with the plain
+    attention; the code indices of the latents on the card and the CPU."""
+    from sd_tpu_torch.scripts import sample_diffusion as cli
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="sample_diffusion_") as d:
+        argv = ["-c", CELEBAHQ_CONFIG, "-n", str(CELEBAHQ_BATCH), "--batch_size",
+                str(CELEBAHQ_BATCH), "-l", d]
+        reset_launches()
+        out = cli.main(argv)
+        counts = read_launches()
+        wall = time.perf_counter() - t_phase
+        arr = np.load(out["npz"])["arr_0"]
+        log(f"[sample_diffusion] CelebA-HQ LDM-VQ-4, batch {CELEBAHQ_BATCH}, 256², DDIM "
+            f"{STEPS} at eta 1: {out['samples_per_s'][0]:.4f} samples/s (main() with its build "
+            f"{wall:.1f} s); wrote {os.path.basename(out['npz'])} {arr.shape}; launches {counts}")
+        want = expect(flash_attention=SITES_PER_UNET * STEPS + 1)
+        if counts != want:
+            raise AssertionError(f"[sample_diffusion] launch counts {counts} != {want}")
+        if arr.shape != (CELEBAHQ_BATCH, 256, 256, 3) or any(a.min() == a.max() for a in arr):
+            raise AssertionError(f"[sample_diffusion] .npz {arr.shape} or a constant image")
+        if not torch.isfinite(out["latents"]).all():
+            raise AssertionError("[sample_diffusion] latents not finite")
+        opt = cli.parse_args(argv[:-1] + [os.path.join(d, "plain")])
+        ldm, hw, channels = cli.build_model(opt)
+        with plain_attention():
+            plain = cli.sample(ldm, hw, channels, opt)
+    check_latent_gate("sample_diffusion", out["latents"], plain["latents"])
+    check_code_agreement(ldm.first_stage_model.quantize, out["latents"] / ldm.scale_factor)
+    del ldm
+    free_memory()
+    log(f"[sample_diffusion] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def free_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -2897,6 +3063,9 @@ def main() -> None:
     first_stage = first_stage_main_path()
     free_memory()
     trained_1p4b = ldm_1p4b_main_path()
+    free_memory()
+    inpainted = inpaint_main_path()
+    sampled = sample_diffusion_main_path()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -2918,7 +3087,8 @@ def main() -> None:
               "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
-            served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b)
+            served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
+            inpainted, sampled)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all

@@ -1,16 +1,22 @@
-"""The diffusion UNet, NCHW (port of ``sd_tpu/models/unet.py``, crossattn path).
+"""The diffusion UNet, NCHW (port of ``sd_tpu/models/unet.py``).
 
 One block plan (:func:`build_unet_plan`, the same walk as ``sd_tpu``'s, with
 the reference's head-dim quirks) lays out the layers, so the port's
 ``state_dict`` names (``input_blocks.{i}.{j}``, ``middle_block.{j}``,
-``output_blocks.{i}.{j}``, ``time_embed.{0,2}``, ``out.{0,2}``) are the ones
-``sd_tpu.models.unet.port_unet`` reads. With ``use_checkpoint`` (SD v1 sets
-it), each ResBlock and SpatialTransformer application of a module in
-training mode is recomputed in the backward pass
-(``torch.utils.checkpoint``), as ``sd_tpu`` wraps them in ``nn.remat``.
-The legacy pixel-space attention block, resblock up/down-sampling,
-conv-less resampling, class labels and the codebook head are not ported
-yet.
+``output_blocks.{i}.{j}``, ``time_embed.{0,2}``, ``label_emb``, ``out.{0,2}``,
+``id_predictor.{0,1}``) are the ones ``sd_tpu.models.unet.port_unet`` reads.
+Attention is the crossattn ``SpatialTransformer`` or, without
+``use_spatial_transformer``, the legacy pixel-space ``QKVAttentionBlock``
+(its heads at the output sites from ``num_heads_upsample``, as
+``sd_tpu``'s ``_head_config`` gives them). ``resblock_updown`` resamples
+inside ResBlocks, ``conv_resample=False`` resamples without a conv,
+``num_classes`` adds a class embedding (``y`` in ``forward``) to the
+timestep's, and ``n_embed`` makes ``forward`` return the codebook head's
+logits (``id_predictor``) instead of ``out``, which the module keeps, as
+the reference does. With ``use_checkpoint`` (SD v1 sets it), each ResBlock
+and attention application of a module in training mode is recomputed in the
+backward pass (``torch.utils.checkpoint``), as ``sd_tpu`` wraps them in
+``nn.remat``.
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from sd_tpu_torch.core.schedules import timestep_embedding
-from sd_tpu_torch.ops.attention import SpatialTransformer
+from sd_tpu_torch.ops.attention import QKVAttentionBlock, SpatialTransformer
 from sd_tpu_torch.ops.norms import GroupNorm32
 from sd_tpu_torch.ops.resblock import Downsample, ResBlock, Upsample
 
@@ -60,12 +66,8 @@ class UNetConfig:
     def __post_init__(self):
         if self.num_heads == -1 and self.num_head_channels == -1:
             raise ValueError("either num_heads or num_head_channels must be set")
-        if not self.use_spatial_transformer or self.context_dim is None:
-            raise NotImplementedError("the port has the crossattn SpatialTransformer UNet only")
-        if (self.num_classes is not None or self.n_embed is not None or self.resblock_updown
-                or not self.conv_resample):
-            raise NotImplementedError("class labels, the codebook head, resblock up/down "
-                                      "and conv-less resampling are not ported")
+        if self.use_spatial_transformer != (self.context_dim is not None):
+            raise ValueError("use_spatial_transformer and context_dim go together")
 
     @classmethod
     def from_dict(cls, d: Dict[str, Any]) -> "UNetConfig":
@@ -73,21 +75,30 @@ class UNetConfig:
         return cls(**{k: v for k, v in d.items() if k in names})
 
 
-def _head_config(cfg: UNetConfig, ch: int) -> Tuple[int, int]:
-    """Per-site (num_heads, dim_head), including the ``legacy`` quirk."""
+def _head_config(cfg: UNetConfig, ch: int, upsample_site: bool) -> Tuple[int, int]:
+    """Per-site (num_heads, dim_head) as ``sd_tpu``'s ``_head_config`` gives
+    them, the ``legacy`` quirk and the output sites' ``num_heads_upsample``
+    included; ``dim_head`` may be -1 at a legacy block."""
     if cfg.num_head_channels == -1:
         heads, dim_head = cfg.num_heads, ch // cfg.num_heads
     else:
         heads, dim_head = ch // cfg.num_head_channels, cfg.num_head_channels
     if cfg.legacy:
-        dim_head = ch // heads
+        dim_head = ch // heads if cfg.use_spatial_transformer else cfg.num_head_channels
+    if upsample_site and not cfg.use_spatial_transformer and cfg.num_head_channels == -1:
+        heads = cfg.num_heads_upsample if cfg.num_heads_upsample != -1 else cfg.num_heads
     return heads, dim_head
 
 
-def _attn_layer(cfg: UNetConfig, ch: int) -> Dict[str, Any]:
-    heads, dim_head = _head_config(cfg, ch)
-    return dict(kind="spatial_transformer", ch=ch, heads=heads, dim_head=dim_head,
-                depth=cfg.transformer_depth, context_dim=cfg.context_dim)
+def _attn_layer(cfg: UNetConfig, ch: int, upsample_site: bool = False) -> Dict[str, Any]:
+    heads, dim_head = _head_config(cfg, ch, upsample_site)
+    if cfg.use_spatial_transformer:
+        return dict(kind="spatial_transformer", ch=ch, heads=heads, dim_head=dim_head,
+                    depth=cfg.transformer_depth, context_dim=cfg.context_dim)
+    # the legacy block's own head count: `heads` where its head width is -1,
+    # else as many heads of that width as fit
+    return dict(kind="attention", ch=ch, heads=heads if dim_head == -1 else ch // dim_head,
+                use_new_attention_order=cfg.use_new_attention_order)
 
 
 def build_unet_plan(cfg: UNetConfig) -> Dict[str, Any]:
@@ -105,7 +116,8 @@ def build_unet_plan(cfg: UNetConfig) -> Dict[str, Any]:
             input_blocks.append(layers)
             input_chans.append(ch)
         if level != len(cfg.channel_mult) - 1:
-            input_blocks.append([dict(kind="downsample", ch=ch)])
+            input_blocks.append([dict(kind="res", ch=ch, out_ch=ch, down=True)
+                                 if cfg.resblock_updown else dict(kind="downsample", ch=ch)])
             input_chans.append(ch)
             ds *= 2
 
@@ -119,9 +131,10 @@ def build_unet_plan(cfg: UNetConfig) -> Dict[str, Any]:
             layers = [dict(kind="res", ch=ch + ich, out_ch=cfg.model_channels * mult)]
             ch = cfg.model_channels * mult
             if ds in cfg.attention_resolutions:
-                layers.append(_attn_layer(cfg, ch))
+                layers.append(_attn_layer(cfg, ch, upsample_site=True))
             if level and i == cfg.num_res_blocks:
-                layers.append(dict(kind="upsample", ch=ch))
+                layers.append(dict(kind="res", ch=ch, out_ch=ch, up=True)
+                              if cfg.resblock_updown else dict(kind="upsample", ch=ch))
                 ds //= 2
             output_blocks.append(layers)
 
@@ -137,21 +150,26 @@ def _make_layer(cfg: UNetConfig, desc: Dict) -> nn.Module:
     if kind == "res":
         return ResBlock(desc["ch"], 4 * cfg.model_channels, dropout=cfg.dropout,
                         out_channels=desc["out_ch"],
-                        use_scale_shift_norm=cfg.use_scale_shift_norm)
+                        use_scale_shift_norm=cfg.use_scale_shift_norm,
+                        up=desc.get("up", False), down=desc.get("down", False))
     if kind == "spatial_transformer":
         return SpatialTransformer(desc["ch"], desc["heads"], desc["dim_head"],
                                   depth=desc["depth"], dropout=cfg.dropout,
                                   context_dim=desc["context_dim"])
+    if kind == "attention":
+        return QKVAttentionBlock(desc["ch"], desc["heads"], desc["use_new_attention_order"])
     if kind == "downsample":
-        return Downsample(desc["ch"])
+        return Downsample(desc["ch"], use_conv=cfg.conv_resample)
     if kind == "upsample":
-        return Upsample(desc["ch"])
+        return Upsample(desc["ch"], use_conv=cfg.conv_resample)
     raise ValueError(kind)
 
 
 class UNetModel(nn.Module):
-    """``forward(x [B, C, H, W], timesteps [B], context [B, N, D])``; runs in
-    the parameters' dtype and returns the dtype of ``x``."""
+    """``forward(x [B, C, H, W], timesteps [B], context [B, N, D], y [B])``
+    (``y``, the class ids, given exactly where ``num_classes`` is set); runs
+    in the parameters' dtype and returns the dtype of ``x``: ε ``[B, out, H,
+    W]``, or with ``n_embed`` the codebook logits ``[B, n_embed, H, W]``."""
 
     def __init__(self, config: UNetConfig):
         super().__init__()
@@ -160,31 +178,42 @@ class UNetModel(nn.Module):
         emb_ch = 4 * cfg.model_channels
         self.time_embed = nn.Sequential(nn.Linear(cfg.model_channels, emb_ch), nn.SiLU(),
                                         nn.Linear(emb_ch, emb_ch))
+        if cfg.num_classes is not None:
+            self.label_emb = nn.Embedding(cfg.num_classes, emb_ch)
         blocks = lambda descs: nn.ModuleList(_make_layer(cfg, d) for d in descs)
         self.input_blocks = nn.ModuleList(blocks(b) for b in plan["input_blocks"])
         self.middle_block = blocks(plan["middle_block"])
         self.output_blocks = nn.ModuleList(blocks(b) for b in plan["output_blocks"])
         self.out = nn.Sequential(GroupNorm32(plan["out_ch"]), nn.SiLU(),
                                  nn.Conv2d(plan["out_ch"], cfg.out_channels, 3, padding=1))
+        if cfg.n_embed is not None:
+            self.id_predictor = nn.Sequential(GroupNorm32(plan["out_ch"]),
+                                              nn.Conv2d(cfg.model_channels, cfg.n_embed, 1))
 
     def _run_block(self, layers: nn.ModuleList, h, emb, context):
         remat = self.config.use_checkpoint and self.training and torch.is_grad_enabled()
         for layer in layers:
-            if isinstance(layer, (ResBlock, SpatialTransformer)):
-                arg = emb if isinstance(layer, ResBlock) else context
+            if isinstance(layer, (ResBlock, SpatialTransformer, QKVAttentionBlock)):
+                args = ((emb,) if isinstance(layer, ResBlock) else
+                        (context,) if isinstance(layer, SpatialTransformer) else ())
                 if remat:
-                    h = checkpoint(layer, h, arg, use_reentrant=False)
+                    h = checkpoint(layer, h, *args, use_reentrant=False)
                 else:
-                    h = layer(h, arg)
+                    h = layer(h, *args)
             else:
                 h = layer(h)
         return h
 
     def forward(self, x: torch.Tensor, timesteps: torch.Tensor,
-                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+                context: Optional[torch.Tensor] = None,
+                y: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if (y is not None) != (self.config.num_classes is not None):
+            raise ValueError("y must be given exactly where the model is class-conditional")
         dtype = self.time_embed[0].weight.dtype
         t_emb = timestep_embedding(timesteps, self.config.model_channels)
         emb = self.time_embed(t_emb.to(dtype))
+        if y is not None:
+            emb = emb + self.label_emb(y)
         context = context.to(dtype) if context is not None else None
         h = x.to(dtype)
         hs = []
@@ -194,4 +223,5 @@ class UNetModel(nn.Module):
         h = self._run_block(self.middle_block, h, emb, context)
         for block in self.output_blocks:
             h = self._run_block(block, torch.cat([h, hs.pop()], dim=1), emb, context)
-        return self.out(h).to(x.dtype)
+        head = self.id_predictor if self.config.n_embed is not None else self.out
+        return head(h).to(x.dtype)

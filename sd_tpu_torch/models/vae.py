@@ -1,19 +1,23 @@
-"""The KL autoencoder, NCHW (port of ``sd_tpu/models/vae.py``).
+"""The first stages, NCHW (port of ``sd_tpu/models/vae.py``).
 
-``Encoder``, ``Decoder`` and ``AutoencoderKL`` (``encode`` → a
-:class:`DiagonalGaussian`, ``decode``, and the training forward: encode, a
-posterior sample or its mode, decode; ``get_last_layer`` is the decoder's
-last conv weight, where the VAE-GAN loss takes its adaptive weight), and
-``IdentityFirstStage`` for pixel-space diffusion. Names follow the CompVis
-``state_dict`` (``encoder.down.{i}.block.{j}``, ``encoder.mid.attn_1``,
-``quant_conv``, ``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
+``Encoder`` and ``Decoder`` (with the mid-block and per-level attention of
+``attn_type`` ``vanilla``, ``linear`` or ``none``, and resampling with or
+without convs), ``AutoencoderKL`` (``encode`` → a :class:`DiagonalGaussian`,
+``decode``, and the training forward: encode, a posterior sample or its
+mode, decode; ``get_last_layer`` is the decoder's last conv weight, where
+the VAE-GAN loss takes its adaptive weight), the VQ model
+(:class:`VectorQuantizer`, :class:`VQModel`; also the reference's
+``VQModelInterface``) and ``IdentityFirstStage`` for pixel-space diffusion.
+Names follow the CompVis ``state_dict`` (``encoder.down.{i}.block.{j}``,
+``encoder.mid.attn_1``, ``quant_conv``, ``quantize.embedding``,
+``decoder.mid.block_1``, ``decoder.up.{i}.block.{j}``,
 ``decoder.up.{i}.upsample.conv``, ``post_quant_conv`` ...), which is what
-``sd_tpu.models.vae.port_autoencoder_kl`` reads. The VQ model and the
-linear-attention variant are not ported.
+``sd_tpu.models.vae.port_autoencoder_kl`` and ``port_vq_model`` read.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
@@ -21,18 +25,29 @@ import torch.nn.functional as F
 from torch import nn
 
 from sd_tpu_torch.core.distributions import DiagonalGaussian
-from sd_tpu_torch.ops.attention import VAEAttnBlock
+from sd_tpu_torch.ops.attention import LinearAttention, VAEAttnBlock
 from sd_tpu_torch.ops.conv import Conv3x3
 from sd_tpu_torch.ops.norms import GroupNorm32
 from sd_tpu_torch.ops.resblock import Upsample, VAEDownsample, VAEResnetBlock
 
-__all__ = ["Encoder", "Decoder", "AutoencoderKL", "IdentityFirstStage"]
+__all__ = ["Encoder", "Decoder", "AutoencoderKL", "VectorQuantizer", "VQModel",
+           "IdentityFirstStage"]
 
 
-def _check_ddconfig(attn_type: str, use_linear_attn: bool, resamp_with_conv: bool) -> None:
-    if attn_type != "vanilla" or use_linear_attn or not resamp_with_conv:
-        raise NotImplementedError("the port has the vanilla VAE attention and conv "
-                                  "resampling only")
+def _attn_type(attn_type: str, use_linear_attn: bool) -> str:
+    """The reference's rule: ``use_linear_attn`` forces ``linear``."""
+    attn_type = "linear" if use_linear_attn else attn_type
+    if attn_type not in ("vanilla", "linear", "none"):
+        raise ValueError(f"attn_type {attn_type!r}: expected vanilla, linear or none")
+    return attn_type
+
+
+def _make_attn(channels: int, attn_type: str) -> nn.Module:
+    if attn_type == "vanilla":
+        return VAEAttnBlock(channels)
+    if attn_type == "linear":
+        return LinearAttention(channels, heads=1, dim_head=channels)
+    return nn.Identity()
 
 
 class Encoder(nn.Module):
@@ -46,7 +61,7 @@ class Encoder(nn.Module):
                  use_linear_attn: bool = False, in_channels: int = 3, double_z: bool = True):
         # out_ch configures the decoder, which shares the ddconfig
         super().__init__()
-        _check_ddconfig(attn_type, use_linear_attn, resamp_with_conv)
+        attn_type = _attn_type(attn_type, use_linear_attn)
         num_res = len(ch_mult)
         curr_res = resolution
         in_ch_mult = (1,) + tuple(ch_mult)
@@ -62,14 +77,14 @@ class Encoder(nn.Module):
                 level.block.append(VAEResnetBlock(block_in, block_out, dropout=dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    level.attn.append(VAEAttnBlock(block_in))
+                    level.attn.append(_make_attn(block_in, attn_type))
             if i_level != num_res - 1:
-                level.downsample = VAEDownsample(block_in)
+                level.downsample = VAEDownsample(block_in, resamp_with_conv)
                 curr_res //= 2
             self.down.append(level)
         self.mid = nn.Module()
         self.mid.block_1 = VAEResnetBlock(block_in, dropout=dropout)
-        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.attn_1 = _make_attn(block_in, attn_type)
         self.mid.block_2 = VAEResnetBlock(block_in, dropout=dropout)
         self.norm_out = GroupNorm32(block_in, eps=1e-6)
         self.conv_out = Conv3x3(block_in, 2 * z_channels if double_z else z_channels)
@@ -97,14 +112,14 @@ class Decoder(nn.Module):
                  use_linear_attn: bool = False, in_channels: int = 3, double_z: bool = True):
         # in_channels and double_z configure the encoder, which shares the ddconfig
         super().__init__()
-        _check_ddconfig(attn_type, use_linear_attn, resamp_with_conv)
+        attn_type = _attn_type(attn_type, use_linear_attn)
         num_res = len(ch_mult)
         block_in = ch * ch_mult[-1]
         curr_res = resolution // 2 ** (num_res - 1)
         self.conv_in = Conv3x3(z_channels, block_in)
         self.mid = nn.Module()
         self.mid.block_1 = VAEResnetBlock(block_in, dropout=dropout)
-        self.mid.attn_1 = VAEAttnBlock(block_in)
+        self.mid.attn_1 = _make_attn(block_in, attn_type)
         self.mid.block_2 = VAEResnetBlock(block_in, dropout=dropout)
         up = [None] * num_res
         for i_level in reversed(range(num_res)):
@@ -116,9 +131,9 @@ class Decoder(nn.Module):
                 level.block.append(VAEResnetBlock(block_in, block_out, dropout=dropout))
                 block_in = block_out
                 if curr_res in attn_resolutions:
-                    level.attn.append(VAEAttnBlock(block_in))
+                    level.attn.append(_make_attn(block_in, attn_type))
             if i_level != 0:
-                level.upsample = Upsample(block_in)
+                level.upsample = Upsample(block_in, resamp_with_conv)
                 curr_res *= 2
             up[i_level] = level
         self.up = nn.ModuleList(up)
@@ -175,6 +190,108 @@ class AutoencoderKL(nn.Module):
 
     def get_last_layer(self) -> torch.Tensor:
         return self.decoder.conv_out.weight
+
+
+@contextlib.contextmanager
+def _fp32_products(device: torch.device):
+    """Matrix products in full fp32 within the block: autocast off for the
+    device and TF32 off for cuBLAS."""
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device.type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+class VectorQuantizer(nn.Module):
+    """The codebook (``embedding``, ``[n_embed, embed_dim]``): each latent
+    vector of ``[B, C, H, W]`` goes to its nearest code by squared distance
+    (|z|² + |e|² − 2 z·e, computed in fp32 without TF32, as ``sd_tpu``
+    computes it, so that a latent near the midpoint of two codes picks the
+    same one in bf16), with the commitment loss ``beta ‖sg(z_q) − z‖² +
+    ‖z_q − sg(z)‖²`` and straight-through gradients (taming's
+    ``VectorQuantizer2`` without remapping)."""
+
+    def __init__(self, n_embed: int, embed_dim: int, beta: float = 0.25):
+        super().__init__()
+        self.n_embed, self.embed_dim, self.beta = n_embed, embed_dim, beta
+        self.embedding = nn.Embedding(n_embed, embed_dim)
+
+    def indices(self, z: torch.Tensor) -> torch.Tensor:
+        """The nearest code's index of every latent vector, ``[B, H, W]``."""
+        b, c, h, w = z.shape
+        with _fp32_products(z.device):
+            flat = z.permute(0, 2, 3, 1).reshape(-1, c).float()
+            codes = self.embedding.weight.float()
+            d = (flat.square().sum(1, keepdim=True) + codes.square().sum(1)[None, :]
+                 - 2.0 * flat @ codes.t())
+        return d.argmin(dim=1).reshape(b, h, w)
+
+    def lookup(self, idx: torch.Tensor) -> torch.Tensor:
+        """Codes ``[B, H, W]`` → latents ``[B, embed_dim, H, W]``."""
+        return self.embedding(idx).permute(0, 3, 1, 2)
+
+    def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(z_q, loss, indices)``; ``z_q`` in the dtype of ``z``: the codes
+        themselves where autograd does not record, else ``z + sg(z_q − z)``
+        (equal up to rounding, which bf16 makes coarse)."""
+        idx = self.indices(z)
+        z_q = self.lookup(idx).to(z.dtype)
+        loss = (self.beta * (z_q.detach() - z).square().mean()
+                + (z_q - z.detach()).square().mean())
+        if torch.is_grad_enabled() and (z.requires_grad or z_q.requires_grad):
+            z_q = z + (z_q - z).detach()
+        return z_q, loss, idx
+
+
+class VQModel(nn.Module):
+    """The VQ first stage (the reference's ``VQModel`` and
+    ``VQModelInterface``): ``encoder`` and ``quant_conv`` to the continuous
+    latent (:meth:`encode_pre_quant`, ``VQModelInterface.encode``), the
+    codebook ``quantize``, then ``post_quant_conv`` and ``decoder``.
+    :meth:`decode` quantizes unless ``force_not_quantize``, as the
+    reference's ``VQModelInterface.decode``."""
+
+    def __init__(self, ddconfig: Dict[str, Any], n_embed: int, embed_dim: int,
+                 beta: float = 0.25):
+        super().__init__()
+        self.encoder = Encoder(**ddconfig)
+        self.decoder = Decoder(**ddconfig)
+        self.quantize = VectorQuantizer(n_embed, embed_dim, beta)
+        self.quant_conv = nn.Conv2d(ddconfig["z_channels"], embed_dim, 1)
+        self.post_quant_conv = nn.Conv2d(embed_dim, ddconfig["z_channels"], 1)
+
+    def encode_pre_quant(self, x: torch.Tensor) -> torch.Tensor:
+        """Images ``[B, 3, H, W]`` in [-1, 1] → the latent before
+        quantization, in the parameters' dtype."""
+        return self.quant_conv(self.encoder(x.to(self.quant_conv.weight.dtype)))
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(z_q, loss, indices)`` of the images' latent."""
+        return self.quantize(self.encode_pre_quant(x))
+
+    def quantize_latent(self, z: torch.Tensor):
+        """A continuous latent through the codebook: ``(z_q, loss, indices)``."""
+        return self.quantize(z)
+
+    def decode(self, z: torch.Tensor, force_not_quantize: bool = False) -> torch.Tensor:
+        """Latents ``[B, embed_dim, h, w]`` → images in the parameters' dtype,
+        through the codebook first unless ``force_not_quantize``."""
+        z = z.to(self.post_quant_conv.weight.dtype)
+        if not force_not_quantize:
+            z = self.quantize(z)[0]
+        return self.decoder(self.post_quant_conv(z))
+
+    def decode_code(self, code: torch.Tensor) -> torch.Tensor:
+        """Code indices ``[B, h, w]`` → images."""
+        return self.decode(self.quantize.lookup(code), force_not_quantize=True)
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """``(reconstruction, codebook loss, indices)``."""
+        quant, diff, idx = self.encode(x)
+        return self.decode(quant, force_not_quantize=True), diff, idx
 
 
 class IdentityFirstStage(nn.Module):

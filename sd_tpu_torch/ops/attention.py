@@ -33,10 +33,16 @@ quantized at load time and held per module (``quant.Int8Weights``).
 
 On a CPU tensor each kernel wrapper computes its plain version.
 
+The OpenAI UNet's legacy pixel-space block (:class:`QKVAttentionBlock`)
+sends its self-attention through :func:`dot_product_attention` too, so K1
+takes it on the card; it has no int8 mode, as in ``sd_tpu``. The VAE's
+:class:`LinearAttention` is plain PyTorch, as in ``sd_tpu``.
+
 Modules keep the CompVis ``state_dict`` names (``to_q``, ``to_out.0``,
-``ff.net.0.proj``, ``ff.net.2``, ``transformer_blocks.0`` ...). The 1x1
-convs (``proj_in``/``proj_out``, the VAE ``q``/``k``/``v``) keep their
-``Conv2d`` weights and are applied as linear maps over tokens.
+``ff.net.0.proj``, ``ff.net.2``, ``transformer_blocks.0``, ``qkv``,
+``to_qkv`` ...). The 1x1 convs (``proj_in``/``proj_out``, the VAE
+``q``/``k``/``v``, the legacy block's ``Conv1d`` ``qkv``/``proj_out``) keep
+their weights and are applied as linear maps over tokens.
 """
 
 from __future__ import annotations
@@ -71,6 +77,8 @@ __all__ = [
     "BasicTransformerBlock",
     "SpatialTransformer",
     "VAEAttnBlock",
+    "QKVAttentionBlock",
+    "LinearAttention",
 ]
 
 
@@ -108,8 +116,8 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     return flash_attention_plain(q, k, v, scale, mask)
 
 
-def _linear_1x1(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """Apply a 1x1 ``Conv2d`` to tokens ``[..., C]``."""
+def _linear_1x1(x: torch.Tensor, conv: nn.Module) -> torch.Tensor:
+    """Apply a 1x1 ``Conv2d`` (or width-1 ``Conv1d``) to tokens ``[..., C]``."""
     return F.linear(x, conv.weight.flatten(1), conv.bias)
 
 
@@ -306,3 +314,58 @@ class VAEAttnBlock(nn.Module):
         out = dot_product_attention(q, k, v, scale=c**-0.5, int8=self.int8)
         out = _linear_1x1(out.reshape(b, hh * ww, c), self.proj_out)
         return x + _from_tokens(out, hh, ww)
+
+
+class QKVAttentionBlock(nn.Module):
+    """The OpenAI UNet's legacy self-attention block over ``[B, C, H, W]``:
+    GroupNorm, a fused 1x1 ``qkv`` (``Conv1d``, weight ``[3C, C, 1]``),
+    attention over the H·W tokens in ``num_heads`` heads of C / heads, a 1x1
+    ``proj_out`` and the residual. The fused projection's channels are laid
+    out ``[heads, 3, d]`` (``QKVAttentionLegacy``) or, with
+    ``use_new_attention_order``, ``[3, heads, d]`` (``QKVAttention``)."""
+
+    def __init__(self, channels: int, num_heads: int, use_new_attention_order: bool = False):
+        super().__init__()
+        if channels % num_heads:
+            raise ValueError(f"{channels} channels do not split into {num_heads} heads")
+        self.num_heads = num_heads
+        self.use_new_attention_order = use_new_attention_order
+        self.norm = GroupNorm32(channels)
+        self.qkv = nn.Conv1d(channels, 3 * channels, 1)
+        self.proj_out = nn.Conv1d(channels, channels, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        n, heads = hh * ww, self.num_heads
+        d = c // heads
+        qkv = _linear_1x1(_to_tokens(self.norm(x)), self.qkv)
+        if self.use_new_attention_order:
+            q, k, v = qkv.view(b, n, 3, heads, d).unbind(2)
+        else:
+            q, k, v = qkv.view(b, n, heads, 3, d).unbind(3)
+        out = dot_product_attention(q, k, v, scale=d**-0.5)
+        out = _linear_1x1(out.reshape(b, n, c), self.proj_out)
+        return x + _from_tokens(out, hh, ww)
+
+
+class LinearAttention(nn.Module):
+    """O(N) attention over ``[B, C, H, W]`` (the VAE's ``attn_type:
+    linear``): a bias-free 1x1 ``to_qkv`` laid out ``[3, heads, d]``, k
+    softmaxed over the tokens in fp32, the context kᵀv once per head, then
+    a 1x1 ``to_out``; no norm and no residual, as in the reference."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Conv2d(dim, 3 * hidden, 1, bias=False)
+        self.to_out = nn.Conv2d(hidden, dim, 1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, _, hh, ww = x.shape
+        qkv = self.to_qkv(x).reshape(b, 3, self.heads, self.dim_head, hh * ww)
+        q, k, v = qkv.unbind(1)                                  # [B, heads, d, N]
+        k = torch.softmax(k.float(), dim=-1).to(x.dtype)
+        context = torch.einsum("bhdn,bhen->bhde", k, v)
+        out = torch.einsum("bhde,bhdn->bhen", context, q)
+        return self.to_out(out.reshape(b, self.heads * self.dim_head, hh, ww))

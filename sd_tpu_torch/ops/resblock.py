@@ -1,13 +1,17 @@
 """Residual blocks and resampling layers, NCHW (port of ``sd_tpu/ops/resblock.py``).
 
-- ``ResBlock``: the UNet block with timestep-embedding injection.
+- ``ResBlock``: the UNet block with timestep-embedding injection, and with
+  ``up``/``down`` its in-block resample (nearest x2 or a 2x2 average pool)
+  after the first norm and activation, applied to the branch and the skip.
 - ``VAEResnetBlock``: the autoencoder block (eps 1e-6 GroupNorm, 1x1
   shortcut).
-- ``Upsample`` (nearest x2 + 3x3 conv), ``Downsample`` (stride-2 3x3 conv)
-  and ``VAEDownsample`` (the autoencoder's: pad right and bottom by one, then
-  a stride-2 3x3 conv with no padding).
+- ``Upsample`` (nearest x2, then a 3x3 conv with ``use_conv``),
+  ``Downsample`` (a stride-2 3x3 conv, or without ``use_conv`` a 2x2
+  average pool) and ``VAEDownsample`` (the autoencoder's: pad right and
+  bottom by one, then a stride-2 3x3 conv with no padding; or the pool).
 
-``ResBlock`` and ``VAEResnetBlock`` have ``sd_tpu``'s fused path: with
+``ResBlock`` (without ``up``/``down``, as ``sd_tpu`` gates it) and
+``VAEResnetBlock`` have ``sd_tpu``'s fused path: with
 ``conv_impl`` ``"force"`` (held from ``SD_TPU_FUSED_CONV``, see
 ``ops/cuda/fused_conv.py``), a block with dropout off or 0 whose two convs pass
 :func:`_fused_pair_supported` runs as two K7 launches. The first normalizes
@@ -52,10 +56,18 @@ def _fused_pair_supported(x_shape, out_ch: int, dtype: torch.dtype) -> bool:
 
 def _takes_fused_path(block: nn.Module, dropout: nn.Dropout, conv2: nn.Module,
                       x: torch.Tensor) -> bool:
-    """``sd_tpu``'s dispatch condition: dropout off or 0, the mode on, and
-    both convs of the block supported at ``x``."""
-    return ((not block.training or dropout.p == 0.0) and fused_conv_enabled(block.conv_impl)
+    """``sd_tpu``'s dispatch condition: no in-block resample, dropout off or
+    0, the mode on, and both convs of the block supported at ``x``."""
+    return (getattr(block, "resample", None) is None
+            and (not block.training or dropout.p == 0.0) and fused_conv_enabled(block.conv_impl)
             and _fused_pair_supported(x.shape, conv2.out_channels, x.dtype))
+
+
+def _resample(x: torch.Tensor, kind: str) -> torch.Tensor:
+    """Nearest x2 (``"up"``) or a 2x2 average pool (``"down"``) of NCHW ``x``."""
+    if kind == "up":
+        return F.interpolate(x, scale_factor=2.0, mode="nearest")
+    return F.avg_pool2d(x, 2)
 
 
 def _second_gn_folds(s1, s2, hw: int, offset, num_groups: int):
@@ -98,52 +110,64 @@ def _fused_pair(x, gn1, conv1, gn2, conv2, skip, offset_of):
 
 
 class Upsample(nn.Module):
-    """Nearest x2 upsample + 3x3 conv (``conv``)."""
+    """Nearest x2 upsample, then a 3x3 conv (``conv``) with ``use_conv``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.conv = Conv3x3(channels, channels)
+        if use_conv:
+            self.conv = Conv3x3(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+        x = _resample(x, "up")
+        return self.conv(x) if hasattr(self, "conv") else x
 
 
 class Downsample(nn.Module):
-    """Stride-2 3x3 conv (``op``), the UNet's downsample."""
+    """The UNet's downsample: a stride-2 3x3 conv (``op``), or without
+    ``use_conv`` a 2x2 average pool."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
+        if use_conv:
+            self.op = nn.Conv2d(channels, channels, 3, stride=2, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.op(x)
+        return self.op(x) if hasattr(self, "op") else _resample(x, "down")
 
 
 class VAEDownsample(nn.Module):
     """The encoder's downsample (``conv``): asymmetric pad (0, 1) on H and W,
-    then a stride-2 3x3 conv with no padding."""
+    then a stride-2 3x3 conv with no padding; without ``use_conv`` a 2x2
+    average pool."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_conv: bool = True):
         super().__init__()
-        self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
+        if use_conv:
+            self.conv = nn.Conv2d(channels, channels, 3, stride=2, padding=0)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.conv(F.pad(x, (0, 1, 0, 1)))
+        if hasattr(self, "conv"):
+            return self.conv(F.pad(x, (0, 1, 0, 1)))
+        return _resample(x, "down")
 
 
 class ResBlock(nn.Module):
     """GroupNorm → SiLU → conv, + emb (or FiLM scale-shift), GroupNorm → SiLU
-    → dropout → conv, + skip (identity, or 1x1 conv on a channel change).
-    ``conv_impl`` holds the fused conv mode (``"auto"``, ``"off"``,
-    ``"force"``)."""
+    → dropout → conv, + skip (identity, or on a channel change a 1x1 conv,
+    or a 3x3 one with ``use_conv``). With ``up`` or ``down`` the branch and
+    the skip are resampled after the first SiLU (``resample``: ``"up"``,
+    ``"down"`` or None). ``conv_impl`` holds the fused conv mode
+    (``"auto"``, ``"off"``, ``"force"``)."""
 
     conv_impl = "auto"
 
     def __init__(self, channels: int, emb_channels: int, dropout: float = 0.0,
-                 out_channels: Optional[int] = None, use_scale_shift_norm: bool = False):
+                 out_channels: Optional[int] = None, use_scale_shift_norm: bool = False,
+                 use_conv: bool = False, up: bool = False, down: bool = False):
         super().__init__()
         out_ch = out_channels or channels
         self.use_scale_shift_norm = use_scale_shift_norm
+        self.resample = "up" if up else "down" if down else None
         self.in_layers = nn.Sequential(GroupNorm32(channels), nn.SiLU(),
                                        Conv3x3(channels, out_ch))
         self.emb_layers = nn.Sequential(
@@ -152,13 +176,20 @@ class ResBlock(nn.Module):
                                         Conv3x3(out_ch, out_ch))
         if out_ch == channels:
             self.skip_connection = nn.Identity()
+        elif use_conv:
+            self.skip_connection = Conv3x3(channels, out_ch)
         else:
             self.skip_connection = nn.Conv2d(channels, out_ch, 1)
 
     def forward(self, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
         if _takes_fused_path(self, self.out_layers[2], self.out_layers[3], x):
             return self._fused(x, emb)
-        h = self.in_layers(x)
+        if self.resample is None:
+            h = self.in_layers(x)
+        else:
+            h = _resample(self.in_layers[:-1](x), self.resample)
+            x = _resample(x, self.resample)
+            h = self.in_layers[-1](h)
         emb_out = self.emb_layers(emb)[:, :, None, None]
         norm, rest = self.out_layers[0], self.out_layers[1:]
         if self.use_scale_shift_norm:

@@ -111,18 +111,28 @@ def wrap_model_output(model_fn: EpsModel, schedule: DiffusionSchedule,
     return eps_model
 
 
-def make_guided_eps(model_fn: EpsModel, cond: torch.Tensor,
-                    uncond: Optional[torch.Tensor] = None, guidance_scale: float = 1.0,
+def _cat_cond(a, b):
+    """``[a, b]`` over the batch, entry by entry for a dict or list cond
+    (``sd_tpu``'s tree concatenation)."""
+    if isinstance(a, dict):
+        return {k: _cat_cond(a[k], b[k]) for k in a}
+    if isinstance(a, (list, tuple)):
+        return [_cat_cond(u, c) for u, c in zip(a, b)]
+    return torch.cat([a, b])
+
+
+def make_guided_eps(model_fn: EpsModel, cond, uncond=None, guidance_scale: float = 1.0,
                     score_corrector: Optional[Callable] = None
                     ) -> Callable[[torch.Tensor, torch.Tensor], torch.Tensor]:
     """``eps(x, t)``; with guidance, one call on ``[x, x]`` with
     ``[uncond, cond]`` and ``eps_u + scale * (eps_c - eps_u)``; then
-    ``score_corrector(eps, x, t, cond)`` where one is given."""
+    ``score_corrector(eps, x, t, cond)`` where one is given. ``cond`` is a
+    tensor, a dict of them (``LatentDiffusion.apply_model``'s) or None."""
     use_cfg = uncond is not None and guidance_scale != 1.0
 
     def eps(x: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         if use_cfg:
-            out = model_fn(torch.cat([x, x]), torch.cat([t, t]), torch.cat([uncond, cond]))
+            out = model_fn(torch.cat([x, x]), torch.cat([t, t]), _cat_cond(uncond, cond))
             e_uncond, e_cond = out.chunk(2)
             e = e_uncond + guidance_scale * (e_cond - e_uncond)
         else:

@@ -37,7 +37,7 @@ __all__ = ["ddim_sample", "ddim_stochastic_encode", "ddim_decode"]
 
 
 def ddim_sample(model_fn: EpsModel, schedule: DiffusionSchedule, x_T: torch.Tensor,
-                cond: torch.Tensor, num_steps: int = 50, eta: float = 0.0, uncond=None,
+                cond=None, num_steps: int = 50, eta: float = 0.0, uncond=None,
                 guidance_scale: float = 1.0, generator: Optional[torch.Generator] = None,
                 noise: Optional[Sequence[torch.Tensor]] = None,
                 mask_noise: Optional[Sequence[torch.Tensor]] = None,
@@ -47,7 +47,8 @@ def ddim_sample(model_fn: EpsModel, schedule: DiffusionSchedule, x_T: torch.Tens
                 score_corrector: Optional[Callable] = None, noise_dropout: float = 0.0,
                 timestep_method: str = "uniform", log_every_t: int = 0,
                 t_start_index: Optional[int] = None, use_original_steps: bool = False):
-    """Run the reverse DDIM loop from ``x_T``.
+    """Run the reverse DDIM loop from ``x_T``; ``cond`` (and ``uncond``) a
+    tensor, a dict of them, or None for an unconditional model.
 
     ``t_start_index`` truncates the grid (img2img); ``use_original_steps``
     runs the whole DDPM grid with its own tables. ``mask`` (1 where ``x0``

@@ -171,6 +171,7 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
 
 
 def _first_stage(opt, model_cfg, data, device, harness_args):
+    from sd_tpu_torch.models.vae import AutoencoderKL
     from sd_tpu_torch.training.trainer import Trainer
     from sd_tpu_torch.training.vae_gan import BatchResizeWrapper, VAEGANTrainer, lpips_from_seed
     from sd_tpu_torch.utils.config import init_random_, instantiate_from_config
@@ -178,6 +179,10 @@ def _first_stage(opt, model_cfg, data, device, harness_args):
     p = model_cfg["params"]
     with torch.device("meta"):
         model = instantiate_from_config(model_cfg)
+    if not isinstance(model, AutoencoderKL):
+        raise NotImplementedError(f"training {type(model).__name__} is not ported yet; "
+                                  f"ROADMAP.md 'Modules to port' item 5 (VQ first-stage "
+                                  f"training) ports it")
     model.to_empty(device=device)
     init_random_(model, torch.Generator(device=device).manual_seed(opt.seed))
     # the trainer's loss arguments; refuses a loss the port has not ported

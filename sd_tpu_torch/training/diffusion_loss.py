@@ -150,6 +150,13 @@ class LDMTrainer:
     # the learned logvar table (learn_logvar), made by init_state
     logvar: Optional[nn.Parameter] = dataclasses.field(default=None, init=False)
 
+    def __post_init__(self):
+        if self.ldm.conditioning_key != "crossattn":
+            raise NotImplementedError(
+                f"training an LDM with conditioning_key {self.ldm.conditioning_key!r} is not "
+                f"ported yet; ROADMAP.md 'Modules to port' item 6 (the datasets that feed it) "
+                f"ports it")
+
     @property
     def unet(self) -> nn.Module:
         return self.ldm.model.diffusion_model

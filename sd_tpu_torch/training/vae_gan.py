@@ -29,8 +29,9 @@ mid-blocks' attention (d = 512) goes to K1 and, in the backward, K3; the
 frozen LPIPS runs in bf16 under the same autocast; BatchNorm is fp32. On
 the CPU everything is fp32 on the kernels' plain versions.
 
-VQ first stages (``VQLPIPSWithDiscriminator``, ``measure_perplexity``) wait
-for the VQ model.
+Training a VQ first stage (``VQLPIPSWithDiscriminator``,
+``measure_perplexity``) is ROADMAP.md's "Modules to port" item 5; the
+training CLI refuses it, naming that item.
 """
 
 from __future__ import annotations

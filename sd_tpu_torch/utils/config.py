@@ -6,16 +6,21 @@ an LDM from random weights, a reference checkpoint's ``state_dict`` or a
 training run.
 
 The registry resolves the reference's module paths and ``sd_tpu``'s to the
-port's classes: the UNet, the KL autoencoder and ``IdentityFirstStage``,
-the cond stages (``FrozenCLIPEmbedder``, ``ClassEmbedder``,
-``BERTEmbedder``, ``TransformerEmbedder``), the three LR schedules,
-``DataModuleFromConfig`` and the synthetic datasets,
-``LPIPSWithDiscriminator`` (the first-stage trainer's keyword arguments:
-its parameters that ``FIRST_STAGE_LOSS_KEYS`` names) and
-``torch.nn.Identity``. What the port has not ported yet raises
+port's classes: the UNet, the KL autoencoder, the VQ model (``VQModel`` and
+``VQModelInterface``) and ``IdentityFirstStage``, the cond stages
+(``FrozenCLIPEmbedder``, ``ClassEmbedder``, ``BERTEmbedder``,
+``TransformerEmbedder``), the three LR schedules, ``DataModuleFromConfig``
+and the synthetic datasets, ``LPIPSWithDiscriminator`` (the first-stage
+trainer's keyword arguments: its parameters that ``FIRST_STAGE_LOSS_KEYS``
+names) and ``torch.nn.Identity``. What the port has not ported yet raises
 ``NotImplementedError`` naming the item of ``ROADMAP.md``'s "Modules to
-port" that ports it: the VQ model, concat, hybrid and adm conditioning, and
-the real datasets.
+port" that ports it: VQ first-stage training's loss, ``SpatialRescaler``
+and the real datasets. ``build_latent_diffusion`` takes every conditioning
+key (None, ``concat``, ``crossattn``, ``hybrid``, ``adm``) and the cond
+stage sentinels ``__is_first_stage__`` and ``__is_unconditional__``; a
+config without ``conditioning_key`` gets ``crossattn``, as in ``sd_tpu``,
+or ``concat`` where it sets the reference's ``concat_mode`` (which
+``sd_tpu`` does not read).
 
 SD v1's model config lives here as a dict, so the card needs no YAML
 parser; a CPU test holds it equal to
@@ -42,10 +47,12 @@ from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.encoders import BERTEmbedder, ClassEmbedder, TransformerEmbedder
 from sd_tpu_torch.models.ldm import FrozenCLIPEmbedder, LatentDiffusion
 from sd_tpu_torch.models.unet import UNetConfig, UNetModel
-from sd_tpu_torch.models.vae import AutoencoderKL, IdentityFirstStage
+from sd_tpu_torch.models.vae import AutoencoderKL, IdentityFirstStage, VQModel
 from sd_tpu_torch.utils.checkpoint import filter_state_dict, load_run_params, run_config_path
 
-__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "train_config", "load_yaml",
+__all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "tiny_uncond_model_config",
+           "tiny_class_cond_model_config", "tiny_inpaint_model_config", "train_config",
+           "load_yaml",
            "merge_configs", "apply_dotlist", "register_target", "instantiate_from_config",
            "build_latent_diffusion", "build_latent_diffusion_from_run", "init_random_",
            "REFERENCE_EXTRA_KEYS"]
@@ -175,6 +182,45 @@ def tiny_sd_model_config() -> Dict[str, Any]:
     }
 
 
+def tiny_uncond_model_config() -> Dict[str, Any]:
+    """``sd_tpu.utils.testing.tiny_uncond_model_config`` over the port's tiny
+    model: no cond stage, no conditioning key, the legacy attention UNet
+    (4 heads)."""
+    cfg = tiny_sd_model_config()
+    cfg["params"]["cond_stage_config"] = UNCONDITIONAL_SENTINEL
+    cfg["params"].pop("conditioning_key")
+    cfg["params"]["unet_config"]["params"].update(use_spatial_transformer=False,
+                                                  context_dim=None, num_heads=4)
+    return cfg
+
+
+def tiny_class_cond_model_config(n_classes: int = 17) -> Dict[str, Any]:
+    """``sd_tpu.utils.testing.tiny_class_cond_model_config`` over the port's
+    tiny model: a ``ClassEmbedder`` (its last id the unconditional one) as
+    the crossattn cond stage, reading ``class_label``."""
+    cfg = tiny_sd_model_config()
+    p = cfg["params"]
+    p["cond_stage_key"] = "class_label"
+    p["cond_stage_config"] = {
+        "target": "ldm.modules.encoders.modules.ClassEmbedder",
+        "params": {"n_classes": n_classes,
+                   "embed_dim": p["unet_config"]["params"]["context_dim"]}}
+    return cfg
+
+
+def tiny_inpaint_model_config() -> Dict[str, Any]:
+    """The tiny concat model that ``scripts/inpaint.py --tiny`` builds: the
+    first stage as the cond stage, the UNet taking x, the masked image's
+    latent and the mask (4 + 4 + 1 channels), legacy attention."""
+    cfg = tiny_sd_model_config()
+    p = cfg["params"]
+    p["conditioning_key"] = "concat"
+    p["cond_stage_config"] = FIRST_STAGE_SENTINEL
+    p["unet_config"]["params"].update(in_channels=9, use_spatial_transformer=False,
+                                      context_dim=None)
+    return cfg
+
+
 def train_config(tiny: bool = False, batch_size: Optional[int] = None) -> Dict[str, Any]:
     """``{"model": ..., "data": ...}`` for training SD v1 (512² images, 77
     token ids under ``txt``, batch 4) or the tiny model (32² images, 8 ids
@@ -251,16 +297,16 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 # sentinels of the reference's cond_stage_config
 FIRST_STAGE_SENTINEL = "__is_first_stage__"
 UNCONDITIONAL_SENTINEL = "__is_unconditional__"
-# the items of ROADMAP.md's "Modules to port" that port what is refused here
 # the lossconfig parameters the first-stage trainer takes (sd_tpu's list,
 # without the VQ loss's codebook_weight)
 FIRST_STAGE_LOSS_KEYS = ("disc_start", "kl_weight", "pixelloss_weight", "perceptual_weight",
                          "disc_num_layers", "disc_in_channels", "disc_factor", "disc_weight",
                          "disc_loss", "logvar_init")
 
-_ROADMAP_VQ = "ROADMAP.md 'Modules to port' item 5 (the VQ model)"
-_ROADMAP_CONCAT = "ROADMAP.md 'Modules to port' item 5 (the concat route)"
-_ROADMAP_DATA = "ROADMAP.md 'Modules to port' item 3 (the datasets)"
+# the items of ROADMAP.md's "Modules to port" that port what is refused here
+_ROADMAP_VQ_TRAINING = "ROADMAP.md 'Modules to port' item 5 (VQ first-stage training)"
+_ROADMAP_SPATIAL = "ROADMAP.md 'Modules to port' item 4 (superres and spatial conditioning)"
+_ROADMAP_DATA = "ROADMAP.md 'Modules to port' item 6 (the datasets)"
 
 
 def register_target(*names: str):
@@ -302,6 +348,9 @@ def _register_builtins() -> None:
         lambda p: UNetModel(UNetConfig.from_dict(p)))
     register_target("ldm.models.autoencoder.AutoencoderKL", "sd_tpu.models.vae.AutoencoderKL")(
         lambda p: AutoencoderKL(p["ddconfig"], p["embed_dim"]))
+    register_target("ldm.models.autoencoder.VQModel", "ldm.models.autoencoder.VQModelInterface",
+                    "sd_tpu.models.vae.VQModel")(
+        lambda p: VQModel(p["ddconfig"], p["n_embed"], p["embed_dim"]))
     register_target("ldm.models.autoencoder.IdentityFirstStage",
                     "sd_tpu.models.vae.IdentityFirstStage")(lambda p: IdentityFirstStage())
     register_target("ldm.modules.encoders.modules.FrozenCLIPEmbedder",
@@ -354,14 +403,12 @@ def _register_builtins() -> None:
         return build_latent_diffusion(
             {"target": "ldm.models.diffusion.ddpm.LatentDiffusion", "params": p}, **extra)
 
-    _not_ported(["ldm.models.autoencoder.VQModel", "ldm.models.autoencoder.VQModelInterface",
-                 "sd_tpu.models.vae.VQModel",
-                 "taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
+    _not_ported(["taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
                  "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"],
-                "the VQ first stage", _ROADMAP_VQ)
+                "the VQ first stage's training loss", _ROADMAP_VQ_TRAINING)
     _not_ported(["ldm.modules.encoders.modules.SpatialRescaler",
                  "sd_tpu.models.encoders.SpatialRescaler"],
-                "SpatialRescaler (concat conditioning)", _ROADMAP_CONCAT)
+                "SpatialRescaler (spatial conditioning)", _ROADMAP_SPATIAL)
     _not_ported([f"ldm.data.{m}" for m in (
         "lsun.LSUNChurchesTrain", "lsun.LSUNChurchesValidation", "lsun.LSUNBedroomsTrain",
         "lsun.LSUNBedroomsValidation", "lsun.LSUNCatsTrain", "lsun.LSUNCatsValidation",
@@ -397,7 +444,7 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
                            state_dict: Optional[Mapping[str, torch.Tensor]] = None
                            ) -> LatentDiffusion:
     """Build a :class:`LatentDiffusion` from a config's ``model`` node on
-    ``device`` in ``dtype``, with random weights from
+    ``device`` (``meta`` for the shapes alone) in ``dtype``, with random weights from
     ``torch.Generator(device).manual_seed(seed)``, or, given ``state_dict``
     (a reference checkpoint's), its weights: loaded strictly once
     :data:`REFERENCE_EXTRA_KEYS` are dropped, then cast to ``dtype``. The
@@ -405,33 +452,34 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     is held on its sites, with the weights it reads quantized after the
     cast (``sd_tpu``'s ``maybe_weight_quant_overlay``), and the conv modes
     ``fused_conv`` and ``conv_impl`` (``SD_TPU_FUSED_CONV``'s and
-    ``SD_TPU_CONV_IMPL``'s values; None reads the variable, here, once)."""
+    ``SD_TPU_CONV_IMPL``'s values; None reads the variable, here, once).
+    With ``__is_first_stage__`` the cond stage is the first stage's module,
+    so a ``state_dict`` holds its weights under both names, as the
+    reference's checkpoints do."""
     p = copy.deepcopy(model_cfg.get("params") or {})
     cond_cfg = p.get("cond_stage_config")
-    if cond_cfg in (None, UNCONDITIONAL_SENTINEL, FIRST_STAGE_SENTINEL):
-        raise NotImplementedError(f"cond_stage_config {cond_cfg!r}: the port has crossattn "
-                                  f"conditioning on a cond stage only; {_ROADMAP_CONCAT} "
-                                  f"ports the rest")
-    key = p.get("conditioning_key") or "crossattn"
-    if key != "crossattn":
-        raise NotImplementedError(f"conditioning_key {key!r} is not ported yet; "
-                                  f"{_ROADMAP_CONCAT} ports it")
+    unconditional = cond_cfg in (None, UNCONDITIONAL_SENTINEL)
+    key = None if unconditional else (
+        p.get("conditioning_key") or ("concat" if p.get("concat_mode") else "crossattn"))
     schedule = DiffusionSchedule.create(
         timesteps=p.get("timesteps", 1000), beta_schedule=p.get("beta_schedule", "linear"),
         linear_start=p.get("linear_start", 1e-4), linear_end=p.get("linear_end", 2e-2),
         cosine_s=p.get("cosine_s", 8e-3), v_posterior=p.get("v_posterior", 0.0),
         parameterization=p.get("parameterization", "eps"))
     with torch.device("meta"):
-        ldm = LatentDiffusion(instantiate_from_config(p["unet_config"]),
-                              instantiate_from_config(p["first_stage_config"]),
-                              instantiate_from_config(cond_cfg), schedule,
-                              scale_factor=p.get("scale_factor", 1.0),
+        first_stage = instantiate_from_config(p["first_stage_config"])
+        cond_stage = (None if unconditional else first_stage
+                      if cond_cfg == FIRST_STAGE_SENTINEL else instantiate_from_config(cond_cfg))
+        ldm = LatentDiffusion(instantiate_from_config(p["unet_config"]), first_stage,
+                              cond_stage, schedule, scale_factor=p.get("scale_factor", 1.0),
                               parameterization=p.get("parameterization", "eps"),
-                              cond_stage_key=p.get("cond_stage_key", "caption"))
+                              cond_stage_key=p.get("cond_stage_key", "caption"),
+                              conditioning_key=key)
     device = torch.device(device)
     ldm.to_empty(device=device)
     if state_dict is None:
-        init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
+        if device.type != "meta":  # the meta device holds shapes only
+            init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
     else:
         ldm.load_state_dict(filter_state_dict(dict(state_dict), REFERENCE_EXTRA_KEYS))
     ldm = ldm.to(dtype).eval()

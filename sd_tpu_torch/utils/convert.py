@@ -1,10 +1,13 @@
 """``sd_tpu`` parameter trees → the port's ``state_dict``.
 
-The exact inverse of ``sd_tpu``'s torch porters (``port_unet``,
-``port_encoder``/``port_decoder``/``port_autoencoder_kl``, ``port_clip_text``,
+The exact inverse of ``sd_tpu``'s torch porters (``port_unet`` with its
+legacy attention, class embedding and codebook head,
+``port_encoder``/``port_decoder``/``port_autoencoder_kl``/``port_vq_model``,
+``port_clip_text``,
 ``port_transformer_wrapper``/``port_bert_embedder``, ``port_lpips``), and
 the same for what ``sd_tpu`` builds but does not port (``ClassEmbedder``,
-the discriminator with its BatchNorm statistics): flax
+the discriminator with its BatchNorm statistics, the VAE's linear
+attention): flax
 ``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
 the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
 ``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
@@ -23,7 +26,7 @@ import numpy as np
 from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 
-__all__ = ["unet_state_dict", "vae_state_dict", "vae_encoder_state_dict",
+__all__ = ["unet_state_dict", "vae_state_dict", "vq_state_dict", "vae_encoder_state_dict",
            "vae_decoder_state_dict", "clip_text_state_dict", "class_embedder_state_dict",
            "transformer_embedder_state_dict", "lpips_state_dict", "discriminator_state_dict"]
 
@@ -52,6 +55,14 @@ def _conv(p) -> Dict[str, Any]:
 
 def _conv1x1(p) -> Dict[str, Any]:
     out = {"weight": np.asarray(p["kernel"]).T[:, :, None, None]}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def _conv1d(p) -> Dict[str, Any]:
+    """A Dense standing for a width-1 ``Conv1d`` → ``[out, in, 1]``."""
+    out = {"weight": np.asarray(p["kernel"]).T[:, :, None]}
     if "bias" in p:
         out["bias"] = p["bias"]
     return out
@@ -97,10 +108,13 @@ def _unet_layer(sd: StateDict, desc: Dict, p, prefix: str) -> None:
         _put(sd, f"{prefix}.proj_out", _conv1x1(p["proj_out"]))
         for d in range(desc["depth"]):
             _transformer_block(sd, p[f"blocks_{d}"], f"{prefix}.transformer_blocks.{d}")
-    elif kind == "downsample":
-        _put(sd, f"{prefix}.op", _conv(p["conv"]))
-    elif kind == "upsample":
-        _put(sd, f"{prefix}.conv", _conv(p["conv"]))
+    elif kind == "attention":
+        _put(sd, f"{prefix}.norm", _norm(p["norm"]["GroupNorm_0"]))
+        _put(sd, f"{prefix}.qkv", _conv1d(p["qkv"]))
+        _put(sd, f"{prefix}.proj_out", _conv1d(p["proj_out"]))
+    elif kind in ("downsample", "upsample"):
+        if p is not None:  # None: resampling without a conv
+            _put(sd, f"{prefix}.{'op' if kind == 'downsample' else 'conv'}", _conv(p["conv"]))
     else:
         raise ValueError(kind)
 
@@ -111,16 +125,25 @@ def unet_state_dict(params: Mapping, cfg: UNetConfig) -> StateDict:
     sd: StateDict = {}
     _put(sd, "time_embed.0", _linear(params["time_embed_0"]))
     _put(sd, "time_embed.2", _linear(params["time_embed_2"]))
+    if "label_emb" in params:
+        sd["label_emb.weight"] = np.asarray(params["label_emb"]["embedding"])
     for i, block in enumerate(plan["input_blocks"]):
         for j, desc in enumerate(block):
-            _unet_layer(sd, desc, params[f"input_blocks_{i}_{j}"], f"input_blocks.{i}.{j}")
+            _unet_layer(sd, desc, params.get(f"input_blocks_{i}_{j}"), f"input_blocks.{i}.{j}")
     for j, desc in enumerate(plan["middle_block"]):
         _unet_layer(sd, desc, params[f"middle_block_{j}"], f"middle_block.{j}")
     for i, block in enumerate(plan["output_blocks"]):
         for j, desc in enumerate(block):
-            _unet_layer(sd, desc, params[f"output_blocks_{i}_{j}"], f"output_blocks.{i}.{j}")
-    _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
-    _put(sd, "out.2", _conv(params["out_conv"]))
+            _unet_layer(sd, desc, params.get(f"output_blocks_{i}_{j}"),
+                        f"output_blocks.{i}.{j}")
+    if cfg.n_embed is not None:
+        # sd_tpu builds only the codebook head; the port's `out`, which the
+        # reference keeps unused beside it, is not in these params
+        _put(sd, "id_predictor.0", _norm(params["id_norm"]["GroupNorm_0"]))
+        _put(sd, "id_predictor.1", _conv1x1(params["id_predictor"]))
+    else:
+        _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
+        _put(sd, "out.2", _conv(params["out_conv"]))
     return sd
 
 
@@ -137,9 +160,22 @@ def _vae_res(sd: StateDict, p, prefix: str) -> None:
 
 
 def _vae_attn(sd: StateDict, p, prefix: str) -> None:
+    """The vanilla block, or the linear one (``to_qkv``, ``to_out``); None
+    (``attn_type: none``) has no weights."""
+    if p is None:
+        return
+    if "to_qkv" in p:
+        _put(sd, f"{prefix}.to_qkv", _conv1x1(p["to_qkv"]))
+        _put(sd, f"{prefix}.to_out", _conv1x1(p["to_out"]))
+        return
     _put(sd, f"{prefix}.norm", _norm(p["norm"]["GroupNorm_0"]))
     for name in ("q", "k", "v", "proj_out"):
         _put(sd, f"{prefix}.{name}", _conv1x1(p[name]))
+
+
+def _resample_conv(sd: StateDict, p, prefix: str) -> None:
+    if p is not None:  # None: resampling without a conv
+        _put(sd, prefix, _conv(p["conv"]))
 
 
 def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
@@ -152,7 +188,7 @@ def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
     _put(sd, "decoder.conv_out", _conv(dec["conv_out"]))
     _put(sd, "decoder.norm_out", _norm(dec["norm_out"]["GroupNorm_0"]))
     _vae_res(sd, dec["mid_block_1"], "decoder.mid.block_1")
-    _vae_attn(sd, dec["mid_attn_1"], "decoder.mid.attn_1")
+    _vae_attn(sd, dec.get("mid_attn_1"), "decoder.mid.attn_1")
     _vae_res(sd, dec["mid_block_2"], "decoder.mid.block_2")
     for i in range(num_res):
         for j in range(ddconfig["num_res_blocks"] + 1):
@@ -160,7 +196,7 @@ def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
             if f"up_{i}_attn_{j}" in dec:
                 _vae_attn(sd, dec[f"up_{i}_attn_{j}"], f"decoder.up.{i}.attn.{j}")
         if i != 0:
-            _put(sd, f"decoder.up.{i}.upsample.conv", _conv(dec[f"up_{i}_upsample"]["conv"]))
+            _resample_conv(sd, dec.get(f"up_{i}_upsample"), f"decoder.up.{i}.upsample.conv")
     _put(sd, "post_quant_conv", _conv1x1(params["post_quant_conv"]))
     return sd
 
@@ -174,7 +210,7 @@ def vae_encoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
     _put(sd, "encoder.conv_out", _conv(enc["conv_out"]))
     _put(sd, "encoder.norm_out", _norm(enc["norm_out"]["GroupNorm_0"]))
     _vae_res(sd, enc["mid_block_1"], "encoder.mid.block_1")
-    _vae_attn(sd, enc["mid_attn_1"], "encoder.mid.attn_1")
+    _vae_attn(sd, enc.get("mid_attn_1"), "encoder.mid.attn_1")
     _vae_res(sd, enc["mid_block_2"], "encoder.mid.block_2")
     num_res = len(ddconfig["ch_mult"])
     for i in range(num_res):
@@ -183,8 +219,8 @@ def vae_encoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
             if f"down_{i}_attn_{j}" in enc:
                 _vae_attn(sd, enc[f"down_{i}_attn_{j}"], f"encoder.down.{i}.attn.{j}")
         if i != num_res - 1:
-            _put(sd, f"encoder.down.{i}.downsample.conv",
-                 _conv(enc[f"down_{i}_downsample"]["conv"]))
+            _resample_conv(sd, enc.get(f"down_{i}_downsample"),
+                           f"encoder.down.{i}.downsample.conv")
     _put(sd, "quant_conv", _conv1x1(params["quant_conv"]))
     return sd
 
@@ -194,6 +230,13 @@ def vae_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
     state_dict."""
     return {**vae_encoder_state_dict(params, ddconfig),
             **vae_decoder_state_dict(params, ddconfig)}
+
+
+def vq_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
+    """``sd_tpu`` VQModel params → the port's ``VQModel`` state_dict: the
+    autoencoder's and ``quantize.embedding.weight``."""
+    return {**vae_state_dict(params, ddconfig),
+            "quantize.embedding.weight": np.asarray(params["quantize"]["embedding"])}
 
 
 # ---------------------------------------------------------------- CLIP

@@ -114,18 +114,24 @@ def test_registry_builds_the_sd_tpu_configs_and_refuses_the_rest():
     assert sched(0) == pytest.approx(1e-6) and sched(10) == pytest.approx(1.0)
     assert isinstance(config.instantiate_from_config({"target": "torch.nn.Identity"}),
                       torch.nn.Identity)
-    for target in ("ldm.models.autoencoder.VQModelInterface",
-                   "ldm.modules.encoders.modules.SpatialRescaler",
+    for target in ("ldm.modules.encoders.modules.SpatialRescaler",
                    "ldm.data.imagenet.ImageNetTrain",
                    "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             config.instantiate_from_config({"target": target, "params": {}})
-    for cond in ({"conditioning_key": "concat"}, {"conditioning_key": "hybrid"},
-                 {"conditioning_key": "adm"}, {"cond_stage_config": "__is_first_stage__"},
-                 {"cond_stage_config": "__is_unconditional__"}):
+    # every conditioning key and both cond-stage sentinels build (the VQ
+    # model and the routes themselves: tests/test_torch_vq.py and
+    # tests/test_torch_inpaint_sample.py)
+    for cond, key in (({"conditioning_key": "concat"}, "concat"),
+                      ({"conditioning_key": "hybrid"}, "hybrid"),
+                      ({"conditioning_key": "adm"}, "adm"),
+                      ({"cond_stage_config": "__is_first_stage__"}, "crossattn"),
+                      ({"cond_stage_config": "__is_unconditional__"}, None)):
         model = config.merge_configs([shapes["model"], {"params": cond}])
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            config.build_latent_diffusion(model, device="cpu")
+        ldm = config.build_latent_diffusion(model, device="meta")
+        assert ldm.conditioning_key == key
+        assert ldm.cond_stage_is_first_stage == (cond.get("cond_stage_config")
+                                                 == "__is_first_stage__")
     with pytest.raises(KeyError, match="Unknown target"):
         config.instantiate_from_config({"target": "nowhere.Nothing"})
 

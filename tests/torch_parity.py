@@ -57,19 +57,64 @@ def tiny_jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
         conditioning_key="crossattn", scale_factor=p["scale_factor"])
 
 
+def jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
+    """sd_tpu's LatentDiffusion for a port config whose cond stage is a
+    sentinel (``__is_first_stage__``, ``__is_unconditional__``) or a
+    ``ClassEmbedder``: the stages from sd_tpu's registry, random parameters
+    over ``jax.eval_shape`` shapes, the conditioning key by sd_tpu's rule."""
+    from sd_tpu.utils import config as jconfig
+
+    p = cfg["params"]
+    unet = jconfig.instantiate_from_config(p["unet_config"])
+    ucfg = unet.config
+    hw = p.get("image_size", ucfg.image_size)
+    args = [jnp.zeros((1, hw, hw, ucfg.in_channels)), jnp.zeros((1,), jnp.int32),
+            jnp.zeros((1, 8, ucfg.context_dim)) if ucfg.context_dim else None,
+            jnp.zeros((1,), jnp.int32) if ucfg.num_classes else None]
+    first = jconfig.instantiate_from_config(p["first_stage_config"])
+    res = first.ddconfig["resolution"]
+    first_params = random_params(first, rng, jnp.zeros((1, res, res, 3)))
+    cond_cfg = p.get("cond_stage_config")
+    key = p.get("conditioning_key") or "crossattn"
+    cond = cond_params = None
+    if cond_cfg == "__is_first_stage__":
+        cond, cond_params = first, first_params
+    elif isinstance(cond_cfg, dict):
+        cond = jconfig.instantiate_from_config(cond_cfg)
+        cond_params = random_params(cond, rng, jnp.zeros((1,), jnp.int32))
+    else:
+        key = None
+    schedule = JaxSchedule.create(timesteps=p["timesteps"], linear_start=p["linear_start"],
+                                  linear_end=p["linear_end"])
+    return JaxLDM(unet=unet, unet_params=random_params(unet, rng, *args), schedule=schedule,
+                  first_stage_model=first, first_stage_params=first_params,
+                  cond_stage_model=cond, cond_stage_params=cond_params, conditioning_key=key,
+                  scale_factor=p.get("scale_factor", 1.0))
+
+
 def ldm_state_dict(cfg, jldm: JaxLDM) -> dict:
     """The reference checkpoint's model keys for ``jldm``'s parameters
-    (numpy): ``model.diffusion_model.*``, ``first_stage_model.*``,
-    ``cond_stage_model.transformer.text_model.*``."""
+    (numpy): ``model.diffusion_model.*``, ``first_stage_model.*`` (the KL or
+    the VQ autoencoder) and the cond stage's: CLIP's
+    ``cond_stage_model.transformer.text_model.*``, a ClassEmbedder's, the
+    first stage's again under ``cond_stage_model.``, or none."""
     p = cfg["params"]
+    first = (convert.vq_state_dict if "quantize" in jldm.first_stage_params
+             else convert.vae_state_dict)
     parts = {
         "model.diffusion_model.": convert.unet_state_dict(
             jldm.unet_params, UNetConfig.from_dict(p["unet_config"]["params"])),
-        "first_stage_model.": convert.vae_state_dict(
+        "first_stage_model.": first(
             jldm.first_stage_params, p["first_stage_config"]["params"]["ddconfig"]),
-        "cond_stage_model.transformer.": convert.clip_text_state_dict(
-            jldm.cond_stage_params, CLIPTextConfig(**p["cond_stage_config"]["params"])),
     }
+    cond_cfg = p.get("cond_stage_config")
+    if cond_cfg == "__is_first_stage__":
+        parts["cond_stage_model."] = parts["first_stage_model."]
+    elif isinstance(cond_cfg, dict) and cond_cfg["target"].endswith("ClassEmbedder"):
+        parts["cond_stage_model."] = convert.class_embedder_state_dict(jldm.cond_stage_params)
+    elif isinstance(cond_cfg, dict):
+        parts["cond_stage_model.transformer."] = convert.clip_text_state_dict(
+            jldm.cond_stage_params, CLIPTextConfig(**cond_cfg["params"]))
     return {prefix + k: v for prefix, sd in parts.items() for k, v in sd.items()}
 
 
