@@ -7,8 +7,11 @@ serving mode and the two conv modes, LDM training with its image logger
 and validation, and the fused transformer-block experiment, all at SD v1
 full width; then the training CLI's --base path at full width: VAE-GAN
 training of the kl-f8 first stage, and the LAION 1.4B LDM with its BERT
-trained; last the VQ-f4 models at full width: inpainting_big through the
-inpaint CLI's pipeline and CelebA-HQ through sample_diffusion's main().
+trained; then the VQ-f4 models at full width: inpainting_big through the
+inpaint CLI's pipeline and CelebA-HQ through sample_diffusion's main();
+last the class-conditional ImageNet LDM cin256-v2 through
+sample_diffusion's main(), and the super-resolution model bsr_sr through
+SuperResPipeline and through the LDM's split_input_params tiling.
 
     python3 chip_smoke.py
 
@@ -26,7 +29,11 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    heads of 64, at batch 1 and 8) and at the VQ-f4 models' legacy attention
    blocks (VQ_FLASH_SHAPES: inpainting_big's d = 64, 96 and 128 at batch 1,
    CelebA-HQ's d = 32 at 14, 21 and 28 heads at batch 4, its decoder's
-   mid-block), each group's sums logged apart; K1's row log-sum-exp (the
+   mid-block) and at cin256-v2's and bsr_sr's (WIDE_FLASH_SHAPES: the
+   one-head d = 384 and 576 sites, the latter K1's wide<576> plan, at
+   batch 4 with guidance; SuperResPipeline's 9 tiles at the 8x level, 20
+   heads of 32, and their decode's mid-block; the tiled LDM's 9 patches and
+   its 225 decode patches), each group's sums logged apart; K1's row log-sum-exp (the
    statistic K3 reads) against its plain version too, and every K1 shape a
    second time with sharp logits (q times SHARP); K1's launch plan at each
    shape (blocks, shared memory, blocks per SM, waves) and K2's per GEMM (a
@@ -219,7 +226,28 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    .npz to a temporary directory: samples/s, exactly K1 = 16 x 50 + 1, the
    latents within AGREEMENT_TOL of a second build sampling with the plain
    attention, and the share of the card's code indices (fp32 distances)
-   that the CPU's fp32 quantizer gives on the same latents.
+   that the CPU's fp32 quantizer gives on the same latents;
+27. [cin256]: `python -m sd_tpu_torch.scripts.sample_diffusion -c
+   sd_tpu_torch/configs/cin256-v2.yaml --classes 25,187,448,992 --scale 3.0
+   --custom_steps 20 -e 0` through its main() (the class-conditional
+   ImageNet LDM, a 401M UNet with one head at d = 384, 576 and 960 and a
+   ClassEmbedder of 1001 classes, guidance against class 1000; VQ-f4) at
+   batch 4, 256², as the reference's latent_imagenet_diffusion notebook
+   samples: samples/s, exactly K1 = 10 x 20 + 1 (5 sites at d = 384 and 5
+   at d = 576 a UNet evaluation; its 6 sites at d = 960, N = 64, take the
+   plain route, as sd_tpu leaves them to XLA) and K2 = 16 x 20, the
+   latents within AGREEMENT_TOL of a second build sampling with the plain
+   attention, and the share of equal code indices against the CPU;
+28. [superres]: bsr_sr (sd_tpu_torch/configs/bsr_sr.yaml: a 114M concat
+   UNet with 32-channel heads, VQ-f4, the LR image as the condition) at
+   full width: (a) SuperResPipeline upsamples a synthetic 64² image to 256²
+   in 9 tiles of 32² (one batch), DDIM 100 at eta 1, as the reference's
+   notebook runs it: exactly K1 = 6 x 100 + 1; (b) the LDM's
+   split_input_params at the notebook's setting (ks 128, stride 64, vqf 4,
+   patch_distributed_vq) on a 256² LR image, DDIM 20 at eta 1: 9 UNet
+   patches a step in one call and 225 decode patches in one call, exactly
+   K1 = 6 x 20 + 1; each run's seconds, and its latents within
+   AGREEMENT_TOL of the same run with the plain attention.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -274,6 +302,13 @@ FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8,
 # mid-block at batch 4
 VQ_FLASH_SHAPES = [(1, 4096, 8, 64), (1, 1024, 8, 96), (1, 256, 8, 128), (4, 1024, 14, 32),
                    (4, 256, 21, 32), (4, 64, 28, 32), (4, 4096, 1, 512)]
+# (B, N, H, D): cin256-v2 at batch 4 with guidance (B=8): its one-head sites
+# at 32² (d = 384) and 16² (d = 576, K1's wide<576> plan); bsr_sr's 8x level
+# (20 heads of 32) and its VQ decoder's mid-block: SuperResPipeline's 9 tiles
+# of 32² latents, then the tiled LDM's 9 patches of 128² latents and its 225
+# decode patches of 32² latents
+WIDE_FLASH_SHAPES = [(8, 1024, 1, 384), (8, 256, 1, 576), (9, 16, 20, 32), (9, 1024, 1, 512),
+                     (9, 256, 20, 32), (225, 1024, 1, 512)]
 # (B, N, H, D): the safety checker's vision tower, the untrained one (7x7
 # patches of 32 and the class token, width 64, 4 heads) and ViT-L/14 (16x16
 # patches of 14 and the class token, 16 heads of 64), at batch 1 and 8: a new
@@ -356,6 +391,25 @@ TRAIN_LAUNCHES = {"flash_attention": 2 * SITES_PER_UNET + 1, "geglu_ff": 2 * SIT
 INPAINT_CONFIG = "sd_tpu_torch/configs/inpainting_big.yaml"
 CELEBAHQ_CONFIG = "sd_tpu_torch/configs/celebahq-ldm-vq-4.yaml"
 CELEBAHQ_BATCH = 4
+# cin256-v2 at the reference notebook's settings (latent_imagenet_diffusion:
+# four classes, guidance 3.0 against class 1000, DDIM 20 at eta 0), batch 4,
+# 256²: K1 at its 5 d = 384 and 5 d = 576 sites a UNet evaluation (one
+# evaluation a step, guidance batched) and the VQ decoder's mid-block; K2 at
+# its 16 transformer blocks
+CIN256_CONFIG = "sd_tpu_torch/configs/cin256-v2.yaml"
+CIN256_ARGS = ["--classes", "25,187,448,992", "--scale", "3.0", "--custom_steps", "20",
+               "-e", "0", "-n", "4", "--batch_size", "4"]
+CIN256_STEPS = 20
+CIN256_K1_SITES, CIN256_K2_SITES = 10, 16
+# bsr_sr: (a) SuperResPipeline on a 64² LR image to 256², 9 tiles, DDIM 100
+# at eta 1 (the notebook's); (b) split_input_params at the notebook's
+# setting on a 256² LR image, DDIM 20 at eta 1; K1 at the UNet's 6 attention
+# blocks (8x level and middle block) a step and once at the decode
+SR_CONFIG = "sd_tpu_torch/configs/bsr_sr.yaml"
+SR_STEPS, SR_SPLIT_STEPS = 100, 20
+SR_K1_SITES = 6
+SR_SPLIT_PARAMS = {"ks": (128, 128), "stride": (64, 64), "vqf": 4, "patch_distributed_vq": True,
+                   "clip_max_weight": 0.5, "clip_min_weight": 0.01}
 # the card's code indices against the CPU's fp32 quantizer on the same latents:
 # both compute the distances in fp32, so only the order of a sum differs
 CODE_AGREEMENT_MIN = 0.99
@@ -682,7 +736,9 @@ def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
 def check_flash(randn) -> list:
     groups = {f"the {len(FLASH_SHAPES)} UNet and VAE shapes": FLASH_SHAPES,
               f"the {len(SAFETY_FLASH_SHAPES)} safety-tower shapes": SAFETY_FLASH_SHAPES,
-              f"the {len(VQ_FLASH_SHAPES)} VQ-f4 model shapes": VQ_FLASH_SHAPES}
+              f"the {len(VQ_FLASH_SHAPES)} VQ-f4 model shapes": VQ_FLASH_SHAPES,
+              f"the {len(WIDE_FLASH_SHAPES)} cin256-v2 and super-resolution shapes":
+              WIDE_FLASH_SHAPES}
     rows = []
     for label, shapes in groups.items():
         part = []
@@ -2968,7 +3024,8 @@ def inpaint_main_path() -> dict:
     return kernel_counts
 
 
-def check_code_agreement(quantize, latents: torch.Tensor) -> float:
+def check_code_agreement(quantize, latents: torch.Tensor, label: str = "sample_diffusion"
+                         ) -> float:
     """The share of the card's code indices (bf16 latents, fp32 distances)
     that the same quantizer in fp32 on the CPU gives on the same latents."""
     z = latents.to(quantize.embedding.weight.dtype)
@@ -2977,11 +3034,11 @@ def check_code_agreement(quantize, latents: torch.Tensor) -> float:
     want = cpu.indices(z.float().cpu())
     same = int((got == want).sum())
     share = same / want.numel()
-    log(f"[sample_diffusion] code indices: the card's equal the CPU fp32 quantizer's at "
+    log(f"[{label}] code indices: the card's equal the CPU fp32 quantizer's at "
         f"{same} of {want.numel()} latents ({share:.6f}; bound {CODE_AGREEMENT_MIN}), "
         f"{len(torch.unique(want))} distinct codes")
     if share < CODE_AGREEMENT_MIN:
-        raise AssertionError(f"[sample_diffusion] code agreement {share}")
+        raise AssertionError(f"[{label}] code agreement {share}")
     return share
 
 
@@ -3020,6 +3077,148 @@ def sample_diffusion_main_path() -> dict:
     free_memory()
     log(f"[sample_diffusion] phase {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def cin256_main_path() -> dict:
+    """[cin256]: sample_diffusion's main() on cin256-v2 at the notebook's
+    settings, batch 4, 256², then a second build sampling with the plain
+    attention; the code indices on the card and the CPU."""
+    from sd_tpu_torch.scripts import sample_diffusion as cli
+
+    from sd_tpu_torch.ops.attention import attention_route
+
+    t_phase = time.perf_counter()
+    # the route of each kind of self-attention site at B=8: d = 960 at N = 64
+    # is left to the plain version, as sd_tpu leaves it to XLA
+    routes = {(n, d): attention_route("cuda", torch.bfloat16, 8, n, n, 1, d)
+              for n, d in ((1024, 384), (256, 576), (64, 960))}
+    log(f"[cin256] routes (N, d): {routes}")
+    if routes != {(1024, 384): "K1", (256, 576): "K1", (64, 960): "plain"}:
+        raise AssertionError(f"[cin256] attention routes {routes}")
+    with tempfile.TemporaryDirectory(prefix="cin256_") as d:
+        argv = ["-c", CIN256_CONFIG] + CIN256_ARGS + ["-l", d]
+        reset_launches()
+        out = cli.main(argv)
+        counts = read_launches()
+        wall = time.perf_counter() - t_phase
+        arr = np.load(out["npz"])["arr_0"]
+        log(f"[cin256] cin256-v2, classes 25,187,448,992, guidance 3.0, batch 4, 256², DDIM "
+            f"{CIN256_STEPS} at eta 0: {out['samples_per_s'][0]:.4f} samples/s (main() with "
+            f"its build {wall:.1f} s); wrote {os.path.basename(out['npz'])} {arr.shape}; "
+            f"launches {counts}")
+        want = expect(flash_attention=CIN256_K1_SITES * CIN256_STEPS + 1,
+                      geglu_ff=CIN256_K2_SITES * CIN256_STEPS)
+        if counts != want:
+            raise AssertionError(f"[cin256] launch counts {counts} != {want}")
+        if arr.shape != (4, 256, 256, 3) or any(a.min() == a.max() for a in arr):
+            raise AssertionError(f"[cin256] .npz {arr.shape} or a constant image")
+        if not torch.isfinite(out["latents"]).all():
+            raise AssertionError("[cin256] latents not finite")
+        opt = cli.parse_args(argv[:-1] + [os.path.join(d, "plain")])
+        ldm, hw, channels = cli.build_model(opt)
+        n_unet = sum(p.numel() for p in ldm.model.diffusion_model.parameters())
+        log(f"[cin256] {n_unet / 1e6:.1f}M UNet parameters in bf16")
+        with plain_attention():
+            plain = cli.sample(ldm, hw, channels, opt)
+    check_latent_gate("cin256", out["latents"], plain["latents"])
+    check_code_agreement(ldm.first_stage_model.quantize, out["latents"] / ldm.scale_factor,
+                         "cin256")
+    del ldm
+    free_memory()
+    log(f"[cin256] phase {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def _sr_split_run(ldm, lr: torch.Tensor, seed: int) -> tuple:
+    """The tiled LDM's run: DDIM from the generator's x_T with the LR image
+    as the concat condition, then the patch-distributed decode."""
+    from sd_tpu_torch.samplers.ddim import ddim_sample
+
+    generator = torch.Generator(device="cuda").manual_seed(seed)
+    x_T = torch.randn((1, 3) + tuple(lr.shape[2:]), generator=generator, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        z = ddim_sample(ldm.apply_model, ldm.schedule, x_T, {"c_concat": lr},
+                        num_steps=SR_SPLIT_STEPS, eta=1.0, generator=generator)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        image = ldm.decode_first_stage(z)
+        torch.cuda.synchronize()
+    return z, image, t1 - t0, time.perf_counter() - t1
+
+
+def superres_main_path() -> dict:
+    """[superres]: bsr_sr at full width through SuperResPipeline (64² to
+    256², 9 tiles, DDIM 100 at eta 1), then through the LDM's
+    split_input_params (a 256² LR image, DDIM 20 at eta 1), each again with
+    the plain attention."""
+    from sd_tpu_torch.pipelines.build import inference_dtype
+    from sd_tpu_torch.pipelines.superres import SuperResPipeline, prepare_sr_cond
+    from sd_tpu_torch.utils import config as C
+
+    t_phase = time.perf_counter()
+    cfg = C.load_yaml(SR_CONFIG)["model"]
+    device = torch.device("cuda")
+    ldm = C.build_latent_diffusion(cfg, device=device, dtype=inference_dtype(device), seed=0)
+    torch.cuda.synchronize()
+    n_unet = sum(p.numel() for p in ldm.model.diffusion_model.parameters())
+    log(f"[superres] bsr_sr, {n_unet / 1e6:.1f}M UNet parameters in bf16, built in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    pipe = SuperResPipeline(ldm=ldm)
+    lr_image = synthetic_image(64, seed=3)
+    total = {}
+    latents = []
+    for plain in (False, True):
+        reset_launches()
+        with plain_attention(plain):
+            out = pipe(lr_image, torch.Generator(device="cuda").manual_seed(1), steps=SR_STEPS,
+                       eta=1.0)
+        counts = read_launches()
+        t = pipe.last_timings
+        label = "plain attention" if plain else "K1"
+        log(f"[superres] SuperResPipeline 64² -> 256², {pipe.last_latents.shape[0]} tiles, DDIM "
+            f"{SR_STEPS} at eta 1, {label}: {t['total_s']:.3f} s (sample {t['sample_s']:.3f}, "
+            f"decode {t['decode_s']:.3f}); launches {counts}")
+        want = expect(flash_attention=0 if plain else SR_K1_SITES * SR_STEPS + 1)
+        if counts != want or pipe.last_latents.shape[0] != 9:
+            raise AssertionError(f"[superres] {label}: launch counts {counts} != {want}, or "
+                                 f"{pipe.last_latents.shape[0]} tiles")
+        if out.shape != (1, 256, 256, 3) or out.min() == out.max():
+            raise AssertionError(f"[superres] {label}: {out.shape} or a constant image")
+        if not torch.isfinite(pipe.last_latents).all():
+            raise AssertionError(f"[superres] {label}: latents not finite")
+        latents.append(pipe.last_latents)
+        if not plain:
+            total = add_counts(total, counts)
+    check_latent_gate("superres", *latents)
+
+    ldm.split_input_params = SR_SPLIT_PARAMS
+    lr = torch.from_numpy(prepare_sr_cond(synthetic_image(256, seed=4))[0]).cuda()
+    lr = lr.permute(0, 3, 1, 2)
+    latents = []
+    for plain in (False, True):
+        reset_launches()
+        with plain_attention(plain):
+            z, image, sample_s, decode_s = _sr_split_run(ldm, lr, seed=2)
+        counts = read_launches()
+        label = "plain attention" if plain else "K1"
+        log(f"[superres] split_input_params 256² LR -> {tuple(image.shape[2:])}, 9 UNet patches "
+            f"of 128², 225 decode patches, DDIM {SR_SPLIT_STEPS} at eta 1, {label}: sample "
+            f"{sample_s:.3f} s, decode {decode_s:.3f} s; launches {counts}")
+        want = expect(flash_attention=0 if plain else SR_K1_SITES * SR_SPLIT_STEPS + 1)
+        if counts != want:
+            raise AssertionError(f"[superres] split {label}: launch counts {counts} != {want}")
+        if image.shape != (1, 3, 1024, 1024) or not torch.isfinite(image).all():
+            raise AssertionError(f"[superres] split {label}: {tuple(image.shape)} or not finite")
+        latents.append(z)
+        if not plain:
+            total = add_counts(total, counts)
+    check_latent_gate("superres split", *latents)
+    del ldm, pipe
+    free_memory()
+    log(f"[superres] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def free_memory() -> None:
@@ -3066,6 +3265,9 @@ def main() -> None:
     free_memory()
     inpainted = inpaint_main_path()
     sampled = sample_diffusion_main_path()
+    free_memory()
+    cin256 = cin256_main_path()
+    superres = superres_main_path()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -3088,7 +3290,7 @@ def main() -> None:
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
             served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
-            inpainted, sampled)
+            inpainted, sampled, cin256, superres)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all

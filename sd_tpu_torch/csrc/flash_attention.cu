@@ -43,19 +43,26 @@
 //   publishes tile t and frees the buffer that the copy of tile t + 1 then
 //   overwrites. Only the contraction of Q K^T is padded (d = 40 -> 48, zeros
 //   in shared memory); the n8 tiles of P V cover d exactly.
-// - d > 160 (the VAE mid-block's single head, d = 512): 16 x 512 fp32 of O is
-//   256 registers a thread, more than a thread has. A block of 8 warps takes
-//   32 query rows in two groups of 16; the four warps of a group split the
-//   32-key tile's columns of S (8 keys each, the whole contraction) and O's
-//   columns (128 each). Each exchanges its row max through 256 bytes of shared
-//   memory, writes its slice of P in bf16 to a shared [32, 32] tile, and
-//   multiplies all of P by its slice of V. Q stays in shared memory and is
-//   read with ldmatrix for every tile. 32-row blocks give 128 blocks at B = 1,
-//   one per SM, where 64-row blocks would leave half of the 132 SMs idle.
+// - d > 160 (the VAE mid-block's single head, d = 512; cin256-v2's one-head
+//   sites at d = 384 and 576): 16 x 512 fp32 of O is 256 registers a thread,
+//   more than a thread has. A block of 8 warps takes 32 query rows in two
+//   groups of 16; the four warps of a group split the 32-key tile's columns
+//   of S (8 keys each, the whole contraction) and O's columns (DK / 4 each).
+//   Each exchanges its row max through 256 bytes of shared memory, writes its
+//   slice of P in bf16 to a shared [32, 32] tile, and multiplies all of P by
+//   its slice of V. Q stays in shared memory and is read with ldmatrix for
+//   every tile. 32-row blocks give 128 blocks at B = 1, one per SM, where
+//   64-row blocks would leave half of the 132 SMs idle. Three plans: DK = 256,
+//   512 and 576 (512 < d <= 576). At DK = 576 a warp holds 16 x 144 fp32 of O
+//   (72 registers a thread), and a block's shared memory is 189,952 bytes:
+//   Q and two stages of K and V, 160 rows at a pitch of 584 (186,880 bytes),
+//   the P tile (2,560) and the exchange (512), under the 232,448 a block may
+//   use, so one block an SM. It is a simple plan: at [8, 256, 1, 576] its 64
+//   blocks fill 64 of the 132 SMs.
 //
 // The ragged last key tile is zero-filled by the copy and masked to -inf
 // before the max; query rows past Nq are zero-filled and not stored. d must
-// be a multiple of 8 and at most 512, and scale positive.
+// be a multiple of 8 and at most 576, and scale positive.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -306,6 +313,10 @@ struct WidePlan {
   static constexpr int PT = ROWS * LD;           // element offset of P
   static constexpr int RED = (PT + BQ * LDP) * 2;  // byte offset of the fp32 [2][4][16] exchange
   static constexpr int BYTES = RED + 2 * 4 * 16 * 4;
+  // a warp's DK / 4 columns of O are whole pairs of n8 tiles (one
+  // ldmatrix_x4_trans each), and Q K^T takes two k16 steps at a time
+  static_assert(DK % 64 == 0, "O's columns split into pairs of n8 tiles over 4 warps");
+  static_assert(DK / 32 * 4 <= 72, "O's accumulator: at most 72 registers a thread");
 };
 
 template <int DK>
@@ -507,8 +518,11 @@ Choice wide() {
   return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES};
 }
 
+// The widest head dim K1 takes (cin256-v2's d = 576 sites).
+constexpr int kMaxHeadDim = 576;
+
 bool choose(int d, Choice* c) {
-  if (d <= 0 || d % 8 || d > 512) return false;
+  if (d <= 0 || d % 8 || d > kMaxHeadDim) return false;
   switch (round_up(d, 16)) {
     case 16: *c = narrow<16, 4, 64, 2>(); return true;
     case 32: *c = narrow<32, 4, 64, 2>(); return true;
@@ -522,14 +536,14 @@ bool choose(int d, Choice* c) {
     case 160: *c = narrow<160, 4, 32, 1>(); return true;
     default: break;
   }
-  *c = d <= 256 ? wide<256>() : wide<512>();
+  *c = d <= 256 ? wide<256>() : d <= 512 ? wide<512>() : wide<576>();
   return true;
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). d must be a
-// multiple of 8 and at most 512; the wrapper checks shapes and alignment.
+// multiple of 8 and at most 576; the wrapper checks shapes and alignment.
 // `lse` is null, or fp32 [B, H, Nq] for the row log-sum-exp.
 extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int batch, int nq, int nk, int heads, int d,

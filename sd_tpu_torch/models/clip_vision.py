@@ -11,29 +11,25 @@ HF's ``CLIPVisionModel`` ones (``vision_model.embeddings.patch_embedding.weight`
 (``visual_projection``) is its user's, as in HF's safety checker.
 
 :func:`clip_image_preprocess` is ``sd_tpu``'s ``jax.image.resize(...,
-"bicubic", antialias=True)`` to 224² and CLIP's normalisation. The resize
-is separable: its two weight matrices are built on the host in float64
-with JAX's scale-and-translate rule (Keys' cubic with a = -0.5, the
-kernel widened by the downscale factor, each output's weights normalised
-to sum to 1) and cached per input size; on the device the resize is two
-matrix products.
+"bicubic", antialias=True)`` to 224² (``ops/resize.py``: two weight
+matrices built on the host in float64 with JAX's scale-and-translate rule,
+two matrix products on the device) and CLIP's normalisation.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
 from typing import Dict
 
-import numpy as np
 import torch
 from torch import nn
 
 from sd_tpu_torch.models.clip import CLIPEncoderLayer, CLIPTextConfig
 from sd_tpu_torch.ops.norms import LayerNormFp32
+from sd_tpu_torch.ops.resize import resize
 
 __all__ = ["CLIPVisionConfig", "CLIPVisionModel", "CLIP_VIT_L_14_VISION",
-           "clip_image_preprocess", "resize_weights"]
+           "clip_image_preprocess"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,34 +50,10 @@ _MEAN = (0.48145466, 0.4578275, 0.40821073)
 _STD = (0.26862954, 0.26130258, 0.27577711)
 
 
-def _keys_cubic(x: np.ndarray) -> np.ndarray:
-    out = ((1.5 * x - 2.5) * x) * x + 1.0
-    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
-    return np.where(x >= 2.0, 0.0, out)
-
-
-@lru_cache(maxsize=16)
-def resize_weights(in_size: int, out_size: int) -> np.ndarray:
-    """``[out_size, in_size]`` float64: JAX's antialiased bicubic resize
-    along one axis (``compute_weight_mat`` at translation 0), transposed."""
-    inv_scale = in_size / out_size
-    kernel_scale = max(inv_scale, 1.0)
-    sample_f = (np.arange(out_size) + 0.5) * inv_scale - 0.5
-    w = _keys_cubic(np.abs(sample_f[:, None] - np.arange(in_size)[None, :]) / kernel_scale)
-    total = w.sum(axis=1, keepdims=True)
-    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
-                 w / np.where(total != 0, total, 1.0), 0.0)
-    inside = (sample_f >= -0.5) & (sample_f <= in_size - 0.5)
-    return np.where(inside[:, None], w, 0.0)
-
-
 def clip_image_preprocess(x: torch.Tensor) -> torch.Tensor:
     """Images ``[B, H, W, 3]`` in [-1, 1] (any size) → ``[B, 3, 224, 224]``
     float32, resized and CLIP-normalised."""
-    x = ((x.float() + 1.0) / 2.0).permute(0, 3, 1, 2)
-    wh = torch.from_numpy(resize_weights(x.shape[2], 224)).to(x.device, torch.float32)
-    ww = torch.from_numpy(resize_weights(x.shape[3], 224)).to(x.device, torch.float32)
-    x = torch.matmul(torch.matmul(wh, x), ww.t())
+    x = resize(((x.float() + 1.0) / 2.0).permute(0, 3, 1, 2), (224, 224), "bicubic")
     mean = torch.tensor(_MEAN, device=x.device).view(1, 3, 1, 1)
     std = torch.tensor(_STD, device=x.device).view(1, 3, 1, 1)
     return (x - mean) / std

@@ -1,5 +1,5 @@
-"""Trainable conditioning encoders (port of ``ClassEmbedder``,
-``TransformerEmbedder`` and ``BERTEmbedder`` from
+"""Conditioning encoders (port of ``ClassEmbedder``, ``TransformerEmbedder``,
+``BERTEmbedder``, ``SpatialRescaler`` and ``HybridConditioner`` from
 ``sd_tpu/models/encoders.py``).
 
 - :class:`ClassEmbedder`: class ids ``[B]`` → one crossattn token
@@ -18,18 +18,30 @@ State-dict names are the reference's (``embedding.weight``;
 ``transformer.norm``), which ``sd_tpu``'s ``port_transformer_wrapper`` reads.
 Attention goes through ``ops/attention.dot_product_attention``: K1 on the
 card (N = 77, d = 64), and K1 with its backward where the encoder trains.
-``SpatialRescaler`` and ``HybridConditioner`` wait for concat conditioning.
+
+- :class:`SpatialRescaler`: ``n_stages`` resizes of an NCHW map by
+  ``multiplier`` (sizes ``max(int(h · multiplier), 1)``), as
+  ``jax.image.resize`` computes them (``ops/resize.py``, antialiased where
+  it shrinks), then an optional bias-free 1x1 ``channel_mapper``. As in
+  ``sd_tpu``, ``area`` resizes as ``linear`` (the reference's ``area`` is
+  an average over cells), and every linear method is the triangle kernel;
+- :class:`HybridConditioner`: a concat and a crossattn conditioner, whose
+  outputs form the cond dict of the ``hybrid`` conditioning key.
 """
 
 from __future__ import annotations
+
+from typing import Dict, List, Optional
 
 import torch
 from torch import nn
 
 from sd_tpu_torch.ops.attention import dot_product_attention
 from sd_tpu_torch.ops.norms import LayerNormFp32
+from sd_tpu_torch.ops.resize import resize
 
-__all__ = ["ClassEmbedder", "TransformerWrapper", "TransformerEmbedder", "BERTEmbedder"]
+__all__ = ["ClassEmbedder", "TransformerWrapper", "TransformerEmbedder", "BERTEmbedder",
+           "SpatialRescaler", "HybridConditioner", "RESCALER_METHODS"]
 
 # x-transformers' DEFAULT_DIM_HEAD: the head width, not n_embed // heads
 DIM_HEAD = 64
@@ -136,3 +148,48 @@ class BERTEmbedder(TransformerEmbedder):
                  max_seq_len: int = 77):
         super().__init__(n_embed, n_layer, vocab_size, max_seq_len)
 
+
+# the reference's methods, each → the jax.image.resize method sd_tpu gives it
+RESCALER_METHODS = {"nearest": "nearest", "linear": "bilinear", "bilinear": "bilinear",
+                    "trilinear": "trilinear", "bicubic": "bicubic", "area": "linear"}
+
+
+class SpatialRescaler(nn.Module):
+    """``n_stages`` resizes by ``multiplier``, then an optional 1x1 conv to
+    ``out_channels`` (``channel_mapper``), on ``[B, C, H, W]``."""
+
+    def __init__(self, n_stages: int = 1, method: str = "bilinear", multiplier: float = 0.5,
+                 in_channels: int = 3, out_channels: Optional[int] = None, bias: bool = False):
+        super().__init__()
+        if n_stages < 0 or method not in RESCALER_METHODS:
+            raise ValueError(f"SpatialRescaler: n_stages {n_stages}, method {method!r} (one of "
+                             f"{sorted(RESCALER_METHODS)})")
+        self.n_stages, self.method, self.multiplier = n_stages, method, multiplier
+        self.channel_mapper = (None if out_channels is None
+                               else nn.Conv2d(in_channels, out_channels, 1, bias=bias))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for _ in range(self.n_stages):
+            h, w = x.shape[-2:]
+            x = resize(x, (max(int(h * self.multiplier), 1), max(int(w * self.multiplier), 1)),
+                       RESCALER_METHODS[self.method])
+        if self.channel_mapper is not None:
+            x = self.channel_mapper(x)
+        return x
+
+    encode = forward
+
+
+class HybridConditioner(nn.Module):
+    """A concat conditioner and a crossattn conditioner; returns the cond
+    dict of the ``hybrid`` key, ``{"c_concat": [...], "c_crossattn": [...]}``."""
+
+    def __init__(self, concat_conditioner: nn.Module, crossattn_conditioner: nn.Module):
+        super().__init__()
+        self.concat_conditioner = concat_conditioner
+        self.crossattn_conditioner = crossattn_conditioner
+
+    def forward(self, c_concat: torch.Tensor, c_crossattn: torch.Tensor
+                ) -> Dict[str, List[torch.Tensor]]:
+        return {"c_concat": [self.concat_conditioner(c_concat)],
+                "c_crossattn": [self.crossattn_conditioner(c_crossattn)]}

@@ -1,12 +1,17 @@
 """Attention and the gated feed-forward (port of ``sd_tpu/ops/attention.py``).
 
 Tensors are token-major ``[B, N, H, D]`` at :func:`dot_product_attention`, as
-in ``sd_tpu``. Dispatch on a CUDA tensor:
+in ``sd_tpu``. :func:`attention_route` is the dispatch of an unmasked call,
+a pure function of (device type, dtype, B, Nq, Nk, H, d). On a CUDA tensor:
 
-- every unmasked self-attention call (``Nq == Nk``) goes to the K1 kernel
-  (``ops/cuda/flash_attention.py``), including the UNet's 8x8 mid-block;
-  where autograd records, its backward is K3 or the plain backward by
-  ``sd_tpu``'s rule;
+- every unmasked self-attention call (``Nq == Nk``) at a head dim up to
+  K1's 576 goes to the K1 kernel (``ops/cuda/flash_attention.py``),
+  including the UNet's 8x8 mid-block; where autograd records, its backward
+  is K3 or the plain backward by ``sd_tpu``'s rule. A wider head takes the
+  plain version where ``sd_tpu``'s ``flash_supported`` shape rule leaves
+  the site to XLA (cin256-v2's d = 960 at N = 64), and is refused with a
+  ``ValueError`` where ``sd_tpu`` would run its kernel (no config of the
+  repository reaches that);
 - cross-attention (77 keys) and CLIP's causal masked attention use plain
   torch ops with an fp32 softmax, as ``sd_tpu`` leaves them to XLA;
 - every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),
@@ -65,11 +70,14 @@ from sd_tpu_torch.ops.cuda import (
 )
 from sd_tpu_torch.ops.cuda.geglu_ff import (geglu_ff_plain, int8_ff_supported, quantize_cols,
                                             quantize_ff_weights)
+from sd_tpu_torch.ops.cuda.flash_attention import (K1_COVERAGE_ITEM, K1_MAX_HEAD_DIM,
+                                                   flash_shape_supported)
 from sd_tpu_torch.ops.cuda.int8_dense import block_m, int8_width_ok
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
 __all__ = [
     "takes_kernel",
+    "attention_route",
     "dot_product_attention",
     "GEGLU",
     "FeedForward",
@@ -101,6 +109,27 @@ def _takes_kernel(t: torch.Tensor) -> bool:
     return takes_kernel(t.device.type, _kernel_dtype(t))
 
 
+def attention_route(device_type: str, dtype: torch.dtype, b: int, nq: int, nk: int, h: int,
+                    d: int) -> str:
+    """Where an unmasked attention call of ``[B, Nq, H, d]`` queries over Nk
+    keys goes: "K1" (the kernel wrapper, which computes the plain version on
+    the CPU) or "plain". Cross-attention and the card's other dtypes are
+    "plain"; self-attention is "K1" up to K1's head dim. Above it the
+    port follows ``sd_tpu``: "plain" where ``flash_supported``'s shape rule
+    leaves the site to XLA, and a ``ValueError`` where ``sd_tpu`` runs its
+    kernel, on every device, so that a model that runs on the CPU runs on
+    the card."""
+    if nq != nk or not takes_kernel(device_type, dtype):
+        return "plain"
+    if d <= K1_MAX_HEAD_DIM:
+        return "K1"
+    if not flash_shape_supported(nq, nk):
+        return "plain"
+    raise ValueError(f"self-attention at B={b}, N={nq}, H={h}, head dim {d}: sd_tpu runs its "
+                     f"flash kernel there and K1 takes head dims up to {K1_MAX_HEAD_DIM}; see "
+                     f"{K1_COVERAGE_ITEM}")
+
+
 def dot_product_attention(q, k, v, scale: Optional[float] = None,
                           mask: Optional[torch.Tensor] = None,
                           int8: quant.Int8Mode = quant.INT8_OFF) -> torch.Tensor:
@@ -108,7 +137,9 @@ def dot_product_attention(q, k, v, scale: Optional[float] = None,
     ``int8`` is the serving mode of the calling module."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    if mask is None and q.shape[1] == k.shape[1] and _takes_kernel(q):
+    b, nq, h, d = q.shape
+    if mask is None and attention_route(q.device.type, _kernel_dtype(q), b, nq, k.shape[1], h,
+                                        d) == "K1":
         mode = resolve_int8(int8, q, k)
         if mode != "off":
             return flash_attention_int8(q, k, v, scale, mode)

@@ -17,11 +17,16 @@ does about that.
   ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
   kernel launches (one per call).
   :func:`kernel_plan` reads each kernel's launch plan from the library.
+  K1 takes head dims that are multiples of 8 up to 576 (``K1_MAX_HEAD_DIM``:
+  13 plans, the widest for cin256-v2's one-head d = 576 sites); K3 up to 512
+  (``K3_MAX_HEAD_DIM``), and K5 up to 512 (``K5_MAX_HEAD_DIM``).
 - :func:`differentiable_flash_attention` is the entry point for code that
   may need gradients: where autograd records, it runs a
   ``torch.autograd.Function`` whose forward is K1 (with the row log-sum-exp
   saved) and whose backward follows ``sd_tpu``'s ``_flash_bhnd_bwd``: K3 when
-  Nk > 256 and Nq is a multiple of 256, the plain backward otherwise.
+  Nk > 256 and Nq is a multiple of 256, the plain backward otherwise
+  (:func:`uses_bwd_kernel`, which refuses a head dim above K3's 512 where
+  ``sd_tpu`` would run its backward kernel).
 
 K5, the int8 serving mode's attention (``attn``: int8 QKᵀ, mode "qk";
 ``attn_pv``: int8 P·V too, mode "qkpv"), replaces ``_kernel_chunked_int8``
@@ -54,10 +59,19 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "differentiable_flash_attention", "resolve_int8", "flash_attention_int8",
            "flash_attention_int8_plain", "int8_padded_dim", "int8_scratch_shapes",
-           "kernel_plan"]
+           "kernel_plan", "uses_bwd_kernel", "flash_shape_supported", "K1_MAX_HEAD_DIM",
+           "K3_MAX_HEAD_DIM", "K5_MAX_HEAD_DIM", "K1_COVERAGE_ITEM", "K3_COVERAGE_ITEM"]
 
-_MAX_HEAD_DIM = 512
-_MAX_BWD_HEAD_DIM = 512
+# the widest head dim each kernel takes: K1's wide<576> plan is cin256-v2's
+# d = 576 sites; K3's and K5's stop at the VAE mid-block's 512
+K1_MAX_HEAD_DIM = 576
+K3_MAX_HEAD_DIM = 512
+K5_MAX_HEAD_DIM = 512
+# what a refusal of a head dim past those names: ROADMAP.md's open coverage
+K1_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K1 above d = 576'"
+K3_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K3 above d = 512'"
+# sd_tpu's flash_supported shape rule: the rows its kernel takes
+_FLASH_MIN_N, _FLASH_MAX_N, _FLASH_N_MULTIPLE = 128, 4096, 128
 # sd_tpu's backward dispatch (_flash_bhnd_bwd): the kernel above 256 keys,
 # when the queries tile by 256; the plain backward otherwise
 _SMALL_KV = 256
@@ -137,9 +151,9 @@ def _check_inputs(q, k, v):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if d % 8 or d > _MAX_HEAD_DIM:
+    if d % 8 or d > K1_MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 "
-                         f"and at most {_MAX_HEAD_DIM}")
+                         f"and at most {K1_MAX_HEAD_DIM}")
     if min(b, nq, k.shape[1], h) == 0:
         raise ValueError("flash_attention: empty input")
 
@@ -155,8 +169,8 @@ def _check_bwd_inputs(q, k, v, o, do, lse):
     b, nq, h, d = q.shape
     if lse is None or lse.dtype != torch.float32 or lse.shape != (b, h, nq):
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(b, h, nq)}")
-    if d > _MAX_BWD_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd: head dim {d} above {_MAX_BWD_HEAD_DIM}")
+    if d > K3_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head dim {d} above {K3_MAX_HEAD_DIM}")
 
 
 def _check_scale(scale: float, what: str) -> None:
@@ -247,10 +261,27 @@ def flash_attention_bwd(q, k, v, o, do, lse: Optional[torch.Tensor], scale: floa
 flash_attention_bwd.launches = 0
 
 
-def uses_bwd_kernel(nq: int, nk: int) -> bool:
+def flash_shape_supported(nq: int, nk: int) -> bool:
+    """``sd_tpu``'s ``flash_supported`` shape rule (its platform and mask
+    aside): self-attention (Nk == Nq) with 128 <= N <= 4096 and N a multiple
+    of 128. It has no head-dim condition."""
+    return (nk == nq and _FLASH_MIN_N <= nq <= _FLASH_MAX_N
+            and nq % _FLASH_N_MULTIPLE == 0)
+
+
+def uses_bwd_kernel(nq: int, nk: int, d: int) -> bool:
     """``sd_tpu``'s ``_flash_bhnd_bwd`` rule: the backward kernel where
-    Nk > 256 and Nq % 256 == 0, the plain backward otherwise."""
-    return nk > _SMALL_KV and nq % _BLOCK_Q_BWD == 0
+    Nk > 256 and Nq % 256 == 0, the plain backward otherwise. Where the
+    rule asks for the kernel at a head dim above K3's 512, it raises: the
+    port has no backward kernel there, and the plain backward would hide
+    the missing coverage."""
+    if not (nk > _SMALL_KV and nq % _BLOCK_Q_BWD == 0):
+        return False
+    if d > K3_MAX_HEAD_DIM:
+        raise ValueError(f"flash attention backward at Nq={nq}, Nk={nk}, head dim {d}: "
+                         f"sd_tpu runs its backward kernel there and K3 takes head dims up to "
+                         f"{K3_MAX_HEAD_DIM}; see {K3_COVERAGE_ITEM}")
+    return True
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -271,7 +302,7 @@ class _FlashAttention(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if uses_bwd_kernel(q.shape[1], k.shape[1]):
+        if uses_bwd_kernel(q.shape[1], k.shape[1], q.shape[-1]):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, do, ctx.scale)
@@ -297,7 +328,8 @@ def resolve_int8(int8, q: torch.Tensor, k: torch.Tensor, masked: bool = False) -
     ``attn_pv`` gives "qkpv" at head dims >= 256 and "qk" below, ``attn``
     gives "qk", each only where the bucket's gate passes for ``q``. Any mode
     resolves to "off" unless the row is full and unmasked (Nq == Nk),
-    Nk >= 2048 and Nk a multiple of the 1024-key chunk.
+    Nk >= 2048 and Nk a multiple of the 1024-key chunk, and the head dim is
+    one K5 takes (up to 512): a wider head takes bf16 K1.
     """
     if isinstance(int8, quant.Int8Mode):
         if quant.int8_bucket_enabled(int8, "attn_pv", q):
@@ -309,7 +341,8 @@ def resolve_int8(int8, q: torch.Tensor, k: torch.Tensor, masked: bool = False) -
     if int8 not in ("off", "qk", "qkpv"):
         raise ValueError(f"int8 attention mode {int8!r}: expected off, qk or qkpv")
     nq, nk = q.shape[1], k.shape[1]
-    if masked or nq != nk or nk < _INT8_MIN_KV or nk % INT8_CHUNK:
+    if (masked or nq != nk or nk < _INT8_MIN_KV or nk % INT8_CHUNK
+            or int8_padded_dim(q.shape[-1]) == 0):
         return "off"
     return int8
 
@@ -352,9 +385,10 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 def int8_padded_dim(d: int) -> int:
     """The head dim K5 pads the contraction to (0: a head dim it does not
-    take): 48 up to d = 48, 512 above, d a multiple of 8 up to 512. The
-    library's ``sdt_flash_int8_padded_dim`` is the same rule."""
-    if d <= 0 or d % 8 or d > _MAX_HEAD_DIM:
+    take): 48 up to d = 48, 512 above, d a multiple of 8 up to 512 (K5's own
+    cap, below K1's). The library's ``sdt_flash_int8_padded_dim`` is the
+    same rule."""
+    if d <= 0 or d % 8 or d > K5_MAX_HEAD_DIM:
         return 0
     return 48 if d <= 48 else 512
 

@@ -1,1 +1,2 @@
-"""The txt2img pipeline, its safety checker and ``build_txt2img_pipeline``."""
+"""The pipelines: txt2img with its safety checker and ``build_txt2img_pipeline``,
+img2img and inpainting, super-resolution, and tiled application."""

@@ -9,13 +9,14 @@ The registry resolves the reference's module paths and ``sd_tpu``'s to the
 port's classes: the UNet, the KL autoencoder, the VQ model (``VQModel`` and
 ``VQModelInterface``) and ``IdentityFirstStage``, the cond stages
 (``FrozenCLIPEmbedder``, ``ClassEmbedder``, ``BERTEmbedder``,
-``TransformerEmbedder``), the three LR schedules, ``DataModuleFromConfig``
-and the synthetic datasets, ``LPIPSWithDiscriminator`` (the first-stage
-trainer's keyword arguments: its parameters that ``FIRST_STAGE_LOSS_KEYS``
-names) and ``torch.nn.Identity``. What the port has not ported yet raises
+``TransformerEmbedder``, ``SpatialRescaler``, ``HybridConditioner``), the
+three LR schedules, ``DataModuleFromConfig`` and the synthetic datasets,
+``LPIPSWithDiscriminator`` (the first-stage trainer's keyword arguments:
+its parameters that ``FIRST_STAGE_LOSS_KEYS`` names) and
+``torch.nn.Identity`` (also as a cond stage: the super-resolution model's,
+which reads ``LR_image``). What the port has not ported yet raises
 ``NotImplementedError`` naming the item of ``ROADMAP.md``'s "Modules to
-port" that ports it: VQ first-stage training's loss, ``SpatialRescaler``
-and the real datasets. ``build_latent_diffusion`` takes every conditioning
+port" that ports it: VQ first-stage training's loss and the real datasets. ``build_latent_diffusion`` takes every conditioning
 key (None, ``concat``, ``crossattn``, ``hybrid``, ``adm``) and the cond
 stage sentinels ``__is_first_stage__`` and ``__is_unconditional__``; a
 config without ``conditioning_key`` gets ``crossattn``, as in ``sd_tpu``,
@@ -44,7 +45,8 @@ from torch import nn
 
 from sd_tpu_torch.core.schedules import DiffusionSchedule
 from sd_tpu_torch.models.clip import CLIPTextConfig
-from sd_tpu_torch.models.encoders import BERTEmbedder, ClassEmbedder, TransformerEmbedder
+from sd_tpu_torch.models.encoders import (BERTEmbedder, ClassEmbedder, HybridConditioner,
+                                         SpatialRescaler, TransformerEmbedder)
 from sd_tpu_torch.models.ldm import FrozenCLIPEmbedder, LatentDiffusion
 from sd_tpu_torch.models.unet import UNetConfig, UNetModel
 from sd_tpu_torch.models.vae import AutoencoderKL, IdentityFirstStage, VQModel
@@ -305,7 +307,6 @@ FIRST_STAGE_LOSS_KEYS = ("disc_start", "kl_weight", "pixelloss_weight", "percept
 
 # the items of ROADMAP.md's "Modules to port" that port what is refused here
 _ROADMAP_VQ_TRAINING = "ROADMAP.md 'Modules to port' item 5 (VQ first-stage training)"
-_ROADMAP_SPATIAL = "ROADMAP.md 'Modules to port' item 4 (superres and spatial conditioning)"
 _ROADMAP_DATA = "ROADMAP.md 'Modules to port' item 6 (the datasets)"
 
 
@@ -367,6 +368,12 @@ def _register_builtins() -> None:
                     "sd_tpu.models.encoders.TransformerEmbedder")(
         lambda p: TransformerEmbedder(p["n_embed"], p["n_layer"], p.get("vocab_size", 30522),
                                       p.get("max_seq_len", 77)))
+    register_target("ldm.modules.encoders.modules.SpatialRescaler",
+                    "sd_tpu.models.encoders.SpatialRescaler")(lambda p: SpatialRescaler(**p))
+    register_target("ldm.modules.diffusionmodules.util.HybridConditioner",
+                    "sd_tpu.models.encoders.HybridConditioner")(
+        lambda p: HybridConditioner(instantiate_from_config(p["c_concat_config"]),
+                                    instantiate_from_config(p["c_crossattn_config"])))
     register_target("ldm.lr_scheduler.LambdaLinearScheduler",
                     "sd_tpu.training.lr_schedules.lambda_linear")(
         lambda p: lr_schedules.lambda_linear(p["warm_up_steps"], p["f_min"], p["f_max"],
@@ -406,9 +413,6 @@ def _register_builtins() -> None:
     _not_ported(["taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
                  "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"],
                 "the VQ first stage's training loss", _ROADMAP_VQ_TRAINING)
-    _not_ported(["ldm.modules.encoders.modules.SpatialRescaler",
-                 "sd_tpu.models.encoders.SpatialRescaler"],
-                "SpatialRescaler (spatial conditioning)", _ROADMAP_SPATIAL)
     _not_ported([f"ldm.data.{m}" for m in (
         "lsun.LSUNChurchesTrain", "lsun.LSUNChurchesValidation", "lsun.LSUNBedroomsTrain",
         "lsun.LSUNBedroomsValidation", "lsun.LSUNCatsTrain", "lsun.LSUNCatsValidation",

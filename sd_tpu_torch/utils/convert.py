@@ -28,7 +28,8 @@ from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 
 __all__ = ["unet_state_dict", "vae_state_dict", "vq_state_dict", "vae_encoder_state_dict",
            "vae_decoder_state_dict", "clip_text_state_dict", "class_embedder_state_dict",
-           "transformer_embedder_state_dict", "lpips_state_dict", "discriminator_state_dict"]
+           "transformer_embedder_state_dict", "spatial_rescaler_state_dict", "lpips_state_dict",
+           "discriminator_state_dict"]
 
 StateDict = Dict[str, np.ndarray]
 
@@ -269,6 +270,15 @@ def clip_text_state_dict(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
 def class_embedder_state_dict(params: Mapping) -> StateDict:
     """``sd_tpu`` ClassEmbedder params → the port's ``ClassEmbedder``."""
     return {"embedding.weight": np.asarray(params["embedding"]["embedding"])}
+
+
+def spatial_rescaler_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` SpatialRescaler params → the port's: its Dense
+    ``channel_mapper`` as the 1x1 conv (nothing without one)."""
+    sd: StateDict = {}
+    if "channel_mapper" in params:
+        _put(sd, "channel_mapper", _conv1x1(params["channel_mapper"]))
+    return sd
 
 
 def transformer_embedder_state_dict(params: Mapping, n_layer: int) -> StateDict:

@@ -131,7 +131,7 @@ def _bf16(*shape):
     (torch.zeros((1, 64, 2, 16)), _bf16(1, 64, 2, 16), TypeError),   # fp32 on the card path
     (_bf16(1, 64, 2, 16), _bf16(1, 64, 2, 24), ValueError),          # head dims differ
     (_bf16(1, 64, 2, 20), _bf16(1, 64, 2, 20), ValueError),          # d not a multiple of 8
-    (_bf16(1, 64, 1, 520), _bf16(1, 64, 1, 520), ValueError),        # d above 512
+    (_bf16(1, 64, 1, 584), _bf16(1, 64, 1, 584), ValueError),        # d above 576
     (_bf16(1, 64, 2, 16), _bf16(2, 64, 2, 16), ValueError),          # batches differ
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(q, k, error):
@@ -227,7 +227,7 @@ def test_differentiable_attention_grads_match_jax(n):
     shape = (2, n, 2, 16)
     q, k, v = _qkv(shape, 7)
     w = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
-    assert uses_bwd_kernel(n, n) == (n > 256)
+    assert uses_bwd_kernel(n, n, shape[-1]) == (n > 256)
 
     def loss(q_, k_, v_):
         return jnp.sum(jnp.asarray(w) * pallas_flash(q_, k_, v_, interpret=True, block_q=128))

@@ -114,8 +114,12 @@ def test_registry_builds_the_sd_tpu_configs_and_refuses_the_rest():
     assert sched(0) == pytest.approx(1e-6) and sched(10) == pytest.approx(1.0)
     assert isinstance(config.instantiate_from_config({"target": "torch.nn.Identity"}),
                       torch.nn.Identity)
-    for target in ("ldm.modules.encoders.modules.SpatialRescaler",
-                   "ldm.data.imagenet.ImageNetTrain",
+    rescaler = config.instantiate_from_config(
+        {"target": "ldm.modules.encoders.modules.SpatialRescaler",
+         "params": {"n_stages": 2, "method": "area", "out_channels": 4}})
+    assert type(rescaler).__name__ == "SpatialRescaler"
+    assert rescaler(torch.zeros(1, 3, 16, 16)).shape == (1, 4, 4, 4)
+    for target in ("ldm.data.imagenet.ImageNetTrain",
                    "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             config.instantiate_from_config({"target": target, "params": {}})

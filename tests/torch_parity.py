@@ -59,9 +59,10 @@ def tiny_jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
 
 def jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
     """sd_tpu's LatentDiffusion for a port config whose cond stage is a
-    sentinel (``__is_first_stage__``, ``__is_unconditional__``) or a
-    ``ClassEmbedder``: the stages from sd_tpu's registry, random parameters
-    over ``jax.eval_shape`` shapes, the conditioning key by sd_tpu's rule."""
+    sentinel (``__is_first_stage__``, ``__is_unconditional__``), a
+    ``ClassEmbedder`` or ``torch.nn.Identity``: the stages from sd_tpu's
+    registry, random parameters over ``jax.eval_shape`` shapes, the
+    conditioning key by sd_tpu's rule."""
     from sd_tpu.utils import config as jconfig
 
     p = cfg["params"]
@@ -79,6 +80,8 @@ def jax_ldm(cfg, rng: np.random.Generator) -> JaxLDM:
     cond = cond_params = None
     if cond_cfg == "__is_first_stage__":
         cond, cond_params = first, first_params
+    elif isinstance(cond_cfg, dict) and cond_cfg["target"] == "torch.nn.Identity":
+        cond = jconfig.instantiate_from_config(cond_cfg)
     elif isinstance(cond_cfg, dict):
         cond = jconfig.instantiate_from_config(cond_cfg)
         cond_params = random_params(cond, rng, jnp.zeros((1,), jnp.int32))
@@ -97,7 +100,8 @@ def ldm_state_dict(cfg, jldm: JaxLDM) -> dict:
     (numpy): ``model.diffusion_model.*``, ``first_stage_model.*`` (the KL or
     the VQ autoencoder) and the cond stage's: CLIP's
     ``cond_stage_model.transformer.text_model.*``, a ClassEmbedder's, the
-    first stage's again under ``cond_stage_model.``, or none."""
+    first stage's again under ``cond_stage_model.``, or none (an
+    unconditional model, ``torch.nn.Identity``)."""
     p = cfg["params"]
     first = (convert.vq_state_dict if "quantize" in jldm.first_stage_params
              else convert.vae_state_dict)
@@ -110,6 +114,8 @@ def ldm_state_dict(cfg, jldm: JaxLDM) -> dict:
     cond_cfg = p.get("cond_stage_config")
     if cond_cfg == "__is_first_stage__":
         parts["cond_stage_model."] = parts["first_stage_model."]
+    elif isinstance(cond_cfg, dict) and cond_cfg["target"] == "torch.nn.Identity":
+        pass
     elif isinstance(cond_cfg, dict) and cond_cfg["target"].endswith("ClassEmbedder"):
         parts["cond_stage_model."] = convert.class_embedder_state_dict(jldm.cond_stage_params)
     elif isinstance(cond_cfg, dict):
