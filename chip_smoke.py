@@ -9,9 +9,12 @@ full width; then the training CLI's --base path at full width: VAE-GAN
 training of the kl-f8 first stage, and the LAION 1.4B LDM with its BERT
 trained; then the VQ-f4 models at full width: inpainting_big through the
 inpaint CLI's pipeline and CelebA-HQ through sample_diffusion's main();
-last the class-conditional ImageNet LDM cin256-v2 through
+then the class-conditional ImageNet LDM cin256-v2 through
 sample_diffusion's main(), and the super-resolution model bsr_sr through
-SuperResPipeline and through the LDM's split_input_params tiling.
+SuperResPipeline and through the LDM's split_input_params tiling; last the
+VQ-f4 models' training over seeded JPEG trees: the VQ-f4 VQ-GAN and the
+LSUN-bedrooms and bsr_sr LDMs through --base, and the noisy-latent
+classifier.
 
     python3 chip_smoke.py
 
@@ -33,18 +36,23 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    one-head d = 384 and 576 sites, the latter K1's wide<576> plan, at
    batch 4 with guidance; SuperResPipeline's 9 tiles at the 8x level, 20
    heads of 32, and their decode's mid-block; the tiled LDM's 9 patches and
-   its 225 decode patches), each group's sums logged apart; K1's row log-sum-exp (the
-   statistic K3 reads) against its plain version too, and every K1 shape a
-   second time with sharp logits (q times SHARP); K1's launch plan at each
+   its 225 decode patches) and at the VQ-f4 models' training paths
+   (TRAIN_VQ_FLASH_SHAPES: the frozen encoder's mid-block at batches 48,
+   64 and 16, the LSUN UNet's legacy blocks at batch 48, bsr_sr's
+   at 64, the classifier's and its AttentionPool2d at 16), each group's sums
+   logged apart; K1's row log-sum-exp (the statistic K3 reads) against its
+   plain version too, and every K1 shape a second time with sharp logits (q
+   times SHARP); K1's launch plan at each
    shape (blocks, shared memory, blocks per SM, waves) and K2's per GEMM (a
    block's rows and columns, stages, blocks, k splits, waves) at each shape;
    max abs error and the ms of each (CUDA events), the bound, and the ms of
    one PyTorch call computing the same function (scaled_dot_product_attention
    for K1; none for K2, whose yardstick is the unfused bf16 FF: F.linear,
    chunk, F.gelu, multiply, F.linear);
-5. K3 flash-attention backward: at the training path's two shapes and at
+5. K3 flash-attention backward: at the training path's two shapes, at
    the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's wide plan,
-   with K1's output and row log-sum-exp checked there too), with plain and
+   with K1's output and row log-sum-exp checked there too) and at the VQ-f4
+   models' training shapes (TRAIN_VQ_BWD_SHAPES), with plain and
    with sharp logits, dQ, dK and dV from K1 + K3 against the plain backward
    in fp32 on the same bf16 inputs; the yardstick is
    scaled_dot_product_attention's forward+backward minus its forward (the
@@ -247,7 +255,39 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    patch_distributed_vq) on a 256² LR image, DDIM 20 at eta 1: 9 UNet
    patches a step in one call and 225 decode patches in one call, exactly
    K1 = 6 x 20 + 1; each run's seconds, and its latents within
-   AGREEMENT_TOL of the same run with the plain attention.
+   AGREEMENT_TOL of the same run with the plain attention;
+29. [data] and [native loader]: seeded JPEGs in a temporary directory (an
+   LSUN txt_file over 48 256² images; an ImageNet flat root of 64 images in
+   4 synset folders with filelist.txt; an HR-index pickle), removed whether
+   the phases pass or fail; NativeImageLoader.load_batch over the LSUN
+   files against LSUNBedroomsTrain's own decode (max abs difference within
+   1e-6), or, where g++ cannot build against libjpeg and libpng on the
+   machine, a line saying so and nothing run;
+30. [vq first stage]: `python -m sd_tpu_torch.scripts.train --base
+   sd_tpu_torch/configs/vq-f4.yaml -t` in process over the ImageNet tree
+   (data_root by dotlist): the VQ-f4 VQ-GAN with VQLPIPSWithDiscriminator
+   at the file's batch of 8, 256², 3 steps through Trainer.fit; every step
+   finite logs (perplexity and cluster usage among them) and exactly K1 = 4
+   and K3 = 2 at [8, 4096, 1, 512]; step 1's rec, nll, codebook, generator
+   and discriminator losses against a second build of the same seed with
+   the plain attention, each within its bound (VQ_GAN_COMPARED); the
+   card's code indices of a batch's latents against the CPU's fp32
+   quantizer;
+31. [ldm train uncond] and [ldm train concat]: `--base
+   sd_tpu_torch/configs/lsun_bedrooms-ldm-vq-4.yaml -t` over the LSUN tree
+   (conditioning_key None, the 274M UNet, batch 48, 256²) and `--base
+   sd_tpu_torch/configs/bsr_sr.yaml -t` over ImageNetSRTrain pairs of the
+   ImageNet tree (concat, bsrgan_light, 256² to 64², the HR-index pickle,
+   batch 64), 3 steps each; exactly K1 = 17 and K3 = 5 (LSUN), K1 = 7
+   (bsr_sr) per step; the LSUN model's first loss against the plain
+   attention's within FIRST_STAGE_LOSS_TOL; each dataset's host ms per
+   batch beside the step's;
+32. [classifier]: NoisyLatentClassifierTrainer, its EncoderUNetModel
+   derived from the LSUN LDM's UNet params (in_channels 3, 1000 classes,
+   pool attention), over VQ-f4 latents of the ImageNet tree at batch 16,
+   3 steps: exactly K1 = 9 and K3 = 2 per step; then one
+   classifier_guidance_corrector call at t = 500 (K1 = 8, K3 = 2), its
+   shifted eps finite and moved.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -337,6 +377,20 @@ LDM_1P4B_BWD_SHAPES = [(4, 1024, 8, 40)]
 # (M, C, inner) of K2: the FF sites at 32x32 and 16x16 (its 8x8 site is
 # FF_SHAPES' (256, 1280, 5120))
 LDM_1P4B_FF_SHAPES = [(4096, 320, 1280), (1024, 640, 2560)]
+# (B, N, H, D): the training paths of the VQ-f4 models at their files'
+# batches (the VQ-GAN's mid-blocks at 8 images are FLASH_SHAPES' (8, 4096,
+# 1, 512)): the frozen VQ-f4 encoder's mid-block at the LSUN LDM's 48,
+# bsr_sr's 64 and the classifier's 16; the LSUN-bedrooms UNet's legacy
+# blocks at 48 (32², 16², 8²: 14, 21 and 28 heads of 32), bsr_sr's 8x level
+# at 64 (20 heads of 32); the classifier's trunk at 16 (the UNet's blocks)
+# and its AttentionPool2d (8² + 1 tokens, 28 heads of 32)
+TRAIN_VQ_FLASH_SHAPES = [(48, 4096, 1, 512), (48, 1024, 14, 32),
+                         (48, 256, 21, 32), (48, 64, 28, 32), (64, 4096, 1, 512),
+                         (64, 64, 20, 32), (16, 4096, 1, 512), (16, 1024, 14, 32),
+                         (16, 256, 21, 32), (16, 64, 28, 32), (16, 65, 28, 32)]
+# (B, N, H, D) of K3 there: the VQ-GAN's mid-blocks, the N=1024 sites of the
+# LSUN LDM and of the classifier (N <= 256 takes the plain backward)
+TRAIN_VQ_BWD_SHAPES = [(8, 4096, 1, 512), (48, 1024, 14, 32), (16, 1024, 14, 32)]
 # bf16 rounds to 8 mantissa bits (2^-9 relative) at P or h, at dS and at the
 # outputs; the error bound is 2e-2 of the output's scale: max |plain| for K1
 # and K3, whose outputs are well below 1, and max(1, max |plain|) for K2
@@ -453,6 +507,47 @@ FIRST_STAGE_GRAD_GROUPS = tuple(f"{part}.mid.attn_1.{w}" for part in ("encoder",
                                 for w in "qkv") + ("encoder",)
 FIRST_STAGE_LOSS_TOL = 2e-3
 FIRST_STAGE_GRAD_TOL = 2e-2
+# the training paths of the VQ-f4 models, 3 steps each through their entry
+# points, over synthetic trees of seeded JPEGs: the VQ-f4 VQ-GAN through
+# --base vq-f4.yaml at its batch of 8, 256², on ImageNet; the LSUN-bedrooms
+# LDM (conditioning_key None) through --base at its batch of 48 on LSUN;
+# bsr_sr (concat) through --base at its batch of 64 on ImageNet-SR pairs
+# (bsrgan_light, 256² to 64², an HR-index pickle); the noisy-latent
+# classifier (the library trainer: sd_tpu gives it no CLI) at batch 16 over
+# VQ-f4 latents of the ImageNet tree, 1000 classes
+VQ_CONFIG = "sd_tpu_torch/configs/vq-f4.yaml"
+LSUN_CONFIG = "sd_tpu_torch/configs/lsun_bedrooms-ldm-vq-4.yaml"
+DATA_STEPS = 3
+LSUN_IMAGES, IMAGENET_IMAGES = 48, 64
+CLASSIFIER_BATCH, IMAGENET_CLASSES = 16, 1000
+# per VQ-GAN step, as per kl-f8 VAE-GAN step (FIRST_STAGE_LAUNCHES): both
+# mid-blocks in the generator's forward and in the discriminator step's
+# reconstruction, K3 at both
+VQ_GAN_LAUNCHES = FIRST_STAGE_LAUNCHES
+# per LSUN LDM step: the UNet's 16 legacy blocks (no use_checkpoint) and the
+# frozen encoder's mid-block; K3 at the five N=1024 sites
+LSUN_LAUNCHES = {"flash_attention": 17, "flash_attention_bwd": 5}
+# per bsr_sr step: its 6 blocks at 8x8 (N=64: the plain backward) and the
+# frozen encoder's mid-block
+SR_TRAIN_LAUNCHES = {"flash_attention": SR_K1_SITES + 1}
+# per classifier step: its 7 legacy blocks, AttentionPool2d, the frozen
+# encoder's mid-block; K3 at the two N=1024 sites. One guidance call: the
+# classifier's 8 sites forward, K3 at the two in the gradient
+CLASSIFIER_LAUNCHES = {"flash_attention": 9, "flash_attention_bwd": 2}
+CORRECTOR_LAUNCHES = {"flash_attention": 8, "flash_attention_bwd": 2}
+# the VQ-GAN's first step with K1 and K3 against the same step with the
+# plain attention from the same weights and batch, and the LSUN LDM's first
+# loss likewise, relative: FIRST_STAGE_LOSS_TOL (the kl-f8 VAE-GAN's bound,
+# whose sound runs read at most 3.5e-4; not re-derived with planted faults
+# on these models) for the losses the codes pass into smoothly, and
+# VQ_GAN_DISC_TOL for the discriminator's two. The quantizer turns the
+# attention's bf16 rounding into a few other codes (874 against 869 codes in
+# use at step 1 of a probe run on an H100), whose reconstructed pixels move
+# the PatchGAN's mean logit: the probe read 4.6e-5 (rec_loss), 3.7e-4
+# (quant_loss), 7.7e-3 (g_loss) and 1.3e-2 (disc_loss, after the
+# generator's update)
+VQ_GAN_COMPARED = {"rec_loss": FIRST_STAGE_LOSS_TOL, "nll_loss": FIRST_STAGE_LOSS_TOL,
+                   "quant_loss": FIRST_STAGE_LOSS_TOL, "g_loss": 5e-2, "disc_loss": 5e-2}
 # the H100 SXM's dense bf16 and int8 tensor-core rates and memory rate
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
@@ -738,7 +833,8 @@ def check_flash(randn) -> list:
               f"the {len(SAFETY_FLASH_SHAPES)} safety-tower shapes": SAFETY_FLASH_SHAPES,
               f"the {len(VQ_FLASH_SHAPES)} VQ-f4 model shapes": VQ_FLASH_SHAPES,
               f"the {len(WIDE_FLASH_SHAPES)} cin256-v2 and super-resolution shapes":
-              WIDE_FLASH_SHAPES}
+              WIDE_FLASH_SHAPES,
+              f"the {len(TRAIN_VQ_FLASH_SHAPES)} VQ-f4 training shapes": TRAIN_VQ_FLASH_SHAPES}
     rows = []
     for label, shapes in groups.items():
         part = []
@@ -874,11 +970,11 @@ def sdpa_backend(q, k, v, scale) -> str:
 
 
 def check_flash_bwd(randn) -> list:
-    """K3 at the UNet's training shapes and at the first stage's mid-blocks
+    """K3 at the UNet's training shapes, at the first stage's mid-blocks
     (d = 512, its wide plan; K1's output and row log-sum-exp at those shapes
-    too, which K3 reads)."""
+    too, which K3 reads) and at the VQ-f4 models' training shapes."""
     rows = []
-    for shape in BWD_SHAPES + VAE_BWD_SHAPES:
+    for shape in BWD_SHAPES + VAE_BWD_SHAPES + TRAIN_VQ_BWD_SHAPES:
         log_plan("K3 dK/dV", shape)
         log_plan("K3 dQ", shape)
         if shape in VAE_BWD_SHAPES:
@@ -2716,7 +2812,9 @@ def first_stage_main_path() -> dict:
 
 
 def _vae_gan_losses(aux: dict) -> dict:
-    return {k: float(aux[k]) for k in ("rec_loss", "nll_loss", "kl_loss", "g_loss", "d_weight",
+    """A VAE-GAN step's losses: the KL model's or the VQ model's."""
+    reg = ("quant_loss", "perplexity", "cluster_usage") if "quant_loss" in aux else ("kl_loss",)
+    return {k: float(aux[k]) for k in ("rec_loss", "nll_loss", *reg, "g_loss", "d_weight",
                                        "disc_loss")}
 
 
@@ -2757,7 +2855,8 @@ def first_stage_steps(argv: list, steps: int, plain: bool) -> tuple:
     """The CLI's first-stage trainer for ``argv``, its first ``steps``
     steps by ``train_step`` with fit's generators; with ``plain``, the
     autograd attention through ``flash_attention_plain``. Returns each
-    step's losses and step 1's gradients (FIRST_STAGE_GRAD_GROUPS)."""
+    step's losses and, for a KL model, step 1's gradients
+    (FIRST_STAGE_GRAD_GROUPS)."""
     from sd_tpu_torch.scripts.train import build_trainer, parse_args
     from sd_tpu_torch.training.trainer import step_seed
 
@@ -2769,7 +2868,7 @@ def first_stage_steps(argv: list, steps: int, plain: bool) -> tuple:
             generator = torch.Generator("cuda").manual_seed(step_seed(opt.seed, step))
             losses.append(_vae_gan_losses(harness.trainer_obj.train_step(
                 state, data.train_dataloader().batch(step), generator)))
-            if step == 0:
+            if step == 0 and "kl_loss" in losses[0]:
                 grads = first_stage_grads(state.ae)
     del harness, state, data
     free_memory()
@@ -3221,6 +3320,374 @@ def superres_main_path() -> dict:
     return total
 
 
+def write_data_tree(root: str) -> dict:
+    """Seeded JPEGs in the datasets' layouts under ``root``: an LSUN
+    ``txt_file`` over LSUN_IMAGES 256² images under a ``data_root``, and an
+    ImageNet flat root of IMAGENET_IMAGES images of 320x288 and 288x320 in
+    four synset folders with ``filelist.txt``, and an HR-index pickle over
+    all of them in a seeded order."""
+    import pickle
+
+    from PIL import Image
+
+    t0 = time.perf_counter()
+    lsun, imagenet = os.path.join(root, "lsun"), os.path.join(root, "imagenet")
+    rels = []
+    for i in range(LSUN_IMAGES):
+        rels.append(f"bedroom/{i:04d}.jpg")
+        os.makedirs(os.path.join(lsun, "bedroom"), exist_ok=True)
+        Image.fromarray(synthetic_image(256, seed=100 + i)).save(
+            os.path.join(lsun, rels[-1]), quality=90)
+    txt = os.path.join(root, "lsun_bedrooms_train.txt")
+    with open(txt, "w") as f:
+        f.write("\n".join(rels) + "\n")
+    rels = []
+    for i in range(IMAGENET_IMAGES):
+        syn = f"n0{i % 4}000000"
+        rels.append(f"{syn}/{syn}_{i}.JPEG")
+        os.makedirs(os.path.join(imagenet, syn), exist_ok=True)
+        img = synthetic_image(320, seed=200 + i)
+        img = img[:288] if i % 2 else img[:, :288]
+        Image.fromarray(img).save(os.path.join(imagenet, rels[-1]), quality=90)
+    with open(os.path.join(imagenet, "filelist.txt"), "w") as f:
+        f.write("\n".join(sorted(rels)) + "\n")
+    hr = os.path.join(root, "imagenet_train_hr_indices.p")
+    with open(hr, "wb") as f:
+        pickle.dump(np.random.default_rng(0).permutation(IMAGENET_IMAGES).tolist(), f)
+    log(f"[data] wrote {LSUN_IMAGES} LSUN-style and {IMAGENET_IMAGES} ImageNet-style JPEGs and "
+        f"an HR-index pickle in {time.perf_counter() - t0:.2f} s")
+    return {"lsun": lsun, "lsun_txt": txt, "imagenet": imagenet, "hr": hr}
+
+
+def data_main_paths() -> list:
+    """The VQ-f4 models' training paths over one synthetic data tree in a
+    temporary directory, removed whether the phases pass or fail; returns
+    each phase's launch counts."""
+    with tempfile.TemporaryDirectory(prefix="vq_f4_data_") as root:
+        tree = write_data_tree(root)
+        check_native_loader(tree)
+        runs = [vq_first_stage_main_path(tree, root)]
+        free_memory()
+        runs.append(ldm_uncond_main_path(tree, root))
+        free_memory()
+        runs.append(ldm_concat_main_path(tree, root))
+        free_memory()
+        runs.append(classifier_main_path(tree))
+        free_memory()
+    return runs
+
+
+def native_toolchain_missing() -> Optional[str]:
+    """None where g++ compiles and links against libjpeg's and libpng's
+    headers and libraries, else the compiler's first complaint."""
+    import shutil
+
+    cxx = shutil.which("g++")
+    if cxx is None:
+        return "no g++ on PATH"
+    proc = subprocess.run([cxx, "-x", "c++", "-", "-o", os.devnull, "-ljpeg", "-lpng"],
+                          input="#include <cstdio>\n#include <jpeglib.h>\n#include <png.h>\n"
+                                "int main() { return 0; }\n",
+                          capture_output=True, text=True, timeout=120)
+    return None if proc.returncode == 0 else (proc.stderr.strip().splitlines() or ["?"])[0]
+
+
+def check_native_loader(tree: dict) -> None:
+    """[native loader]: NativeImageLoader.load_batch over the LSUN tree at
+    256² (the images' size: decode and crop only) against LSUNBedroomsTrain's
+    own decode of the same files without flips. Where the machine lacks
+    libjpeg's or libpng's headers or libraries, says so and runs nothing:
+    the loader is host code, held against sd_tpu's by the CPU tests."""
+    missing = native_toolchain_missing()
+    if missing is not None:
+        log(f"[native loader] not run on this machine: g++ cannot build against libjpeg and "
+            f"libpng here ({missing}); the loader stays off the card")
+        return
+    from sd_tpu_torch.data.lsun import LSUNBedroomsTrain
+    from sd_tpu_torch.data.native_loader import NativeImageLoader
+
+    ds = LSUNBedroomsTrain(txt_file=tree["lsun_txt"], data_root=tree["lsun"], size=256,
+                           flip_p=0.0)
+    paths = [os.path.join(tree["lsun"], rel) for rel in ds.image_paths]
+    loader = NativeImageLoader(num_threads=8)
+    t0 = time.perf_counter()
+    got, ok = loader.load_batch(paths, 256)
+    native_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    want = np.stack([ds[i]["image"] for i in range(len(ds))])
+    python_ms = (time.perf_counter() - t0) * 1e3
+    loader.close()
+    err = float(np.abs(got - want).max())
+    log(f"[native loader] {len(paths)} LSUN JPEGs at 256²: {native_ms:.1f} ms (8 threads) "
+        f"against the dataset's {python_ms:.1f} ms; max abs difference {err:.3e} (bound 1e-6)")
+    if not ok.all() or not err <= 1e-6:
+        raise AssertionError(f"[native loader] ok {ok.tolist()}, max abs difference {err}")
+
+
+def checked_fit(label: str, harness, state, data, want: dict, describe) -> list:
+    """``harness.fit`` with each step checked: exact launch counts ``want``
+    (the counters reset just before fit), finite logs, and ``describe(aux)``
+    logged; returns each step's logs (floats) and time, and fit's launches."""
+    trainer = harness.trainer_obj
+    train_step = trainer.train_step
+    steps = []
+    last = {}
+
+    def checked_step(state_, batch_, generator):
+        aux = train_step(state_, batch_, generator)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        delta = {k: launches[k] - last["launches"][k] for k in launches}
+        logs = {k: float(v) for k, v in aux.items()}
+        steps.append({"logs": logs, "s": time.perf_counter() - last["t"]})
+        log(f"[{label}] step {state_.step}: {describe(logs)}, {steps[-1]['s'] * 1e3:.1f} ms, "
+            f"launches {delta}")
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"[{label}] step {state_.step}: {logs}")
+        if delta != expect(**want):
+            raise AssertionError(f"[{label}] step {state_.step}: launches {delta} != {want}")
+        last["t"], last["launches"] = time.perf_counter(), launches
+        return aux
+
+    trainer.train_step = checked_step
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    last["launches"], last["t"] = read_launches(), time.perf_counter()
+    harness.fit(state, data)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    times = [st["s"] for st in steps]
+    log(f"[{label}] {len(steps)} steps: {' '.join(f'{t * 1e3:.1f}' for t in times)} ms; median "
+        f"of steps 2-{len(steps)} {1e3 * float(np.median(times[1:])):.1f} ms per step; peak "
+        f"memory allocated {peak:.2f} GiB; the save on exit {time.perf_counter() - last['t']:.2f} "
+        f"s; launches {launches}")
+    if len(steps) != DATA_STEPS:
+        raise AssertionError(f"[{label}] {len(steps)} steps, not {DATA_STEPS}")
+    return steps, launches
+
+
+def check_relative(label: str, got: dict, want: dict, bounds: dict) -> None:
+    """Each key of ``bounds`` of ``got`` against ``want``, relative, within
+    its bound."""
+    gaps = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in bounds}
+    log(f"[{label}] step 1 against the plain attention (relative gap, bound): " + ", ".join(
+        f"{k} {g:.3e} ({bounds[k]})" for k, g in gaps.items()))
+    bad = {k: g for k, g in gaps.items() if not g <= bounds[k]}
+    if bad:
+        raise AssertionError(f"[{label}] against the plain attention: {bad}")
+
+
+def vq_first_stage_main_path(tree: dict, root: str) -> dict:
+    """[vq first stage]: `python -m sd_tpu_torch.scripts.train --base
+    vq-f4.yaml -t` over the ImageNet tree at the file's batch of 8, 256²:
+    the first step again with the plain attention from a build of the same
+    seed; then the code indices of a batch's latents on the card and the CPU."""
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+
+    t_phase = time.perf_counter()
+    argv = ["--base", VQ_CONFIG, "-t", "--logdir", os.path.join(root, "vq_logs"), "--seed", "0",
+            "--max_steps", str(DATA_STEPS), "--log_every", "1",
+            f"data.params.train.params.data_root={tree['imagenet']}",
+            f"data.params.validation.params.data_root={tree['imagenet']}"]
+    (plain,), _ = first_stage_steps(argv, 1, plain=True)
+    harness, state, data = build_trainer(parse_args(argv))
+    trainer = harness.trainer_obj
+    n_params = sum(p.numel() for p in state.ae.parameters())
+    log(f"[vq first stage] VQ-f4 VQ-GAN ({VQ_CONFIG}: VQLPIPSWithDiscriminator, disc_start 0, "
+        f"disc_weight 0.75), {n_params / 1e6:.1f}M autoencoder parameters in fp32 (Adam, bf16 "
+        f"autocast), batch {data.batch_size} of 256² ImageNet crops; {DATA_STEPS} steps")
+    shown = ("total_loss", "rec_loss", "quant_loss", "g_loss", "d_weight", "disc_loss",
+             "perplexity", "cluster_usage")
+    steps, launches = checked_fit("vq first stage", harness, state, data, VQ_GAN_LAUNCHES,
+                                  lambda g: ", ".join(f"{k} {g[k]:.5g}" for k in shown))
+    first = _vae_gan_losses(steps[0]["logs"])
+    if not first["disc_loss"] > 0 or not first["d_weight"] > 0 or not trainer.is_vq:
+        raise AssertionError(f"[vq first stage] the discriminator or the adaptive weight was "
+                             f"not engaged: {first}")
+    log(f"[vq first stage] the plain attention's step 1: {plain}")
+    check_relative("vq first stage", first, plain, VQ_GAN_COMPARED)
+    batch = data.train_dataloader().batch(0)
+    images = torch.from_numpy(batch["image"]).cuda().permute(0, 3, 1, 2)
+    with torch.no_grad(), trainer.autocast():
+        z = state.ae.encode_pre_quant(images)
+    check_code_agreement(state.ae.quantize, z, "vq first stage")
+    del harness, state, data, trainer
+    log(f"[vq first stage] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def _host_ms_per_batch(data, batches: int = 2) -> float:
+    """The data module's host time per train batch (the dataset's decode,
+    crops, resizes and degradation, and collation), after the run."""
+    loader = data.train_dataloader()
+    t0 = time.perf_counter()
+    for b in range(batches):
+        loader.batch(b % len(loader))
+    return (time.perf_counter() - t0) * 1e3 / batches
+
+
+def ldm_uncond_main_path(tree: dict, root: str) -> dict:
+    """[ldm train uncond]: `--base lsun_bedrooms-ldm-vq-4.yaml -t` over the
+    LSUN tree at the file's batch of 48; the first step's loss against a
+    second build of the same seed with the plain attention."""
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+    from sd_tpu_torch.training.trainer import step_seed
+
+    t_phase = time.perf_counter()
+    data_args = [f"data.params.{split}.params.{k}={v}" for split in ("train", "validation")
+                 for k, v in (("txt_file", tree["lsun_txt"]), ("data_root", tree["lsun"]))]
+    argv = lambda d: ["--base", LSUN_CONFIG, "-t", "--logdir", os.path.join(root, d), "--seed",
+                      "0", "--max_steps", str(DATA_STEPS), "--log_every", "1", "--no_images",
+                      *data_args]
+    opt = parse_args(argv("lsun_plain"))
+    harness, _, data = build_trainer(opt)
+    generator = torch.Generator("cuda").manual_seed(step_seed(opt.seed, 0))
+    with plain_attention(), torch.no_grad():
+        plain = float(harness.trainer_obj.loss_fn(data.train_dataloader().batch(0),
+                                                  generator)[0])
+    del harness, data
+    free_memory()
+    harness, state, data = build_trainer(parse_args(argv("lsun_logs")))
+    ldm = harness.trainer_obj.ldm
+    n_unet = sum(p.numel() for p in state.unet.parameters())
+    log(f"[ldm train uncond] LSUN-bedrooms LDM-VQ-4 ({LSUN_CONFIG}: conditioning_key "
+        f"{ldm.conditioning_key}), {n_unet / 1e6:.1f}M UNet parameters in fp32 (AdamW, bf16 "
+        f"autocast), frozen VQ-f4 encoder in bf16; batch {data.batch_size} of 256² LSUN "
+        f"images; {DATA_STEPS} steps")
+    if ldm.conditioning_key is not None or data.batch_size != LSUN_IMAGES:
+        raise AssertionError(f"[ldm train uncond] key {ldm.conditioning_key}, batch "
+                             f"{data.batch_size}")
+    steps, launches = checked_fit("ldm train uncond", harness, state, data, LSUN_LAUNCHES,
+                                  lambda g: f"loss {g['loss']:.6f}")
+    check_relative("ldm train uncond", {"loss": steps[0]["logs"]["loss"]}, {"loss": plain},
+                   {"loss": FIRST_STAGE_LOSS_TOL})
+    log(f"[ldm train uncond] LSUNBedroomsTrain host {_host_ms_per_batch(data):.1f} ms per batch "
+        f"of {data.batch_size}")
+    del harness, state, data, ldm
+    log(f"[ldm train uncond] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def ldm_concat_main_path(tree: dict, root: str) -> dict:
+    """[ldm train concat]: `--base bsr_sr.yaml -t` over ImageNet-SR pairs of
+    the ImageNet tree (bsrgan_light, 256² to 64², the HR-index pickle) at
+    the file's batch of 64; the dataset's host ms per batch beside the
+    step's."""
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+
+    t_phase = time.perf_counter()
+    data_args = [f"data.params.{split}.params.{k}={v}" for split in ("train", "validation")
+                 for k, v in (("data_root", tree["imagenet"]), ("hr_indices", tree["hr"]))]
+    harness, state, data = build_trainer(parse_args(
+        ["--base", SR_CONFIG, "-t", "--logdir", os.path.join(root, "sr_logs"), "--seed", "0",
+         "--max_steps", str(DATA_STEPS), "--log_every", "1", "--no_images", *data_args]))
+    ldm = harness.trainer_obj.ldm
+    n_unet = sum(p.numel() for p in state.unet.parameters())
+    log(f"[ldm train concat] bsr_sr ({SR_CONFIG}: conditioning_key {ldm.conditioning_key}, "
+        f"cond_stage_key {ldm.cond_stage_key}), {n_unet / 1e6:.1f}M UNet parameters in fp32 "
+        f"(AdamW, bf16 autocast), frozen VQ-f4 encoder in bf16; batch {data.batch_size} of "
+        f"ImageNetSRTrain pairs; {DATA_STEPS} steps")
+    if ldm.conditioning_key != "concat":
+        raise AssertionError(f"[ldm train concat] conditioning_key {ldm.conditioning_key}")
+    steps, launches = checked_fit("ldm train concat", harness, state, data,
+                                  SR_TRAIN_LAUNCHES, lambda g: f"loss {g['loss']:.6f}")
+    batch = data.train_dataloader().batch(0)
+    shapes = {k: np.shape(batch[k]) for k in ("image", "LR_image")}
+    if shapes != {"image": (64, 256, 256, 3), "LR_image": (64, 64, 64, 3)}:
+        raise AssertionError(f"[ldm train concat] batch shapes {shapes}")
+    host, step_ms = _host_ms_per_batch(data), 1e3 * float(np.median([st["s"] for st in steps[1:]]))
+    log(f"[ldm train concat] ImageNetSRTrain (bsrgan_light) host {host:.1f} ms per batch of "
+        f"{data.batch_size} {shapes}, beside {step_ms:.1f} ms per step")
+    del harness, state, data, ldm
+    log(f"[ldm train concat] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def classifier_main_path(tree: dict) -> dict:
+    """[classifier]: NoisyLatentClassifierTrainer over VQ-f4 latents of the
+    ImageNet tree with their class labels, its EncoderUNetModel derived from
+    the LSUN LDM's UNet params as the reference's NoisyLatentImageClassifier
+    derives it (in_channels the UNet's out_channels, 1000 classes,
+    pool attention); then one classifier_guidance_corrector call."""
+    from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
+    from sd_tpu_torch.data.base import DataLoader
+    from sd_tpu_torch.data.imagenet import ImageNetTrain
+    from sd_tpu_torch.models.encoder_unet import EncoderUNetConfig, EncoderUNetModel
+    from sd_tpu_torch.training.classifier import (NoisyLatentClassifierTrainer,
+                                                  classifier_guidance_corrector)
+    from sd_tpu_torch.utils import config as C
+
+    t_phase = time.perf_counter()
+    model_cfg = C.load_yaml(LSUN_CONFIG)["model"]["params"]
+    device = torch.device("cuda")
+    with torch.device("meta"):
+        vq = C.instantiate_from_config(model_cfg["first_stage_config"])
+        unet_p = dict(model_cfg["unet_config"]["params"])
+        unet_p.update(in_channels=unet_p["out_channels"], out_channels=IMAGENET_CLASSES,
+                      pool="attention")
+        model = EncoderUNetModel(EncoderUNetConfig.from_dict(unet_p))
+    generator = torch.Generator(device).manual_seed(0)
+    for module in (vq, model):
+        module.to_empty(device=device)
+        C.init_random_(module, generator)
+    vq = vq.to(torch.bfloat16).eval().requires_grad_(False)
+    schedule = DiffusionSchedule.create(
+        timesteps=1000, linear_start=model_cfg["linear_start"],
+        linear_end=model_cfg["linear_end"])
+    trainer = NoisyLatentClassifierTrainer(
+        model=model, schedule=schedule,
+        encode_fn=lambda x, g: vq.encode_pre_quant(x.to(torch.bfloat16)))
+    state = trainer.init_state()
+    loader = DataLoader(ImageNetTrain(data_root=tree["imagenet"], size=256),
+                        batch_size=CLASSIFIER_BATCH, shuffle=True)
+    n_params = sum(p.numel() for p in model.parameters())
+    log(f"[classifier] EncoderUNetModel from {LSUN_CONFIG}'s UNet params (in_channels 3, "
+        f"{IMAGENET_CLASSES} classes, pool attention), {n_params / 1e6:.1f}M parameters in fp32 "
+        f"(AdamW, bf16 autocast), frozen VQ-f4 encoder in bf16; batch {CLASSIFIER_BATCH} of "
+        f"256² ImageNet crops; {DATA_STEPS} steps")
+    torch.cuda.reset_peak_memory_stats()
+    times, total = [], {}
+    for step in range(DATA_STEPS):
+        batch = loader.batch(step)
+        reset_launches()
+        t0 = time.perf_counter()
+        logs = trainer.train_step(state, batch, torch.Generator(device).manual_seed(step))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        counts = read_launches()
+        logs = {k: float(v) for k, v in logs.items()}
+        log(f"[classifier] step {state.step}: {logs}, {times[-1] * 1e3:.1f} ms, launches {counts}")
+        if not all(np.isfinite(v) for v in logs.values()):
+            raise AssertionError(f"[classifier] step {state.step}: {logs}")
+        if counts != expect(**CLASSIFIER_LAUNCHES):
+            raise AssertionError(f"[classifier] launches {counts} != {CLASSIFIER_LAUNCHES}")
+        total = add_counts(total, counts)
+    log(f"[classifier] {DATA_STEPS} steps: {' '.join(f'{t * 1e3:.1f}' for t in times)} ms; "
+        f"peak memory allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # one guidance call at t = 500 on latents of the last batch, as a sampler makes it
+    x, labels = trainer.inputs(batch)
+    t = torch.full((x.shape[0],), 500, dtype=torch.long, device=device)
+    e_t = torch.randn(x.shape, generator=generator, device=device)
+    x_t = q_sample(schedule, x, t, e_t)
+    corrector = classifier_guidance_corrector(state.model.eval(), schedule, labels, scale=1.0)
+    reset_launches()
+    with torch.no_grad(), trainer.autocast():
+        shifted = corrector(e_t, x_t, t, None)
+    torch.cuda.synchronize()
+    counts = read_launches()
+    moved = float((shifted.float() - e_t).abs().max())
+    log(f"[classifier] classifier_guidance_corrector at t = 500: eps shifted by at most "
+        f"{moved:.3e}; launches {counts}")
+    if (shifted.shape != e_t.shape or not torch.isfinite(shifted).all() or not moved > 0
+            or counts != expect(**CORRECTOR_LAUNCHES)):
+        raise AssertionError(f"[classifier] corrector: {tuple(shifted.shape)}, moved {moved}, "
+                             f"launches {counts}")
+    total = add_counts(total, counts)
+    del trainer, state, model, vq
+    log(f"[classifier] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def free_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -3268,6 +3735,8 @@ def main() -> None:
     free_memory()
     cin256 = cin256_main_path()
     superres = superres_main_path()
+    free_memory()
+    data_runs = data_main_paths()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -3290,7 +3759,7 @@ def main() -> None:
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
             served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
-            inpainted, sampled, cin256, superres)
+            inpainted, sampled, cin256, superres, *data_runs)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all

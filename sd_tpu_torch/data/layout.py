@@ -7,7 +7,8 @@ Each object is ``[class token, x0, y0, x1, y1]`` with the coordinates
 quantized to ``n_bins`` bins, flattened into one sequence padded to
 ``max_objects`` objects. Token space: ``[0, n_bins)`` coordinate bins,
 ``[n_bins, n_bins + n_classes)`` classes, then the pad id. The layout
-dataset itself waits for ``ROADMAP.md``'s modules item 6.
+datasets that feed it (``ldm.data.openimages.OpenImagesBBox*``) are in
+neither the reference repository nor ``sd_tpu``.
 """
 
 from __future__ import annotations

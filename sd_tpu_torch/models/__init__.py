@@ -1,1 +1,2 @@
-"""UNet, KL autoencoder, CLIP text and vision towers and LatentDiffusion."""
+"""UNet, the classifier's half-UNet, the KL and VQ autoencoders, CLIP text
+and vision towers, the cond-stage encoders and LatentDiffusion."""

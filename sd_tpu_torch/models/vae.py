@@ -234,13 +234,14 @@ class VectorQuantizer(nn.Module):
         return self.embedding(idx).permute(0, 3, 1, 2)
 
     def forward(self, z: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """``(z_q, loss, indices)``; ``z_q`` in the dtype of ``z``: the codes
-        themselves where autograd does not record, else ``z + sg(z_q − z)``
-        (equal up to rounding, which bf16 makes coarse)."""
+        """``(z_q, loss, indices)``, the loss in fp32; ``z_q`` in the dtype of
+        ``z``: the codes themselves where autograd does not record, else
+        ``z + sg(z_q − z)`` (equal up to rounding, which bf16 makes coarse)."""
         idx = self.indices(z)
         z_q = self.lookup(idx).to(z.dtype)
-        loss = (self.beta * (z_q.detach() - z).square().mean()
-                + (z_q - z.detach()).square().mean())
+        z32, q32 = z.float(), z_q.float()
+        loss = (self.beta * (q32.detach() - z32).square().mean()
+                + (q32 - z32.detach()).square().mean())
         if torch.is_grad_enabled() and (z.requires_grad or z_q.requires_grad):
             z_q = z + (z_q - z).detach()
         return z_q, loss, idx
@@ -287,6 +288,9 @@ class VQModel(nn.Module):
     def decode_code(self, code: torch.Tensor) -> torch.Tensor:
         """Code indices ``[B, h, w]`` → images."""
         return self.decode(self.quantize.lookup(code), force_not_quantize=True)
+
+    def get_last_layer(self) -> torch.Tensor:
+        return self.decoder.conv_out.weight
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """``(reconstruction, codebook loss, indices)``."""

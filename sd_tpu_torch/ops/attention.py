@@ -39,8 +39,9 @@ quantized at load time and held per module (``quant.Int8Weights``).
 On a CPU tensor each kernel wrapper computes its plain version.
 
 The OpenAI UNet's legacy pixel-space block (:class:`QKVAttentionBlock`)
-sends its self-attention through :func:`dot_product_attention` too, so K1
-takes it on the card; it has no int8 mode, as in ``sd_tpu``. The VAE's
+and the classifier's pooling head (:class:`AttentionPool2d`) send their
+self-attention through :func:`dot_product_attention` too, so K1 takes it on
+the card; they have no int8 mode, as in ``sd_tpu``. The VAE's
 :class:`LinearAttention` is plain PyTorch, as in ``sd_tpu``.
 
 Modules keep the CompVis ``state_dict`` names (``to_q``, ``to_out.0``,
@@ -86,6 +87,7 @@ __all__ = [
     "SpatialTransformer",
     "VAEAttnBlock",
     "QKVAttentionBlock",
+    "AttentionPool2d",
     "LinearAttention",
 ]
 
@@ -377,6 +379,40 @@ class QKVAttentionBlock(nn.Module):
         out = dot_product_attention(q, k, v, scale=d**-0.5)
         out = _linear_1x1(out.reshape(b, n, c), self.proj_out)
         return x + _from_tokens(out, hh, ww)
+
+
+class AttentionPool2d(nn.Module):
+    """CLIP's attention pooling head of the classifier's trunk, over ``[B, C,
+    H, W]``: the tokens' mean is prepended as a class token, a learned
+    ``positional_embedding`` (``[C, H·W + 1]``, the reference's layout) is
+    added, one attention layer runs in heads of ``num_heads_channels``
+    (``qkv_proj``, a width-1 ``Conv1d`` laid out ``[3, heads, d]``, then
+    ``c_proj``), and the class token's output, ``[B, output_dim]``, is
+    returned. Its attention goes through :func:`dot_product_attention`, so
+    :func:`attention_route` decides the route at N = H·W + 1."""
+
+    def __init__(self, spacial_dim: int, embed_dim: int, num_heads_channels: int,
+                 output_dim: Optional[int] = None):
+        super().__init__()
+        if embed_dim % num_heads_channels:
+            raise ValueError(f"{embed_dim} channels do not split into heads of "
+                             f"{num_heads_channels}")
+        self.positional_embedding = nn.Parameter(
+            torch.randn(embed_dim, spacial_dim ** 2 + 1) / embed_dim ** 0.5)
+        self.qkv_proj = nn.Conv1d(embed_dim, 3 * embed_dim, 1)
+        self.c_proj = nn.Conv1d(embed_dim, output_dim or embed_dim, 1)
+        self.num_heads = embed_dim // num_heads_channels
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, hh, ww = x.shape
+        n, heads = hh * ww + 1, self.num_heads
+        d = c // heads
+        t = _to_tokens(x)
+        t = torch.cat([t.mean(dim=1, keepdim=True), t], dim=1)
+        t = t + self.positional_embedding.t()[None].to(t.dtype)
+        q, k, v = _linear_1x1(t, self.qkv_proj).view(b, n, 3, heads, d).unbind(2)
+        out = dot_product_attention(q, k, v, scale=d**-0.5)
+        return _linear_1x1(out.reshape(b, n, c), self.c_proj)[:, 0]
 
 
 class LinearAttention(nn.Module):

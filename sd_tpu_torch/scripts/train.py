@@ -9,10 +9,12 @@ With ``--base`` the configs are merged left to right and the dotlist
 overrides applied, as ``main.py`` does; the run's directory is
 ``<logdir>/<time>_<name>`` (``name``: ``-n``, else the first config's file
 name), or the directory given to ``--resume``, whose ``configs/`` are read
-again before the ``--base`` configs. A first-stage model (``AutoencoderKL``)
-trains as a VAE-GAN (``training/vae_gan.py``) with its ``lossconfig``'s
-parameters; a ``LatentDiffusion`` trains with the LDM trainer and the
-config's ``cond_stage_trainable``, ``learn_logvar``/``logvar_init``,
+again before the ``--base`` configs. A first-stage model (``AutoencoderKL``,
+``VQModel`` or ``VQModelInterface``, as ``main.py`` sends them to its
+first-stage trainer) trains as a VAE-GAN (``training/vae_gan.py``, KL or VQ
+mode) with its ``lossconfig``'s parameters and ``batch_resize_range``; a
+``LatentDiffusion`` trains with the LDM trainer under any conditioning key
+and the config's ``cond_stage_trainable``, ``learn_logvar``/``logvar_init``,
 ``scale_by_std``, ``loss_type``, ``l_simple_weight``,
 ``original_elbo_weight`` and ``use_ema``. Only ``-t`` trains; without it
 the run is built and its config written.
@@ -21,8 +23,10 @@ Without ``--base`` the CLI trains SD v1 at full width (860M UNet; frozen
 kl-f8 encoder and CLIP ViT-L/14 text tower; 512² images, batch 4) or, with
 ``--tiny``, the tiny model, in ``--logdir`` itself, with or without ``-t``.
 
-Every model starts from seeded random weights on synthetic data: real
-weights and datasets are not in the repository. The LR is the config's
+Every model starts from seeded random weights: real weights are not in the
+repository. The data is the config's: synthetic images, or the LSUN and
+ImageNet datasets (``data/lsun.py``, ``data/imagenet.py``) over files the
+user provides under the config's paths. The LR is the config's
 ``base_learning_rate`` (in ``model.params``, else in ``model``) times the
 batch size (``--scale_lr false`` keeps it as it is), times the config's LR
 schedule where it has one. ``--device`` defaults to ``cuda``; a run that
@@ -171,7 +175,6 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
 
 
 def _first_stage(opt, model_cfg, data, device, harness_args):
-    from sd_tpu_torch.models.vae import AutoencoderKL
     from sd_tpu_torch.training.trainer import Trainer
     from sd_tpu_torch.training.vae_gan import BatchResizeWrapper, VAEGANTrainer, lpips_from_seed
     from sd_tpu_torch.utils.config import init_random_, instantiate_from_config
@@ -179,14 +182,14 @@ def _first_stage(opt, model_cfg, data, device, harness_args):
     p = model_cfg["params"]
     with torch.device("meta"):
         model = instantiate_from_config(model_cfg)
-    if not isinstance(model, AutoencoderKL):
-        raise NotImplementedError(f"training {type(model).__name__} is not ported yet; "
-                                  f"ROADMAP.md 'Modules to port' item 5 (VQ first-stage "
-                                  f"training) ports it")
     model.to_empty(device=device)
     init_random_(model, torch.Generator(device=device).manual_seed(opt.seed))
-    # the trainer's loss arguments; refuses a loss the port has not ported
+    # the trainer's loss arguments (a dict from the KL or VQ loss's target)
     loss_kwargs = instantiate_from_config(p.get("lossconfig", {}))
+    if not isinstance(loss_kwargs, dict):
+        raise ValueError(f"lossconfig {p['lossconfig']['target']}: no training loss (the "
+                         f"inference configs' torch.nn.Identity); give LPIPSWithDiscriminator "
+                         f"or VQLPIPSWithDiscriminator to train a first stage")
     if p.get("batch_resize_range") is not None:
         data = BatchResizeWrapper(data, tuple(p["batch_resize_range"]))
         print(f"{type(model).__name__}: Using per-batch resizing in range "

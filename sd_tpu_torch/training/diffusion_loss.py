@@ -5,9 +5,12 @@
   per-timestep logvar weighting and the ELBO term through ``lvlb_weights``;
 - ``LDMTrainer``: the frozen first stage and the cond stage (frozen, or
   trained with the UNet: ``train_cond_stage``, the reference's
-  ``cond_stage_trainable``), ``loss_fn`` (encode, draw t and noise, loss)
-  and ``train_step`` (gradient accumulation over microbatches, AdamW with
-  its LR schedule, EMA over every trained weight); ``learn_logvar`` trains
+  ``cond_stage_trainable``) under every conditioning key (None, ``concat``,
+  ``crossattn``, ``hybrid``, ``adm``: the batch's ``cond_stage_key`` entry
+  through the cond stage, then ``apply_model``'s dispatch), ``loss_fn``
+  (encode, draw t and noise, loss) and ``train_step`` (gradient
+  accumulation over microbatches, AdamW with its LR schedule, EMA over
+  every trained weight); ``learn_logvar`` trains
   the per-timestep logvar table (from ``logvar_init``) with the UNet, and
   ``calibrate_scale_by_std`` sets ``scale_factor`` to one over the std of
   a batch's latents (the reference's ``scale_by_std``), refusing a config
@@ -29,6 +32,7 @@ import contextlib
 import dataclasses
 from typing import Any, Callable, Dict, Mapping, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -37,7 +41,8 @@ from sd_tpu_torch.models.ldm import LatentDiffusion
 from sd_tpu_torch.training.ema import EmaState, ema_init, ema_update
 from sd_tpu_torch.utils.checkpoint import COND_STAGE_PREFIX
 
-__all__ = ["p_losses", "make_optimizer", "TrainState", "LDMTrainer", "create_train_state"]
+__all__ = ["p_losses", "cond_to_device", "rows", "make_optimizer", "TrainState", "LDMTrainer",
+           "create_train_state"]
 
 # optax.adamw's defaults
 ADAMW_BETAS = (0.9, 0.999)
@@ -68,6 +73,36 @@ def p_losses(apply_model: Callable, schedule: DiffusionSchedule, x_start: torch.
     lvlb = (weights * loss_simple).mean()
     loss = loss + original_elbo_weight * lvlb
     return loss, {"loss": loss, "loss_simple": loss_simple.mean(), "loss_vlb": lvlb}
+
+
+def _map_entry(fn, v):
+    """``fn`` on each array of a batch entry: the entry itself, or each
+    value of a dict entry or each array of a list of arrays (the hybrid
+    key's ``{"c_concat": [...], "c_crossattn": [...]}``)."""
+    if isinstance(v, Mapping):
+        return {k: _map_entry(fn, x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)) and not isinstance(v[0], (int, float, np.generic)):
+        return [_map_entry(fn, x) for x in v]
+    return fn(v)
+
+
+def cond_to_device(raw, device):
+    """A batch's conditioning entry as the port's modules take it, on
+    ``device``: 4-D float arrays (NHWC images) as NCHW float32 tensors,
+    other floats as float32, ids as int64."""
+
+    def convert(v):
+        c = torch.as_tensor(v if torch.is_tensor(v) else np.asarray(v), device=device)
+        if not c.is_floating_point():
+            return c.long()
+        return c.float().permute(0, 3, 1, 2) if c.ndim == 4 else c.float()
+
+    return _map_entry(convert, raw)
+
+
+def rows(v, start: int, stop: int):
+    """Rows ``start:stop`` of a batch entry."""
+    return _map_entry(lambda x: x[start:stop], v)
 
 
 def make_optimizer(params, base_lr: float, schedule_fn: Optional[Callable[[int], float]] = None
@@ -150,13 +185,6 @@ class LDMTrainer:
     # the learned logvar table (learn_logvar), made by init_state
     logvar: Optional[nn.Parameter] = dataclasses.field(default=None, init=False)
 
-    def __post_init__(self):
-        if self.ldm.conditioning_key != "crossattn":
-            raise NotImplementedError(
-                f"training an LDM with conditioning_key {self.ldm.conditioning_key!r} is not "
-                f"ported yet; ROADMAP.md 'Modules to port' item 6 (the datasets that feed it) "
-                f"ports it")
-
     @property
     def unet(self) -> nn.Module:
         return self.ldm.model.diffusion_model
@@ -181,7 +209,7 @@ class LDMTrainer:
         puts the trained modules in training mode, and builds AdamW, its
         schedule and the EMA shadow over every trained weight."""
         frozen = [self.ldm.first_stage_model]
-        if not self.train_cond_stage:
+        if not self.train_cond_stage and self.ldm.cond_stage_model is not None:
             frozen.append(self.ldm.cond_stage_model)
         for module in frozen:
             module.eval().requires_grad_(False)
@@ -199,9 +227,15 @@ class LDMTrainer:
         state.ema = ema_init(params) if self.use_ema else None
         return state
 
-    def _cond_input(self, batch: Mapping[str, Any]) -> torch.Tensor:
-        c = torch.as_tensor(batch[self.ldm.cond_stage_key], device=self.device)
-        return c.float() if c.is_floating_point() else c.long()
+    def _cond_input(self, batch: Mapping[str, Any]):
+        """The cond stage's input: the batch's ``cond_stage_key`` entry on
+        the device (NHWC images as NCHW, ids as int64; a dict or list entry
+        by entry), or None for an unconditional model or a batch without
+        it, as ``sd_tpu`` passes it."""
+        raw = batch.get(self.ldm.cond_stage_key)
+        if raw is None or self.ldm.cond_stage_model is None:
+            return None
+        return cond_to_device(raw, self.device)
 
     def _images(self, batch: Mapping[str, Any]) -> torch.Tensor:
         return torch.as_tensor(batch["image"], device=self.device).float().permute(0, 3, 1, 2)
@@ -236,20 +270,25 @@ class LDMTrainer:
 
     def latents_and_cond(self, batch: Mapping[str, Any],
                          generator: Optional[torch.Generator] = None
-                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+                         ) -> Tuple[torch.Tensor, Any]:
         """The frozen first stage's latents (a posterior sample drawn from
         ``generator``, the mode without one) and the conditioning (with a
-        gradient where the cond stage trains)."""
+        gradient where the cond stage trains): the cond stage's output for
+        the batch's ``cond_stage_key`` entry (the entry itself through a
+        ``torch.nn.Identity`` cond stage, as ``bsr_sr``'s ``LR_image``), or
+        None for an unconditional model."""
         x = self._images(batch)
         c = self._cond_input(batch)
         with torch.no_grad(), self.autocast():
             z = self.ldm.encode_to_latent(x, generator=generator).float()
+        if c is None:
+            return z, None
         with torch.set_grad_enabled(self.train_cond_stage and torch.is_grad_enabled()), \
                 self.autocast():
             cond = self.ldm.get_learned_conditioning(c)
         return z, cond
 
-    def loss_at(self, z: torch.Tensor, cond: torch.Tensor, t: torch.Tensor,
+    def loss_at(self, z: torch.Tensor, cond, t: torch.Tensor,
                 noise: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """``p_losses`` at the given t and noise under the trainer's autocast."""
         ldm = self.ldm
@@ -282,10 +321,10 @@ class LDMTrainer:
                 f"int8='off' to train.")
         accum = self.accumulate_grad_batches
         state.optimizer.zero_grad(set_to_none=True)
-        arrays = {k: batch[k] for k in ("image", self.ldm.cond_stage_key)}
+        arrays = {k: batch[k] for k in ("image", self.ldm.cond_stage_key) if k in batch}
         n = len(arrays["image"]) // accum
         for i in range(accum):
-            micro = {k: v[i * n:(i + 1) * n] for k, v in arrays.items()}
+            micro = {k: rows(v, i * n, (i + 1) * n) for k, v in arrays.items()}
             loss, aux = self.loss_fn(micro, generator)
             (loss / accum).backward()
         state.optimizer.step()
@@ -307,6 +346,7 @@ def create_train_state(ldm: LatentDiffusion, base_lr: float,
         ldm.model.float()
         ldm.first_stage_model.to(torch.bfloat16)
         trained = kwargs.get("train_cond_stage", False)
-        ldm.cond_stage_model.to(torch.float32 if trained else torch.bfloat16)
+        if ldm.cond_stage_model is not None:
+            ldm.cond_stage_model.to(torch.float32 if trained else torch.bfloat16)
     trainer = LDMTrainer(ldm=ldm, base_lr=base_lr, schedule_fn=schedule_fn, **kwargs)
     return trainer, trainer.init_state()

@@ -2,9 +2,9 @@
 ``scale_learning_rate``, ``log_images``, ``log_images_vae``, ``ImageLogger``
 and ``Trainer`` from ``sd_tpu/training/trainer.py``).
 
-``Trainer`` drives either trainer: the LDM's (``LDMTrainer``) or the KL
-first stage's (``VAEGANTrainer``), whose state holds both optimizers, the
-discriminator's BatchNorm statistics and the NLL's logvar. For an LDM
+``Trainer`` drives either trainer: the LDM's (``LDMTrainer``) or the first
+stage's (``VAEGANTrainer``, KL or VQ), whose state holds both optimizers,
+the discriminator's BatchNorm statistics and the KL loss's logvar. For an LDM
 whose trainer has ``scale_by_std``, a fresh run first sets ``scale_factor``
 from the first train batch (a resumed run takes it from its checkpoint).
 
@@ -38,9 +38,11 @@ import torch
 
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.data.base import DataLoader
+from sd_tpu_torch.models.vae import VQModel
 from sd_tpu_torch.samplers.ancestral import progressive_denoising
 from sd_tpu_torch.samplers.common import randn
 from sd_tpu_torch.samplers.ddim import ddim_sample
+from sd_tpu_torch.training.diffusion_loss import cond_to_device, rows
 from sd_tpu_torch.training.ema import ema_scope
 from sd_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
@@ -48,7 +50,7 @@ from sd_tpu_torch.utils.checkpoint import (
     save_last,
     save_monitored,
 )
-from sd_tpu_torch.utils.image import make_grid, save_image, text_to_image
+from sd_tpu_torch.utils.image import make_grid, save_image, segmentation_to_rgb, text_to_image
 
 __all__ = ["DataModuleFromConfig", "ImageLogger", "Trainer", "log_images", "log_images_vae",
            "scale_learning_rate", "step_seed"]
@@ -63,9 +65,12 @@ LOG_STREAM, VAL_STREAM, CAL_STREAM = 1, 2, 3
 class DataModuleFromConfig:
     """The shuffled train loader and the validation loader (in order) from
     dataset config nodes ``{"target": ..., "params": {...}}``, built through
-    the config registry."""
+    the config registry. ``num_workers`` and ``wrap``, which the published
+    configs give, are taken and not used, as in ``sd_tpu``: one thread
+    prefetches each loader's batches."""
 
-    def __init__(self, batch_size: int, train: Dict, validation: Optional[Dict] = None):
+    def __init__(self, batch_size: int, train: Dict, validation: Optional[Dict] = None,
+                 num_workers: Optional[int] = None, wrap: bool = False):
         from sd_tpu_torch.utils.config import instantiate_from_config
 
         self.batch_size = batch_size
@@ -110,10 +115,12 @@ def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generato
     """The LDM ``log_images`` contract: named NHWC float32 image arrays in
     [-1, 1] of the batch's first ``n_row`` images: ``inputs``,
     ``reconstruction`` (a posterior sample decoded), ``conditioning`` (string
-    captions drawn as images; they give no samples), ``diffusion_row`` (the
-    latents noised to six timesteps from 0 to T-1 with one noise, decoded,
-    as one grid), ``samples`` (DDIM ``sample_steps`` from the token
-    captions' conditioning) and, with ``plot_denoise_rows``, ``denoise_row``
+    captions drawn as images; they give no samples), ``original_conditioning``
+    (a segmentation map's colours), ``diffusion_row`` (the latents noised to
+    six timesteps from 0 to T-1 with one noise, decoded, as one grid),
+    ``samples`` (DDIM ``sample_steps`` from the batch's conditioning, or
+    unconditional for a model without a conditioning key) and, with
+    ``plot_denoise_rows``, ``denoise_row``
     (the ancestral chain's x0 estimates from the samples' x_T every T/6
     steps, as one grid).
 
@@ -141,23 +148,25 @@ def log_images(ldm, batch: Mapping[str, Any], generator: Optional[torch.Generato
 
     raw_cond = batch.get(ldm.cond_stage_key)
     cond = None
-    if raw_cond is not None:
+    if raw_cond is not None and ldm.cond_stage_model is not None:
         if isinstance(raw_cond, list) and isinstance(raw_cond[0], str):
             # host strings need a tokenizer; the pipelines own it
             out["conditioning"] = text_to_image((x.shape[2] * 4, x.shape[1] * 4), raw_cond[:n])
         else:
-            tokens = torch.as_tensor(np.asarray(raw_cond[:n]), device=device).long()
-            cond = ldm.get_learned_conditioning(tokens)
+            cond = ldm.get_learned_conditioning(cond_to_device(rows(raw_cond, 0, n), device))
+            rc = None if isinstance(raw_cond, Mapping) else np.asarray(raw_cond[:n])
+            if rc is not None and rc.ndim == 4 and rc.shape[-1] > 3:  # a segmentation map
+                out["original_conditioning"] = segmentation_to_rgb(rc)
 
     z = z.float()
     z_noise = draw("diffusion", z).to(z.dtype)
-    rows = []
+    noised = []
     for t_frac in np.linspace(0, ldm.schedule.num_timesteps - 1, 6):
         t = torch.full((n,), int(t_frac), dtype=torch.long, device=device)
-        rows.append(nhwc(ldm.decode_first_stage(ldm.q_sample(z, t, z_noise))))
-    out["diffusion_row"] = make_grid(np.concatenate(rows), n_rows=n)[None]
+        noised.append(nhwc(ldm.decode_first_stage(ldm.q_sample(z, t, z_noise))))
+    out["diffusion_row"] = make_grid(np.concatenate(noised), n_rows=n)[None]
 
-    if cond is not None:
+    if cond is not None or ldm.conditioning_key is None:
         x_T = draw("sample", z).to(z.dtype)
         z_samp = ddim_sample(ldm.apply_model, ldm.schedule, x_T, cond, num_steps=sample_steps)
         out["samples"] = nhwc(ldm.decode_first_stage(z_samp))
@@ -177,15 +186,17 @@ def log_images_vae(model, batch: Mapping[str, Any], noise: torch.Tensor,
                    n_row: int = 4) -> Dict[str, np.ndarray]:
     """The first stage's ``log_images`` contract: NHWC float32 arrays in
     [-1, 1] of the batch's first ``n_row`` images: ``inputs``,
-    ``reconstructions`` (a posterior sample decoded) and ``samples`` (the
-    decode of standard normal latents); ``noise`` (NCHW, the posterior's
-    shape) is both the posterior sample's draw and the latents, as
-    ``sd_tpu`` draws both from one key."""
+    ``reconstructions`` (KL: a posterior sample decoded; VQ: the codes
+    decoded) and ``samples`` (the decode of standard normal latents, through
+    the codebook for a VQ model); ``noise`` (NCHW, the latent's shape) is
+    both the posterior sample's draw and the latents, as ``sd_tpu`` draws
+    both from one key."""
     device = model.get_last_layer().device
     n = min(n_row, len(batch["image"]))
     x = np.asarray(batch["image"][:n], dtype=np.float32)
     noise = noise[:n].to(device)
-    rec, _ = model(torch.as_tensor(x, device=device).permute(0, 3, 1, 2), noise=noise)
+    images = torch.as_tensor(x, device=device).permute(0, 3, 1, 2)
+    rec = model(images)[0] if isinstance(model, VQModel) else model(images, noise=noise)[0]
     nhwc = lambda t: t.float().permute(0, 2, 3, 1).cpu().numpy()
     return {"inputs": x, "samples": nhwc(model.decode(noise)), "reconstructions": nhwc(rec)}
 

@@ -11,12 +11,12 @@ port's classes: the UNet, the KL autoencoder, the VQ model (``VQModel`` and
 (``FrozenCLIPEmbedder``, ``ClassEmbedder``, ``BERTEmbedder``,
 ``TransformerEmbedder``, ``SpatialRescaler``, ``HybridConditioner``), the
 three LR schedules, ``DataModuleFromConfig`` and the synthetic datasets,
-``LPIPSWithDiscriminator`` (the first-stage trainer's keyword arguments:
-its parameters that ``FIRST_STAGE_LOSS_KEYS`` names) and
+``LPIPSWithDiscriminator`` and ``VQLPIPSWithDiscriminator`` (the
+first-stage trainer's keyword arguments: their parameters that
+``FIRST_STAGE_LOSS_KEYS`` and ``VQ_FIRST_STAGE_LOSS_KEYS`` name), the LSUN
+and ImageNet datasets (``data/lsun.py``, ``data/imagenet.py``) and
 ``torch.nn.Identity`` (also as a cond stage: the super-resolution model's,
-which reads ``LR_image``). What the port has not ported yet raises
-``NotImplementedError`` naming the item of ``ROADMAP.md``'s "Modules to
-port" that ports it: VQ first-stage training's loss and the real datasets. ``build_latent_diffusion`` takes every conditioning
+which reads ``LR_image``). ``build_latent_diffusion`` takes every conditioning
 key (None, ``concat``, ``crossattn``, ``hybrid``, ``adm``) and the cond
 stage sentinels ``__is_first_stage__`` and ``__is_unconditional__``; a
 config without ``conditioning_key`` gets ``crossattn``, as in ``sd_tpu``,
@@ -37,6 +37,7 @@ target device from a seeded ``torch.Generator``, or loads a ``state_dict``.
 from __future__ import annotations
 
 import copy
+import importlib
 import json
 from typing import Any, Callable, Dict, Mapping, Optional, Sequence, Tuple
 
@@ -299,15 +300,14 @@ _REGISTRY: Dict[str, Callable[..., Any]] = {}
 # sentinels of the reference's cond_stage_config
 FIRST_STAGE_SENTINEL = "__is_first_stage__"
 UNCONDITIONAL_SENTINEL = "__is_unconditional__"
-# the lossconfig parameters the first-stage trainer takes (sd_tpu's list,
-# without the VQ loss's codebook_weight)
+# the lossconfig parameters the first-stage trainer takes: the KL loss's
+# (LPIPSWithDiscriminator) and the VQ loss's (VQLPIPSWithDiscriminator)
 FIRST_STAGE_LOSS_KEYS = ("disc_start", "kl_weight", "pixelloss_weight", "perceptual_weight",
                          "disc_num_layers", "disc_in_channels", "disc_factor", "disc_weight",
                          "disc_loss", "logvar_init")
-
-# the items of ROADMAP.md's "Modules to port" that port what is refused here
-_ROADMAP_VQ_TRAINING = "ROADMAP.md 'Modules to port' item 5 (VQ first-stage training)"
-_ROADMAP_DATA = "ROADMAP.md 'Modules to port' item 6 (the datasets)"
+VQ_FIRST_STAGE_LOSS_KEYS = ("disc_start", "codebook_weight", "pixelloss_weight",
+                            "perceptual_weight", "disc_num_layers", "disc_in_channels",
+                            "disc_factor", "disc_weight", "disc_loss", "pixel_loss")
 
 
 def register_target(*names: str):
@@ -330,14 +330,6 @@ def instantiate_from_config(cfg: Dict, **extra) -> Any:
         raise KeyError(f"Unknown target {target!r}. Register it with "
                        f"sd_tpu_torch.utils.config.register_target.")
     return _REGISTRY[target](dict(cfg.get("params") or {}), **extra)
-
-
-def _not_ported(names: Sequence[str], what: str, item: str) -> None:
-    for name in names:
-        def refuse(p, _name=name, **extra):
-            raise NotImplementedError(f"{_name}: {what} is not ported yet; {item} ports it")
-
-        _REGISTRY[name] = refuse
 
 
 def _register_builtins() -> None:
@@ -410,14 +402,23 @@ def _register_builtins() -> None:
         return build_latent_diffusion(
             {"target": "ldm.models.diffusion.ddpm.LatentDiffusion", "params": p}, **extra)
 
-    _not_ported(["taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
-                 "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"],
-                "the VQ first stage's training loss", _ROADMAP_VQ_TRAINING)
-    _not_ported([f"ldm.data.{m}" for m in (
-        "lsun.LSUNChurchesTrain", "lsun.LSUNChurchesValidation", "lsun.LSUNBedroomsTrain",
-        "lsun.LSUNBedroomsValidation", "lsun.LSUNCatsTrain", "lsun.LSUNCatsValidation",
-        "imagenet.ImageNetTrain", "imagenet.ImageNetValidation", "imagenet.ImageNetSRTrain",
-        "imagenet.ImageNetSRValidation")], "a real dataset", _ROADMAP_DATA)
+    register_target("taming.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
+                    "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator")(
+        lambda p: {k: v for k, v in p.items() if k in VQ_FIRST_STAGE_LOSS_KEYS})
+
+    def dataset(module: str, name: str):
+        def build(p):
+            mod = importlib.import_module(f"sd_tpu_torch.data.{module}")
+            return getattr(mod, name)(**p)
+
+        register_target(f"ldm.data.{module}.{name}", f"sd_tpu_torch.data.{module}.{name}")(build)
+
+    for name in ("LSUNChurchesTrain", "LSUNChurchesValidation", "LSUNBedroomsTrain",
+                 "LSUNBedroomsValidation", "LSUNCatsTrain", "LSUNCatsValidation"):
+        dataset("lsun", name)
+    for name in ("ImageNetTrain", "ImageNetValidation", "ImageNetSRTrain",
+                 "ImageNetSRValidation"):
+        dataset("imagenet", name)
 
 
 # what a reference LatentDiffusion checkpoint holds beside the modules'

@@ -7,7 +7,8 @@ legacy attention, class embedding and codebook head,
 ``port_transformer_wrapper``/``port_bert_embedder``, ``port_lpips``), and
 the same for what ``sd_tpu`` builds but does not port (``ClassEmbedder``,
 the discriminator with its BatchNorm statistics, the VAE's linear
-attention): flax
+attention, the classifier's ``EncoderUNetModel`` and its
+``AttentionPool2d``): flax
 ``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
 the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
 ``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
@@ -29,7 +30,8 @@ from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 __all__ = ["unet_state_dict", "vae_state_dict", "vq_state_dict", "vae_encoder_state_dict",
            "vae_decoder_state_dict", "clip_text_state_dict", "class_embedder_state_dict",
            "transformer_embedder_state_dict", "spatial_rescaler_state_dict", "lpips_state_dict",
-           "discriminator_state_dict"]
+           "discriminator_state_dict", "encoder_unet_state_dict",
+           "attention_pool_state_dict"]
 
 StateDict = Dict[str, np.ndarray]
 
@@ -145,6 +147,54 @@ def unet_state_dict(params: Mapping, cfg: UNetConfig) -> StateDict:
     else:
         _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
         _put(sd, "out.2", _conv(params["out_conv"]))
+    return sd
+
+
+def _encoder_unet_layer(sd: StateDict, p, prefix: str) -> None:
+    """A layer of ``sd_tpu``'s ``EncoderUNetModel``, told apart by its
+    parameters: a ResBlock, a legacy attention block, a downsample's conv,
+    or the input conv."""
+    if "in_norm" in p:
+        _res(sd, p, prefix)
+    elif "qkv" in p:
+        _unet_layer(sd, {"kind": "attention"}, p, prefix)
+    elif "conv" in p:
+        _put(sd, f"{prefix}.op", _conv(p["conv"]))
+    else:
+        _put(sd, prefix, _conv(p))
+
+
+def attention_pool_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` AttentionPool2d params → the port's: the positional
+    embedding transposed to ``[C, N + 1]``, the projections as width-1
+    ``Conv1d``s."""
+    sd: StateDict = {"positional_embedding": np.asarray(params["positional_embedding"]).T}
+    _put(sd, "qkv_proj", _conv1d(params["qkv_proj"]))
+    _put(sd, "c_proj", _conv1d(params["c_proj"]))
+    return sd
+
+
+def encoder_unet_state_dict(params: Mapping, pool: str) -> StateDict:
+    """``sd_tpu`` EncoderUNetModel params → the port's ``EncoderUNetModel``
+    state_dict (the reference's names), the head of ``pool`` included."""
+    sd: StateDict = {}
+    _put(sd, "time_embed.0", _linear(params["time_embed_0"]))
+    _put(sd, "time_embed.2", _linear(params["time_embed_2"]))
+    for name, p in params.items():
+        for part in ("input_blocks", "middle_block"):
+            if name.startswith(part + "_"):
+                _encoder_unet_layer(sd, p, f"{part}.{name[len(part) + 1:].replace('_', '.')}")
+    if pool == "adaptive":
+        _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
+        _put(sd, "out.3", _conv(params["out_conv"]))
+    elif pool == "attention":
+        _put(sd, "out.0", _norm(params["out_norm"]["GroupNorm_0"]))
+        _put(sd, "out.2", attention_pool_state_dict(params["out_pool"]))
+    else:
+        _put(sd, "out.0", _linear(params["out_fc1"]))
+        if pool == "spatial_v2":
+            _put(sd, "out.1", _norm(params["out_norm"]["GroupNorm_0"]))
+        _put(sd, f"out.{3 if pool == 'spatial_v2' else 2}", _linear(params["out_fc2"]))
     return sd
 
 

@@ -188,8 +188,18 @@ def test_sample_diffusion_cli_writes_its_npz(tmp_path, extra):
 
 
 def test_training_another_conditioning_key_is_refused():
-    from sd_tpu_torch.training.diffusion_loss import LDMTrainer
+    """No conditioning key is refused any more (training under each is held
+    against sd_tpu in tests/test_torch_train_keys.py): the trainer takes the
+    unconditional and the inpainting models, and the unconditional one,
+    whose batch has no conditioning entry, trains a step."""
+    from sd_tpu_torch.training.diffusion_loss import LDMTrainer, create_train_state
 
-    for cfg in (tiny_uncond_model_config(), tiny_inpaint_model_config()):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            LDMTrainer(ldm=build_latent_diffusion(cfg, device="meta"), base_lr=1e-4)
+    for cfg, key in ((tiny_uncond_model_config(), None),
+                     (tiny_inpaint_model_config(), "concat")):
+        trainer = LDMTrainer(ldm=build_latent_diffusion(cfg, device="meta"), base_lr=1e-4)
+        assert trainer.ldm.conditioning_key == key
+    trainer, state = create_train_state(
+        build_latent_diffusion(tiny_uncond_model_config(), device="cpu"), 1e-4, use_ema=False)
+    image = np.random.default_rng(0).uniform(-1, 1, (1, 32, 32, 3)).astype(np.float32)
+    logs = trainer.train_step(state, {"image": image}, torch.Generator().manual_seed(0))
+    assert state.step == 1 and np.isfinite(float(logs["loss"]))

@@ -450,7 +450,9 @@ def test_port_imports_nothing_of_jax_or_sd_tpu():
                    "training/discriminator.py", "training/vae_gan.py", "scripts/train.py",
                    "utils/config.py", "scripts/inpaint.py", "scripts/sample_diffusion.py",
                    "pipelines/tiled.py", "pipelines/superres.py", "data/layout.py",
-                   "ops/resize.py"):
+                   "ops/resize.py", "data/degradation.py", "data/lsun.py",
+                   "data/imagenet.py", "data/native_loader.py", "models/encoder_unet.py",
+                   "training/classifier.py"):
         assert _REPO / "sd_tpu_torch" / module in files
     bad = {str(f.relative_to(_REPO)): sorted(set(_imported_roots(f)) & _FORBIDDEN)
            for f in files}

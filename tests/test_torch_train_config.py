@@ -119,10 +119,18 @@ def test_registry_builds_the_sd_tpu_configs_and_refuses_the_rest():
          "params": {"n_stages": 2, "method": "area", "out_channels": 4}})
     assert type(rescaler).__name__ == "SpatialRescaler"
     assert rescaler(torch.zeros(1, 3, 16, 16)).shape == (1, 4, 4, 4)
-    for target in ("ldm.data.imagenet.ImageNetTrain",
-                   "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            config.instantiate_from_config({"target": target, "params": {}})
+    # the VQ loss and the real datasets are registered (tests/test_torch_vq_train.py
+    # and tests/test_torch_data.py build them); what the reference does not
+    # ship is refused as unknown
+    assert config.instantiate_from_config({
+        "target": "ldm.modules.losses.vqperceptual.VQLPIPSWithDiscriminator",
+        "params": {"codebook_weight": 1.0, "disc_conditional": False}}) == {
+            "codebook_weight": 1.0}
+    with pytest.raises(TypeError, match="data_root"):
+        config.instantiate_from_config({"target": "ldm.data.imagenet.ImageNetTrain",
+                                        "params": {}})
+    with pytest.raises(KeyError, match="Unknown target"):
+        config.instantiate_from_config({"target": "ldm.data.openimages.FullOpenImagesTrain"})
     # every conditioning key and both cond-stage sentinels build (the VQ
     # model and the routes themselves: tests/test_torch_vq.py and
     # tests/test_torch_inpaint_sample.py)

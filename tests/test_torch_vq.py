@@ -11,8 +11,8 @@ checkpoint of a tiny VQ concat LDM (the first stage also the cond stage,
 so its weights stand under both names) loads strictly into the port and
 through sd_tpu's porters, and both give the same ε and the same decodes.
 The full-width configs build on the meta device with sd_tpu's parameter
-counts, and the training CLI refuses a VQ first stage, naming its ROADMAP
-item.
+counts, and the training CLI builds a VQ first stage's VQ-GAN trainer
+(refusing a config without a training loss).
 """
 
 import json
@@ -180,16 +180,27 @@ def test_full_width_config_builds_on_meta(name):
 
 
 def test_training_a_vq_first_stage_is_refused(tmp_path):
+    """The training CLI trains a VQ first stage with the VQ loss (VQ
+    first-stage training is ported), and refuses one whose lossconfig is
+    the inference configs' ``torch.nn.Identity``: there is no loss to train."""
     from sd_tpu_torch.scripts.train import build_trainer, parse_args
 
     images = {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
               "params": {"size": 32, "length": 2}}
-    cfg = {"model": {"target": "ldm.models.autoencoder.VQModel",
-                     "params": {"embed_dim": 3, "n_embed": N_EMBED, "ddconfig": ddconfig(),
-                                "lossconfig": {"target": "torch.nn.Identity"}}},
-           "data": {"params": {"batch_size": 1, "train": images}}}
-    path = tmp_path / "vq.yaml"
-    path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError, match="item 5"):
-        build_trainer(parse_args(["--base", str(path), "-t", "--device", "cpu", "-l",
-                                  str(tmp_path / "logs")]))
+
+    def build(lossconfig):
+        cfg = {"model": {"target": "ldm.models.autoencoder.VQModel",
+                         "params": {"embed_dim": 3, "n_embed": N_EMBED, "ddconfig": ddconfig(),
+                                    "lossconfig": lossconfig}},
+               "data": {"params": {"batch_size": 1, "train": images}}}
+        path = tmp_path / "vq.yaml"
+        path.write_text(json.dumps(cfg))
+        return build_trainer(parse_args(["--base", str(path), "-t", "--device", "cpu", "-l",
+                                         str(tmp_path / "logs")]))
+
+    harness, state, _ = build({"target": "ldm.modules.losses.vqperceptual."
+                                         "VQLPIPSWithDiscriminator",
+                               "params": {"disc_start": 0, "codebook_weight": 0.5}})
+    assert isinstance(state.ae, VQModel) and harness.trainer_obj.codebook_weight == 0.5
+    with pytest.raises(ValueError, match="torch.nn.Identity"):
+        build({"target": "torch.nn.Identity"})
