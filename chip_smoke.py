@@ -11,10 +11,12 @@ trained; then the VQ-f4 models at full width: inpainting_big through the
 inpaint CLI's pipeline and CelebA-HQ through sample_diffusion's main();
 then the class-conditional ImageNet LDM cin256-v2 through
 sample_diffusion's main(), and the super-resolution model bsr_sr through
-SuperResPipeline and through the LDM's split_input_params tiling; last the
-VQ-f4 models' training over seeded JPEG trees: the VQ-f4 VQ-GAN and the
-LSUN-bedrooms and bsr_sr LDMs through --base, and the noisy-latent
-classifier.
+SuperResPipeline and through the LDM's split_input_params tiling; then the
+retrieval-augmented 768² RDM through knn2img's main() over an index from
+train_searcher, and the first-stage extras (MergedRescaleEncoder and
+-Decoder, TimestepVAEModel) at full width; last the VQ-f4 models' training
+over seeded JPEG trees: the VQ-f4 VQ-GAN and the LSUN-bedrooms and bsr_sr
+LDMs through --base, and the noisy-latent classifier.
 
     python3 chip_smoke.py
 
@@ -33,10 +35,15 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    blocks (VQ_FLASH_SHAPES: inpainting_big's d = 64, 96 and 128 at batch 1,
    CelebA-HQ's d = 32 at 14, 21 and 28 heads at batch 4, its decoder's
    mid-block) and at cin256-v2's and bsr_sr's (WIDE_FLASH_SHAPES: the
-   one-head d = 384 and 576 sites, the latter K1's wide<576> plan, at
+   one-head d = 384, 576 and 960 sites, K1's wide<576> and split plans, at
    batch 4 with guidance; SuperResPipeline's 9 tiles at the 8x level, 20
    heads of 32, and their decode's mid-block; the tiled LDM's 9 patches and
-   its 225 decode patches) and at the VQ-f4 models' training paths
+   its 225 decode patches), at K1's split plan (SPLIT_FLASH_SHAPES: d =
+   640, 768 and 1024 at N = 1024 and 4096, the first-stage extras' one-head
+   sites), at the 768² RDM's sites (RDM_FLASH_SHAPES: 14 to 56 heads of 32
+   at N = 2304, 576, 144 and 36 with guidance at 4 samples, and its kl-f16
+   decoder's d = 512 at N = 2304; K2 at its FF widths, RDM_FF_SHAPES, C up
+   to 1792 with inner 7168) and at the VQ-f4 models' training paths
    (TRAIN_VQ_FLASH_SHAPES: the frozen encoder's mid-block at batches 48,
    64 and 16, the LSUN UNet's legacy blocks at batch 48, bsr_sr's
    at 64, the classifier's and its AttentionPool2d at 16), each group's sums
@@ -127,8 +134,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    second: prologue + bias + skip), given its weight repacked as the
    resnet blocks give it, with its launch plan and the ms of the unfused
    site (GroupNorm32, SiLU, F.conv2d with bias, + skip, and the next
-   GroupNorm's statistics) and of cuDNN's conv alone on h; one gradient
-   through K7's autograd function against the plain backward;
+   GroupNorm's statistics) and of cuDNN's conv alone on h; then, untimed,
+   at the launches of TimestepVAEModel's fused blocks (TIMESTEP_FUSED_SHAPES,
+   batch 4, C up to 1536); one gradient through K7's autograd function
+   against the plain backward;
 14. K8 and X3 Winograd F(2x2,3x3): given U (as Conv3x3 keeps it), against
    their plain versions and F.conv2d (cuDNN, the library yardstick) at
    every K8 site shape of the serving path, at the X3 experiment of
@@ -216,7 +225,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    calibrated scale_factor recomputed from the first batch's draw; every
    step a finite loss, a finite non-zero gradient on every trained tensor
    and exactly K1 = 16 + 16 + 32 + 1, K2 = 32 and K3 = 5; every BERT tensor
-   and the logvar table moved; step times, peak memory, the save on exit;
+   and the logvar table moved; one metrics.jsonl row a step (a finite
+   loss and a positive it/s) and one TensorBoard event file under tb/ in
+   the run's directory; step times, peak memory, the save on exit;
 25. [inpaint]: inpainting_big (sd_tpu_torch/configs/inpainting_big.yaml:
    the VQ-f4 first stage without attention as the cond stage, a 387M UNet
    with legacy attention of 8 heads, resblock up/down, concat) at full
@@ -241,9 +252,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    ImageNet LDM, a 401M UNet with one head at d = 384, 576 and 960 and a
    ClassEmbedder of 1001 classes, guidance against class 1000; VQ-f4) at
    batch 4, 256², as the reference's latent_imagenet_diffusion notebook
-   samples: samples/s, exactly K1 = 10 x 20 + 1 (5 sites at d = 384 and 5
-   at d = 576 a UNet evaluation; its 6 sites at d = 960, N = 64, take the
-   plain route, as sd_tpu leaves them to XLA) and K2 = 16 x 20, the
+   samples: samples/s, exactly K1 = 16 x 20 + 1 (5 sites at d = 384, 5
+   at d = 576 and 6 at d = 960, N = 64, a UNet evaluation: the d = 960
+   sites, which sd_tpu leaves to XLA, take K1's split plan) and K2 = 16 x
+   20, the
    latents within AGREEMENT_TOL of a second build sampling with the plain
    attention, and the share of equal code indices against the CPU;
 28. [superres]: bsr_sr (sd_tpu_torch/configs/bsr_sr.yaml: a 114M concat
@@ -256,14 +268,36 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    patches a step in one call and 225 decode patches in one call, exactly
    K1 = 6 x 20 + 1; each run's seconds, and its latents within
    AGREEMENT_TOL of the same run with the plain attention;
-29. [data] and [native loader]: seeded JPEGs in a temporary directory (an
+29. [knn2img]: train_searcher's main() pools 4 seeded parts of 4096 x 768
+   CLIP-like embeddings into a normalized index; a Searcher on the card over
+   a seeded 2^20 x 768 fp32 database (3.2 GB) gives the top 4 of 8 queries
+   equal to a float64 top-k on the host (near-ties within SEARCH_TIE may
+   trade places), its scores within SEARCH_SCORE_TOL, and its ms; then
+   `python -m sd_tpu_torch.scripts.knn2img --config
+   sd_tpu_torch/configs/retrieval-augmented-diffusion-768x768.yaml
+   --n_samples 4 --ddim_steps 20 --scale 5.0 --knn 4 --use_neighbors`
+   through its main() over that index (the 768² RDM, a UNet of
+   14 to 56 heads of 32, the kl-f16 first stage, the ViT-L/14 text tower
+   with its projection, all seeded): samples/s, four 768² PNGs, exactly
+   K1 = 16 x 20 + 4 (the decoder's four d = 512 sites) and K2 = 16 x 20,
+   and the latents within AGREEMENT_TOL of a second build sampling with
+   the plain K1 and K2;
+30. [vae extras]: MergedRescaleEncoder, MergedRescaleDecoder (z_channels
+   128) and TimestepVAEModel (a timestep and a 3-channel context) at ch
+   128, ch_mult (1, 2, 4, 8), batch 4, 256², seeded, bf16: exactly K1 = 2,
+   2 and 1 at [4, 1024, 1, 1024] (K1's split plan), each output within
+   AGREEMENT_TOL of itself with the plain attention; TimestepVAEModel again
+   with SD_TPU_FUSED_CONV=1: exactly K7 = 2 x 17 (the timestep term in the
+   second GroupNorm's offset) and K1 = 1, within AGREEMENT_TOL of its
+   unfused output;
+31. [data] and [native loader]: seeded JPEGs in a temporary directory (an
    LSUN txt_file over 48 256² images; an ImageNet flat root of 64 images in
    4 synset folders with filelist.txt; an HR-index pickle), removed whether
    the phases pass or fail; NativeImageLoader.load_batch over the LSUN
    files against LSUNBedroomsTrain's own decode (max abs difference within
    1e-6), or, where g++ cannot build against libjpeg and libpng on the
    machine, a line saying so and nothing run;
-30. [vq first stage]: `python -m sd_tpu_torch.scripts.train --base
+32. [vq first stage]: `python -m sd_tpu_torch.scripts.train --base
    sd_tpu_torch/configs/vq-f4.yaml -t` in process over the ImageNet tree
    (data_root by dotlist): the VQ-f4 VQ-GAN with VQLPIPSWithDiscriminator
    at the file's batch of 8, 256², 3 steps through Trainer.fit; every step
@@ -273,7 +307,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    the plain attention, each within its bound (VQ_GAN_COMPARED); the
    card's code indices of a batch's latents against the CPU's fp32
    quantizer;
-31. [ldm train uncond] and [ldm train concat]: `--base
+33. [ldm train uncond] and [ldm train concat]: `--base
    sd_tpu_torch/configs/lsun_bedrooms-ldm-vq-4.yaml -t` over the LSUN tree
    (conditioning_key None, the 274M UNet, batch 48, 256²) and `--base
    sd_tpu_torch/configs/bsr_sr.yaml -t` over ImageNetSRTrain pairs of the
@@ -282,7 +316,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    (bsr_sr) per step; the LSUN model's first loss against the plain
    attention's within FIRST_STAGE_LOSS_TOL; each dataset's host ms per
    batch beside the step's;
-32. [classifier]: NoisyLatentClassifierTrainer, its EncoderUNetModel
+34. [classifier]: NoisyLatentClassifierTrainer, its EncoderUNetModel
    derived from the LSUN LDM's UNet params (in_channels 3, 1000 classes,
    pool attention), over VQ-f4 latents of the ImageNet tree at batch 16,
    3 steps: exactly K1 = 9 and K3 = 2 per step; then one
@@ -343,12 +377,27 @@ FLASH_SHAPES = [(2, 4096, 8, 40), (2, 1024, 8, 80), (2, 256, 8, 160), (2, 64, 8,
 VQ_FLASH_SHAPES = [(1, 4096, 8, 64), (1, 1024, 8, 96), (1, 256, 8, 128), (4, 1024, 14, 32),
                    (4, 256, 21, 32), (4, 64, 28, 32), (4, 4096, 1, 512)]
 # (B, N, H, D): cin256-v2 at batch 4 with guidance (B=8): its one-head sites
-# at 32² (d = 384) and 16² (d = 576, K1's wide<576> plan); bsr_sr's 8x level
+# at 32² (d = 384), 16² (d = 576, K1's wide<576> plan) and 8² (d = 960, K1's
+# split plan); bsr_sr's 8x level
 # (20 heads of 32) and its VQ decoder's mid-block: SuperResPipeline's 9 tiles
 # of 32² latents, then the tiled LDM's 9 patches of 128² latents and its 225
 # decode patches of 32² latents
-WIDE_FLASH_SHAPES = [(8, 1024, 1, 384), (8, 256, 1, 576), (9, 16, 20, 32), (9, 1024, 1, 512),
-                     (9, 256, 20, 32), (225, 1024, 1, 512)]
+WIDE_FLASH_SHAPES = [(8, 1024, 1, 384), (8, 256, 1, 576), (8, 64, 1, 960), (9, 16, 20, 32),
+                     (9, 1024, 1, 512), (9, 256, 20, 32), (225, 1024, 1, 512)]
+# (B, N, H, D): K1's split plan (576 < d <= 1024) at the first-stage extras'
+# one-head sites: batch 4 of 256² images at ch 128, ch_mult (1, 2, 4, 8) puts
+# N = 1024 at d = 1024; d = 640 and 768 at that N and at N = 4096
+SPLIT_FLASH_SHAPES = [(4, 1024, 1, 640), (4, 1024, 1, 768), (4, 1024, 1, 1024),
+                      (1, 4096, 1, 640), (1, 4096, 1, 768), (1, 4096, 1, 1024)]
+# (B, N, H, D): the retrieval-augmented 768² RDM with guidance at 4 samples
+# (B=8): its self-attention at 48², 24², 12² and 6² latents (14, 28, 42 and
+# 56 heads of 32; N = 144 and 36 are not multiples of 128 and take K1 all
+# the same), and its kl-f16 decoder's four sites at 48² (d = 512) at batch 4
+RDM_FLASH_SHAPES = [(8, 2304, 14, 32), (8, 576, 28, 32), (8, 144, 42, 32), (8, 36, 56, 32),
+                    (4, 2304, 1, 512)]
+# (M, C, inner): the RDM's FF sites at those levels, M = 8 x N: C = 1792
+# with inner 7168 is wider than any SD v1 FF
+RDM_FF_SHAPES = [(18432, 448, 1792), (4608, 896, 3584), (1152, 1344, 5376), (288, 1792, 7168)]
 # (B, N, H, D): the safety checker's vision tower, the untrained one (7x7
 # patches of 32 and the class token, width 64, 4 heads) and ViT-L/14 (16x16
 # patches of 14 and the class token, 16 heads of 64), at batch 1 and 8: a new
@@ -447,14 +496,14 @@ CELEBAHQ_CONFIG = "sd_tpu_torch/configs/celebahq-ldm-vq-4.yaml"
 CELEBAHQ_BATCH = 4
 # cin256-v2 at the reference notebook's settings (latent_imagenet_diffusion:
 # four classes, guidance 3.0 against class 1000, DDIM 20 at eta 0), batch 4,
-# 256²: K1 at its 5 d = 384 and 5 d = 576 sites a UNet evaluation (one
+# 256²: K1 at its 5 d = 384, 5 d = 576 and 6 d = 960 sites a UNet evaluation (one
 # evaluation a step, guidance batched) and the VQ decoder's mid-block; K2 at
 # its 16 transformer blocks
 CIN256_CONFIG = "sd_tpu_torch/configs/cin256-v2.yaml"
 CIN256_ARGS = ["--classes", "25,187,448,992", "--scale", "3.0", "--custom_steps", "20",
                "-e", "0", "-n", "4", "--batch_size", "4"]
 CIN256_STEPS = 20
-CIN256_K1_SITES, CIN256_K2_SITES = 10, 16
+CIN256_K1_SITES, CIN256_K2_SITES = 16, 16
 # bsr_sr: (a) SuperResPipeline on a 64² LR image to 256², 9 tiles, DDIM 100
 # at eta 1 (the notebook's); (b) split_input_params at the notebook's
 # setting on a 256² LR image, DDIM 20 at eta 1; K1 at the UNet's 6 attention
@@ -464,6 +513,41 @@ SR_STEPS, SR_SPLIT_STEPS = 100, 20
 SR_K1_SITES = 6
 SR_SPLIT_PARAMS = {"ks": (128, 128), "stride": (64, 64), "vqf": 4, "patch_distributed_vq": True,
                    "clip_max_weight": 0.5, "clip_min_weight": 0.01}
+# the retrieval-augmented 768² RDM through knn2img's main(): 4 samples with
+# guidance 5.0 (one UNet evaluation of B=8 a step), DDIM 20 at eta 0, the
+# query and its 4 nearest neighbours as the context (5 keys: its
+# cross-attention takes the plain route); K1 and K2 at the UNet's 16
+# transformer sites a step, K1 at the kl-f16 decoder's 4 sites (d = 512)
+RDM_CONFIG = "sd_tpu_torch/configs/retrieval-augmented-diffusion-768x768.yaml"
+RDM_SAMPLES, RDM_STEPS, RDM_KNN, RDM_SCALE = 4, 20, 4, 5.0
+RDM_K1_SITES, RDM_K2_SITES, RDM_DECODER_SITES = 16, 16, 4
+# train_searcher's seeded CLIP-embedding parts (parts x rows x 768), and the
+# Searcher's database on the card: 2^20 x 768 fp32 (3.2 GB), top-4 of 8
+# queries against a float64 top-k on the host; two neighbours whose float64
+# scores lie within SEARCH_TIE of each other may trade places
+INDEX_PARTS, INDEX_ROWS = 4, 4096
+SEARCH_ROWS, SEARCH_QUERIES, SEARCH_K = 2**20, 8, 4
+SEARCH_TIE = 1e-5
+SEARCH_SCORE_TOL = 1e-5
+# the first-stage extras at ch 128, ch_mult (1, 2, 4, 8), batch 4 of 256²
+# images (32² at the lowest level): MergedRescaleEncoder (the encoder's
+# mid-block and its rescaler's attention, d = 1024), MergedRescaleDecoder
+# (z_channels 128: its rescaler's and its decoder's mid-block, d = 1024) and
+# TimestepVAEModel (its mid-block, with a timestep and a 3-channel context);
+# K1 launches per call. In the fused-conv mode 17 of TimestepVAEModel's 22
+# resnet blocks pass K7's gate (sd_tpu's, at bf16: the five up blocks whose
+# concatenated input is 2048, 2048, 1536, 768 and 384 channels at its
+# level's first block, or 2048 at 32², fail it), two launches each
+EXTRAS_BATCH = 4
+EXTRAS_K1 = {"MergedRescaleEncoder": 2, "MergedRescaleDecoder": 2, "TimestepVAEModel": 1}
+TIMESTEP_FUSED_BLOCKS = 17
+# (B, C, H=W, N, launch) of those fused blocks' K7 launches
+TIMESTEP_FUSED_SHAPES = (
+    [(4, c, hw, n, "first") for c, hw, n in (
+        (128, 256, 128), (256, 256, 128), (128, 128, 256), (256, 128, 256), (512, 128, 256),
+        (384, 128, 256), (256, 64, 512), (512, 64, 512), (1024, 64, 512), (768, 64, 512),
+        (512, 32, 1024), (1024, 32, 1024), (1536, 32, 1024))]
+    + [(4, n, hw, n, "second") for hw, n in ((256, 128), (128, 256), (64, 512), (32, 1024))])
 # the card's code indices against the CPU's fp32 quantizer on the same latents:
 # both compute the distances in fp32, so only the order of a sum differs
 CODE_AGREEMENT_MIN = 0.99
@@ -783,9 +867,11 @@ def log_plan(which: str, shape) -> None:
 
     b, n, h, d = shape
     plan = kernel_plan(d, which, (b, n, h))
-    blocks = -(-n // plan["rows"]) * h * b
+    slices = plan.get("slices", 1)
+    blocks = -(-n // plan["rows"]) * h * b * slices
     slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
-    log(f"[{which} plan] {shape}: {plan['rows']} rows a block, tiles of {plan['tile']}, "
+    split = f", O's columns in {slices} slices" if slices > 1 else ""
+    log(f"[{which} plan] {shape}: {plan['rows']} rows a block, tiles of {plan['tile']}{split}, "
         f"{plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory, "
         f"{plan['blocks_per_sm']} blocks per SM; {blocks} blocks, {blocks / slots:.2f} waves")
 
@@ -823,8 +909,12 @@ def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
     plain_ms = time_ms(lambda: flash_attention_plain(*bf, scale), iters=5 if big else 20)
     library_ms = time_ms(lambda: sdpa(*bf, scale))
     bnd = bound(4 * b * h * n * n * d, 4 * b * n * h * d * 2)
+    # the split plan (d > 576) recomputes Q K^T once per slice of O's columns
+    slices = -(-d // 256) if d > 576 else 1
+    work = f"; the split plan does {(2 * slices + 2) / 4:.2f}x that work" if slices > 1 else ""
     log(f"[K1 flash_attention] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']})")
+        f"sdpa {library_ms:.4f} ms ({sdpa_backend(*bf, scale)}), bound "
+        f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){work}")
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, **bnd)
 
 
@@ -834,6 +924,8 @@ def check_flash(randn) -> list:
               f"the {len(VQ_FLASH_SHAPES)} VQ-f4 model shapes": VQ_FLASH_SHAPES,
               f"the {len(WIDE_FLASH_SHAPES)} cin256-v2 and super-resolution shapes":
               WIDE_FLASH_SHAPES,
+              f"the {len(SPLIT_FLASH_SHAPES)} split-plan shapes": SPLIT_FLASH_SHAPES,
+              f"the {len(RDM_FLASH_SHAPES)} RDM shapes": RDM_FLASH_SHAPES,
               f"the {len(TRAIN_VQ_FLASH_SHAPES)} VQ-f4 training shapes": TRAIN_VQ_FLASH_SHAPES}
     rows = []
     for label, shapes in groups.items():
@@ -904,7 +996,7 @@ def geglu_case(randn, shape, timed: bool = True) -> dict:
 
 def check_geglu(randn) -> list:
     rows = []
-    for shape in FF_SHAPES:
+    for shape in FF_SHAPES + RDM_FF_SHAPES:
         log_ff_plan(shape)
         rows.append(geglu_case(randn, shape))
         free_memory()
@@ -1251,6 +1343,10 @@ def check_fused_conv(randn) -> list:
     for shape in FUSED_SHAPES:
         log_fused_plan(shape)
         rows.append(fused_conv_case(randn, shape))
+        free_memory()
+    for shape in TIMESTEP_FUSED_SHAPES:
+        log_fused_plan(shape)
+        rows.append(fused_conv_case(randn, shape, timed=False))
         free_memory()
     check_fused_grad(randn)
     return rows
@@ -2851,6 +2947,22 @@ def plain_attention(plain: bool = True):
         attention.differentiable_flash_attention = kernel_attention
 
 
+@contextlib.contextmanager
+def plain_kernels():
+    """Within the block every call that would reach K1 or K2 takes its plain
+    version (``flash_attention_plain``, ``geglu_ff_plain``)."""
+    from sd_tpu_torch.ops import attention
+    from sd_tpu_torch.ops.cuda import geglu_ff_plain
+
+    kernel_ff = attention.differentiable_geglu_ff
+    attention.differentiable_geglu_ff = geglu_ff_plain
+    try:
+        with plain_attention():
+            yield
+    finally:
+        attention.differentiable_geglu_ff = kernel_ff
+
+
 def first_stage_steps(argv: list, steps: int, plain: bool) -> tuple:
     """The CLI's first-stage trainer for ``argv``, its first ``steps``
     steps by ``train_step`` with fit's generators; with ``plain``, the
@@ -3052,6 +3164,7 @@ def _train_1p4b(logdir: str) -> dict:
     if still or logvar_moved == 0:
         raise AssertionError(f"BERT tensors that did not move: {still[:8]}; logvar moved at "
                              f"{logvar_moved}")
+    check_metrics_written("1.4B", harness.logdir, LDM_1P4B_STEPS)
     steady = times[1:]
     log(f"[1.4B] {LDM_1P4B_STEPS} steps: {' '.join(f'{t * 1e3:.1f}' for t in times)} ms "
         f"(the first with the calibration); median of steps 2-{LDM_1P4B_STEPS} "
@@ -3061,15 +3174,34 @@ def _train_1p4b(logdir: str) -> dict:
     return launches
 
 
-def check_latent_gate(label: str, got: torch.Tensor, plain: torch.Tensor) -> float:
-    """The kernels' latents against the plain attention's, relative L2
-    within AGREEMENT_TOL and not identical."""
+def check_metrics_written(label: str, logdir: str, steps: int) -> None:
+    """A --base LDM run logging every step wrote one metrics.jsonl row a
+    step (a finite loss, a positive rate) and a TensorBoard event file
+    under <logdir>/tb."""
+    path = os.path.join(logdir, "metrics.jsonl")
+    rows = [json.loads(line) for line in open(path)] if os.path.exists(path) else []
+    events = [f for f in (os.listdir(os.path.join(logdir, "tb"))
+                          if os.path.isdir(os.path.join(logdir, "tb")) else [])
+              if f.startswith("events.out.tfevents.")]
+    sizes = [os.path.getsize(os.path.join(logdir, "tb", f)) for f in events]
+    log(f"[{label}] metrics.jsonl: {len(rows)} rows, steps {[r.get('step') for r in rows]}; "
+        f"TensorBoard event files {events} ({sizes} bytes)")
+    if ([r.get("step") for r in rows] != list(range(1, steps + 1)) or len(events) != 1
+            or not all(np.isfinite(r["train/loss"]) and r["train/it_per_sec"] > 0
+                       for r in rows)):
+        raise AssertionError(f"[{label}] metrics.jsonl rows {rows} or event files {events}")
+
+
+def check_latent_gate(label: str, got: torch.Tensor, plain: torch.Tensor,
+                      versus: str = "K1's plain version") -> float:
+    """The kernels' latents against the plain attention's (or ``versus``),
+    relative L2 within AGREEMENT_TOL and not identical."""
     got, plain = got.float().cpu(), plain.float().cpu()
     rel = ((got - plain).norm() / plain.norm()).item()
-    log(f"[{label}] latents against K1's plain version: relative L2 {rel:.4e} (bound "
+    log(f"[{label}] latents against {versus}: relative L2 {rel:.4e} (bound "
         f"{AGREEMENT_TOL})")
     if not (np.isfinite(rel) and rel < AGREEMENT_TOL) or torch.equal(got, plain):
-        raise AssertionError(f"[{label}] relative L2 {rel} against the plain attention "
+        raise AssertionError(f"[{label}] relative L2 {rel} against {versus} "
                              f"(or identical to it)")
     return rel
 
@@ -3187,12 +3319,12 @@ def cin256_main_path() -> dict:
     from sd_tpu_torch.ops.attention import attention_route
 
     t_phase = time.perf_counter()
-    # the route of each kind of self-attention site at B=8: d = 960 at N = 64
-    # is left to the plain version, as sd_tpu leaves it to XLA
+    # the route of each kind of self-attention site at B=8: d = 960 at N = 64,
+    # which sd_tpu leaves to XLA, takes K1's split plan
     routes = {(n, d): attention_route("cuda", torch.bfloat16, 8, n, n, 1, d)
               for n, d in ((1024, 384), (256, 576), (64, 960))}
     log(f"[cin256] routes (N, d): {routes}")
-    if routes != {(1024, 384): "K1", (256, 576): "K1", (64, 960): "plain"}:
+    if routes != {(1024, 384): "K1", (256, 576): "K1", (64, 960): "K1"}:
         raise AssertionError(f"[cin256] attention routes {routes}")
     with tempfile.TemporaryDirectory(prefix="cin256_") as d:
         argv = ["-c", CIN256_CONFIG] + CIN256_ARGS + ["-l", d]
@@ -3317,6 +3449,188 @@ def superres_main_path() -> dict:
     del ldm, pipe
     free_memory()
     log(f"[superres] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def check_searcher() -> float:
+    """A Searcher on the card over a seeded SEARCH_ROWS x 768 fp32 database:
+    the top SEARCH_K of SEARCH_QUERIES queries against a float64 top-k of
+    the same rows on the host (near-ties within SEARCH_TIE may trade
+    places), the scores within SEARCH_SCORE_TOL; returns the search's ms."""
+    from sd_tpu_torch.pipelines.retrieval import Searcher
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    db = torch.randn((SEARCH_ROWS, 768), generator=g, device="cuda")
+    queries = torch.randn((SEARCH_QUERIES, 768), generator=g, device="cuda").cpu().numpy()
+    t0 = time.perf_counter()
+    searcher = Searcher(db, device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    host = db.cpu().numpy().astype(np.float64)
+    del db
+    out = searcher(queries, k=SEARCH_K)
+    ms = time_ms(lambda: searcher(queries, k=SEARCH_K), iters=10, warmup=2)
+    host /= np.linalg.norm(host, axis=-1, keepdims=True) + 1e-8
+    q = queries.astype(np.float64)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True) + 1e-8
+    scores = q @ host.T
+    del host
+    ref = np.argsort(-scores, axis=1)[:, :SEARCH_K]
+    swapped, score_err = 0, 0.0
+    for i in range(SEARCH_QUERIES):
+        kth = scores[i, ref[i, -1]]
+        for j in set(out["nn_indices"][i]) ^ set(ref[i]):
+            swapped += 1
+            if abs(scores[i, j] - kth) > SEARCH_TIE:
+                raise AssertionError(f"[knn2img] Searcher: query {i} neighbours "
+                                     f"{out['nn_indices'][i]} against {ref[i]} (float64)")
+        score_err = max(score_err, float(np.abs(out["scores"][i]
+                                                - scores[i, out["nn_indices"][i]]).max()))
+    nbytes = SEARCH_ROWS * 768 * 4
+    log(f"[knn2img] Searcher over {SEARCH_ROWS} x 768 fp32 ({nbytes / 1e9:.2f} GB; normalized "
+        f"on the card in {load_s:.2f} s): top-{SEARCH_K} of {SEARCH_QUERIES} queries equal to "
+        f"the float64 top-k on the host ({swapped} near-tie swaps), scores max abs err "
+        f"{score_err:.3e} (bound {SEARCH_SCORE_TOL}); {ms:.4f} ms a search, bound "
+        f"{nbytes / PEAK_BYTES * 1e3:.4f} ms (the database's bytes)")
+    if not score_err <= SEARCH_SCORE_TOL:
+        raise AssertionError(f"[knn2img] Searcher scores off by {score_err}")
+    del searcher
+    free_memory()
+    return ms
+
+
+def knn2img_main_path() -> dict:
+    """[knn2img]: train_searcher's main() over seeded npz parts, the
+    Searcher at scale, then knn2img's main() with the 768² RDM, its
+    launches exact, its latents against a second build sampling with the
+    plain K1 and K2."""
+    from PIL import Image
+
+    from sd_tpu_torch.scripts import knn2img, train_searcher
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="knn2img_") as d:
+        parts = os.path.join(d, "parts")
+        os.makedirs(parts)
+        rng = np.random.default_rng(0)
+        for i in range(INDEX_PARTS):
+            np.savez(os.path.join(parts, f"part{i:02}.npz"),
+                     embedding=rng.standard_normal((INDEX_ROWS, 768), dtype=np.float32))
+        t0 = time.perf_counter()
+        index = train_searcher.main(["-d", parts, "-t", os.path.join(d, "index.npz")])
+        emb = np.load(index)["embedding"]
+        norms = np.linalg.norm(emb, axis=-1)
+        log(f"[knn2img] train_searcher: {INDEX_PARTS} parts into {emb.shape} in "
+            f"{time.perf_counter() - t0:.2f} s, row norms {norms.min():.6f} to {norms.max():.6f}")
+        if emb.shape != (INDEX_PARTS * INDEX_ROWS, 768) or np.abs(norms - 1).max() > 1e-5:
+            raise AssertionError(f"[knn2img] index {emb.shape}, norms {norms.min()} {norms.max()}")
+        search_ms = check_searcher()
+        argv = ["--config", RDM_CONFIG, "--n_samples", str(RDM_SAMPLES), "--ddim_steps",
+                str(RDM_STEPS), "--scale", str(RDM_SCALE), "--knn", str(RDM_KNN),
+                "--use_neighbors", "--database", index, "--seed", "0", "--outdir",
+                os.path.join(d, "out")]
+        reset_launches()
+        t0 = time.perf_counter()
+        out = knn2img.main(argv)
+        counts = read_launches()
+        wall = time.perf_counter() - t0
+        sizes = [Image.open(p).size for p in out["paths"]]
+        log(f"[knn2img] RDM 768², {RDM_SAMPLES} samples, DDIM {RDM_STEPS} at eta 0, guidance "
+            f"{RDM_SCALE}, {RDM_KNN} neighbours (context {tuple(out['cond'].shape)}): "
+            f"{out['samples_per_s']:.4f} samples/s (main() with its build and the search "
+            f"{wall:.1f} s); wrote {len(out['paths'])} PNGs {sizes}; launches {counts}")
+        want = expect(flash_attention=RDM_K1_SITES * RDM_STEPS + RDM_DECODER_SITES,
+                      geglu_ff=RDM_K2_SITES * RDM_STEPS)
+        if counts != want:
+            raise AssertionError(f"[knn2img] launch counts {counts} != {want}")
+        if sizes != [(768, 768)] * RDM_SAMPLES or not torch.isfinite(out["latents"]).all():
+            raise AssertionError(f"[knn2img] PNGs {sizes} or latents not finite")
+        opt = knn2img.parse_args(argv)
+        ldm, _, downsample, channels = knn2img.build_model(opt)
+        n_unet = sum(p.numel() for p in ldm.model.diffusion_model.parameters())
+        log(f"[knn2img] {n_unet / 1e6:.1f}M UNet parameters in bf16")
+        with plain_kernels():
+            plain = knn2img.sample(ldm, out["cond"], torch.zeros_like(out["cond"]), downsample,
+                                   channels, opt)
+    check_latent_gate("knn2img", out["latents"], plain, "K1's and K2's plain versions")
+    del ldm
+    free_memory()
+    log(f"[knn2img] phase {time.perf_counter() - t_phase:.1f} s (search {search_ms:.4f} ms)")
+    return counts
+
+
+def _extras_models():
+    """(name, module, inputs) of the [vae extras] phase at full width, each
+    built on the card with seeded random weights in bf16."""
+    from sd_tpu_torch.models.vae_extras import (MergedRescaleDecoder, MergedRescaleEncoder,
+                                                TimestepVAEModel)
+    from sd_tpu_torch.utils.config import init_random_
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda").to(torch.bfloat16)
+    b = EXTRAS_BATCH
+    t = torch.tensor([10, 250, 500, 990], device="cuda")
+    specs = [
+        ("MergedRescaleEncoder", lambda: MergedRescaleEncoder(
+            in_channels=3, ch=128, resolution=256, out_ch=16, num_res_blocks=2,
+            ch_mult=(1, 2, 4, 8)), (randn(b, 3, 256, 256),)),
+        ("MergedRescaleDecoder", lambda: MergedRescaleDecoder(
+            z_channels=128, out_ch=3, resolution=256, num_res_blocks=2, ch=128,
+            ch_mult=(1, 2, 4, 8)), (randn(b, 128, 32, 32),)),
+        ("TimestepVAEModel", lambda: TimestepVAEModel(
+            ch=128, ch_mult=(1, 2, 4, 8), num_res_blocks=2, in_channels=6, resolution=256),
+         (randn(b, 3, 256, 256), t, randn(b, 3, 256, 256)))]
+    for name, make, inputs in specs:
+        with torch.device("meta"):
+            module = make()
+        module.to_empty(device="cuda")
+        init_random_(module, torch.Generator(device="cuda").manual_seed(0))
+        yield name, module.to(torch.bfloat16).eval(), inputs
+
+
+def vae_extras_main_path() -> dict:
+    """[vae extras]: MergedRescaleEncoder, MergedRescaleDecoder and
+    TimestepVAEModel at full width in bf16, K1 at d = 1024, each against
+    itself with the plain attention; TimestepVAEModel again in the
+    fused-conv mode (K7 with its timestep offset) against its unfused run."""
+    from sd_tpu_torch.ops.resblock import set_conv_modes
+
+    t_phase = time.perf_counter()
+    total = expect()
+    for name, module, inputs in _extras_models():
+        n = sum(p.numel() for p in module.parameters())
+        with torch.no_grad():
+            reset_launches()
+            t0 = time.perf_counter()
+            out = module(*inputs)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            counts = read_launches()
+            log(f"[vae extras] {name}: {n / 1e6:.1f}M parameters, {tuple(inputs[0].shape)} -> "
+                f"{tuple(out.shape)} in {seconds * 1e3:.1f} ms (first call); launches {counts}")
+            if counts != expect(flash_attention=EXTRAS_K1[name]):
+                raise AssertionError(f"[vae extras] {name}: launches {counts}")
+            total = add_counts(total, counts)
+            with plain_attention():
+                plain = module(*inputs)
+            check_latent_gate(f"vae extras {name}", out, plain)
+            if name == "TimestepVAEModel":
+                set_conv_modes(module, fused_conv="1")
+                reset_launches()
+                fused = module(*inputs)
+                torch.cuda.synchronize()
+                counts = read_launches()
+                set_conv_modes(module, fused_conv="0")
+                log(f"[vae extras] {name} under SD_TPU_FUSED_CONV=1: launches {counts}")
+                want = expect(flash_attention=EXTRAS_K1[name],
+                              fused_conv3x3=2 * TIMESTEP_FUSED_BLOCKS)
+                if counts != want:
+                    raise AssertionError(f"[vae extras] fused {name}: launches {counts} != {want}")
+                total = add_counts(total, counts)
+                check_latent_gate(f"vae extras fused {name}", fused, out, "its unfused output")
+        del module, out, plain
+        free_memory()
+    log(f"[vae extras] phase {time.perf_counter() - t_phase:.1f} s; launches {total}")
     return total
 
 
@@ -3736,6 +4050,9 @@ def main() -> None:
     cin256 = cin256_main_path()
     superres = superres_main_path()
     free_memory()
+    knn = knn2img_main_path()
+    extras = vae_extras_main_path()
+    free_memory()
     data_runs = data_main_paths()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
@@ -3759,7 +4076,7 @@ def main() -> None:
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
             served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
-            inpainted, sampled, cin256, superres, *data_runs)
+            inpainted, sampled, cin256, superres, knn, extras, *data_runs)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all

@@ -59,10 +59,26 @@
 //   the P tile (2,560) and the exchange (512), under the 232,448 a block may
 //   use, so one block an SM. It is a simple plan: at [8, 256, 1, 576] its 64
 //   blocks fill 64 of the 132 SMs.
+// - 576 < d <= 1024 (the first-stage extras' one-head d = 640 to 1024 sites,
+//   cin256-v2's d = 960): Q, two stages of K and V at the whole head no
+//   longer fit in 232,448 bytes (at d = 1024, 160 rows at a pitch of 1,032
+//   take 330,240). The split plan gives each block 32 query rows and a
+//   slice of at most 256 of O's columns (grid.y runs over heads x slices, 4
+//   slices at d = 1024). Q stays whole in shared memory (66,048 bytes); the
+//   32-key tile's K streams through two stages of 128 columns by cp.async,
+//   so that S = Q K^T over the whole d accumulates chunk by chunk in
+//   registers (the same warp split as the wide plan: four warps of a row
+//   group take 8 keys each); then the block loads only its slice of V's
+//   columns (32 x 256), and P V runs as in the wide plan on the slice. The
+//   first slice writes lse. Each slice recomputes Q K^T, so the kernel does
+//   (2 * slices + 2) * Nq * Nk * d flops per head where the function needs
+//   4 * Nq * Nk * d: 2.5x at d = 1024, 2x at d = 640 and 768 (the bound
+//   counts the function's work). 103,424 bytes of shared memory, two
+//   blocks an SM. A plan that is right first; making it fast is later work.
 //
 // The ragged last key tile is zero-filled by the copy and masked to -inf
 // before the max; query rows past Nq are zero-filled and not stored. d must
-// be a multiple of 8 and at most 576, and scale positive.
+// be a multiple of 8 and at most 1024, and scale positive.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -484,42 +500,269 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The plan of the 576 < d <= 1024 kernel: the wide plan's 8 warps, 32 query
+// rows and 32 keys per tile, with O's columns split over blocks in slices of
+// OC. Shared memory: Q at the whole padded head dim DK, two stages of a
+// DC-column chunk of K, one V tile of the slice's OC columns, the bf16 P
+// tile and the exchange of row maxima and sums.
+template <int DK, int OC>
+struct SplitPlan {
+  static constexpr int WARPS = 8;
+  static constexpr int THREADS = 256;
+  static constexpr int BQ = 32;
+  static constexpr int BK = 32;
+  static constexpr int DC = 128;
+  static constexpr int LDQ = DK + 8;
+  static constexpr int LDK = DC + 8;
+  static constexpr int LDV = OC + 8;
+  static constexpr int LDP = BK + 8;
+  static constexpr int KS = BQ * LDQ;            // element offset of K's stage 0
+  static constexpr int VS = KS + 2 * BK * LDK;   // element offset of V
+  static constexpr int PT = VS + BK * LDV;       // element offset of P
+  static constexpr int RED = (PT + BQ * LDP) * 2;  // byte offset of the fp32 [2][4][16] exchange
+  static constexpr int BYTES = RED + 2 * 4 * 16 * 4;
+  static_assert(OC % 64 == 0, "a slice's columns split into pairs of n8 tiles over 4 warps");
+  static_assert(DK % DC == 0, "Q's padding covers the last chunk");
+};
+
+// Copies columns [c0, c0 + COLS) of rows [row0, row0 + ROWS) of one (batch,
+// head) slice into shared memory at pitch LD with cp.async; rows at or past
+// n and columns at or past `cols` are zero-filled.
+template <int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int n,
+                                          int row_stride, int c0, int cols) {
+  constexpr int CH = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const bool valid = row0 + r < n && c0 + c < cols;
+    sdt::cp_async16(dst + r * LD + c,
+                    src + (valid ? (size_t)(row0 + r) * row_stride + c0 + c : 0), valid);
+  }
+}
+
+template <int DK, int OC>
+__global__ void __launch_bounds__(256)
+flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, bf16* __restrict__ o,
+                       float* __restrict__ lse, int nq, int nk, int heads, int d, float sl) {
+  using P = SplitPlan<DK, OC>;
+  constexpr int BK = P::BK;
+  constexpr int DC = P::DC;
+  constexpr int NO = OC / 32;  // n8 tiles of O per warp (OC / 4 columns)
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* vs = smem + P::VS;
+  bf16* ps = smem + P::PT;
+  float* red = reinterpret_cast<float*>(smem_raw + P::RED);
+
+  const int slices = gridDim.y / heads;
+  const int h = blockIdx.y / slices;
+  const int slice = blockIdx.y - h * slices;
+  const int q0 = blockIdx.x * P::BQ;
+  const int b = blockIdx.z;
+  const int s0 = slice * OC;            // the block's first column of O
+  const int ow = min(OC, d - s0);       // its columns of O
+  const int row_stride = heads * d;
+  const bf16* qb = q + ((size_t)b * nq * heads + h) * d;
+  const bf16* kb = k + ((size_t)b * nk * heads + h) * d;
+  const bf16* vb = v + ((size_t)b * nk * heads + h) * d;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int rg = warp / 4;              // row group: rows rg * 16 ..
+  const int cg = warp % 4;              // keys cg * 8 .. of a tile, slice columns cg * OC / 4 ..
+  const int col0 = cg * (OC / 4);
+  const int nv = (ow - col0 + 7) / 8;   // this warp's n8 tiles of O inside the slice (may be <= 0)
+  float* red_row = red + rg * 64;       // [4][16] of this row group
+  const int nchunks = (d + DC - 1) / DC;
+
+  if (d < DK) zero_padding<DK, P::LDQ, P::THREADS>(smem, P::BQ, d);
+  load_rows<P::BQ, P::LDQ, P::THREADS>(smem, qb, q0, nq, row_stride, d / 8);
+  load_tile<BK, DC, P::LDK, P::THREADS>(smem + P::KS, kb, 0, nk, row_stride, 0, d);
+  sdt::cp_async_commit();
+
+  float acc[NO][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;  // this thread's part of the sums over its warp's keys
+  const bf16* qrow = smem + (rg * 16 + lane % 16) * P::LDQ + lane / 16 * 8;
+
+  int step = 0;  // chunks streamed so far: chunk `step` sits in stage step & 1
+  const int ntiles = (nk + BK - 1) / BK;
+  for (int t = 0; t < ntiles; ++t) {
+    // S over this warp's 8 keys of the tile, the contraction in chunks of DC
+    float s[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int c = 0; c < nchunks; ++c, ++step) {
+      sdt::cp_async_wait<0>();
+      __syncthreads();
+      // the last tile's P V is done: its V tile may be overwritten
+      if (c == 0)
+        load_tile<BK, OC, P::LDV, P::THREADS>(vs, vb, t * BK, nk, row_stride, s0, s0 + ow);
+      bf16* next = smem + P::KS + ((step + 1) & 1) * BK * P::LDK;
+      if (c + 1 < nchunks)
+        load_tile<BK, DC, P::LDK, P::THREADS>(next, kb, t * BK, nk, row_stride, (c + 1) * DC, d);
+      else if (t + 1 < ntiles)
+        load_tile<BK, DC, P::LDK, P::THREADS>(next, kb, (t + 1) * BK, nk, row_stride, 0, d);
+      sdt::cp_async_commit();
+      const bf16* krow = smem + P::KS + (step & 1) * BK * P::LDK + (cg * 8 + lane % 8) * P::LDK +
+                         lane / 8 * 8;
+#pragma unroll
+      for (int kk = 0; kk < DC / 16; kk += 2) {
+        if (c * DC + kk * 16 < d) {
+          unsigned kf[4], qa[4], qc[4];
+          sdt::ldmatrix_x4(kf, krow + kk * 16);
+          sdt::ldmatrix_x4(qa, qrow + c * DC + kk * 16);
+          sdt::ldmatrix_x4(qc, qrow + c * DC + kk * 16 + 16);
+          sdt::mma(s, qa, kf[0], kf[1]);
+          sdt::mma(s, qc, kf[2], kf[3]);
+        }
+      }
+    }
+    const int cidx = t * BK + cg * 8 + 2 * tq;
+    if (cidx >= nk) s[0] = s[2] = -INFINITY;
+    if (cidx + 1 >= nk) s[1] = s[3] = -INFINITY;
+
+    // the row max over the group's four warps
+    float t0 = sdt::quad_max(fmaxf(s[0], s[1]));
+    float t1 = sdt::quad_max(fmaxf(s[2], s[3]));
+    if (tq == 0) {
+      red_row[cg * 16 + g] = t0;
+      red_row[cg * 16 + g + 8] = t1;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int w = 0; w < 4; ++w) {
+      t0 = fmaxf(t0, red_row[w * 16 + g]);
+      t1 = fmaxf(t1, red_row[w * 16 + g + 8]);
+    }
+    const float n0 = fmaxf(m0, t0 * sl);
+    const float n1 = fmaxf(m1, t1 * sl);
+    const float e0 = n0 == -INFINITY ? 0.f : n0;
+    const float e1 = n1 == -INFINITY ? 0.f : n1;
+    const float c0 = sdt::exp2_approx(m0 - e0), c1 = sdt::exp2_approx(m1 - e1);
+    m0 = n0;
+    m1 = n1;
+    l0 *= c0;
+    l1 *= c1;
+    sdt::rescale_rows(acc, c0, c1);
+    const float p0 = sdt::exp2_approx(fmaf(s[0], sl, -e0));
+    const float p1 = sdt::exp2_approx(fmaf(s[1], sl, -e0));
+    const float p2 = sdt::exp2_approx(fmaf(s[2], sl, -e1));
+    const float p3 = sdt::exp2_approx(fmaf(s[3], sl, -e1));
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    bf16* prow = ps + (rg * 16 + g) * P::LDP + cg * 8 + 2 * tq;
+    *reinterpret_cast<unsigned*>(prow) = sdt::pack_bf16(p0, p1);
+    *reinterpret_cast<unsigned*>(prow + 8 * P::LDP) = sdt::pack_bf16(p2, p3);
+    // this tile's V has landed (it was issued with the tile's first chunk)
+    sdt::cp_async_wait<0>();
+    __syncthreads();
+
+    // O[:, this warp's columns of the slice] += P V
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      unsigned pa[4];
+      sdt::ldmatrix_x4(pa, ps + (rg * 16 + lane % 16) * P::LDP + kk * 16 + lane / 16 * 8);
+#pragma unroll
+      for (int dp = 0; dp < NO / 2; ++dp) {
+        if (2 * dp < nv) {
+          unsigned vf[4];
+          sdt::ldmatrix_x4_trans(vf, vs + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * P::LDV +
+                                         col0 + dp * 16 + lane / 16 * 8);
+          sdt::mma(acc[2 * dp], pa, vf[0], vf[1]);
+          if (2 * dp + 1 < nv) sdt::mma(acc[2 * dp + 1], pa, vf[2], vf[3]);
+        }
+      }
+    }
+  }
+
+  // the row sums over the group's four warps
+  l0 = sdt::quad_sum(l0);
+  l1 = sdt::quad_sum(l1);
+  __syncthreads();
+  if (tq == 0) {
+    red_row[cg * 16 + g] = l0;
+    red_row[cg * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  l0 = l1 = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    l0 += red_row[w * 16 + g];
+    l1 += red_row[w * 16 + g + 8];
+  }
+  const int r0 = q0 + rg * 16 + g;
+  const int r1 = r0 + 8;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  bf16* ob = o + ((size_t)b * nq * heads + h) * d + s0;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (j < nv) {
+      const int cc = col0 + j * 8 + 2 * tq;
+      if (r0 < nq)
+        *reinterpret_cast<unsigned*>(ob + (size_t)r0 * row_stride + cc) =
+            sdt::pack_bf16(acc[j][0] * i0, acc[j][1] * i0);
+      if (r1 < nq)
+        *reinterpret_cast<unsigned*>(ob + (size_t)r1 * row_stride + cc) =
+            sdt::pack_bf16(acc[j][2] * i1, acc[j][3] * i1);
+    }
+  }
+  if (lse != nullptr && slice == 0 && cg == 0 && tq == 0) {
+    float* lb = lse + ((size_t)b * heads + h) * nq;
+    if (r0 < nq) lb[r0] = sdt::row_lse(m0, l0);
+    if (r1 < nq) lb[r1] = sdt::row_lse(m1, l1);
+  }
+}
+
 template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, int bq, int threads, int bytes, const bf16* q,
-                          const bf16* k, const bf16* v, bf16* o, float* lse, int batch, int nq,
-                          int nk, int heads, int d, float sl, cudaStream_t stream) {
+cudaError_t launch_kernel(Kernel kernel, int bq, int slices, int threads, int bytes,
+                          const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
+                          int batch, int nq, int nk, int heads, int d, float sl,
+                          cudaStream_t stream) {
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return err;
-  dim3 grid((nq + bq - 1) / bq, heads, batch);
+  dim3 grid((nq + bq - 1) / bq, heads * slices, batch);
   kernel<<<grid, threads, bytes, stream>>>(q, k, v, o, lse, nq, nk, heads, d, sl);
   return cudaGetLastError();
 }
 
-// One plan per padded head dim: the kernel, its rows per block, threads and
-// shared memory.
+// One plan per padded head dim: the kernel, its rows per block, keys per tile,
+// threads and shared memory, and the split plan's column width (0 elsewhere).
 struct Choice {
   void (*kernel)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int, int,
                  float);
-  int bq, bk, threads, bytes;
+  int bq, bk, threads, bytes, oc;
 };
 
 template <int DK, int WARPS, int BK, int MT>
 Choice narrow() {
   using P = Plan<DK, WARPS, BK, MT>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel<DK, WARPS, BK, MT>, P::BQ, BK, P::THREADS, P::BYTES};
+  return {flash_fwd_kernel<DK, WARPS, BK, MT>, P::BQ, BK, P::THREADS, P::BYTES, 0};
 }
 
 template <int DK>
 Choice wide() {
   using P = WidePlan<DK>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES};
+  return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES, 0};
 }
 
-// The widest head dim K1 takes (cin256-v2's d = 576 sites).
-constexpr int kMaxHeadDim = 576;
+template <int DK, int OC>
+Choice split() {
+  using P = SplitPlan<DK, OC>;
+  static_assert(P::BYTES <= 232448, "shared memory per block");
+  return {flash_fwd_kernel_split<DK, OC>, P::BQ, P::BK, P::THREADS, P::BYTES, OC};
+}
+
+// The slices of O's columns a plan's grid runs over at head dim d.
+int slices_of(const Choice& c, int d) { return c.oc ? (d + c.oc - 1) / c.oc : 1; }
+
+// The widest head dim K1 takes (the first-stage extras' d = 1024 sites).
+constexpr int kMaxHeadDim = 1024;
 
 bool choose(int d, Choice* c) {
   if (d <= 0 || d % 8 || d > kMaxHeadDim) return false;
@@ -536,14 +779,15 @@ bool choose(int d, Choice* c) {
     case 160: *c = narrow<160, 4, 32, 1>(); return true;
     default: break;
   }
-  *c = d <= 256 ? wide<256>() : d <= 512 ? wide<512>() : wide<576>();
+  *c = d <= 256 ? wide<256>() : d <= 512 ? wide<512>() : d <= 576 ? wide<576>()
+                                                     : split<1024, 256>();
   return true;
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). d must be a
-// multiple of 8 and at most 576; the wrapper checks shapes and alignment.
+// multiple of 8 and at most 1024; the wrapper checks shapes and alignment.
 // `lse` is null, or fp32 [B, H, Nq] for the row log-sum-exp.
 extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int batch, int nq, int nk, int heads, int d,
@@ -551,14 +795,15 @@ extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, 
   Choice c;
   if (!choose(d, &c)) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(launch_kernel(
-      c.kernel, c.bq, c.threads, c.bytes, static_cast<const bf16*>(q),
+      c.kernel, c.bq, slices_of(c, d), c.threads, c.bytes, static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
       static_cast<float*>(lse), batch, nq, nk, heads, d, scale * 1.4426950408889634f,
       static_cast<cudaStream_t>(stream)));
 }
 
 // K1's plan for head dim d: out = {query rows per block, keys per tile,
-// threads, shared-memory bytes, resident blocks per SM}. Returns a CUDA error
+// threads, shared-memory bytes, resident blocks per SM, slices of O's columns
+// per row tile}. Returns a CUDA error
 // code (cudaErrorInvalidValue for a head dim K1 does not take).
 extern "C" int sdt_flash_plan(int d, int* out) {
   Choice c;
@@ -573,6 +818,7 @@ extern "C" int sdt_flash_plan(int d, int* out) {
   out[2] = c.threads;
   out[3] = c.bytes;
   out[4] = blocks;
+  out[5] = slices_of(c, d);
   return static_cast<int>(err);
 }
 

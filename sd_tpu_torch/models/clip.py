@@ -6,6 +6,12 @@ the EOT position (the argmax token id). Parameter names follow the HF
 ``CLIPTextModel`` (``text_model.embeddings.token_embedding``,
 ``text_model.encoder.layers.{i}.self_attn.q_proj`` ...), which is what
 ``sd_tpu.models.clip.port_clip_text`` reads.
+
+:class:`CLIPTextModelWithProjection` is the ``FrozenCLIPTextEmbedder``
+contract, the RDM's retrieval query: the pooled output through HF's
+bias-free ``text_projection``, L2-normalized with ``normalize``. The
+tower's attention is causal and masked, so it takes the plain route on the
+card (no kernel site).
 """
 
 from __future__ import annotations
@@ -19,7 +25,8 @@ from torch import nn
 from sd_tpu_torch.ops.attention import dot_product_attention
 from sd_tpu_torch.ops.norms import LayerNormFp32
 
-__all__ = ["CLIPTextConfig", "CLIPTextModel", "CLIP_VIT_L_14_TEXT"]
+__all__ = ["CLIPTextConfig", "CLIPTextModel", "CLIPTextModelWithProjection",
+           "CLIP_VIT_L_14_TEXT"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,3 +126,23 @@ class CLIPTextModel(nn.Module):
     def encode(self, input_ids: torch.Tensor) -> torch.Tensor:
         """The non-pooled context ``[B, N, hidden]`` (FrozenCLIPEmbedder's)."""
         return self(input_ids)["last_hidden_state"]
+
+
+class CLIPTextModelWithProjection(nn.Module):
+    """``forward(input_ids [B, N])`` → ``[B, projection_dim]``: the EOT-pooled
+    output through ``text_projection`` (``[projection_dim, hidden]``, no
+    bias, HF's ``text_projection.weight``), divided by its L2 norm when
+    ``normalize`` (``sd_tpu``'s ``CLIPTextModelWithProjection``)."""
+
+    def __init__(self, cfg: CLIPTextConfig = CLIP_VIT_L_14_TEXT, normalize: bool = True):
+        super().__init__()
+        self.normalize = normalize
+        self.text_model = CLIPTextTransformer(cfg)
+        self.text_projection = nn.Linear(cfg.hidden_size, cfg.projection_dim, bias=False)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        pooled = self.text_model(input_ids)["pooler_output"]
+        z = self.text_projection(pooled)
+        if self.normalize:
+            z = z / torch.linalg.vector_norm(z, dim=-1, keepdim=True)
+        return z

@@ -5,13 +5,13 @@ in ``sd_tpu``. :func:`attention_route` is the dispatch of an unmasked call,
 a pure function of (device type, dtype, B, Nq, Nk, H, d). On a CUDA tensor:
 
 - every unmasked self-attention call (``Nq == Nk``) at a head dim up to
-  K1's 576 goes to the K1 kernel (``ops/cuda/flash_attention.py``),
-  including the UNet's 8x8 mid-block; where autograd records, its backward
-  is K3 or the plain backward by ``sd_tpu``'s rule. A wider head takes the
-  plain version where ``sd_tpu``'s ``flash_supported`` shape rule leaves
-  the site to XLA (cin256-v2's d = 960 at N = 64), and is refused with a
-  ``ValueError`` where ``sd_tpu`` would run its kernel (no config of the
-  repository reaches that);
+  K1's 1024 goes to the K1 kernel (``ops/cuda/flash_attention.py``),
+  including the UNet's 8x8 mid-block and cin256-v2's d = 960 sites at
+  N = 64; where autograd records, its backward is K3 or the plain backward
+  by ``sd_tpu``'s rule. A wider head takes the plain version where
+  ``sd_tpu``'s ``flash_supported`` shape rule leaves the site to XLA, and
+  is refused with a ``ValueError`` where ``sd_tpu`` would run its kernel
+  (no config of the repository reaches either);
 - cross-attention (77 keys) and CLIP's causal masked attention use plain
   torch ops with an fp32 softmax, as ``sd_tpu`` leaves them to XLA;
 - every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),

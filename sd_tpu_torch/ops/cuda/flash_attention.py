@@ -17,9 +17,11 @@ does about that.
   ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
   kernel launches (one per call).
   :func:`kernel_plan` reads each kernel's launch plan from the library.
-  K1 takes head dims that are multiples of 8 up to 576 (``K1_MAX_HEAD_DIM``:
-  13 plans, the widest for cin256-v2's one-head d = 576 sites); K3 up to 512
-  (``K3_MAX_HEAD_DIM``), and K5 up to 512 (``K5_MAX_HEAD_DIM``).
+  K1 takes head dims that are multiples of 8 up to 1024 (``K1_MAX_HEAD_DIM``:
+  14 plans; above 576 the split plan, whose blocks own slices of 256 of O's
+  columns, for the first-stage extras' one-head sites up to d = 1024 and
+  cin256-v2's d = 960); K3 up to 512 (``K3_MAX_HEAD_DIM``), and K5 up to 512
+  (``K5_MAX_HEAD_DIM``).
 - :func:`differentiable_flash_attention` is the entry point for code that
   may need gradients: where autograd records, it runs a
   ``torch.autograd.Function`` whose forward is K1 (with the row log-sum-exp
@@ -62,13 +64,14 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "kernel_plan", "uses_bwd_kernel", "flash_shape_supported", "K1_MAX_HEAD_DIM",
            "K3_MAX_HEAD_DIM", "K5_MAX_HEAD_DIM", "K1_COVERAGE_ITEM", "K3_COVERAGE_ITEM"]
 
-# the widest head dim each kernel takes: K1's wide<576> plan is cin256-v2's
-# d = 576 sites; K3's and K5's stop at the VAE mid-block's 512
-K1_MAX_HEAD_DIM = 576
+# the widest head dim each kernel takes: K1's split plan reaches the
+# first-stage extras' d = 1024 sites; K3's and K5's stop at the VAE
+# mid-block's 512
+K1_MAX_HEAD_DIM = 1024
 K3_MAX_HEAD_DIM = 512
 K5_MAX_HEAD_DIM = 512
 # what a refusal of a head dim past those names: ROADMAP.md's open coverage
-K1_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K1 above d = 576'"
+K1_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K1 above d = 1024'"
 K3_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K3 above d = 512'"
 # sd_tpu's flash_supported shape rule: the rows its kernel takes
 _FLASH_MIN_N, _FLASH_MAX_N, _FLASH_N_MULTIPLE = 128, 4096, 128
@@ -185,8 +188,10 @@ def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]]
     "K3 dQ") at head dim ``d``, or of K5 ("K5 qk", "K5 qkpv") at head dim
     ``d`` and ``shape`` = (B, N, H), from the loaded library: the rows a
     block owns, the rows of the tile it streams, threads and shared-memory
-    bytes per block, and the blocks that fit on one SM. Needs the card."""
-    out = (ctypes.c_int * 5)()
+    bytes per block, and the blocks that fit on one SM; for K1 also the
+    slices of O's columns over which a row tile's blocks split (1 but in
+    the split plan). Needs the card."""
+    out = (ctypes.c_int * 6)()
     lib = kernels()
     if which == "K1":
         err = lib.sdt_flash_plan(d, out)
@@ -195,7 +200,8 @@ def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]]
     else:
         err = lib.sdt_flash_bwd_plan(d, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
     check(err, f"{which} plan at d={d}")
-    return dict(zip(("rows", "tile", "threads", "smem_bytes", "blocks_per_sm"), out))
+    names = ("rows", "tile", "threads", "smem_bytes", "blocks_per_sm")
+    return dict(zip(names + (("slices",) if which == "K1" else ()), out))
 
 
 def _launch_forward(q, k, v, scale: float, with_lse: bool):

@@ -3,8 +3,10 @@
 - ``ResBlock``: the UNet block with timestep-embedding injection, and with
   ``up``/``down`` its in-block resample (nearest x2 or a 2x2 average pool)
   after the first norm and activation, applied to the branch and the skip.
-- ``VAEResnetBlock``: the autoencoder block (eps 1e-6 GroupNorm, 1x1
-  shortcut).
+- ``VAEResnetBlock``: the autoencoder block (eps 1e-6 GroupNorm, a 1x1
+  ``nin_shortcut`` or with ``conv_shortcut`` a 3x3 one on a channel change,
+  and with ``temb_channels`` a ``temb_proj`` of the timestep embedding added
+  after ``conv1``, as ``TimestepVAEModel``'s blocks take it).
 - ``Upsample`` (nearest x2, then a 3x3 conv with ``use_conv``),
   ``Downsample`` (a stride-2 3x3 conv, or without ``use_conv`` a 2x2
   average pool) and ``VAEDownsample`` (the autoencoder's: pad right and
@@ -215,39 +217,66 @@ class ResBlock(nn.Module):
 
 
 class VAEResnetBlock(nn.Module):
-    """Autoencoder residual block (no timestep embedding on the decode path),
-    with a 1x1 ``nin_shortcut`` on a channel change; ``conv_impl`` as in
-    :class:`ResBlock`."""
+    """Autoencoder residual block: on a channel change a 1x1 ``nin_shortcut``,
+    or with ``conv_shortcut`` a 3x3 one; with ``temb_channels`` a
+    ``temb_proj`` (``Linear(temb_channels, out)``) of SiLU(temb) added per
+    channel after ``conv1``. ``conv_impl`` as in :class:`ResBlock`."""
 
     conv_impl = "auto"
 
     def __init__(self, in_channels: int, out_channels: Optional[int] = None,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, conv_shortcut: bool = False, temb_channels: int = 0):
         super().__init__()
         out_ch = out_channels or in_channels
         self.norm1 = GroupNorm32(in_channels, eps=1e-6)
         self.conv1 = Conv3x3(in_channels, out_ch)
+        if temb_channels > 0:
+            self.temb_proj = nn.Linear(temb_channels, out_ch)
         self.norm2 = GroupNorm32(out_ch, eps=1e-6)
         self.dropout = nn.Dropout(dropout)
         self.conv2 = Conv3x3(out_ch, out_ch)
         if in_channels != out_ch:
-            self.nin_shortcut = nn.Conv2d(in_channels, out_ch, 1)
+            if conv_shortcut:
+                self.conv_shortcut = Conv3x3(in_channels, out_ch)
+            else:
+                self.nin_shortcut = nn.Conv2d(in_channels, out_ch, 1)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if _takes_fused_path(self, self.dropout, self.conv2, x):
-            return self._fused(x)
-        h = self.conv1(F.silu(self.norm1(x)))
-        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+    def _temb_out(self, temb: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+        """temb_proj(SiLU(temb)) ``[B, out]``, or None without either."""
+        if temb is None or not hasattr(self, "temb_proj"):
+            return None
+        return self.temb_proj(F.silu(temb))
+
+    def _skip(self, x: torch.Tensor) -> torch.Tensor:
+        if hasattr(self, "conv_shortcut"):
+            return self.conv_shortcut(x)
         if hasattr(self, "nin_shortcut"):
-            x = self.nin_shortcut(x)
-        return x + h
+            return self.nin_shortcut(x)
+        return x
 
-    def _fused(self, x: torch.Tensor) -> torch.Tensor:
-        """Both convs through K7 (``sd_tpu``'s ``VAEResnetBlock._fused``
-        without ``temb``, which the decode path does not have)."""
-        skip = self.nin_shortcut(x) if hasattr(self, "nin_shortcut") else x
-        offset_of = lambda b1: (b1[None, :].expand(x.shape[0], -1), None, None)
-        return _fused_pair(x, self.norm1, self.conv1, self.norm2, self.conv2, skip, offset_of)
+    def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if _takes_fused_path(self, self.dropout, self.conv2, x):
+            return self._fused(x, temb)
+        h = self.conv1(F.silu(self.norm1(x)))
+        emb = self._temb_out(temb)
+        if emb is not None:
+            h = h + emb[:, :, None, None]
+        h = self.conv2(self.dropout(F.silu(self.norm2(h))))
+        return self._skip(x) + h
+
+    def _fused(self, x: torch.Tensor, temb: Optional[torch.Tensor]) -> torch.Tensor:
+        """Both convs through K7 (``sd_tpu``'s ``VAEResnetBlock._fused``): the
+        timestep term enters the second GroupNorm's per-batch channel offset
+        beside conv1's bias."""
+        emb = self._temb_out(temb)
+
+        def offset_of(b1):
+            if emb is None:
+                return b1[None, :].expand(x.shape[0], -1), None, None
+            return b1[None, :] + emb.float(), None, None
+
+        return _fused_pair(x, self.norm1, self.conv1, self.norm2, self.conv2, self._skip(x),
+                           offset_of)
 
 
 def set_conv_modes(module: nn.Module, fused_conv=None, conv_impl=None):

@@ -57,7 +57,7 @@ FAULTS = {
                           "    acc[j][3] *= c1;\n", "", 1)]),
     "the last key tile dropped": ("K1", [
         ("flash_attention.cu", "const int ntiles = (nk + BK - 1) / BK;",
-         "const int ntiles = (nk + BK - 1) / BK - 1;", 2)]),
+         "const int ntiles = (nk + BK - 1) / BK - 1;", 3)]),
     "lse without the max": ("K1", [
         ("flash_mma.cuh", "return m + log2f(l);", "return log2f(l);", 1)]),
     "dV without p_lo's rounding": ("K3", [

@@ -35,7 +35,10 @@ continues the run in ``--logdir`` from ``checkpoints/last.pt``. The image
 logger (LDM runs) writes its grids to ``<logdir>/images`` at steps 1, 2, 4,
 8 and every 750 (``--no_images`` turns it off); ``--val_every N`` (LDM
 runs) validates every N steps and keeps the best 3 checkpoints by the
-config's ``monitor`` as ``checkpoints/step_<n>.pt``. SIGUSR1 saves
+config's ``monitor`` as ``checkpoints/step_<n>.pt``. A ``--base`` LDM run
+writes each logged step's loss and it/s and each validation's metrics to
+``<logdir>/metrics.jsonl`` and to TensorBoard events under ``<logdir>/tb``,
+as ``main.py`` does. SIGUSR1 saves
 ``last.pt`` at the end of the step it lands in. The run's config goes to
 ``<logdir>/configs/project.yaml`` (as JSON, which is YAML), so that
 ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img CLI's
@@ -149,6 +152,7 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
     from sd_tpu_torch.training.diffusion_loss import create_train_state
     from sd_tpu_torch.training.trainer import ImageLogger, Trainer
     from sd_tpu_torch.utils.config import build_latent_diffusion, instantiate_from_config
+    from sd_tpu_torch.utils.profiling import MetricsWriter
 
     mp = model_cfg["params"]
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=torch.float32, seed=opt.seed)
@@ -167,9 +171,12 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
         logvar_init=float(mp.get("logvar_init", 0.0)),
         scale_by_std=bool(mp.get("scale_by_std", False)))
     logdir = harness_args["logdir"]
+    # a --base run logs its steps and validations as main.py's does:
+    # <logdir>/metrics.jsonl and TensorBoard events under <logdir>/tb
     harness = Trainer(trainer_obj=trainer_obj, val_every=opt.val_every,
                       monitor=mp.get("monitor"),
                       image_logger=None if opt.no_images else ImageLogger(logdir),
+                      metrics_writer=MetricsWriter(logdir) if from_base(opt) else None,
                       **harness_args)
     return harness, state
 

@@ -9,7 +9,9 @@ whose trainer has ``scale_by_std``, a fresh run first sets ``scale_factor``
 from the first train batch (a resumed run takes it from its checkpoint).
 
 ``Trainer.fit`` runs the steps, prints the loss and it/s every ``log_every``
-steps, and after a step: logs images where the ``ImageLogger``'s cadence
+steps (and writes them, ``train/loss`` and ``train/it_per_sec``, through
+its ``metrics_writer`` where it has one, as does validation its metrics:
+``utils/profiling.py``'s ``MetricsWriter``), and after a step: logs images where the ``ImageLogger``'s cadence
 says so, saves ``last.pt`` every ``ckpt_every`` steps or when SIGUSR1 asked
 for it (the reference's "melk" save), and every ``val_every`` steps runs
 validation with the current UNet and the EMA shadow, keeping the top 3
@@ -248,6 +250,8 @@ class Trainer:
     val_every: int = 0
     monitor: Optional[str] = None
     image_logger: Optional[ImageLogger] = None
+    # e.g. utils.profiling.MetricsWriter: logged steps and validations
+    metrics_writer: Optional[Any] = None
     # this run's monitored checkpoints, (metric, path), best first
     monitored: List[Tuple[float, str]] = dataclasses.field(default_factory=list, init=False)
     # set by SIGUSR1: save last.pt at the end of the step
@@ -333,6 +337,9 @@ class Trainer:
                         loss = float(aux["loss"] if "loss" in aux else aux["total_loss"])
                         rate = (step - t0_step) / max(time.perf_counter() - t0, 1e-9)
                         print(f"step {step}: loss={loss:.4f} ({rate:.2f} it/s)")
+                        if self.metrics_writer is not None:
+                            self.metrics_writer.write(
+                                step, {"train/loss": loss, "train/it_per_sec": rate})
                     if (self.image_logger is not None and self.ldm is not None
                             and self.image_logger.should_log(step)):
                         with self._eval_scope():
@@ -381,6 +388,8 @@ class Trainer:
         if state.ema is not None:
             metrics["val/loss_simple_ema"] = float(np.mean(fetched[n:]))
         print(f"validation @ step {state.step}: {metrics}", flush=True)
+        if self.metrics_writer is not None:
+            self.metrics_writer.write(state.step, metrics)
         save_monitored(self.ckpt_dir, state, metrics, self.monitor, self.monitored,
                        self._meta())
         return metrics

@@ -54,7 +54,8 @@ from sd_tpu_torch.models.vae import AutoencoderKL, IdentityFirstStage, VQModel
 from sd_tpu_torch.utils.checkpoint import filter_state_dict, load_run_params, run_config_path
 
 __all__ = ["SD_V1_MODEL_CONFIG", "tiny_sd_model_config", "tiny_uncond_model_config",
-           "tiny_class_cond_model_config", "tiny_inpaint_model_config", "train_config",
+           "tiny_class_cond_model_config", "tiny_knn_model_config", "tiny_inpaint_model_config",
+           "train_config",
            "load_yaml",
            "merge_configs", "apply_dotlist", "register_target", "instantiate_from_config",
            "build_latent_diffusion", "build_latent_diffusion_from_run", "init_random_",
@@ -208,6 +209,19 @@ def tiny_class_cond_model_config(n_classes: int = 17) -> Dict[str, Any]:
         "target": "ldm.modules.encoders.modules.ClassEmbedder",
         "params": {"n_classes": n_classes,
                    "embed_dim": p["unet_config"]["params"]["context_dim"]}}
+    return cfg
+
+
+def tiny_knn_model_config() -> Dict[str, Any]:
+    """The tiny crossattn model that ``scripts/knn2img.py --tiny`` samples
+    (``sd_tpu.utils.testing.tiny_sd_model_config(context_dim=24)``'s UNet
+    and f2 first stage): its context is built by the retrieval pipeline,
+    so the cond stage is ``torch.nn.Identity``, as the RDM's is."""
+    cfg = tiny_sd_model_config()
+    p = cfg["params"]
+    p["cond_stage_key"] = "nix"
+    p["cond_stage_config"] = {"target": "torch.nn.Identity"}
+    p["unet_config"]["params"]["context_dim"] = 24
     return cfg
 
 

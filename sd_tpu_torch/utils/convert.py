@@ -8,7 +8,9 @@ legacy attention, class embedding and codebook head,
 the same for what ``sd_tpu`` builds but does not port (``ClassEmbedder``,
 the discriminator with its BatchNorm statistics, the VAE's linear
 attention, the classifier's ``EncoderUNetModel`` and its
-``AttentionPool2d``): flax
+``AttentionPool2d``, CLIP's ``text_projection``, the first-stage extras of
+``models/vae_extras.py``; ``TimestepVAEModel`` in the layout
+``port_timestep_model`` reads): flax
 ``{kernel, bias}``/``{scale, bias}`` leaves become ``weight``/``bias`` under
 the CompVis and HF names, conv kernels go HWIO → OIHW, Dense kernels
 ``[in, out]`` → Linear ``[out, in]``, and Dense layers that stand for 1x1
@@ -28,10 +30,15 @@ from sd_tpu_torch.models.clip import CLIPTextConfig
 from sd_tpu_torch.models.unet import UNetConfig, build_unet_plan
 
 __all__ = ["unet_state_dict", "vae_state_dict", "vq_state_dict", "vae_encoder_state_dict",
-           "vae_decoder_state_dict", "clip_text_state_dict", "class_embedder_state_dict",
+           "vae_decoder_state_dict", "clip_text_state_dict", "clip_text_projection_state_dict",
+           "class_embedder_state_dict",
            "transformer_embedder_state_dict", "spatial_rescaler_state_dict", "lpips_state_dict",
            "discriminator_state_dict", "encoder_unet_state_dict",
-           "attention_pool_state_dict"]
+           "attention_pool_state_dict", "vae_resnet_block_state_dict",
+           "latent_rescaler_state_dict", "simple_decoder_state_dict",
+           "upsample_decoder_state_dict", "merged_rescale_encoder_state_dict",
+           "merged_rescale_decoder_state_dict", "first_stage_post_processor_state_dict",
+           "timestep_model_state_dict"]
 
 StateDict = Dict[str, np.ndarray]
 
@@ -202,12 +209,24 @@ def encoder_unet_state_dict(params: Mapping, pool: str) -> StateDict:
 
 
 def _vae_res(sd: StateDict, p, prefix: str) -> None:
+    """A VAEResnetBlock, with its ``temb_proj`` and its 1x1 or 3x3 shortcut
+    where it has them."""
     _put(sd, f"{prefix}.norm1", _norm(p["norm1"]["GroupNorm_0"]))
     _put(sd, f"{prefix}.conv1", _conv(p["conv1"]))
     _put(sd, f"{prefix}.norm2", _norm(p["norm2"]["GroupNorm_0"]))
     _put(sd, f"{prefix}.conv2", _conv(p["conv2"]))
-    if "nin_shortcut" in p:
-        _put(sd, f"{prefix}.nin_shortcut", _conv(p["nin_shortcut"]))
+    if "temb_proj" in p:
+        _put(sd, f"{prefix}.temb_proj", _linear(p["temb_proj"]))
+    for skip in ("nin_shortcut", "conv_shortcut"):
+        if skip in p:
+            _put(sd, f"{prefix}.{skip}", _conv(p[skip]))
+
+
+def vae_resnet_block_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` VAEResnetBlock params → the port's ``VAEResnetBlock``."""
+    sd: StateDict = {}
+    _vae_res(sd, params, "")
+    return sd
 
 
 def _vae_attn(sd: StateDict, p, prefix: str) -> None:
@@ -229,25 +248,59 @@ def _resample_conv(sd: StateDict, p, prefix: str) -> None:
         _put(sd, prefix, _conv(p["conv"]))
 
 
+def _ends_and_mid(sd: StateDict, p, prefix: str) -> None:
+    """``conv_in``, ``conv_out``, ``norm_out`` and the ``mid`` blocks, shared
+    by the Encoder, the Decoder and TimestepVAEModel."""
+    _put(sd, f"{prefix}.conv_in", _conv(p["conv_in"]))
+    _put(sd, f"{prefix}.conv_out", _conv(p["conv_out"]))
+    _put(sd, f"{prefix}.norm_out", _norm(p["norm_out"]["GroupNorm_0"]))
+    _vae_res(sd, p["mid_block_1"], f"{prefix}.mid.block_1")
+    _vae_attn(sd, p.get("mid_attn_1"), f"{prefix}.mid.attn_1")
+    _vae_res(sd, p["mid_block_2"], f"{prefix}.mid.block_2")
+
+
+def _down_levels(sd: StateDict, p, ddconfig: Mapping, prefix: str) -> None:
+    """``down.{i}.block.{j}``/``.attn.{j}``/``.downsample.conv``."""
+    num_res = len(ddconfig["ch_mult"])
+    for i in range(num_res):
+        for j in range(ddconfig["num_res_blocks"]):
+            _vae_res(sd, p[f"down_{i}_block_{j}"], f"{prefix}.down.{i}.block.{j}")
+            if f"down_{i}_attn_{j}" in p:
+                _vae_attn(sd, p[f"down_{i}_attn_{j}"], f"{prefix}.down.{i}.attn.{j}")
+        if i != num_res - 1:
+            _resample_conv(sd, p.get(f"down_{i}_downsample"),
+                           f"{prefix}.down.{i}.downsample.conv")
+
+
+def _up_levels(sd: StateDict, p, ddconfig: Mapping, prefix: str) -> None:
+    """``up.{i}.block.{j}``/``.attn.{j}``/``.upsample.conv``
+    (``num_res_blocks + 1`` blocks a level)."""
+    for i in range(len(ddconfig["ch_mult"])):
+        for j in range(ddconfig["num_res_blocks"] + 1):
+            _vae_res(sd, p[f"up_{i}_block_{j}"], f"{prefix}.up.{i}.block.{j}")
+            if f"up_{i}_attn_{j}" in p:
+                _vae_attn(sd, p[f"up_{i}_attn_{j}"], f"{prefix}.up.{i}.attn.{j}")
+        if i != 0:
+            _resample_conv(sd, p.get(f"up_{i}_upsample"), f"{prefix}.up.{i}.upsample.conv")
+
+
+def _decoder(sd: StateDict, dec, ddconfig: Mapping, prefix: str) -> None:
+    """A Decoder's params (``sd_tpu``'s names) under ``prefix``."""
+    _ends_and_mid(sd, dec, prefix)
+    _up_levels(sd, dec, ddconfig, prefix)
+
+
+def _encoder(sd: StateDict, enc, ddconfig: Mapping, prefix: str) -> None:
+    """An Encoder's params (``sd_tpu``'s names) under ``prefix``."""
+    _ends_and_mid(sd, enc, prefix)
+    _down_levels(sd, enc, ddconfig, prefix)
+
+
 def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
     """``sd_tpu`` AutoencoderKL params → the port's ``AutoencoderKL`` (decode
     half) state_dict: ``decoder.*`` and ``post_quant_conv.*``."""
-    dec = params["decoder"]
-    num_res = len(ddconfig["ch_mult"])
     sd: StateDict = {}
-    _put(sd, "decoder.conv_in", _conv(dec["conv_in"]))
-    _put(sd, "decoder.conv_out", _conv(dec["conv_out"]))
-    _put(sd, "decoder.norm_out", _norm(dec["norm_out"]["GroupNorm_0"]))
-    _vae_res(sd, dec["mid_block_1"], "decoder.mid.block_1")
-    _vae_attn(sd, dec.get("mid_attn_1"), "decoder.mid.attn_1")
-    _vae_res(sd, dec["mid_block_2"], "decoder.mid.block_2")
-    for i in range(num_res):
-        for j in range(ddconfig["num_res_blocks"] + 1):
-            _vae_res(sd, dec[f"up_{i}_block_{j}"], f"decoder.up.{i}.block.{j}")
-            if f"up_{i}_attn_{j}" in dec:
-                _vae_attn(sd, dec[f"up_{i}_attn_{j}"], f"decoder.up.{i}.attn.{j}")
-        if i != 0:
-            _resample_conv(sd, dec.get(f"up_{i}_upsample"), f"decoder.up.{i}.upsample.conv")
+    _decoder(sd, params["decoder"], ddconfig, "decoder")
     _put(sd, "post_quant_conv", _conv1x1(params["post_quant_conv"]))
     return sd
 
@@ -255,23 +308,8 @@ def vae_decoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
 def vae_encoder_state_dict(params: Mapping, ddconfig: Mapping) -> StateDict:
     """``sd_tpu`` AutoencoderKL params → the port's ``AutoencoderKL`` encode
     half: ``encoder.*`` and ``quant_conv.*``."""
-    enc = params["encoder"]
     sd: StateDict = {}
-    _put(sd, "encoder.conv_in", _conv(enc["conv_in"]))
-    _put(sd, "encoder.conv_out", _conv(enc["conv_out"]))
-    _put(sd, "encoder.norm_out", _norm(enc["norm_out"]["GroupNorm_0"]))
-    _vae_res(sd, enc["mid_block_1"], "encoder.mid.block_1")
-    _vae_attn(sd, enc.get("mid_attn_1"), "encoder.mid.attn_1")
-    _vae_res(sd, enc["mid_block_2"], "encoder.mid.block_2")
-    num_res = len(ddconfig["ch_mult"])
-    for i in range(num_res):
-        for j in range(ddconfig["num_res_blocks"]):
-            _vae_res(sd, enc[f"down_{i}_block_{j}"], f"encoder.down.{i}.block.{j}")
-            if f"down_{i}_attn_{j}" in enc:
-                _vae_attn(sd, enc[f"down_{i}_attn_{j}"], f"encoder.down.{i}.attn.{j}")
-        if i != num_res - 1:
-            _resample_conv(sd, enc.get(f"down_{i}_downsample"),
-                           f"encoder.down.{i}.downsample.conv")
+    _encoder(sd, params["encoder"], ddconfig, "encoder")
     _put(sd, "quant_conv", _conv1x1(params["quant_conv"]))
     return sd
 
@@ -312,6 +350,14 @@ def clip_text_state_dict(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
         _put(sd, f"{prefix}.mlp.fc1", _linear(p["mlp"]["fc1"]))
         _put(sd, f"{prefix}.mlp.fc2", _linear(p["mlp"]["fc2"]))
     return sd
+
+
+def clip_text_projection_state_dict(params: Mapping, cfg: CLIPTextConfig) -> StateDict:
+    """``sd_tpu`` CLIPTextModelWithProjection params → the port's (HF's
+    names: ``text_model.*`` and the bias-free ``text_projection.weight``,
+    ``[projection_dim, hidden]``)."""
+    return {**clip_text_state_dict(params["text_model"], cfg),
+            "text_projection.weight": np.asarray(params["text_projection"]).T}
 
 
 # ------------------------------------------------------ trainable cond stages
@@ -385,4 +431,106 @@ def discriminator_state_dict(params: Mapping, batch_stats: Mapping, n_layers: in
         sd[f"{bn}.running_var"] = np.asarray(batch_stats[f"bn_{n}"]["var"])
         sd[f"{bn}.num_batches_tracked"] = np.asarray(0, np.int64)
     _put(sd, f"main.{3 * n_layers + 2}", _conv(params["head"]))
+    return sd
+
+
+# ------------------------------------------------------ first-stage extras
+
+
+def _latent_rescaler(sd: StateDict, p, prefix: str) -> None:
+    _put(sd, f"{prefix}.conv_in", _conv(p["conv_in"]))
+    for name, part in (("res1", "res_block1"), ("res2", "res_block2")):
+        i = 0
+        while f"{name}_{i}" in p:
+            _vae_res(sd, p[f"{name}_{i}"], f"{prefix}.{part}.{i}")
+            i += 1
+    _vae_attn(sd, p["attn"], f"{prefix}.attn")
+    _put(sd, f"{prefix}.conv_out", _conv1x1(p["conv_out"]))
+
+
+def latent_rescaler_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` LatentRescaler params → the port's (``res_block1.{i}``,
+    ``attn``, ``res_block2.{i}``, the 1x1 ``conv_out``)."""
+    sd: StateDict = {}
+    _latent_rescaler(sd, params, "")
+    return sd
+
+
+def simple_decoder_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` SimpleDecoder params → the port's ``model.0`` to ``model.5``,
+    ``norm_out``, ``conv_out``."""
+    sd: StateDict = {}
+    _put(sd, "model.0", _conv1x1(params["conv_in"]))
+    for i in (1, 2, 3):
+        _vae_res(sd, params[f"block_{i}"], f"model.{i}")
+    _put(sd, "model.4", _conv1x1(params["conv_mid"]))
+    _put(sd, "model.5.conv", _conv(params["upsample"]["conv"]))
+    _put(sd, "norm_out", _norm(params["norm_out"]["GroupNorm_0"]))
+    _put(sd, "conv_out", _conv(params["conv_out"]))
+    return sd
+
+
+def upsample_decoder_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` UpsampleDecoder params → the port's ``res_blocks.{i}.{j}``,
+    ``upsample_blocks.{i}.conv``, ``norm_out``, ``conv_out``."""
+    sd: StateDict = {}
+    for name, p in params.items():
+        if name.startswith("res_"):
+            i, j = name.split("_")[1:]
+            _vae_res(sd, p, f"res_blocks.{i}.{j}")
+        elif name.startswith("upsample_"):
+            _put(sd, f"upsample_blocks.{name.split('_')[1]}.conv", _conv(p["conv"]))
+    _put(sd, "norm_out", _norm(params["norm_out"]["GroupNorm_0"]))
+    _put(sd, "conv_out", _conv(params["conv_out"]))
+    return sd
+
+
+def merged_rescale_encoder_state_dict(params: Mapping, num_res_blocks: int,
+                                      ch_mult) -> StateDict:
+    """``sd_tpu`` MergedRescaleEncoder params → the port's ``encoder.*`` and
+    ``rescaler.*``."""
+    sd: StateDict = {}
+    _encoder(sd, params["encoder"], {"ch_mult": ch_mult, "num_res_blocks": num_res_blocks},
+             "encoder")
+    _latent_rescaler(sd, params["rescaler"], "rescaler")
+    return sd
+
+
+def merged_rescale_decoder_state_dict(params: Mapping, num_res_blocks: int,
+                                      ch_mult) -> StateDict:
+    """``sd_tpu`` MergedRescaleDecoder (or Upsampler) params → the port's
+    ``rescaler.*`` and ``decoder.*``."""
+    sd: StateDict = {}
+    _latent_rescaler(sd, params["rescaler"], "rescaler")
+    _decoder(sd, params["decoder"], {"ch_mult": ch_mult, "num_res_blocks": num_res_blocks},
+             "decoder")
+    return sd
+
+
+def first_stage_post_processor_state_dict(params: Mapping) -> StateDict:
+    """``sd_tpu`` FirstStagePostProcessor params → the port's ``proj_norm``,
+    ``proj`` and ``model.{i}``."""
+    sd: StateDict = {}
+    _put(sd, "proj_norm", _norm(params["proj_norm"]["GroupNorm_0"]))
+    _put(sd, "proj", _conv(params["proj"]))
+    i = 0
+    while f"block_{i}" in params:
+        _vae_res(sd, params[f"block_{i}"], f"model.{i}")
+        i += 1
+    return sd
+
+
+def timestep_model_state_dict(params: Mapping, cfg: Mapping) -> StateDict:
+    """``sd_tpu`` TimestepVAEModel params → the port's (the reference
+    ``Model``'s names, the layout ``port_timestep_model`` reads):
+    ``temb.dense.{0,1}``, ``down.{i}.block.{j}``/``.attn.{j}``/
+    ``.downsample.conv``, ``mid.*``, ``up.{i}.block.{j}``/``.attn.{j}``/
+    ``.upsample.conv``, ``conv_in``, ``norm_out``, ``conv_out``. ``cfg``:
+    ``ch_mult`` and ``num_res_blocks``."""
+    sd: StateDict = {}
+    _ends_and_mid(sd, params, "")
+    for i in (0, 1):
+        _put(sd, f"temb.dense.{i}", _linear(params[f"temb_dense_{i}"]))
+    _down_levels(sd, params, cfg, "")
+    _up_levels(sd, params, cfg, "")
     return sd

@@ -2,11 +2,12 @@
 route that lets its one-head sites run on the card.
 
 - :func:`sd_tpu_torch.ops.attention.attention_route` at each case: K1 up to
-  its head dim of 576, the plain route above it where sd_tpu's
-  ``flash_supported`` shape rule leaves the site to XLA (cin256-v2's
-  d = 960 at N = 64), a ValueError naming ROADMAP.md's coverage item where
-  sd_tpu runs its kernel; the shape rule against sd_tpu's own predicate
-  (its platform check patched to a TPU); K5's and K3's caps of 512.
+  its head dim of 1024 (cin256-v2's d = 960 at N = 64 included, which
+  sd_tpu leaves to XLA), the plain route above it where sd_tpu's
+  ``flash_supported`` shape rule leaves the site to XLA, a ValueError
+  naming ROADMAP.md's coverage item where sd_tpu runs its kernel; the
+  shape rule against sd_tpu's own predicate (its platform check patched to
+  a TPU); K5's and K3's caps of 512.
 - A tiny single-head spatial-transformer UNet with a ClassEmbedder (head
   dims 64 and 96, cin256-v2's layout at narrow width) against sd_tpu's from
   the same parameters: rtol and atol 1e-4 of the output's scale, fp32.
@@ -50,16 +51,22 @@ def _one_torch_thread():
 ROUTES = {
     "cin256 d=384 N=1024": (("cuda", BF16, 8, 1024, 1024, 1, 384), "K1"),
     "cin256 d=576 N=256": (("cuda", BF16, 8, 256, 256, 1, 576), "K1"),
-    "cin256 d=960 N=64": (("cuda", BF16, 8, 64, 64, 1, 960), "plain"),
-    "d=960 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 960), "plain"),
-    "d=960 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 960), "plain"),
+    "cin256 d=960 N=64": (("cuda", BF16, 8, 64, 64, 1, 960), "K1"),
+    "d=960 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 960), "K1"),
+    "d=960 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 960), "K1"),
+    "d=1032 N=64": (("cuda", BF16, 8, 64, 64, 1, 1032), "plain"),
+    "d=1032 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 1032), "plain"),
+    "d=1032 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 1032), "plain"),
     "VAE mid-block d=512": (("cuda", BF16, 1, 4096, 4096, 1, 512), "K1"),
     "cross-attention d=960": (("cuda", BF16, 8, 256, 1, 1, 960), "plain"),
     "fp32 on the card": (("cuda", torch.float32, 8, 256, 256, 1, 576), "plain"),
     "CPU d=576": (("cpu", torch.float32, 8, 256, 256, 1, 576), "K1"),
-    "CPU d=960 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 960), "plain"),
-    "d=640 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 640), None),
-    "CPU d=1024 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1024), None),
+    "CPU d=960 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 960), "K1"),
+    "CPU d=1032 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 1032), "plain"),
+    "d=640 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 640), "K1"),
+    "CPU d=1024 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1024), "K1"),
+    "d=1032 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 1032), None),
+    "CPU d=1032 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1032), None),
 }
 
 
@@ -67,7 +74,7 @@ ROUTES = {
 def test_attention_route(case):
     args, want = ROUTES[case]
     if want is None:
-        with pytest.raises(ValueError, match="K1 above d = 576"):
+        with pytest.raises(ValueError, match="K1 above d = 1024"):
             attention_route(*args)
     else:
         assert attention_route(*args) == want
@@ -86,10 +93,10 @@ def test_flash_shape_rule_is_sd_tpus(monkeypatch):
 
 
 def test_the_caps_of_k5_and_k3():
-    """K5 and K3 stop at 512 where K1 goes on to 576: K5's padding and its
+    """K5 and K3 stop at 512 where K1 goes on to 1024: K5's padding and its
     mode send a wider head to bf16 K1; K3's rule refuses where sd_tpu runs
     its backward kernel and takes the plain backward where sd_tpu does."""
-    assert port_flash.K1_MAX_HEAD_DIM == 576
+    assert port_flash.K1_MAX_HEAD_DIM == 1024
     assert port_flash.K3_MAX_HEAD_DIM == port_flash.K5_MAX_HEAD_DIM == 512
     assert [port_flash.int8_padded_dim(d) for d in (40, 512, 520, 576)] == [48, 512, 0, 0]
     q = torch.zeros(1, 2048, 1, 576)
@@ -105,14 +112,14 @@ def test_the_caps_of_k5_and_k3():
 
 
 def test_dot_product_attention_takes_each_route_on_the_cpu(monkeypatch):
-    """On CPU tensors: d = 960 at N = 64 goes to the plain version (not the
-    kernel wrapper), d = 576 at N = 256 to the wrapper, and d = 640 at
-    N = 256 is refused."""
+    """On CPU tensors: d = 1032 at N = 64 goes to the plain version (not the
+    kernel wrapper), d = 576 at N = 256 and d = 960 at N = 64 to the
+    wrapper, and d = 1032 at N = 256 is refused."""
     calls = []
     monkeypatch.setattr(port_attention, "differentiable_flash_attention",
                         lambda *a: calls.append("K1") or port_flash.flash_attention_plain(*a))
     rng = np.random.default_rng(0)
-    for n, d, want in ((64, 960, []), (256, 576, ["K1"])):
+    for n, d, want in ((64, 1032, []), (256, 576, ["K1"]), (64, 960, ["K1"])):
         q, k, v = (torch.from_numpy(rng.standard_normal((2, n, 1, d)).astype(np.float32))
                    for _ in range(3))
         calls.clear()
@@ -120,8 +127,8 @@ def test_dot_product_attention_takes_each_route_on_the_cpu(monkeypatch):
         assert calls == want
         torch.testing.assert_close(out, port_flash.flash_attention_plain(q, k, v), rtol=0,
                                    atol=0)
-    q = torch.zeros(1, 256, 1, 640)
-    with pytest.raises(ValueError, match="K1 above d = 576"):
+    q = torch.zeros(1, 256, 1, 1032)
+    with pytest.raises(ValueError, match="K1 above d = 1024"):
         dot_product_attention(q, q, q)
 
 

@@ -131,7 +131,7 @@ def _bf16(*shape):
     (torch.zeros((1, 64, 2, 16)), _bf16(1, 64, 2, 16), TypeError),   # fp32 on the card path
     (_bf16(1, 64, 2, 16), _bf16(1, 64, 2, 24), ValueError),          # head dims differ
     (_bf16(1, 64, 2, 20), _bf16(1, 64, 2, 20), ValueError),          # d not a multiple of 8
-    (_bf16(1, 64, 1, 584), _bf16(1, 64, 1, 584), ValueError),        # d above 576
+    (_bf16(1, 64, 1, 1032), _bf16(1, 64, 1, 1032), ValueError),      # d above 1024
     (_bf16(1, 64, 2, 16), _bf16(2, 64, 2, 16), ValueError),          # batches differ
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(q, k, error):
