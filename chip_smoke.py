@@ -16,7 +16,10 @@ retrieval-augmented 768² RDM through knn2img's main() over an index from
 train_searcher, and the first-stage extras (MergedRescaleEncoder and
 -Decoder, TimestepVAEModel) at full width; last the VQ-f4 models' training
 over seeded JPEG trees: the VQ-f4 VQ-GAN and the LSUN-bedrooms and bsr_sr
-LDMs through --base, and the noisy-latent classifier.
+LDMs through --base, and the noisy-latent classifier; last the port's
+parallelism at SD v1 full width: DDP with ZeRO-1 on NCCL at one rank, then
+two ranks sharing the card over gloo (DDP training, sharded sampling,
+tensor parallelism).
 
     python3 chip_smoke.py
 
@@ -321,7 +324,29 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    pool attention), over VQ-f4 latents of the ImageNet tree at batch 16,
    3 steps: exactly K1 = 9 and K3 = 2 per step; then one
    classifier_guidance_corrector call at t = 500 (K1 = 8, K3 = 2), its
-   shifted eps finite and moved.
+   shifted eps finite and moved;
+35. [parallel nccl]: `python -m torch.distributed.run --standalone
+   --nproc_per_node 1 -m sd_tpu_torch.scripts.dryrun_multigpu --backend
+   nccl --legs train`: SD v1 at full width trained under DDP with ZeRO-1
+   (AdamW's moments and the EMA shadow partitioned) at batch 4, 3 steps,
+   exactly K1 = 33, K2 = 32 and K3 = 10 a step, then the same 3 steps in
+   one process without DDP, AdamW's first moments and the parameters'
+   deltas within the dry run's CARD_MOMENT_TOL and CARD_DELTA_TOL
+   (relative L2); the ms a step with and without DDP and the peak memory;
+36. [parallel 2 ranks, one card]: the same module on 2 ranks with
+   --backend gloo (NCCL refuses two ranks on one card; gloo's times are no
+   speed figure): (a) 2 DDP + ZeRO-1 steps at 2 a rank against one process
+   at batch 4 (the same launches a step on each rank; the first moments
+   and the deltas within CARD_MOMENT_TOL and CARD_DELTA_TOL); (b) sharded_sample at PLMS 50, guidance 7.5,
+   a batch of 8 against one process's batch of 8 from the same x_T
+   (relative L2 of the latents within 0.10; K1 = K2 = 16 x 51 a rank);
+   (c) one tensor-parallel UNet evaluation at B=2 against the replicated
+   one (relative L2 within the dry run's CARD_TP_TOL, 5e-2; one all-reduce a
+   row-parallel boundary; a rank's K1 = K2 = 16, the replicated counts);
+   (d) a line naming FSDP's collectives that gloo does not take on CUDA
+   tensors (HSDP runs on the CPU, in the tests). K1 and K2 at a rank's TP shapes
+   (4 heads of 40, 80 and 160; inner 640, 1280 and 2560, at B=2 and B=16)
+   are checked and timed with the other shapes in phases 3-4.
 
 The line before the last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}. Without CUDA it fails before printing either.
@@ -337,6 +362,7 @@ import json
 import os
 import re
 import subprocess
+import sys
 import tempfile
 import time
 from typing import Optional
@@ -398,6 +424,13 @@ RDM_FLASH_SHAPES = [(8, 2304, 14, 32), (8, 576, 28, 32), (8, 144, 42, 32), (8, 3
 # (M, C, inner): the RDM's FF sites at those levels, M = 8 x N: C = 1792
 # with inner 7168 is wider than any SD v1 FF
 RDM_FF_SHAPES = [(18432, 448, 1792), (4608, 896, 3584), (1152, 1344, 5376), (288, 1792, 7168)]
+# SD v1 tensor-parallel over 2 ranks (parallel/tp.py): a rank's K1 runs 4
+# heads of 40, 80 and 160, and its K2 an inner width of 640, 1280 and 2560,
+# at batch 1 with guidance (B=2) and batch 8 (B=16)
+TP_FLASH_SHAPES = [(2, 4096, 4, 40), (2, 1024, 4, 80), (2, 256, 4, 160), (2, 64, 4, 160),
+                   (16, 4096, 4, 40), (16, 1024, 4, 80), (16, 256, 4, 160), (16, 64, 4, 160)]
+TP_FF_SHAPES = [(8192, 320, 640), (2048, 640, 1280), (512, 1280, 2560), (128, 1280, 2560),
+                (65536, 320, 640), (16384, 640, 1280), (4096, 1280, 2560), (1024, 1280, 2560)]
 # (B, N, H, D): the safety checker's vision tower, the untrained one (7x7
 # patches of 32 and the class token, width 64, 4 heads) and ViT-L/14 (16x16
 # patches of 14 and the class token, 16 heads of 64), at batch 1 and 8: a new
@@ -926,7 +959,8 @@ def check_flash(randn) -> list:
               WIDE_FLASH_SHAPES,
               f"the {len(SPLIT_FLASH_SHAPES)} split-plan shapes": SPLIT_FLASH_SHAPES,
               f"the {len(RDM_FLASH_SHAPES)} RDM shapes": RDM_FLASH_SHAPES,
-              f"the {len(TRAIN_VQ_FLASH_SHAPES)} VQ-f4 training shapes": TRAIN_VQ_FLASH_SHAPES}
+              f"the {len(TRAIN_VQ_FLASH_SHAPES)} VQ-f4 training shapes": TRAIN_VQ_FLASH_SHAPES,
+              f"the {len(TP_FLASH_SHAPES)} tensor-parallel shapes": TP_FLASH_SHAPES}
     rows = []
     for label, shapes in groups.items():
         part = []
@@ -996,10 +1030,15 @@ def geglu_case(randn, shape, timed: bool = True) -> dict:
 
 def check_geglu(randn) -> list:
     rows = []
-    for shape in FF_SHAPES + RDM_FF_SHAPES:
+    for shape in FF_SHAPES + RDM_FF_SHAPES + TP_FF_SHAPES:
         log_ff_plan(shape)
         rows.append(geglu_case(randn, shape))
         free_memory()
+    tp = rows[-len(TP_FF_SHAPES):]
+    log(f"[K2 geglu_ff] over the {len(tp)} tensor-parallel shapes: kernel "
+        f"{sum(r['ms'] for r in tp):.4f} ms, plain {sum(r['plain_ms'] for r in tp):.4f} ms, "
+        f"unfused {sum(r['unfused_ms'] for r in tp):.4f} ms, bound "
+        f"{sum(r['bound_ms'] for r in tp):.4f} ms")
     return rows
 
 
@@ -4002,6 +4041,113 @@ def classifier_main_path(tree: dict) -> dict:
     return total
 
 
+# the dry run's names for the launch counters it reports
+DRYRUN_COUNTERS = {"K1": "flash_attention", "K2": "geglu_ff", "K3": "flash_attention_bwd"}
+# one UNet evaluation of SD v1, and PLMS 50 with guidance: a rank's K1 and K2
+TP_EVAL_LAUNCHES = {"K1": SITES_PER_UNET, "K2": SITES_PER_UNET, "K3": 0}
+SAMPLE_LAUNCHES = {"K1": SITES_PER_UNET * EVALS["plms"](STEPS),
+                   "K2": SITES_PER_UNET * EVALS["plms"](STEPS), "K3": 0}
+PARALLEL_TIMEOUT = 600
+
+
+def run_ranks(label: str, nproc: int, backend: str, legs: str, steps: int) -> list:
+    """``scripts/dryrun_multigpu.py`` on ``nproc`` ranks through
+    ``torch.distributed.run`` (SD v1, global batch 4): its output logged, a
+    non-zero exit a failure; returns each rank's DRYRUN record in rank order.
+    The ranks run in a session of their own, killed whole at the time limit."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+            str(nproc), "-m", "sd_tpu_torch.scripts.dryrun_multigpu", "--backend", backend,
+            "--legs", legs, "--batch", "4", "--steps", str(steps)]
+    env = {**os.environ, "PYTHONPATH": root, "OMP_NUM_THREADS": "1"}
+    log(f"[{label}] {' '.join(argv[1:])}")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, start_new_session=True)
+    try:
+        out, _ = proc.communicate(timeout=PARALLEL_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        proc.communicate()
+        raise
+    finally:
+        if proc.poll() is None:
+            os.killpg(proc.pid, 9)
+    rows = []
+    for line in out.splitlines():
+        if line.startswith("DRYRUN "):
+            rows.append(json.loads(line[len("DRYRUN "):]))
+        elif line.startswith("[dryrun") or "Error" in line or "error" in line:
+            log(f"[{label}]   {line}")
+    log(f"[{label}] {nproc} rank(s) exited {proc.returncode} after "
+        f"{time.perf_counter() - t0:.1f} s")
+    if proc.returncode != 0 or len(rows) != nproc:
+        log("\n".join(out.splitlines()[-60:]))
+        raise AssertionError(f"[{label}] exit code {proc.returncode}, {len(rows)} of {nproc} "
+                             f"records")
+    return sorted(rows, key=lambda r: r["rank"])
+
+
+def check_train_leg(label: str, rows: list, note: str = "") -> dict:
+    """Every rank's per-step launches exactly TRAIN_LAUNCHES; logs the ms
+    per step with and without DDP, the gap to one process and the peak
+    memory; returns the launches summed over ranks and steps."""
+    want = {k: TRAIN_LAUNCHES.get(name, 0) for k, name in DRYRUN_COUNTERS.items()}
+    total = dict.fromkeys(DRYRUN_COUNTERS, 0)
+    for r in rows:
+        leg = r["train"]
+        for step, counts in enumerate(leg["launches"], 1):
+            if counts != want:
+                raise AssertionError(f"[{label}] rank {r['rank']} step {step}: launches "
+                                     f"{counts} != {want}")
+            total = {k: total[k] + counts[k] for k in total}
+        z = leg["zero"]
+        log(f"[{label}] rank {r['rank']}: DDP + ZeRO-1 steps {' '.join(f'{t:.1f}' for t in leg['ms'])} "
+            f"ms{note}, losses {' '.join(f'{x:.5f}' for x in leg['loss'])}, peak memory "
+            f"{leg['peak_gib']:.2f} GiB, moments owned {z['owned_bytes'] / 2**30:.3f} GiB of a "
+            f"share of {z['share_bytes'] / 2**30:.3f}, EMA tensors {z['ema_tensors']} of "
+            f"{z['tensors']}; launches a step {want}")
+    ref = rows[0]["train"]
+    log(f"[{label}] one process at batch 4 (no DDP, no ZeRO): "
+        f"{' '.join(f'{t:.1f}' for t in ref['reference_ms'])} ms, peak memory "
+        f"{ref['reference_peak_gib']:.2f} GiB; against it: AdamW's first moments relative L2 "
+        f"{ref['moment_rel_l2']:.3e}, the deltas' {ref['delta_rel_l2']:.3e}, parameters max "
+        f"abs {ref['max_abs']:.3e}, EMA max abs {ref['ema_max_abs']:.3e}")
+    return total
+
+
+def parallel_main_paths() -> list:
+    """[parallel nccl] and [parallel 2 ranks, one card]: the dry run of the
+    port's parallelism at SD v1 full width; returns the ranks' launches."""
+    t_phase = time.perf_counter()
+    rows = run_ranks("parallel nccl", 1, "nccl", "train", 3)
+    runs = [check_train_leg("parallel nccl", rows)]
+    free_memory()
+    rows = run_ranks("parallel 2 ranks, one card", 2, "gloo", "train,sample,tp,hsdp", 2)
+    label = "parallel 2 ranks, one card"
+    gloo = " (gloo's collectives through the host: no speed figure)"
+    runs.append(check_train_leg(label, rows, gloo))
+    for r in rows:
+        sample, tp, hsdp = r["sample"], r["tp"], r["hsdp"]
+        if sample["launches"] != SAMPLE_LAUNCHES:
+            raise AssertionError(f"[{label}] rank {r['rank']} sharded_sample launches "
+                                 f"{sample['launches']} != {SAMPLE_LAUNCHES}")
+        if (tp["launches"] != TP_EVAL_LAUNCHES or tp["replicated_launches"] != TP_EVAL_LAUNCHES
+                or tp["all_reduces"] != tp["boundaries"]):
+            raise AssertionError(f"[{label}] rank {r['rank']} tp: {tp}")
+        runs += [sample["launches"], tp["launches"]]
+        log(f"[{label}] rank {r['rank']}: sharded_sample PLMS {STEPS} at 4 of a batch of 8 "
+            f"{sample['s']:.2f} s{gloo}, launches {sample['launches']}; tp UNet at B=2: "
+            f"{tp['sharded_tensors']} tensors sharded, {tp['all_reduces']} all-reduces for "
+            f"{tp['boundaries']} row-parallel boundaries, relative L2 {tp['rel_l2']:.3e}, "
+            f"launches {tp['launches']} (replicated {tp['replicated_launches']}); hsdp "
+            f"{'ran' if hsdp['ran'] else 'not run: ' + hsdp.get('refused', hsdp.get('reason'))}")
+    log(f"[{label}] one process samples the batch of 8 in {rows[0]['sample']['single_s']:.2f} "
+        f"s; the sharded latents against it: relative L2 {rows[0]['sample']['rel_l2']:.3e}")
+    log(f"[parallel] phases {time.perf_counter() - t_phase:.1f} s")
+    return [{DRYRUN_COUNTERS[k]: v for k, v in run.items()} for run in runs]
+
+
 def free_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4054,6 +4200,8 @@ def main() -> None:
     extras = vae_extras_main_path()
     free_memory()
     data_runs = data_main_paths()
+    free_memory()
+    parallel_runs = parallel_main_paths()
     source = {"flash_attention": ("sd_tpu_torch/csrc/flash_attention.cu",
                                   "sd_tpu/ops/pallas/flash_attention.py:324"),
               "geglu_ff": ("sd_tpu_torch/csrc/geglu_ff.cu",
@@ -4076,7 +4224,7 @@ def main() -> None:
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
     runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
             served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
-            inpainted, sampled, cin256, superres, knn, extras, *data_runs)
+            inpainted, sampled, cin256, superres, knn, extras, *data_runs, *parallel_runs)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all
@@ -4085,7 +4233,7 @@ def main() -> None:
         ops_ms = sum(r["bound_ms"] for r in timed if r["bound_by"] == "operations")
         kernels.append({
             "name": k, "route": "cuda", "source": source[k][0], "replaces": source[k][1],
-            "launches": sum(run[k] for run in runs),
+            "launches": sum(run.get(k, 0) for run in runs),
             "max_abs_err": max(r["err"] for r in rows),
             "ms": sum(r["ms"] for r in timed), "plain_ms": sum(r["plain_ms"] for r in timed),
             "bound_ms": sum(r["bound_ms"] for r in timed),

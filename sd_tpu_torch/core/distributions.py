@@ -18,6 +18,8 @@ import math
 
 import torch
 
+from sd_tpu_torch.core.draws import draw
+
 __all__ = ["DiagonalGaussian", "normal_kl"]
 
 
@@ -34,10 +36,11 @@ class DiagonalGaussian:
     def sample(self, generator: Optional[torch.Generator] = None,
                noise: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Reparameterized sample ``mean + exp(logvar / 2) * noise``; ``noise``
-        defaults to a standard normal draw from ``generator``."""
+        defaults to a standard normal draw from ``generator`` (or a
+        ``RowDraws``)."""
         if noise is None:
-            noise = torch.randn(self.mean.shape, generator=generator, device=self.mean.device,
-                                dtype=self.mean.dtype)
+            noise = draw(torch.randn, self.mean.shape, generator, self.mean.device,
+                         dtype=self.mean.dtype)
         return self.mean + torch.exp(0.5 * self.logvar) * noise.to(self.mean.dtype)
 
     def mode(self) -> torch.Tensor:

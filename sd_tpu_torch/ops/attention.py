@@ -205,12 +205,17 @@ class FeedForward(quant.Int8Weights, nn.Module):
         if self.training and dropout.p > 0:
             return out(dropout(geglu(x)))
         proj = geglu.proj
+        # a row-parallel output projection (parallel/tp.py) sums the ranks'
+        # partial outputs and adds its bias after the sum
+        reduce = getattr(out, "reduce", None)
+        b2 = out.bias if reduce is None else torch.zeros_like(out.bias)
         if not _takes_kernel(x):
-            return geglu_ff_plain(x, proj.weight, proj.bias, out.weight, out.bias)
-        if int8_ff_supported(self.int8, x, out.weight.shape[1]):
-            return geglu_ff_int8(x, proj.weight, proj.bias, out.weight, out.bias,
-                                 self.int8_weights())
-        return differentiable_geglu_ff(x, proj.weight, proj.bias, out.weight, out.bias)
+            y = geglu_ff_plain(x, proj.weight, proj.bias, out.weight, b2)
+        elif int8_ff_supported(self.int8, x, out.weight.shape[1]):
+            y = geglu_ff_int8(x, proj.weight, proj.bias, out.weight, b2, self.int8_weights())
+        else:
+            y = differentiable_geglu_ff(x, proj.weight, proj.bias, out.weight, b2)
+        return y if reduce is None else reduce(y)
 
 
 class CrossAttention(quant.Int8Weights, nn.Module):

@@ -59,10 +59,16 @@ def _fused_pair_supported(x_shape, out_ch: int, dtype: torch.dtype) -> bool:
 def _takes_fused_path(block: nn.Module, dropout: nn.Dropout, conv2: nn.Module,
                       x: torch.Tensor) -> bool:
     """``sd_tpu``'s dispatch condition: no in-block resample, dropout off or
-    0, the mode on, and both convs of the block supported at ``x``."""
-    return (getattr(block, "resample", None) is None
-            and (not block.training or dropout.p == 0.0) and fused_conv_enabled(block.conv_impl)
-            and _fused_pair_supported(x.shape, conv2.out_channels, x.dtype))
+    0, the mode on, and both convs of the block supported at ``x``. Raises
+    where it holds in a tensor-parallel block (``parallel/tp.py``), whose
+    second conv sums over the ranks before its bias and the skip."""
+    fused = (getattr(block, "resample", None) is None
+             and (not block.training or dropout.p == 0.0) and fused_conv_enabled(block.conv_impl)
+             and _fused_pair_supported(x.shape, conv2.out_channels, x.dtype))
+    if fused and getattr(conv2, "tensor_parallel", False):
+        raise ValueError("a tensor-parallel ResBlock does not run the fused conv mode (K7); "
+                         "tensor parallelism runs SD_TPU_FUSED_CONV=auto")
+    return fused
 
 
 def _resample(x: torch.Tensor, kind: str) -> torch.Tensor:

@@ -9,9 +9,12 @@ each axis right-aligned so that the whole canvas is covered
 stitched by an overlap-add weighted by each pixel's distance to its patch's
 border (:func:`tiling_weights`), normalised by the summed weights. Tensors
 are NCHW (patches ``[B, P, C, ks, ks]``); the overlap-add sums in float32
-and returns the patches' dtype. ``sd_tpu``'s ``mesh`` argument, which
-shards the patch axis over chips, waits for the port's parallelism
-(``ROADMAP.md``'s modules item 8).
+and returns the patches' dtype. With a ``mesh`` (``parallel/mesh.py``) the
+flattened ``[B·P]`` patch axis is sharded over the ranks of its
+``mesh_axis``: each rank runs ``fn`` on its block of patches, the last
+block padded with zero patches where the ranks do not divide B·P (as GSPMD
+pads the last shard), the outputs are gathered in rank order and the
+padding dropped before the fold.
 """
 
 from __future__ import annotations
@@ -74,18 +77,34 @@ def fold_patches(patches: torch.Tensor, out_hw: Tuple[int, int], ks: int,
     return (out / norm).to(patches.dtype)
 
 
+def _sharded(fn: Callable[[torch.Tensor], torch.Tensor], flat: torch.Tensor, mesh,
+             mesh_axis: str) -> torch.Tensor:
+    """``fn`` on this rank's block of ``flat``'s rows (zero rows pad the
+    last block), every rank's outputs gathered in rank order, the padding
+    dropped."""
+    from sd_tpu_torch.parallel.mesh import all_gather_rows, axis_info
+
+    group, index, count = axis_info(mesh, mesh_axis)
+    n = flat.shape[0]
+    per = -(-n // count)
+    padded = torch.cat([flat, flat.new_zeros((per * count - n,) + flat.shape[1:])])
+    out = fn(padded[index * per:(index + 1) * per])
+    return all_gather_rows(out.contiguous(), group)[:n]
+
+
 def tiled_apply(fn: Callable[[torch.Tensor], torch.Tensor], x: torch.Tensor, ks: int = 128,
                 stride: int = 64, out_scale: float = 1, clip_min: float = 0.01,
-                clip_max: float = 0.5) -> torch.Tensor:
+                clip_max: float = 0.5, mesh=None, mesh_axis: str = "data") -> torch.Tensor:
     """``fn`` (``[N, C, ks, ks]`` → ``[N, C', ks·s, ks·s]``) over the
-    overlapping tiles of ``x [B, C, H, W]`` in one call, stitched to
-    ``[B, C', H·s, W·s]`` for ``s = out_scale``: above 1 for a decoder, below
-    1 for an encoder (``ks``, the starts and the canvas must then scale to
-    whole numbers)."""
+    overlapping tiles of ``x [B, C, H, W]`` in one call (one a rank with a
+    ``mesh``), stitched to ``[B, C', H·s, W·s]`` for ``s = out_scale``:
+    above 1 for a decoder, below 1 for an encoder (``ks``, the starts and the
+    canvas must then scale to whole numbers)."""
     b, _, h, w = x.shape
     patches, sy, sx = extract_patches(x, ks, stride)
     p = patches.shape[1]
-    out = fn(patches.reshape((b * p,) + patches.shape[2:]))
+    flat = patches.reshape((b * p,) + patches.shape[2:])
+    out = fn(flat) if mesh is None else _sharded(fn, flat, mesh, mesh_axis)
     sizes = [v * out_scale for v in (ks, h, w, *sy, *sx)]
     if not all(float(v).is_integer() for v in sizes):
         raise ValueError(f"tiled_apply: ks {ks}, stride {stride}, canvas {h}x{w} do not scale "

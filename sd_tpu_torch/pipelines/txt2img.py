@@ -12,6 +12,15 @@ waiting for it (CUDA's stream is asynchronous), and
 :meth:`Txt2ImgPipeline._finish` fetches and post-processes it;
 :meth:`Txt2ImgPipeline.map_batches` keeps ``depth`` requests in flight so
 that the host's work on request i overlaps the card's on request i+1.
+
+With a ``mesh`` (``parallel/mesh.py``, ``sd_tpu``'s field) every rank of
+its ``data`` dim serves the request together: the prompts, the negative
+prompts and ``x_T`` are sharded by rank (contiguous blocks of rows), each
+rank encodes, samples, decodes and scores its rows, and the uint8 images,
+the flags and the latents are gathered in rank order, so every rank returns
+the whole batch. The generator's draws are the whole batch's, of which a
+rank takes its rows (``core/draws.py::RowDraws``): the images do not
+depend on the number of ranks. ``last_timings`` are the rank's own.
 """
 
 from __future__ import annotations
@@ -24,7 +33,9 @@ from typing import Any, Callable, Dict, Iterable, Iterator, List, Optional, Sequ
 import numpy as np
 import torch
 
+from sd_tpu_torch.core.draws import RowDraws
 from sd_tpu_torch.models.ldm import LatentDiffusion
+from sd_tpu_torch.parallel.mesh import all_gather_rows, axis_info, take_rows
 from sd_tpu_torch.pipelines.safety import SafetyChecker, replace_flagged
 from sd_tpu_torch.samplers.common import randn
 from sd_tpu_torch.samplers.ddim import ddim_sample
@@ -53,6 +64,8 @@ class Txt2ImgPipeline:
     watermarker: Optional[Callable[[np.ndarray], np.ndarray]] = None
     latent_channels: int = 4
     downsample: int = 8
+    # a DeviceMesh whose "data" dim shards each request's batch over the ranks
+    mesh: Optional[Any] = None
     last_latents: Optional[torch.Tensor] = None
     last_safety_flags: Optional[List[bool]] = None
     last_timings: Dict[str, float] = dataclasses.field(default_factory=dict)
@@ -125,13 +138,18 @@ class Txt2ImgPipeline:
                 self._sync()
                 clock.append(time.perf_counter())
 
-        cond = self.encode_prompts(prompts)
-        uncond = None
+        neg = None
         if guidance_scale != 1.0:
-            neg = negative_prompts if negative_prompts is not None else [""] * len(prompts)
+            neg = list(negative_prompts) if negative_prompts is not None else [""] * len(prompts)
             if len(neg) != len(prompts):
                 raise ValueError(f"{len(neg)} negative prompts for {len(prompts)} prompts")
-            uncond = self.encode_prompts(list(neg))
+        group, index, count = axis_info(self.mesh, "data")
+        if count > 1:
+            prompts, neg, x_T = (take_rows(v, index, count) for v in (prompts, neg, x_T))
+            if generator is not None:
+                generator = RowDraws(generator, index, count)
+        cond = self.encode_prompts(prompts)
+        uncond = None if neg is None else self.encode_prompts(neg)
         lap()
         z = self.sample_latents(cond, uncond, generator, height=height, width=width,
                                 steps=steps, guidance_scale=guidance_scale, sampler=sampler,
@@ -140,6 +158,10 @@ class Txt2ImgPipeline:
         images = self.decode_to_uint8(z)
         lap()
         flags = self.safety_checker.nsfw_scores(images) if self.safety_checker else None
+        if count > 1:
+            images, z = all_gather_rows(images, group), all_gather_rows(z.contiguous(), group)
+            if flags is not None:
+                flags = all_gather_rows(flags.to(torch.uint8), group).bool()
         lap()
         return {"images": images, "flags": flags, "latents": z, "clock": clock}
 

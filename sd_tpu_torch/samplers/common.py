@@ -14,7 +14,9 @@ reproduce. Each sampler here draws from a ``torch.Generator`` (on the
 generator's device, then moved to the latents', so a CPU generator gives
 the same draws to a CPU and a CUDA run), or takes the draws as per-step
 tensors. With ``log_every_t > 0`` the DDIM and PLMS samplers return
-``(x, intermediates)``, else ``x``.
+``(x, intermediates)``, else ``x``. A ``core/draws.py`` ``RowDraws`` in place of
+the generator gives a data-parallel rank its rows of the draws one process makes
+for the whole batch (``parallel/sharded_sampling.py``, the LDM train step).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from sd_tpu_torch.core.schedules import (
     make_ddim_timesteps,
     q_sample,
 )
+from sd_tpu_torch.core.draws import RowDraws, draw
 
 __all__ = ["make_guided_eps", "wrap_model_output", "apply_noise_dropout", "DDIMTables",
            "build_ddim_tables", "build_original_step_tables", "ddim_step_from_eps",
@@ -40,10 +43,11 @@ EpsModel = Callable[[torch.Tensor, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
 def randn(shape, generator: Optional[torch.Generator], device) -> torch.Tensor:
-    """A standard normal float32 draw from ``generator`` on its own device
-    (the default generator of ``device`` without one), moved to ``device``."""
+    """A standard normal float32 draw from ``generator`` (or a
+    :class:`RowDraws`) on its own device (the default generator of
+    ``device`` without one), moved to ``device``."""
     where = generator.device if generator is not None else device
-    return torch.randn(shape, generator=generator, device=where).to(device)
+    return draw(torch.randn, shape, generator, where).to(device)
 
 
 def step_draw(given: Optional[Sequence[torch.Tensor]], i: int, like: torch.Tensor,
@@ -63,7 +67,7 @@ def apply_noise_dropout(noise: torch.Tensor, p: float,
     boolean mask of survivors, else drawn from ``generator``."""
     if keep is None:
         where = generator.device if generator is not None else noise.device
-        keep = torch.rand(noise.shape, generator=generator, device=where) < 1.0 - p
+        keep = draw(torch.rand, noise.shape, generator, where) < 1.0 - p
     keep = torch.as_tensor(keep, device=noise.device)
     return torch.where(keep, noise / (1.0 - p), torch.zeros_like(noise))
 

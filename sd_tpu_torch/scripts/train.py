@@ -43,6 +43,21 @@ as ``main.py`` does. SIGUSR1 saves
 ``<logdir>/configs/project.yaml`` (as JSON, which is YAML), so that
 ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img CLI's
 ``--ckpt <logdir>`` can sample from an LDM run.
+
+Data parallelism: under ``torchrun`` an LDM run trains on every rank,
+
+    torchrun --nproc_per_node N -m sd_tpu_torch.scripts.train ... [--backend nccl|gloo]
+
+``--backend`` defaults to the device's (``nccl`` for ``cuda``, ``gloo``
+for ``cpu``; ``gloo`` on the card is what puts several ranks on one card).
+Each rank loads its shard of the data (``idx[rank::N]`` at the config's
+batch size, a rank's), the LR scales by N (the ranks) times the batch
+size, the trained modules run under DDP, and ``--zero`` (ZeRO-1: AdamW's
+moments and the EMA shadow partitioned over the ranks) is on by default for
+N > 1. Rank 0 alone writes the config, the checkpoints, the images and the
+metrics; the run's directory is rank 0's. A first-stage run trains in one
+process. Without ``WORLD_SIZE`` in the environment the CLI runs as one
+process, as it always did.
 """
 
 from __future__ import annotations
@@ -54,6 +69,9 @@ import os
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
+
+from sd_tpu_torch.parallel.mesh import BACKENDS, is_main_process, launched, rank, world_size
+
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p = argparse.ArgumentParser()
@@ -79,6 +97,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     p.add_argument("--scale_lr", type=lambda v: v.lower() != "false", default=True,
                    help="scale the base LR by the batch size (default true)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--backend", type=str, default=None, choices=BACKENDS,
+                   help="the process group's backend under torchrun (default: nccl for "
+                        "cuda, gloo for cpu)")
+    p.add_argument("--zero", type=lambda v: v.lower() != "false", default=None,
+                   help="ZeRO-1 under torchrun (default: true for more than one rank)")
     opt, unknown = p.parse_known_args(argv)
     opt.dotlist = [a for a in unknown if "=" in a and not a.startswith("-")]
     rest = [a for a in unknown if a not in opt.dotlist]
@@ -110,19 +133,24 @@ def assemble_config(opt: argparse.Namespace) -> Tuple[Dict[str, Any], str]:
     else:
         now = datetime.datetime.now().strftime("%Y-%m-%dT%H-%M-%S")
         name = opt.name or os.path.splitext(os.path.basename(opt.base[0]))[0]
-        logdir = os.path.join(opt.logdir, f"{now}_{name}")
+        logdir = [os.path.join(opt.logdir, f"{now}_{name}")]
+        if world_size() > 1:  # rank 0's clock names the run
+            torch.distributed.broadcast_object_list(logdir, src=0)
+        logdir = logdir[0]
     config = apply_dotlist(merge_configs(configs), opt.dotlist)
     if opt.batch_size:
         config["data"]["params"]["batch_size"] = opt.batch_size
     return config, logdir
 
 
-def build_trainer(opt: argparse.Namespace):
+def build_trainer(opt: argparse.Namespace, device: Optional[torch.device] = None):
     """Returns ``(harness, state, data)``: the ``Trainer`` (its ``logdir``
-    the run's directory), the initial trainer state and the data module."""
+    the run's directory), the initial trainer state and the data module;
+    on ``device`` (default ``--device``), over this rank's shard of the
+    data where a process group is up."""
     from sd_tpu_torch.training.trainer import DataModuleFromConfig
 
-    device = torch.device(opt.device)
+    device = torch.device(opt.device) if device is None else device
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda: no CUDA device is available")
     config, logdir = assemble_config(opt)
@@ -130,13 +158,17 @@ def build_trainer(opt: argparse.Namespace):
                         seed=opt.seed, log_every=opt.log_every)
     model_cfg = config["model"]
     data_cfg = dict(config["data"]["params"])
-    data = DataModuleFromConfig(**data_cfg)
+    data = DataModuleFromConfig(**data_cfg, num_shards=world_size(), shard_index=rank())
     if model_cfg["target"].split(".")[-1] in ("AutoencoderKL", "VQModel", "VQModelInterface"):
+        if world_size() > 1:
+            raise SystemExit(f"{model_cfg['target']}: a first-stage run trains in one process; "
+                             f"data parallelism covers LDM runs")
         harness, state, data = _first_stage(opt, model_cfg, data, device, harness_args)
     else:
         harness, state = _latent_diffusion(opt, model_cfg, data_cfg["batch_size"], device,
                                            harness_args)
-    write_project_config(logdir, config)
+    if is_main_process():
+        write_project_config(logdir, config)
     return harness, state, data
 
 
@@ -145,7 +177,7 @@ def _learning_rate(opt, model_cfg: Dict[str, Any], batch_size: int, default: flo
 
     base_lr = model_cfg.get("params", {}).get("base_learning_rate",
                                               model_cfg.get("base_learning_rate", default))
-    return scale_learning_rate(base_lr, batch_size, 1, scale=opt.scale_lr)
+    return scale_learning_rate(base_lr, batch_size, world_size(), scale=opt.scale_lr)
 
 
 def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
@@ -160,8 +192,12 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
     sched = mp.get("scheduler_config")
     schedule_fn = instantiate_from_config(sched) if sched else None
     train_cond_stage = bool(mp.get("cond_stage_trainable", False))
-    if train_cond_stage:
+    if train_cond_stage and is_main_process():
         print("LatentDiffusion: Also optimizing conditioner params!")
+    parallel = {}
+    if launched():  # DDP over the job's ranks, ZeRO-1 by default from 2 of them
+        zero = opt.zero if opt.zero is not None else world_size() > 1
+        parallel = dict(data_group=torch.distributed.group.WORLD, zero=zero)
     trainer_obj, state = create_train_state(
         ldm, lr, schedule_fn, loss_type=mp.get("loss_type", "l2"),
         l_simple_weight=float(mp.get("l_simple_weight", 1.0)),
@@ -169,14 +205,15 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
         use_ema=bool(mp.get("use_ema", True)), train_cond_stage=train_cond_stage,
         learn_logvar=bool(mp.get("learn_logvar", False)),
         logvar_init=float(mp.get("logvar_init", 0.0)),
-        scale_by_std=bool(mp.get("scale_by_std", False)))
+        scale_by_std=bool(mp.get("scale_by_std", False)), **parallel)
     logdir = harness_args["logdir"]
+    main = is_main_process()
     # a --base run logs its steps and validations as main.py's does:
     # <logdir>/metrics.jsonl and TensorBoard events under <logdir>/tb
     harness = Trainer(trainer_obj=trainer_obj, val_every=opt.val_every,
                       monitor=mp.get("monitor"),
-                      image_logger=None if opt.no_images else ImageLogger(logdir),
-                      metrics_writer=MetricsWriter(logdir) if from_base(opt) else None,
+                      image_logger=None if opt.no_images or not main else ImageLogger(logdir),
+                      metrics_writer=MetricsWriter(logdir) if from_base(opt) and main else None,
                       **harness_args)
     return harness, state
 
@@ -218,11 +255,22 @@ def write_project_config(logdir: str, config: dict) -> str:
 
 
 def main(argv: Optional[Sequence[str]] = None) -> None:
+    from sd_tpu_torch.parallel.mesh import init_distributed
+
     opt = parse_args(argv)
-    harness, state, data = build_trainer(opt)
-    if opt.train or not from_base(opt):
-        harness.fit(state, data, resume=bool(opt.resume))
-    print(f"Done at step {state.step}. Logs at {harness.logdir}")
+    device = None
+    if launched():
+        backend = opt.backend or ("nccl" if torch.device(opt.device).type == "cuda" else "gloo")
+        device = init_distributed(backend, opt.device)
+    try:
+        harness, state, data = build_trainer(opt, device)
+        if opt.train or not from_base(opt):
+            harness.fit(state, data, resume=bool(opt.resume))
+        if is_main_process():
+            print(f"Done at step {state.step}. Logs at {harness.logdir}")
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,6 +18,24 @@
 - ``create_train_state``: AdamW with optax.adamw's defaults (betas 0.9 and
   0.999, eps 1e-8, weight decay 1e-4, not PyTorch's 0.01).
 
+Data parallelism (``data_group``, under ``torchrun``), as the reference's
+Lightning DDP: the trained modules (the UNet, a trained cond stage, a
+learned logvar table; not the frozen first stage) are wrapped in one
+``DistributedDataParallel``, whose forward is :meth:`LDMTrainer.loss_fn`;
+gradients are averaged over the ranks, the non-final micro-batches of an
+accumulation run under ``no_sync()``, and with ``zero`` AdamW's moments and
+the EMA shadow are partitioned over the ranks (ZeRO-1,
+``parallel/mesh.py::zero_state_sharding``; each rank updates the EMA of
+what it owns). Each rank holds the rows ``rank::n`` of a global batch (the
+loader's shard), and the step's draws (the posterior's noise, t, the
+noise) are made for the global micro-batch from the one generator, in the
+single-process order, of which the rank takes its rows
+(``core/draws.py::RowDraws``): N ranks at batch B step as one process at
+batch N·B, and at one rank the draws are the single-process ones.
+``sd_tpu``'s ``Trainer.fit`` runs ``train_step`` on one device whatever
+the process count, so its multi-process runs train unsynchronised replicas;
+the port follows the reference.
+
 Precision. On the card the UNet (and a trained cond stage, and the logvar
 table) keeps fp32 master weights and fp32 AdamW moments, its forward and
 backward run under ``torch.autocast`` in bf16 (the GroupNorm/LayerNorm/
@@ -36,8 +54,10 @@ import numpy as np
 import torch
 from torch import nn
 
+from sd_tpu_torch.core.draws import RowDraws, draw
 from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
 from sd_tpu_torch.models.ldm import LatentDiffusion
+from sd_tpu_torch.parallel.mesh import rank, world_size, zero_state_sharding
 from sd_tpu_torch.training.ema import EmaState, ema_init, ema_update
 from sd_tpu_torch.utils.checkpoint import COND_STAGE_PREFIX
 
@@ -141,10 +161,20 @@ class TrainState:
         return out
 
     def state_dict(self) -> Dict[str, Any]:
+        """The single-process layout on every rank but the optimizer's, which
+        ZeRO-1 consolidates on rank 0 alone (None elsewhere). Under ZeRO-1
+        every rank calls it (collectives gather the optimizer's and the
+        EMA's shards)."""
+        optimizer = self.optimizer
+        if hasattr(optimizer, "consolidate_state_dict"):  # ZeroRedundancyOptimizer
+            optimizer.consolidate_state_dict(to=0)
+            opt_sd = optimizer.state_dict() if rank(optimizer.process_group) == 0 else None
+        else:
+            opt_sd = optimizer.state_dict()
         return {"step": self.step, "unet": self.unet.state_dict(),
                 "cond_stage": self.cond_stage.state_dict() if self.cond_stage else None,
                 "logvar": None if self.logvar is None else self.logvar.detach(),
-                "optimizer": self.optimizer.state_dict(),
+                "optimizer": opt_sd,
                 "scheduler": self.scheduler.state_dict() if self.scheduler else None,
                 "ema": self.ema.state_dict() if self.ema else None}
 
@@ -182,8 +212,15 @@ class LDMTrainer:
     learn_logvar: bool = False
     logvar_init: float = 0.0
     scale_by_std: bool = False
+    # data parallelism: the process group whose ranks split each batch (the
+    # whole job: torch.distributed.group.WORLD), None in one process; with
+    # zero, ZeRO-1 over it
+    data_group: Any = None
+    zero: bool = False
     # the learned logvar table (learn_logvar), made by init_state
     logvar: Optional[nn.Parameter] = dataclasses.field(default=None, init=False)
+    # the DistributedDataParallel over the trained modules, made by init_state
+    ddp: Optional[nn.Module] = dataclasses.field(default=None, init=False)
 
     @property
     def unet(self) -> nn.Module:
@@ -225,7 +262,26 @@ class LDMTrainer:
         state.optimizer, state.scheduler = make_optimizer(list(params.values()), self.base_lr,
                                                           self.schedule_fn)
         state.ema = ema_init(params) if self.use_ema else None
+        if self.data_group is not None:
+            from torch.nn.parallel import DistributedDataParallel
+
+            # rank 0's weights go to every rank as DDP starts
+            self.ddp = DistributedDataParallel(
+                _TrainedModules(self), device_ids=[self.device] if self.device.type == "cuda"
+                else None, process_group=self.data_group, gradient_as_bucket_view=True)
+            if self.zero:
+                zero_state_sharding(state, self.data_group)
+        elif self.zero:
+            raise ValueError("zero needs a data_group")
         return state
+
+    def _draws(self, generator: Optional[torch.Generator]):
+        """``generator``, or under data parallelism this rank's rows of its
+        draws for the global micro-batch (the loader's rows ``rank::n``)."""
+        n = world_size(self.data_group) if self.data_group is not None else 1
+        if generator is None or n == 1:
+            return generator
+        return RowDraws(generator, rank(self.data_group), n, strided=True)
 
     def _cond_input(self, batch: Mapping[str, Any]):
         """The cond stage's input: the batch's ``cond_stage_key`` entry on
@@ -247,14 +303,24 @@ class LDMTrainer:
         """Sets ``ldm.scale_factor`` to one over the (unbiased) std of
         ``batch``'s latents, encoded at scale 1 as a posterior sample from
         ``generator`` (or with ``noise``); returns it. Refuses a config that
-        set its own ``scale_factor``."""
+        set its own ``scale_factor``. Under data parallelism the std is the
+        global batch's (the ranks' sums, all-reduced in float64)."""
         if float(self.ldm.scale_factor) != 1.0:
             raise ValueError("rather not use custom rescaling and std-rescaling simultaneously")
         print("### USING STD-RESCALING ###")
         with self.autocast():
             encoding = self.ldm.encode_first_stage(self._images(batch))
-        z = encoding if torch.is_tensor(encoding) else encoding.sample(generator, noise)
-        scale = 1.0 / float(z.float().flatten().std())
+        z = encoding if torch.is_tensor(encoding) else encoding.sample(self._draws(generator),
+                                                                        noise)
+        if self.data_group is None:
+            std = float(z.float().flatten().std())
+        else:
+            zd = z.double().flatten()
+            sums = torch.stack([zd.new_tensor(zd.numel()), zd.sum(), zd.square().sum()])
+            torch.distributed.all_reduce(sums, group=self.data_group)
+            count, total, squares = sums.tolist()
+            std = ((squares - total * total / count) / (count - 1)) ** 0.5
+        scale = 1.0 / std
         self.ldm.scale_factor = scale
         print(f"setting self.scale_factor to {scale}")
         print("### USING STD-RESCALING ###")
@@ -301,11 +367,13 @@ class LDMTrainer:
     def loss_fn(self, batch: Mapping[str, Any], generator: torch.Generator
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """Latents and conditioning, then t and noise, all drawn from
-        ``generator``; returns ``p_losses``' loss and dict."""
-        z, cond = self.latents_and_cond(batch, generator)
-        t = torch.randint(0, self.ldm.schedule.num_timesteps, (z.shape[0],),
-                          generator=generator, device=self.device)
-        noise = torch.randn(z.shape, generator=generator, device=self.device)
+        ``generator`` (this rank's rows of the global micro-batch's draws
+        under data parallelism); returns ``p_losses``' loss and dict."""
+        draws = self._draws(generator)
+        z, cond = self.latents_and_cond(batch, draws)
+        t = draw(torch.randint, (z.shape[0],), draws, self.device, 0,
+                 self.ldm.schedule.num_timesteps)
+        noise = draw(torch.randn, z.shape, draws, self.device)
         return self.loss_at(z, cond, t, noise)
 
     def train_step(self, state: TrainState, batch: Mapping[str, Any],
@@ -323,10 +391,14 @@ class LDMTrainer:
         state.optimizer.zero_grad(set_to_none=True)
         arrays = {k: batch[k] for k in ("image", self.ldm.cond_stage_key) if k in batch}
         n = len(arrays["image"]) // accum
+        loss_fn = self.loss_fn if self.ddp is None else self.ddp
         for i in range(accum):
             micro = {k: rows(v, i * n, (i + 1) * n) for k, v in arrays.items()}
-            loss, aux = self.loss_fn(micro, generator)
-            (loss / accum).backward()
+            # DDP all-reduces the gradients after the last micro-batch only
+            sync = self.ddp is None or i == accum - 1
+            with contextlib.nullcontext() if sync else self.ddp.no_sync():
+                loss, aux = loss_fn(micro, generator)
+                (loss / accum).backward()
         state.optimizer.step()
         if state.scheduler is not None:
             state.scheduler.step()
@@ -334,6 +406,23 @@ class LDMTrainer:
             ema_update(state.ema, state.trainables())
         state.step += 1
         return {k: v.detach() for k, v in aux.items()}
+
+
+class _TrainedModules(nn.Module):
+    """The trained modules of an :class:`LDMTrainer` as one module for
+    ``DistributedDataParallel``; its forward is the trainer's ``loss_fn``."""
+
+    def __init__(self, trainer: LDMTrainer):
+        super().__init__()
+        self.unet = trainer.unet
+        if trainer.train_cond_stage:
+            self.cond_stage = trainer.ldm.cond_stage_model
+        if trainer.logvar is not None:
+            self.logvar = trainer.logvar
+        self._loss_fn = trainer.loss_fn
+
+    def forward(self, batch: Mapping[str, Any], generator: torch.Generator):
+        return self._loss_fn(batch, generator)
 
 
 def create_train_state(ldm: LatentDiffusion, base_lr: float,

@@ -24,6 +24,17 @@ generators of their own, seeded from (seed, step) too, so they change
 nothing of the training run. They run with the UNet in ``eval()`` under
 ``no_grad`` and the train step's autocast (bf16 on the card, where the
 kernels run), and give it back in ``train()``.
+
+Under data parallelism (an LDM trainer with a ``data_group``, under
+``torchrun``) every rank runs the loop on its shard of the data; rank 0
+alone prints, logs images, writes metrics and writes checkpoints (every
+rank takes part in a save: ZeRO-1's shards are gathered), validation's
+losses are averaged over the ranks (so they are one process's at N times
+the batch), and a SIGUSR1 that reaches any rank saves at the end of that
+step on all: the flag is all-reduced each step over a gloo group of its
+own, on the host, so that the step waits for no device. A save on an
+exception is one process's only: a rank that failed cannot count on the
+others to join the gather.
 """
 
 from __future__ import annotations
@@ -41,6 +52,7 @@ import torch
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.data.base import DataLoader
 from sd_tpu_torch.models.vae import VQModel
+from sd_tpu_torch.parallel.mesh import is_main_process, world_size
 from sd_tpu_torch.samplers.ancestral import progressive_denoising
 from sd_tpu_torch.samplers.common import randn
 from sd_tpu_torch.samplers.ddim import ddim_sample
@@ -67,12 +79,13 @@ LOG_STREAM, VAL_STREAM, CAL_STREAM = 1, 2, 3
 class DataModuleFromConfig:
     """The shuffled train loader and the validation loader (in order) from
     dataset config nodes ``{"target": ..., "params": {...}}``, built through
-    the config registry. ``num_workers`` and ``wrap``, which the published
+    the config registry, over rank ``shard_index``'s shard of ``num_shards``. ``num_workers`` and ``wrap``, which the published
     configs give, are taken and not used, as in ``sd_tpu``: one thread
     prefetches each loader's batches."""
 
     def __init__(self, batch_size: int, train: Dict, validation: Optional[Dict] = None,
-                 num_workers: Optional[int] = None, wrap: bool = False):
+                 num_workers: Optional[int] = None, wrap: bool = False, num_shards: int = 1,
+                 shard_index: int = 0):
         from sd_tpu_torch.utils.config import instantiate_from_config
 
         self.batch_size = batch_size
@@ -82,7 +95,8 @@ class DataModuleFromConfig:
                 continue
             dataset = instantiate_from_config(cfg)
             self.loaders[split] = DataLoader(dataset, batch_size=batch_size,
-                                             shuffle=split == "train")
+                                             shuffle=split == "train", num_shards=num_shards,
+                                             shard_index=shard_index)
 
     def train_dataloader(self) -> DataLoader:
         return self.loaders["train"]
@@ -93,13 +107,15 @@ class DataModuleFromConfig:
 
 def scale_learning_rate(base_lr: float, batch_size: int, n_devices: int,
                         scale: bool = True) -> float:
-    """``lr = ndev x bs x base_lr`` (gradient accumulation 1); ``base_lr``
-    as it is without ``scale``."""
+    """``lr = ndev x bs x base_lr`` (gradient accumulation 1; ``ndev`` the
+    data-parallel ranks, ``bs`` a rank's batch); ``base_lr`` as it is
+    without ``scale``."""
     if not scale:
         return base_lr
     lr = n_devices * batch_size * base_lr
-    print(f"Setting learning rate to {lr:.2e} = {n_devices} (devices) * {batch_size} "
-          f"(batchsize) * {base_lr:.2e} (base_lr)")
+    if is_main_process():
+        print(f"Setting learning rate to {lr:.2e} = {n_devices} (devices) * {batch_size} "
+              f"(batchsize) * {base_lr:.2e} (base_lr)")
     return lr
 
 
@@ -266,6 +282,21 @@ class Trainer:
         """The LDM of an LDM trainer, else None."""
         return getattr(self.trainer_obj, "ldm", None)
 
+    @property
+    def data_group(self):
+        """The data-parallel process group of an LDM trainer, else None."""
+        return getattr(self.trainer_obj, "data_group", None)
+
+    def _melk_agreed(self, group) -> bool:
+        """Whether a SIGUSR1 reached any rank of ``group`` (a gloo group
+        over every rank: one all-reduce of a CPU tensor), or this process's
+        flag where ``group`` is None."""
+        if group is None:
+            return self.melk_requested
+        flag = torch.tensor([int(self.melk_requested)])
+        torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX, group=group)
+        return bool(flag.item())
+
     def _meta(self) -> Dict[str, Any]:
         # the frozen stages are drawn again from the seed on this device type
         meta = {"seed": int(self.seed), "frozen_device": self.trainer_obj.device.type}
@@ -297,13 +328,16 @@ class Trainer:
 
     def fit(self, state, data: DataModuleFromConfig, resume: bool = False):
         """Run the loop to ``max_steps``; returns ``state`` (updated in place)."""
-        os.makedirs(self.logdir, exist_ok=True)
+        if is_main_process():
+            os.makedirs(self.logdir, exist_ok=True)
         device = self.trainer_obj.device
+        main = is_main_process()
         restored = False
         if resume and (path := latest_checkpoint(self.ckpt_dir)):
             meta = restore_checkpoint(path, state, device)
             restored = True
-            print(f"Restored from {path} (step {meta.get('step')})")
+            if main:
+                print(f"Restored from {path} (step {meta.get('step')})")
             if self.ldm is not None and meta.get("scale_factor") is not None:
                 self.ldm.scale_factor = float(meta["scale_factor"])
         loader = data.train_dataloader()
@@ -317,6 +351,9 @@ class Trainer:
         skip = 0
         if step and hasattr(loader, "epoch") and len(loader):
             loader.epoch, skip = divmod(step, len(loader))
+        # every rank runs the loop under data parallelism: the group spans them
+        signals = (torch.distributed.new_group(backend="gloo")
+                   if self.data_group is not None and world_size() > 1 else None)
         try:
             previous = signal.signal(signal.SIGUSR1, self._melk)
         except ValueError:  # not the main thread: no melk save
@@ -333,29 +370,32 @@ class Trainer:
                     generator = torch.Generator(device).manual_seed(step_seed(self.seed, step))
                     aux = self.trainer_obj.train_step(state, batch, generator)
                     step = state.step
-                    if step % self.log_every == 0:
+                    if step % self.log_every == 0 and main:
                         loss = float(aux["loss"] if "loss" in aux else aux["total_loss"])
                         rate = (step - t0_step) / max(time.perf_counter() - t0, 1e-9)
                         print(f"step {step}: loss={loss:.4f} ({rate:.2f} it/s)")
                         if self.metrics_writer is not None:
                             self.metrics_writer.write(
                                 step, {"train/loss": loss, "train/it_per_sec": rate})
-                    if (self.image_logger is not None and self.ldm is not None
+                    if (main and self.image_logger is not None and self.ldm is not None
                             and self.image_logger.should_log(step)):
                         with self._eval_scope():
                             self.image_logger(self.ldm, batch, step,
                                               self._generator(step, LOG_STREAM))
-                    if step % self.ckpt_every == 0 or self.melk_requested:
+                    if self._melk_agreed(signals) or step % self.ckpt_every == 0:
                         save_last(self.ckpt_dir, state, self._meta())
                         self.melk_requested = False
                     if self.val_every and step % self.val_every == 0:
                         self.validate(state, data)
         except BaseException:
-            save_last(self.ckpt_dir, state, self._meta())
+            if world_size() == 1:
+                save_last(self.ckpt_dir, state, self._meta())
             raise
         finally:
             if previous is not None:
                 signal.signal(signal.SIGUSR1, previous)
+            if signals is not None:
+                torch.distributed.destroy_process_group(signals)
         save_last(self.ckpt_dir, state, self._meta())
         return state
 
@@ -382,14 +422,19 @@ class Trainer:
                 with ema_scope(state.ema, state.trainables()):
                     losses += [loss_fn(b, self._generator(state.step, s))[0]
                                for b, s in zip(batches, streams)]
-        fetched = torch.stack(losses).float().cpu().numpy()
+        stacked = torch.stack(losses).float()
+        if self.data_group is not None:  # each batch's mean over the ranks' rows
+            torch.distributed.all_reduce(stacked, group=self.data_group)
+            stacked /= world_size(self.data_group)
+        fetched = stacked.cpu().numpy()
         n = len(batches)
         metrics = {"val/loss_simple": float(np.mean(fetched[:n]))}
         if state.ema is not None:
             metrics["val/loss_simple_ema"] = float(np.mean(fetched[n:]))
-        print(f"validation @ step {state.step}: {metrics}", flush=True)
-        if self.metrics_writer is not None:
-            self.metrics_writer.write(state.step, metrics)
+        if is_main_process():
+            print(f"validation @ step {state.step}: {metrics}", flush=True)
+            if self.metrics_writer is not None:
+                self.metrics_writer.write(state.step, metrics)
         save_monitored(self.ckpt_dir, state, metrics, self.monitor, self.monitored,
                        self._meta())
         return metrics

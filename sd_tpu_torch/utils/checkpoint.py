@@ -4,7 +4,8 @@ run directories as inference inputs (its ``is_run_path``,
 ``resolve_run_checkpoint``, ``run_config_path``, ``load_run_params`` and
 ``filter_state_dict``).
 
-A checkpoint is one ``torch.save`` file: the trainer state's
+A checkpoint is one ``torch.save`` file, in the single-process layout
+whatever the number of ranks: the trainer state's
 ``state_dict`` (an LDM run's: the step, the UNet's and, where it trains,
 the cond stage's weights, the optimizer, the LR schedule, the EMA shadow and
 a learned logvar table; a first-stage run's: the autoencoder, the
@@ -16,6 +17,11 @@ run, rebuilds them from the config and the seed. ``<ckpt_dir>/last.pt`` is
 the resume entry; ``save_monitored`` keeps the top k checkpoints by a
 validation metric as ``<ckpt_dir>/step_<n>.pt``. A run directory
 that cannot be resolved is an error: it never samples random weights.
+
+Under data parallelism every rank calls the saves (``state_dict`` gathers
+ZeRO-1's shards of the optimizer and the EMA shadow onto rank 0) and rank 0
+alone writes; every rank restores from the whole file, and ZeRO-1 keeps its
+own shard of it, so a checkpoint of N ranks resumes at any number.
 """
 
 from __future__ import annotations
@@ -24,6 +30,8 @@ import os
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+
+from sd_tpu_torch.parallel.mesh import is_main_process
 
 __all__ = ["COND_STAGE_PREFIX", "save_last", "save_monitored", "latest_checkpoint",
            "restore_checkpoint", "is_run_path", "resolve_run_checkpoint", "run_config_path",
@@ -37,12 +45,14 @@ COND_STAGE_PREFIX = "cond_stage_model."
 
 def _save(path: str, state, metadata: Optional[Dict[str, Any]]) -> str:
     """Write ``state.state_dict()`` and ``metadata`` (plus the step) to
-    ``path``, atomically."""
-    os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.tmp{os.getpid()}"
-    meta = {**(metadata or {}), "step": int(state.step)}
-    torch.save({"state": state.state_dict(), "meta": meta}, tmp)
-    os.replace(tmp, path)
+    ``path``, atomically; on rank 0 alone (every rank gathers)."""
+    sd = state.state_dict()
+    if is_main_process():
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        tmp = f"{path}.tmp{os.getpid()}"
+        meta = {**(metadata or {}), "step": int(state.step)}
+        torch.save({"state": sd, "meta": meta}, tmp)
+        os.replace(tmp, path)
     return path
 
 
@@ -70,7 +80,7 @@ def save_monitored(ckpt_dir: str, state, metrics: Dict[str, float], monitor: Opt
     tracked.sort(key=lambda t: t[0], reverse=mode == "max")
     while len(tracked) > save_top_k:
         _, drop = tracked.pop()
-        if os.path.isfile(drop):
+        if is_main_process() and os.path.isfile(drop):
             os.remove(drop)
     return path
 
