@@ -19,7 +19,8 @@ over seeded JPEG trees: the VQ-f4 VQ-GAN and the LSUN-bedrooms and bsr_sr
 LDMs through --base, and the noisy-latent classifier; last the port's
 parallelism at SD v1 full width: DDP with ZeRO-1 on NCCL at one rank, then
 two ranks sharing the card over gloo (DDP training, sharded sampling,
-tensor parallelism).
+tensor parallelism), and in both the first stages' data parallelism (the
+kl-f8 VAE-GAN and the VQ-f4 VQ-GAN at full width).
 
     python3 chip_smoke.py
 
@@ -61,7 +62,8 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    chunk, F.gelu, multiply, F.linear);
 5. K3 flash-attention backward: at the training path's two shapes, at
    the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's wide plan,
-   with K1's output and row log-sum-exp checked there too) and at the VQ-f4
+   with K1's output and row log-sum-exp checked there too; DP_VAE_BWD_SHAPES
+   likewise, a rank's mid-blocks at two ranks) and at the VQ-f4
    models' training shapes (TRAIN_VQ_BWD_SHAPES), with plain and
    with sharp logits, dQ, dK and dV from K1 + K3 against the plain backward
    in fp32 on the same bf16 inputs; the yardstick is
@@ -212,9 +214,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    its ms at B=2 (the daemon's batch at --max-batch 1, where it keeps
    cuDNN), 4 and 16 with and without cuDNN, in turns;
 23. [first stage]: `python -m sd_tpu_torch.scripts.train --base
-   sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml -t` in process with
-   `model.params.lossconfig.params.disc_start=1` (the discriminator and the
-   adaptive weight engaged from step 2): the kl-f8 VAE-GAN at batch 12,
+   sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml -t --no_images` in
+   process with `model.params.lossconfig.params.disc_start=1` (the
+   discriminator and the adaptive weight engaged from step 2): the kl-f8 VAE-GAN at batch 12,
    256², 3 steps through Trainer.fit; every step finite losses and exactly
    K1 = 4 and K3 = 2 (the mid-blocks at [12, 1024, 1, 512]); steps 1 and 2's
    rec_loss, nll_loss, kl_loss, g_loss and disc_loss, and step 1's
@@ -301,7 +303,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    1e-6), or, where g++ cannot build against libjpeg and libpng on the
    machine, a line saying so and nothing run;
 32. [vq first stage]: `python -m sd_tpu_torch.scripts.train --base
-   sd_tpu_torch/configs/vq-f4.yaml -t` in process over the ImageNet tree
+   sd_tpu_torch/configs/vq-f4.yaml -t --no_images` in process over the ImageNet tree
    (data_root by dotlist): the VQ-f4 VQ-GAN with VQLPIPSWithDiscriminator
    at the file's batch of 8, 256², 3 steps through Trainer.fit; every step
    finite logs (perplexity and cluster usage among them) and exactly K1 = 4
@@ -333,6 +335,12 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    one process without DDP, AdamW's first moments and the parameters'
    deltas within the dry run's CARD_MOMENT_TOL and CARD_DELTA_TOL
    (relative L2); the ms a step with and without DDP and the peak memory;
+   then its first_stage leg: the kl-f8 VAE-GAN (global batch 12) and the
+   VQ-f4 VQ-GAN (8) at 256², disc_start 0, 3 steps under DDP, exactly
+   K1 = 4 and K3 = 2 a step, against the same steps in one process: every
+   gap 0 (both Adams' first moments and deltas, the weights, the logvar,
+   the discriminator's running statistics); the ms a step with and
+   without DDP, the peak memory;
 36. [parallel 2 ranks, one card]: the same module on 2 ranks with
    --backend gloo (NCCL refuses two ranks on one card; gloo's times are no
    speed figure): (a) 2 DDP + ZeRO-1 steps at 2 a rank against one process
@@ -344,7 +352,13 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    one (relative L2 within the dry run's CARD_TP_TOL, 5e-2; one all-reduce a
    row-parallel boundary; a rank's K1 = K2 = 16, the replicated counts);
    (d) a line naming FSDP's collectives that gloo does not take on CUDA
-   tensors (HSDP runs on the CPU, in the tests). K1 and K2 at a rank's TP shapes
+   tensors (HSDP runs on the CPU, in the tests); (e) the first_stage leg
+   at 6 and 4 images a rank, 2 steps, DDP + ZeRO-1 over both Adams, each
+   rank K1 = 4 and K3 = 2 a step (its mid-blocks at [6, 1024, 1, 512] and
+   [4, 4096, 1, 512]), against the one-process reference of 2 ranks (each
+   rank's d_weight and batch statistics its own) within CARD_MOMENT_TOL and
+   CARD_DELTA_TOL, the running statistics within CARD_MOMENT_TOL, every
+   rank's logvar equal. K1 and K2 at a rank's TP shapes
    (4 heads of 40, 80 and 160; inner 640, 1280 and 2560, at B=2 and B=16)
    are checked and timed with the other shapes in phases 3-4.
 
@@ -448,6 +462,11 @@ BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # (B, N, H, D): the first stage's mid-blocks in VAE-GAN training (encoder and
 # decoder alike), K3's wide plan: 256² at the config's batch of 12, and 512²
 VAE_BWD_SHAPES = [(12, 1024, 1, 512), (2, 4096, 1, 512)]
+# (B, N, H, D): a rank's mid-blocks in the first_stage leg at two ranks: the
+# kl-f8 VAE-GAN at 12 / 2 images of 256², the VQ-f4 VQ-GAN at 8 / 2 (K1's
+# [4, 4096, 1, 512] is in FLASH_SHAPES too; at one rank both models' shapes
+# are VAE_BWD_SHAPES' and TRAIN_VQ_BWD_SHAPES')
+DP_VAE_BWD_SHAPES = [(6, 1024, 1, 512), (4, 4096, 1, 512)]
 # the 1.4B LDM's training at batch 4, 256² (32x32 latents), where the lists
 # above do not hold its shapes. (B, N, H, D) of K1 (with the lse autograd
 # asks for): the UNet's self-attention at 32x32 and 16x16 (its 8x8 site is
@@ -1105,10 +1124,10 @@ def check_flash_bwd(randn) -> list:
     (d = 512, its wide plan; K1's output and row log-sum-exp at those shapes
     too, which K3 reads) and at the VQ-f4 models' training shapes."""
     rows = []
-    for shape in BWD_SHAPES + VAE_BWD_SHAPES + TRAIN_VQ_BWD_SHAPES:
+    for shape in BWD_SHAPES + VAE_BWD_SHAPES + DP_VAE_BWD_SHAPES + TRAIN_VQ_BWD_SHAPES:
         log_plan("K3 dK/dV", shape)
         log_plan("K3 dQ", shape)
-        if shape in VAE_BWD_SHAPES:
+        if shape in VAE_BWD_SHAPES + DP_VAE_BWD_SHAPES:
             for sharp in (False, True):
                 flash_case(randn, shape, sharp=sharp, timed=False)
         row = flash_bwd_case(randn, shape)
@@ -2956,7 +2975,7 @@ def _vae_gan_losses(aux: dict) -> dict:
 def first_stage_argv(logdir: str) -> list:
     """The training CLI's arguments of the first-stage phase."""
     return ["--base", FIRST_STAGE_CONFIG, "-t", "--logdir", logdir, "--seed", "0",
-            "--max_steps", str(FIRST_STAGE_STEPS), "--log_every", "1",
+            "--max_steps", str(FIRST_STAGE_STEPS), "--log_every", "1", "--no_images",
             "model.params.lossconfig.params.disc_start=1"]
 
 
@@ -3839,7 +3858,7 @@ def vq_first_stage_main_path(tree: dict, root: str) -> dict:
 
     t_phase = time.perf_counter()
     argv = ["--base", VQ_CONFIG, "-t", "--logdir", os.path.join(root, "vq_logs"), "--seed", "0",
-            "--max_steps", str(DATA_STEPS), "--log_every", "1",
+            "--max_steps", str(DATA_STEPS), "--log_every", "1", "--no_images",
             f"data.params.train.params.data_root={tree['imagenet']}",
             f"data.params.validation.params.data_root={tree['imagenet']}"]
     (plain,), _ = first_stage_steps(argv, 1, plain=True)
@@ -4116,17 +4135,67 @@ def check_train_leg(label: str, rows: list, note: str = "") -> dict:
     return total
 
 
+# the first_stage leg's exact gaps at one rank, and its launches a step and rank
+FIRST_STAGE_GAPS = ("moment_rel_l2", "delta_rel_l2", "max_abs", "stats_rel_l2", "logvar_gap")
+FIRST_STAGE_DP_LAUNCHES = {k: FIRST_STAGE_LAUNCHES.get(name, 0)
+                           for k, name in DRYRUN_COUNTERS.items()}
+
+
+def check_first_stage_leg(label: str, rows: list, note: str = "") -> dict:
+    """The first_stage leg of every rank: exactly FIRST_STAGE_LAUNCHES each
+    step, against the one-process reference within the dry run's bounds
+    (every gap 0 at one rank, which the dry run also raises on); logs the
+    ms a step with and without DDP, the peak memory and the gaps; returns
+    the launches summed over ranks, models and steps."""
+    total = dict.fromkeys(DRYRUN_COUNTERS, 0)
+    n = len(rows)
+    # the leg's records by model (beside its "leg_s")
+    models = {k: v for k, v in rows[0]["first_stage"].items() if isinstance(v, dict)}
+    if sorted(models) != ["kl", "vq"]:
+        raise AssertionError(f"[{label}] first_stage ran {sorted(models)}, not kl and vq")
+    for kind, ref in models.items():
+        for r in rows:
+            leg = r["first_stage"][kind]
+            for step, counts in enumerate(leg["launches"], 1):
+                if counts != FIRST_STAGE_DP_LAUNCHES:
+                    raise AssertionError(f"[{label}] {kind} rank {r['rank']} step {step}: "
+                                         f"launches {counts} != {FIRST_STAGE_DP_LAUNCHES}")
+                total = {k: total[k] + counts[k] for k in total}
+            zero = ", ".join(f"{part} moments owned {z['owned_bytes'] / 2**20:.1f} MiB of a "
+                             f"share of {z['share_bytes'] / 2**20:.1f}"
+                             for part, z in leg.get("zero", {}).items())
+            log(f"[{label}] {kind} rank {r['rank']}: {leg['batch'] // n} images a rank, DDP"
+                f"{' + ZeRO-1' if n > 1 else ''} steps {' '.join(f'{t:.1f}' for t in leg['ms'])} "
+                f"ms{note}, losses {' '.join(f'{x:.5g}' for x in leg['loss'])}, d_weight "
+                f"{' '.join(f'{x:.4g}' for x in leg['d_weight'])}, disc_loss "
+                f"{' '.join(f'{x:.4g}' for x in leg['disc_loss'])}, peak memory "
+                f"{leg['peak_gib']:.2f} GiB{', ' + zero if zero else ''}; launches a step "
+                f"{FIRST_STAGE_DP_LAUNCHES}")
+        if not ref["ok"] or (n == 1 and any(ref[k] != 0 for k in FIRST_STAGE_GAPS)):
+            raise AssertionError(f"[{label}] {kind} against one process: {ref}")
+        log(f"[{label}] {kind}: the reference of {n} rank(s) in one process at batch "
+            f"{ref['batch']}: {' '.join(f'{t:.1f}' for t in ref['reference_ms'])} ms, peak memory "
+            f"{ref['reference_peak_gib']:.2f} GiB; against it: the first moments relative L2 "
+            f"{ref['moment_rel_l2']:.3e}, the deltas' {ref['delta_rel_l2']:.3e}, parameters "
+            f"max abs {ref['max_abs']:.3e}, running statistics {ref['stats_rel_l2']:.3e}, logvar "
+            f"gap {ref['logvar_gap']:.3e}" + (" (every gap 0)" if n == 1 else ""))
+    return total
+
+
 def parallel_main_paths() -> list:
     """[parallel nccl] and [parallel 2 ranks, one card]: the dry run of the
-    port's parallelism at SD v1 full width; returns the ranks' launches."""
+    port's parallelism at SD v1 full width and of the first stages' data
+    parallelism at full width; returns the ranks' launches."""
     t_phase = time.perf_counter()
-    rows = run_ranks("parallel nccl", 1, "nccl", "train", 3)
-    runs = [check_train_leg("parallel nccl", rows)]
+    rows = run_ranks("parallel nccl", 1, "nccl", "train,first_stage", 3)
+    runs = [check_train_leg("parallel nccl", rows), check_first_stage_leg("parallel nccl", rows)]
     free_memory()
-    rows = run_ranks("parallel 2 ranks, one card", 2, "gloo", "train,sample,tp,hsdp", 2)
+    rows = run_ranks("parallel 2 ranks, one card", 2, "gloo", "train,first_stage,sample,tp,hsdp",
+                     2)
     label = "parallel 2 ranks, one card"
     gloo = " (gloo's collectives through the host: no speed figure)"
     runs.append(check_train_leg(label, rows, gloo))
+    runs.append(check_first_stage_leg(label, rows, gloo))
     for r in rows:
         sample, tp, hsdp = r["sample"], r["tp"], r["hsdp"]
         if sample["launches"] != SAMPLE_LAUNCHES:

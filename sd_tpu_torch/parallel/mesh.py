@@ -18,9 +18,12 @@ collectives. Eager PyTorch has no GSPMD: the port runs one process per rank
   (``samplers/common.py::RowDraws``);
 - :func:`shard_params`: parameters and buffers broadcast from rank 0
   (replicated, ``P()``);
-- :func:`zero_sharding` / :func:`zero_state_sharding`: ZeRO-1, AdamW's
-  moments and the EMA shadow partitioned over the data ranks, the
-  parameters replicated. ``torch.distributed.optim.ZeroRedundancyOptimizer``
+- :func:`zero_sharding` / :func:`zero_optimizer` / :func:`zero_state_sharding`:
+  ZeRO-1, the Adam or AdamW moments (the LDM's AdamW, the first stage's two
+  Adams) and the EMA shadow partitioned over the data ranks, the
+  parameters replicated; :func:`optimizer_state_dict` gathers an
+  optimizer's shards into the single-process layout on rank 0.
+  ``torch.distributed.optim.ZeroRedundancyOptimizer``
   assigns WHOLE parameters to ranks (greedily, the largest first, each to
   the least loaded rank), where ``sd_tpu`` splits each leaf's largest
   divisible dimension: a rank holds at most its share of the moments' bytes
@@ -43,7 +46,8 @@ import torch.distributed as dist
 
 __all__ = ["BACKENDS", "launched", "init_distributed", "world_size", "rank", "make_mesh",
            "axis_info", "shard_batch", "take_rows", "shard_params", "all_gather_rows",
-           "zero_sharding", "zero_owners", "zero_state_sharding", "is_main_process"]
+           "zero_sharding", "zero_optimizer", "zero_owners", "zero_state_sharding",
+           "optimizer_state_dict", "is_main_process"]
 
 BACKENDS = ("nccl", "gloo")
 
@@ -183,14 +187,38 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     return full
 
 
-def zero_sharding(params, group=None, **adamw):
-    """ZeRO-1 AdamW over ``params`` (``ZeroRedundancyOptimizer``): each rank
-    keeps the moments of the parameters it owns, steps them, and broadcasts
-    them to the others."""
+# the hyperparameters a ZeRO-1 optimizer takes over from the one it replaces
+ZERO_HYPER = ("lr", "betas", "eps", "weight_decay")
+
+
+def zero_sharding(params, group=None, optimizer_class=torch.optim.AdamW, **defaults):
+    """ZeRO-1 ``optimizer_class`` (AdamW by default, or Adam) over ``params``
+    (``ZeroRedundancyOptimizer``): each rank keeps the moments of the
+    parameters it owns, steps them, and broadcasts them to the others."""
     from torch.distributed.optim import ZeroRedundancyOptimizer
 
-    return ZeroRedundancyOptimizer(params, optimizer_class=torch.optim.AdamW,
-                                   process_group=group, **adamw)
+    return ZeroRedundancyOptimizer(params, optimizer_class=optimizer_class,
+                                   process_group=group, **defaults)
+
+
+def zero_optimizer(optimizer: torch.optim.Optimizer, group=None):
+    """ZeRO-1 of an Adam or AdamW before its first step: its class over the
+    same parameters with the same LR, betas, eps and weight decay."""
+    if any(optimizer.state.values()):
+        raise ValueError("zero_optimizer: the optimizer has taken a step")
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    return zero_sharding(params, group, type(optimizer),
+                         **{k: optimizer.defaults[k] for k in ZERO_HYPER})
+
+
+def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Optional[Dict[str, Any]]:
+    """The optimizer's ``state_dict`` in the single-process layout: a
+    ``ZeroRedundancyOptimizer``'s shards consolidated on rank 0 (every rank
+    calls it; the others get None)."""
+    if not hasattr(optimizer, "consolidate_state_dict"):
+        return optimizer.state_dict()
+    optimizer.consolidate_state_dict(to=0)
+    return optimizer.state_dict() if rank(optimizer.process_group) == 0 else None
 
 
 def zero_owners(optimizer) -> List[int]:
@@ -215,12 +243,8 @@ def zero_state_sharding(state, group=None):
     betas, eps and weight decay (its LR schedule rebound), and its EMA
     shadow keeps the owned parameters' tensors alone. In place; returns
     ``state``."""
-    opt = state.optimizer
-    if any(opt.state.values()):
-        raise ValueError("zero_state_sharding: the optimizer has taken a step")
-    params = [p for g in opt.param_groups for p in g["params"]]
-    hyper = {k: opt.defaults[k] for k in ("lr", "betas", "eps", "weight_decay")}
-    zero = zero_sharding(params, group, **hyper)
+    params = [p for g in state.optimizer.param_groups for p in g["params"]]
+    zero = zero_optimizer(state.optimizer, group)
     if state.scheduler is not None:
         state.scheduler = torch.optim.lr_scheduler.LambdaLR(zero, state.scheduler.lr_lambdas[0])
     state.optimizer = zero

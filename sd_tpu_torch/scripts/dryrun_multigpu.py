@@ -3,7 +3,8 @@
 
     python -m torch.distributed.run --standalone --nproc_per_node N \\
         -m sd_tpu_torch.scripts.dryrun_multigpu [--backend nccl|gloo] [--device cuda|cpu] \\
-        [--tiny] [--legs train,hsdp,pipeline,sample,fit,tp] [--batch B] [--steps S]
+        [--tiny] [--legs train,first_stage,hsdp,pipeline,sample,fit,fit_first_stage,tp] \\
+        [--batch B] [--steps S]
 
 ``--device`` defaults to ``cuda`` and ``--backend`` to the device's
 (``nccl`` for ``cuda``, ``gloo`` for ``cpu``); ``--backend gloo --device
@@ -23,6 +24,20 @@ where its check fails:
   of the first moments within ``CARD_MOMENT_TOL`` and of the parameters'
   deltas within ``CARD_DELTA_TOL``. Per step: the ms (host clock after a sync) and the
   K1, K2 and K3 launches; the peak memory of the rank;
+- ``first_stage``: S steps of the kl-f8 VAE-GAN
+  (``sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml``) and of the VQ-f4
+  VQ-GAN (``sd_tpu_torch/configs/vq-f4.yaml``), full width at 256² and
+  ``disc_start`` 0, at their files' batches (12 and 8) as global batches
+  of synthetic images (``--tiny``: the tiny KL config at 32² and
+  ``TINY_VQ_CONFIG`` at 24², a global batch of 4), under DDP (+ ZeRO-1 over
+  both Adams from 2 ranks); then rank 0 runs the same steps in one process
+  as the reference of N ranks (``VAEGANTrainer(shards=N)``: each rank's
+  d_weight and batch statistics are its own, so N ranks are not one
+  process at N·B) and compares (``compare_training`` over both optimizers,
+  at Adam's beta2 of 0.9), with the logvar and the discriminator's running
+  statistics (rank 0's, which DDP broadcasts) beside them; at one rank
+  every gap must be 0. Every rank must hold the same logvar. Per step and
+  rank: the ms, the K1/K3 launches; the peak memory of the rank;
 - ``hsdp`` (leg 3): a ``(data, model)`` mesh with ``model`` = 2, the UNet
   under ``torch.distributed.fsdp.fully_shard`` over it (HSDP: the weights
   sharded over ``model``, replicated over ``data``; ``sd_tpu``'s
@@ -43,6 +58,8 @@ where its check fails:
   one, DDP, DDP, one; each timed from the entry of its second step to the
   end of its last, with no sync between but the loop's own. The saves are
   skipped: the leg times the steps;
+- ``fit_first_stage``: ``fit`` for the kl-f8 VAE-GAN of ``first_stage``
+  (its global batch of 12, DDP + ZeRO-1 over both Adams);
 - ``tp``: the UNet tensor-parallel over all ranks against the replicated
   UNet: one evaluation at B=2 (on the CPU in fp32 within 2e-5, with the
   gradients too; on the card in bf16 within ``CARD_TP_TOL``, relative L2),
@@ -60,6 +77,7 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import pathlib
 import time
 from typing import Any, Dict, Optional, Sequence
 
@@ -68,10 +86,10 @@ import torch
 import torch.distributed as dist
 
 from sd_tpu_torch.core.draws import RowDraws
-from sd_tpu_torch.parallel.mesh import (BACKENDS, init_distributed, make_mesh, rank,
-                                        world_size, zero_owners)
+from sd_tpu_torch.parallel.mesh import (BACKENDS, all_gather_rows, init_distributed,
+                                        make_mesh, rank, world_size, zero_owners)
 
-LEGS = ("train", "hsdp", "pipeline", "sample", "fit", "tp")
+LEGS = ("train", "first_stage", "hsdp", "pipeline", "sample", "fit", "fit_first_stage", "tp")
 # sd_tpu's dryrun bound (fp32 on the CPU: the all-reduce sums in another order)
 CPU_TOL = 5e-5
 # AdamW's first moments (the gradients' running mean, where a sum in place of
@@ -103,6 +121,29 @@ CPU_TP_TOL = 2e-5
 CARD_TP_TOL = 5e-2
 LR = 1e-4
 SEED = 0
+# the first_stage leg's models: config, global batch
+REPO = pathlib.Path(__file__).resolve().parents[2]
+FIRST_STAGE = {"kl": ("sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml", 12),
+               "vq": ("sd_tpu_torch/configs/vq-f4.yaml", 8)}
+TINY_FIRST_STAGE = {"kl": ("configs/sd_tpu/tiny-autoencoder-kl.yaml", 4), "vq": (None, 4)}
+# the tiny VQ first stage (f2, 3 latent channels, 64 codes; attention at the
+# mid-blocks only, as vq-f4's), at 24²
+TINY_VQ_CONFIG = {
+    "base_learning_rate": 4.5e-6, "target": "ldm.models.autoencoder.VQModel",
+    "params": {"embed_dim": 3, "n_embed": 64,
+               "ddconfig": dict(double_z=False, z_channels=3, resolution=24, in_channels=3,
+                                out_ch=3, ch=32, ch_mult=[1, 2], num_res_blocks=1,
+                                attn_resolutions=[], dropout=0.0),
+               "lossconfig": {"target": "taming.modules.losses.vqperceptual."
+                                        "VQLPIPSWithDiscriminator",
+                              "params": {"disc_start": 0, "disc_weight": 0.75,
+                                         "codebook_weight": 1.0}}}}
+# Adam's beta2 for the first stage (the reference's betas 0.5, 0.9)
+FIRST_STAGE_BETA2 = 0.9
+# the discriminator's running statistics against the reference's, relative
+# L2: fp32 on the CPU (the ranks' weights round apart from the reference's
+# after a step); bf16 on the card, as CARD_MOMENT_TOL
+STATS_TOL = 1e-5
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -197,17 +238,9 @@ def _train_run(opt, device, group, shards: int, shard: int, hsdp_mesh=None) -> D
     if device.type == "cuda":
         out["peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
     if group is not None:
-        zero = state.optimizer
-        owners = zero_owners(zero)
-        sizes = [p.numel() * p.element_size() for g in zero.param_groups for p in g["params"]]
-        mine = sum(s for s, o in zip(sizes, owners) if o == rank(group))
-        share, largest = sum(sizes) / world_size(group), max(sizes)
-        out["zero"] = {"owned_bytes": mine, "share_bytes": share, "largest_bytes": largest,
-                       "ema_tensors": len(state.ema.shadow), "tensors": len(sizes)}
-        if mine > share + largest:
-            raise AssertionError(f"ZeRO-1: rank {rank()} owns {mine} bytes of moments, above "
-                                 f"its share {share} plus the largest parameter {largest}")
-        if world_size(group) > 1 and not len(state.ema.shadow) < len(sizes):
+        out["zero"] = zero_share(state.optimizer, group)
+        out["zero"].update(ema_tensors=len(state.ema.shadow))
+        if world_size(group) > 1 and not len(state.ema.shadow) < out["zero"]["tensors"]:
             raise AssertionError("ZeRO-1: the EMA shadow is not partitioned")
     names = [n for n, _ in unet.named_parameters()]
     after = {n: _full(p) for n, p in unet.named_parameters()}
@@ -218,6 +251,21 @@ def _train_run(opt, device, group, shards: int, shard: int, hsdp_mesh=None) -> D
     del trainer, state, ldm, unet, after, shadow, moments
     _free(device)
     return out
+
+
+def zero_share(zero, group) -> Dict[str, Any]:
+    """The bytes of a ZeRO-1 optimizer's parameters this rank owns the
+    moments of, its share and the largest parameter; raises where it owns
+    more than its share plus the largest."""
+    owners = zero_owners(zero)
+    sizes = [p.numel() * p.element_size() for g in zero.param_groups for p in g["params"]]
+    mine = sum(s for s, o in zip(sizes, owners) if o == rank(group))
+    share, largest = sum(sizes) / world_size(group), max(sizes)
+    if mine > share + largest:
+        raise AssertionError(f"ZeRO-1: rank {rank()} owns {mine} bytes of moments, above "
+                             f"its share {share} plus the largest parameter {largest}")
+    return {"owned_bytes": mine, "share_bytes": share, "largest_bytes": largest,
+            "tensors": len(sizes)}
 
 
 def optimizer_moments(optimizer, names: Sequence[str]) -> Optional[Dict[str, tuple]]:
@@ -250,14 +298,17 @@ def moments_of(optimizer_sd: Dict[str, Any], names: Sequence[str]) -> Dict[str, 
             for i, n in enumerate(names)}
 
 
-def compare_training(got: Dict[str, Any], ref: Dict[str, Any], on_cpu: bool) -> Dict[str, Any]:
+def compare_training(got: Dict[str, Any], ref: Dict[str, Any], on_cpu: bool,
+                     beta2: float = 0.999) -> Dict[str, Any]:
     """Two training runs from the same weights and data (``after``,
     ``moments``, optional ``before`` and ``shadow``: name → tensor). On the
     CPU: AdamW's first moments within MOMENT_TOL of their scale, and the
     parameters and the EMA shadow within CPU_TOL wherever the gradient is not
     rounding noise (NOISE_RMS); on the card, the relative L2 of the first
     moments within CARD_MOMENT_TOL and of the parameters' deltas within
-    CARD_DELTA_TOL. Returns the numbers and ``ok``."""
+    CARD_DELTA_TOL. ``beta2`` is the optimizer's (AdamW's 0.999, the first
+    stage's Adam 0.9), for the gradient's RMS. Returns the numbers and
+    ``ok``."""
     scale = max(float(m.abs().max()) for m, _, _ in ref["moments"].values())
     moment_err = num_m = den_m = 0.0
     max_abs = ema_abs = num_d = den_d = 0.0
@@ -274,7 +325,7 @@ def compare_training(got: Dict[str, Any], ref: Dict[str, Any], on_cpu: bool) -> 
             d_got = got["after"][n] - got["before"][n].to(dev)
             num_d += float((d_got - d_ref).double().square().sum())
             den_d += float(d_ref.double().square().sum())
-        if float((v_ref / (1 - 0.999 ** step)).sqrt().max()) < NOISE_RMS:
+        if float((v_ref / (1 - beta2 ** step)).sqrt().max()) < NOISE_RMS:
             noise += 1
             continue
         max_abs = max(max_abs, float((got["after"][n] - ref["after"][n]).abs().max()))
@@ -292,10 +343,10 @@ def compare_training(got: Dict[str, Any], ref: Dict[str, Any], on_cpu: bool) -> 
 
 
 def _compare(got: Dict[str, Any], ref: Dict[str, Any], device: torch.device,
-             label: str) -> Dict[str, Any]:
+             label: str, beta2: float = 0.999) -> Dict[str, Any]:
     """:func:`compare_training` of a parallel run against one process's,
     logged; raises where it fails."""
-    res = compare_training(got, ref, device.type == "cpu")
+    res = compare_training(got, ref, device.type == "cpu", beta2)
     bound = (f"first moments < {MOMENT_TOL} of their scale, parameters and EMA max abs < "
              f"{CPU_TOL} but at {res['noise_tensors']} tensors of rounding-noise gradient"
              if device.type == "cpu" else
@@ -324,6 +375,142 @@ def leg_train(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
     return res
 
 
+def _first_stage_config(opt, kind: str):
+    """The ``kind`` first stage's model config node and its global batch."""
+    from sd_tpu_torch.utils.config import load_yaml
+
+    path, batch = (TINY_FIRST_STAGE if opt.tiny else FIRST_STAGE)[kind]
+    return (TINY_VQ_CONFIG if path is None else load_yaml(str(REPO / path))["model"]), batch
+
+
+def _first_stage_setup(opt, device, kind: str, group, zero: bool, ref_shards: int = 1):
+    """``(trainer, state, data)`` of the ``kind`` first stage at its global
+    batch (disc_start 0) on synthetic images at its resolution: under DDP
+    over ``group`` on the rank's loader shard (and ZeRO-1 with ``zero``), or
+    in one process as the reference of ``ref_shards`` ranks. The LR is the
+    CLI's, the base LR times the global batch."""
+    from sd_tpu_torch.training.trainer import DataModuleFromConfig
+    from sd_tpu_torch.training.vae_gan import build_vae_gan
+
+    cfg, batch = _first_stage_config(opt, kind)
+    base_lr = cfg.get("params", {}).get("base_learning_rate", cfg.get("base_learning_rate"))
+    parallel = dict(shards=ref_shards) if group is None else dict(data_group=group, zero=zero)
+    trainer, state = build_vae_gan(cfg, device, SEED, base_lr * batch, disc_start=0, **parallel)
+    images = {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
+              "params": {"size": cfg["params"]["ddconfig"]["resolution"],
+                         "length": batch * max(opt.steps, 2)}}
+    shards, shard = (1, 0) if group is None else (world_size(group), rank(group))
+    data = DataModuleFromConfig(batch // shards, images, num_shards=shards, shard_index=shard)
+    return trainer, state, data
+
+
+def _first_stage_run(opt, device, kind: str, group, ref_shards: int = 1) -> Dict[str, Any]:
+    """``opt.steps`` VAE-GAN steps of the ``kind`` first stage under DDP over
+    ``group`` (ZeRO-1 from 2 ranks) on the rank's loader shard, or in one
+    process as the reference of ``ref_shards`` ranks. Returns the numbers
+    and, on rank 0 of the job, the parameters before and after (both
+    optimizers', prefixed ``ae.`` and ``disc.``), the moments, the logvar
+    and the discriminator's running statistics."""
+    from sd_tpu_torch.training.trainer import step_seed
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    n = world_size(group) if group is not None else 1
+    trainer, state, data = _first_stage_setup(opt, device, kind, group, n > 1, ref_shards)
+    keep = rank() == 0
+    named = {f"{part}.{k}": p for part, module in (("ae", state.ae), ("disc", state.disc))
+             for k, p in module.named_parameters()}
+    before = {k: p.detach().cpu().clone() for k, p in named.items()} if keep else None
+    loader = data.train_dataloader()
+    out: Dict[str, Any] = {"ms": [], "launches": [], "loss": [], "d_weight": [],
+                           "disc_loss": []}
+    for step in range(opt.steps):
+        generator = torch.Generator(device).manual_seed(step_seed(SEED, step))
+        batch = loader.batch(step)
+        _sync(device)
+        counts, t0 = _launches(), time.perf_counter()
+        aux = trainer.train_step(state, batch, generator)
+        _sync(device)
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["launches"].append({k: v - counts[k] for k, v in _launches().items()})
+        for key, name in (("loss", "total_loss"), ("d_weight", "d_weight"),
+                          ("disc_loss", "disc_loss")):
+            out[key].append(float(aux[name]))
+        if not all(np.isfinite(out[key][-1]) for key in ("loss", "d_weight", "disc_loss")):
+            raise AssertionError(f"{kind} step {step + 1}: {aux}")
+    if device.type == "cuda":
+        out["peak_gib"] = (torch.cuda.max_memory_allocated(device) - base) / 2**30
+    if n > 1:
+        out["zero"] = {name: zero_share(opt_, group) for name, opt_ in
+                       (("ae", state.ae_opt), ("disc", state.disc_opt))}
+    if state.logvar is not None:
+        out["logvar"] = state.logvar.item()
+    if state.logvar is not None and group is not None:
+        # every rank's logvar, in rank order, on every rank
+        ranks = all_gather_rows(state.logvar.detach().reshape(1), group).tolist()
+        if len(set(ranks)) != 1:
+            raise AssertionError(f"{kind}: the ranks' logvars differ: {ranks}")
+    moments = {}
+    for part, module, optimizer in (("ae", state.ae, state.ae_opt),
+                                    ("disc", state.disc, state.disc_opt)):
+        names = [k for k, _ in module.named_parameters()]
+        got = optimizer_moments(optimizer, names)
+        if got is not None:
+            moments.update({f"{part}.{k}": v for k, v in got.items()})
+    if keep:
+        out.update(before=before, after={k: _full(p) for k, p in named.items()},
+                   moments=moments,
+                   stats={k: v.detach().clone() for k, v in state.disc.state_dict().items()
+                          if "running" in k})
+    del trainer, state, data, named, moments
+    _free(device)
+    return out
+
+
+def _first_stage_gaps(run: Dict[str, Any], ref: Dict[str, Any], device: torch.device,
+                      kind: str, n: int) -> Dict[str, Any]:
+    """The DDP run against the reference of n ranks: ``compare_training``
+    over both optimizers, the logvar's gap, and the relative L2 of the
+    running statistics (rank 0's against shard 0's); at one rank every gap
+    must be 0. Logged; raises where a gap is out of bounds."""
+    res = _compare(run, ref, device, f"first_stage {kind}", FIRST_STAGE_BETA2)
+    num = sum(float((run["stats"][k] - v).double().square().sum()) for k, v in ref["stats"].items())
+    den = sum(float(v.double().square().sum()) for v in ref["stats"].values())
+    res["stats_rel_l2"] = (num / den) ** 0.5
+    res["logvar_gap"] = abs(run["logvar"] - ref["logvar"]) if "logvar" in ref else 0.0
+    gaps = ("moment_rel_l2", "delta_rel_l2", "max_abs", "stats_rel_l2", "logvar_gap")
+    tol = STATS_TOL if device.type == "cpu" else CARD_MOMENT_TOL
+    ok = res["stats_rel_l2"] < tol and (n > 1 or all(res[k] == 0 for k in gaps))
+    print(f"[dryrun first_stage {kind}] against the reference of {n} rank(s): running "
+          f"statistics relative L2 {res['stats_rel_l2']:.3e} (bound {tol}), logvar gap "
+          f"{res['logvar_gap']:.3e}{'; at one rank every gap must be 0' if n == 1 else ''} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError(f"first_stage {kind}: {res}")
+    return res
+
+
+def leg_first_stage(opt, device, shared: Dict[str, Any],
+                    kinds: Sequence[str] = tuple(FIRST_STAGE)) -> Dict[str, Any]:
+    n = world_size()
+    res = {}
+    for kind in kinds:
+        run = _first_stage_run(opt, device, kind, dist.group.WORLD)
+        res[kind] = {k: run[k] for k in ("ms", "launches", "loss", "d_weight", "disc_loss",
+                                         "zero", "peak_gib", "logvar") if k in run}
+        res[kind]["batch"] = _first_stage_config(opt, kind)[1]
+        if rank() == 0:
+            ref = _first_stage_run(opt, device, kind, None, ref_shards=n)
+            res[kind].update(reference_ms=ref["ms"], reference_peak_gib=ref.get("peak_gib"),
+                             reference_loss=ref["loss"],
+                             **_first_stage_gaps(run, ref, device, kind, n))
+            del ref
+        del run
+        dist.barrier()
+    return res
+
+
 # FSDP's collectives that gloo does not take on CUDA tensors (it takes
 # broadcast and all-reduce there; a probe of all_gather_into_tensor on an H100
 # with torch 2.11 ended both ranks with SIGSEGV, so the leg does not try)
@@ -349,15 +536,11 @@ def leg_hsdp(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
     return res
 
 
-def _fit_run(opt, device, group) -> float:
-    """``Trainer.fit`` over ``opt.steps`` steps at the global batch, in one
-    process or under DDP + ZeRO-1 over ``group``: the ms a step from the
-    entry of the second step to the end of the last (module docstring)."""
-    import tempfile
-    from unittest import mock
-
-    from sd_tpu_torch.training import trainer as trainer_mod
+def _ldm_setup(opt, device, group):
+    """``(trainer, state, data)`` of SD v1 (or the tiny model) at the global
+    batch, in one process or under DDP + ZeRO-1 over ``group``."""
     from sd_tpu_torch.training.diffusion_loss import create_train_state
+    from sd_tpu_torch.training.trainer import DataModuleFromConfig
     from sd_tpu_torch.utils.config import build_latent_diffusion, train_config
 
     cfg = train_config(opt.tiny)
@@ -367,8 +550,28 @@ def _fit_run(opt, device, group) -> float:
     parallel = {} if group is None else dict(data_group=group, zero=True)
     trainer, state = create_train_state(ldm, LR, use_ema=True,
                                         accumulate_grad_batches=opt.accumulate, **parallel)
-    data = trainer_mod.DataModuleFromConfig(opt.batch // shards, cfg["data"]["params"]["train"],
-                                            num_shards=shards, shard_index=shard)
+    data = DataModuleFromConfig(opt.batch // shards, cfg["data"]["params"]["train"],
+                                num_shards=shards, shard_index=shard)
+    return trainer, state, data
+
+
+def _kl_setup(opt, device, group):
+    """The kl-f8 VAE-GAN of the first_stage leg, in one process or under
+    DDP + ZeRO-1 over ``group``."""
+    return _first_stage_setup(opt, device, "kl", group, True)
+
+
+def _fit_run(opt, device, group, setup) -> float:
+    """``Trainer.fit`` over ``opt.steps`` steps of ``setup(opt, device,
+    group)``'s trainer, in one process or under DDP + ZeRO-1 over ``group``:
+    the ms a step from the entry of the second step to the end of the last
+    (module docstring)."""
+    import tempfile
+    from unittest import mock
+
+    from sd_tpu_torch.training import trainer as trainer_mod
+
+    trainer, state, data = setup(opt, device, group)
     entries, step = [], trainer.train_step
 
     def timed_step(state_, batch, generator):
@@ -382,29 +585,38 @@ def _fit_run(opt, device, group) -> float:
                             log_every=10**9, seed=SEED).fit(state, data)
         _sync(device)
         end = time.perf_counter()
-    del trainer, state, ldm, data
+    del trainer, state, data
     _free(device)
     return (end - entries[1]) * 1e3 / (len(entries) - 1)
 
 
-def leg_fit(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
+def _alternate_fit(opt, device, setup, label: str) -> Dict[str, Any]:
+    """:func:`_fit_run` in the order one process, DDP, DDP, one process."""
     if opt.steps < 2:
         raise ValueError("fit: --steps must be at least 2 (the first step is not timed)")
     res: Dict[str, Any] = {"ms": [], "single_ms": []}
     for kind in ("single", "ddp", "ddp", "single"):
         if kind == "ddp":
-            res["ms"].append(_fit_run(opt, device, dist.group.WORLD))
+            res["ms"].append(_fit_run(opt, device, dist.group.WORLD, setup))
         elif rank() == 0:
-            res["single_ms"].append(_fit_run(opt, device, None))
+            res["single_ms"].append(_fit_run(opt, device, None, setup))
         dist.barrier()
     if rank() == 0:
         res["overhead"] = float(np.mean(res["ms"]) / np.mean(res["single_ms"]) - 1)
-        print(f"[dryrun fit] Trainer.fit, {opt.steps - 1} steps timed at batch {opt.batch}: "
-              f"DDP + ZeRO-1 over {world_size()} ranks "
-              f"{', '.join(f'{v:.1f}' for v in res['ms'])} ms a step, one process "
-              f"{', '.join(f'{v:.1f}' for v in res['single_ms'])} "
+        print(f"[dryrun {label}] Trainer.fit, {opt.steps - 1} steps timed: DDP + ZeRO-1 over "
+              f"{world_size()} ranks {', '.join(f'{v:.1f}' for v in res['ms'])} ms a step, one "
+              f"process {', '.join(f'{v:.1f}' for v in res['single_ms'])} "
               f"({100 * res['overhead']:+.1f}%)", flush=True)
     return res
+
+
+def leg_fit(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
+    return _alternate_fit(opt, device, _ldm_setup, f"fit at batch {opt.batch}")
+
+
+def leg_fit_first_stage(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
+    batch = _first_stage_config(opt, "kl")[1]
+    return _alternate_fit(opt, device, _kl_setup, f"fit_first_stage kl at batch {batch}")
 
 
 def _pipeline(opt, device):
@@ -564,8 +776,9 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
     result: Dict[str, Any] = {"rank": rank(), "world": world_size(), "backend": backend,
                               "device": str(device)}
     shared: Dict[str, Any] = {}
-    legs = {"train": leg_train, "hsdp": leg_hsdp, "pipeline": leg_pipeline,
-            "sample": leg_sample, "fit": leg_fit, "tp": leg_tp}
+    legs = {"train": leg_train, "first_stage": leg_first_stage, "hsdp": leg_hsdp,
+            "pipeline": leg_pipeline, "sample": leg_sample, "fit": leg_fit,
+            "fit_first_stage": leg_fit_first_stage, "tp": leg_tp}
     try:
         for leg in opt.legs:
             t0 = time.perf_counter()

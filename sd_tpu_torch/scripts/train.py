@@ -32,8 +32,8 @@ batch size (``--scale_lr false`` keeps it as it is), times the config's LR
 schedule where it has one. ``--device`` defaults to ``cuda``; a run that
 asks for the card and finds none fails. ``--resume`` without a directory
 continues the run in ``--logdir`` from ``checkpoints/last.pt``. The image
-logger (LDM runs) writes its grids to ``<logdir>/images`` at steps 1, 2, 4,
-8 and every 750 (``--no_images`` turns it off); ``--val_every N`` (LDM
+logger writes its grids to ``<logdir>/images`` at steps 1, 2, 4, 8 and
+every 750 (``--no_images`` turns it off); ``--val_every N`` (LDM
 runs) validates every N steps and keeps the best 3 checkpoints by the
 config's ``monitor`` as ``checkpoints/step_<n>.pt``. A ``--base`` LDM run
 writes each logged step's loss and it/s and each validation's metrics to
@@ -44,7 +44,8 @@ as ``main.py`` does. SIGUSR1 saves
 ``build_txt2img_pipeline(ckpt=<logdir>)`` and the txt2img CLI's
 ``--ckpt <logdir>`` can sample from an LDM run.
 
-Data parallelism: under ``torchrun`` an LDM run trains on every rank,
+Data parallelism: under ``torchrun`` an LDM run or a first-stage run
+trains on every rank,
 
     torchrun --nproc_per_node N -m sd_tpu_torch.scripts.train ... [--backend nccl|gloo]
 
@@ -52,12 +53,13 @@ Data parallelism: under ``torchrun`` an LDM run trains on every rank,
 for ``cpu``; ``gloo`` on the card is what puts several ranks on one card).
 Each rank loads its shard of the data (``idx[rank::N]`` at the config's
 batch size, a rank's), the LR scales by N (the ranks) times the batch
-size, the trained modules run under DDP, and ``--zero`` (ZeRO-1: AdamW's
-moments and the EMA shadow partitioned over the ranks) is on by default for
-N > 1. Rank 0 alone writes the config, the checkpoints, the images and the
-metrics; the run's directory is rank 0's. A first-stage run trains in one
-process. Without ``WORLD_SIZE`` in the environment the CLI runs as one
-process, as it always did.
+size, the trained modules run under DDP (a first stage's autoencoder and
+discriminator under one each: ``training/vae_gan.py``), and ``--zero``
+(ZeRO-1: the optimizers' moments, and an LDM's EMA shadow, partitioned
+over the ranks) is on by default for N > 1. Rank 0 alone writes the
+config, the checkpoints (in the one-process layout), the images and the
+metrics; the run's directory is rank 0's. Without ``WORLD_SIZE`` in the
+environment the CLI runs as one process, as it always did.
 """
 
 from __future__ import annotations
@@ -160,9 +162,6 @@ def build_trainer(opt: argparse.Namespace, device: Optional[torch.device] = None
     data_cfg = dict(config["data"]["params"])
     data = DataModuleFromConfig(**data_cfg, num_shards=world_size(), shard_index=rank())
     if model_cfg["target"].split(".")[-1] in ("AutoencoderKL", "VQModel", "VQModelInterface"):
-        if world_size() > 1:
-            raise SystemExit(f"{model_cfg['target']}: a first-stage run trains in one process; "
-                             f"data parallelism covers LDM runs")
         harness, state, data = _first_stage(opt, model_cfg, data, device, harness_args)
     else:
         harness, state = _latent_diffusion(opt, model_cfg, data_cfg["batch_size"], device,
@@ -180,6 +179,15 @@ def _learning_rate(opt, model_cfg: Dict[str, Any], batch_size: int, default: flo
     return scale_learning_rate(base_lr, batch_size, world_size(), scale=opt.scale_lr)
 
 
+def _parallel(opt) -> Dict[str, Any]:
+    """The trainer's data parallelism under ``torchrun``: DDP over the
+    job's ranks, ZeRO-1 by default from 2 of them; nothing otherwise."""
+    if not launched():
+        return {}
+    zero = opt.zero if opt.zero is not None else world_size() > 1
+    return dict(data_group=torch.distributed.group.WORLD, zero=zero)
+
+
 def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
     from sd_tpu_torch.training.diffusion_loss import create_train_state
     from sd_tpu_torch.training.trainer import ImageLogger, Trainer
@@ -194,10 +202,6 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
     train_cond_stage = bool(mp.get("cond_stage_trainable", False))
     if train_cond_stage and is_main_process():
         print("LatentDiffusion: Also optimizing conditioner params!")
-    parallel = {}
-    if launched():  # DDP over the job's ranks, ZeRO-1 by default from 2 of them
-        zero = opt.zero if opt.zero is not None else world_size() > 1
-        parallel = dict(data_group=torch.distributed.group.WORLD, zero=zero)
     trainer_obj, state = create_train_state(
         ldm, lr, schedule_fn, loss_type=mp.get("loss_type", "l2"),
         l_simple_weight=float(mp.get("l_simple_weight", 1.0)),
@@ -205,7 +209,7 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
         use_ema=bool(mp.get("use_ema", True)), train_cond_stage=train_cond_stage,
         learn_logvar=bool(mp.get("learn_logvar", False)),
         logvar_init=float(mp.get("logvar_init", 0.0)),
-        scale_by_std=bool(mp.get("scale_by_std", False)), **parallel)
+        scale_by_std=bool(mp.get("scale_by_std", False)), **_parallel(opt))
     logdir = harness_args["logdir"]
     main = is_main_process()
     # a --base run logs its steps and validations as main.py's does:
@@ -219,30 +223,21 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
 
 
 def _first_stage(opt, model_cfg, data, device, harness_args):
-    from sd_tpu_torch.training.trainer import Trainer
-    from sd_tpu_torch.training.vae_gan import BatchResizeWrapper, VAEGANTrainer, lpips_from_seed
-    from sd_tpu_torch.utils.config import init_random_, instantiate_from_config
+    from sd_tpu_torch.training.trainer import ImageLogger, Trainer
+    from sd_tpu_torch.training.vae_gan import BatchResizeWrapper, build_vae_gan
 
     p = model_cfg["params"]
-    with torch.device("meta"):
-        model = instantiate_from_config(model_cfg)
-    model.to_empty(device=device)
-    init_random_(model, torch.Generator(device=device).manual_seed(opt.seed))
-    # the trainer's loss arguments (a dict from the KL or VQ loss's target)
-    loss_kwargs = instantiate_from_config(p.get("lossconfig", {}))
-    if not isinstance(loss_kwargs, dict):
-        raise ValueError(f"lossconfig {p['lossconfig']['target']}: no training loss (the "
-                         f"inference configs' torch.nn.Identity); give LPIPSWithDiscriminator "
-                         f"or VQLPIPSWithDiscriminator to train a first stage")
     if p.get("batch_resize_range") is not None:
+        # one seed on every rank: the ranks draw the same sizes
         data = BatchResizeWrapper(data, tuple(p["batch_resize_range"]))
-        print(f"{type(model).__name__}: Using per-batch resizing in range "
-              f"{tuple(p['batch_resize_range'])}.")
+        if is_main_process():
+            print(f"{model_cfg['target'].split('.')[-1]}: Using per-batch resizing in range "
+                  f"{tuple(p['batch_resize_range'])}.")
     lr = _learning_rate(opt, model_cfg, data.batch_size, 4.5e-6)
-    trainer_obj = VAEGANTrainer(model=model, lpips=lpips_from_seed(opt.seed, device),
-                                learning_rate=lr, **loss_kwargs)
-    state = trainer_obj.init_state(seed=opt.seed)
-    return Trainer(trainer_obj=trainer_obj, **harness_args), state, data
+    trainer_obj, state = build_vae_gan(model_cfg, device, opt.seed, lr, **_parallel(opt))
+    logger = None if opt.no_images or not is_main_process() else ImageLogger(
+        harness_args["logdir"])
+    return Trainer(trainer_obj=trainer_obj, image_logger=logger, **harness_args), state, data
 
 
 def write_project_config(logdir: str, config: dict) -> str:

@@ -57,7 +57,8 @@ from torch import nn
 from sd_tpu_torch.core.draws import RowDraws, draw
 from sd_tpu_torch.core.schedules import DiffusionSchedule, q_sample
 from sd_tpu_torch.models.ldm import LatentDiffusion
-from sd_tpu_torch.parallel.mesh import rank, world_size, zero_state_sharding
+from sd_tpu_torch.parallel.mesh import (optimizer_state_dict, rank, world_size,
+                                        zero_state_sharding)
 from sd_tpu_torch.training.ema import EmaState, ema_init, ema_update
 from sd_tpu_torch.utils.checkpoint import COND_STAGE_PREFIX
 
@@ -165,16 +166,10 @@ class TrainState:
         ZeRO-1 consolidates on rank 0 alone (None elsewhere). Under ZeRO-1
         every rank calls it (collectives gather the optimizer's and the
         EMA's shards)."""
-        optimizer = self.optimizer
-        if hasattr(optimizer, "consolidate_state_dict"):  # ZeroRedundancyOptimizer
-            optimizer.consolidate_state_dict(to=0)
-            opt_sd = optimizer.state_dict() if rank(optimizer.process_group) == 0 else None
-        else:
-            opt_sd = optimizer.state_dict()
         return {"step": self.step, "unet": self.unet.state_dict(),
                 "cond_stage": self.cond_stage.state_dict() if self.cond_stage else None,
                 "logvar": None if self.logvar is None else self.logvar.detach(),
-                "optimizer": opt_sd,
+                "optimizer": optimizer_state_dict(self.optimizer),
                 "scheduler": self.scheduler.state_dict() if self.scheduler else None,
                 "ema": self.ema.state_dict() if self.ema else None}
 

@@ -25,8 +25,12 @@ nothing of the training run. They run with the UNet in ``eval()`` under
 ``no_grad`` and the train step's autocast (bf16 on the card, where the
 kernels run), and give it back in ``train()``.
 
-Under data parallelism (an LDM trainer with a ``data_group``, under
-``torchrun``) every rank runs the loop on its shard of the data; rank 0
+The image logger logs an LDM's :func:`log_images` or a first stage's
+:func:`log_images_vae` (its latents drawn from the logger's generator).
+
+Under data parallelism (a trainer with a ``data_group``, under
+``torchrun``: the LDM's or the first stage's) every rank runs the loop on
+its shard of the data; rank 0
 alone prints, logs images, writes metrics and writes checkpoints (every
 rank takes part in a save: ZeRO-1's shards are gathered), validation's
 losses are averaged over the ranks (so they are one process's at N times
@@ -51,13 +55,14 @@ import torch
 
 from sd_tpu_torch.core.distributions import DiagonalGaussian
 from sd_tpu_torch.data.base import DataLoader
-from sd_tpu_torch.models.vae import VQModel
+from sd_tpu_torch.models.vae import AutoencoderKL, VQModel
 from sd_tpu_torch.parallel.mesh import is_main_process, world_size
 from sd_tpu_torch.samplers.ancestral import progressive_denoising
 from sd_tpu_torch.samplers.common import randn
 from sd_tpu_torch.samplers.ddim import ddim_sample
 from sd_tpu_torch.training.diffusion_loss import cond_to_device, rows
 from sd_tpu_torch.training.ema import ema_scope
+from sd_tpu_torch.training.vae_gan import latent_shape
 from sd_tpu_torch.utils.checkpoint import (
     latest_checkpoint,
     restore_checkpoint,
@@ -221,7 +226,9 @@ def log_images_vae(model, batch: Mapping[str, Any], noise: torch.Tensor,
 
 class ImageLogger:
     """Image logging every ``every`` steps and, with ``log_first_n``, at
-    steps 1, 2, 4 and 8: each of :func:`log_images`' arrays as one PNG grid,
+    steps 1, 2, 4 and 8: each of :func:`log_images`' arrays (an LDM's) or
+    :func:`log_images_vae`'s (a first stage's, its latents drawn from the
+    generator) as one PNG grid,
     ``<logdir>/images/{split}_{name}_step{step:08}.png``."""
 
     def __init__(self, logdir: str, every: int = 750, max_images: int = 4,
@@ -237,14 +244,21 @@ class ImageLogger:
             return True
         return self.log_first_n and step <= 8 and (step & (step - 1)) == 0
 
-    def __call__(self, ldm, batch: Mapping[str, Any], step: int,
+    def __call__(self, model, batch: Mapping[str, Any], step: int,
                  generator: Optional[torch.Generator] = None, split: str = "train") -> List[str]:
-        """Log ``batch`` at ``step`` where the cadence says so; returns the
-        paths written."""
+        """Log ``batch`` at ``step`` through ``model`` (an LDM, or a KL or VQ
+        first stage) where the cadence says so; returns the paths written."""
         if not self.should_log(step):
             return []
+        if isinstance(model, (AutoencoderKL, VQModel)):
+            n = min(self.max_images, len(batch["image"]))
+            noise = randn(latent_shape(model, (n,) + np.shape(batch["image"])[1:]), generator,
+                          model.get_last_layer().device)
+            images = log_images_vae(model, batch, noise, n_row=self.max_images)
+        else:
+            images = log_images(model, batch, generator, n_row=self.max_images)
         paths = []
-        for name, arr in log_images(ldm, batch, generator, n_row=self.max_images).items():
+        for name, arr in images.items():
             grid = make_grid(np.clip((arr + 1.0) / 2.0, 0, 1))
             path = os.path.join(self.dir, f"{split}_{name}_step{step:08}.png")
             save_image((grid * 255).astype(np.uint8), path)
@@ -255,7 +269,7 @@ class ImageLogger:
 @dataclasses.dataclass
 class Trainer:
     """``fit(state, data, resume)`` drives ``trainer_obj.train_step``. The
-    image logger and validation are the LDM's."""
+    image logger takes either trainer's model; validation is the LDM's."""
 
     trainer_obj: Any  # LDMTrainer or VAEGANTrainer
     logdir: str
@@ -284,7 +298,7 @@ class Trainer:
 
     @property
     def data_group(self):
-        """The data-parallel process group of an LDM trainer, else None."""
+        """The trainer's data-parallel process group, else None."""
         return getattr(self.trainer_obj, "data_group", None)
 
     def _melk_agreed(self, group) -> bool:
@@ -377,10 +391,11 @@ class Trainer:
                         if self.metrics_writer is not None:
                             self.metrics_writer.write(
                                 step, {"train/loss": loss, "train/it_per_sec": rate})
-                    if (main and self.image_logger is not None and self.ldm is not None
+                    if (main and self.image_logger is not None
                             and self.image_logger.should_log(step)):
+                        model = self.ldm if self.ldm is not None else self.trainer_obj.model
                         with self._eval_scope():
-                            self.image_logger(self.ldm, batch, step,
+                            self.image_logger(model, batch, step,
                                               self._generator(step, LOG_STREAM))
                     if self._melk_agreed(signals) or step % self.ckpt_every == 0:
                         save_last(self.ckpt_dir, state, self._meta())

@@ -297,3 +297,132 @@ def test_batch_resize_wrapper_matches_sd_tpu():
         np.testing.assert_array_equal(g["image"], w["image"])
     with pytest.raises(ValueError):
         BatchResizeWrapper(data(), (16, 40))
+
+
+# ------------------------------------------- the one-process reference of N ranks
+
+
+def _tiny_kl(tmp_path, shards=1):
+    """The CLI's tiny KL VAE-GAN (24² images, the discriminator from step 1)
+    as the reference of ``shards`` ranks, and its first train batch."""
+    harness, state, data = build_trainer(parse_args(
+        ["--base", str(AE_CONFIG), "-t", "--device", "cpu", "--logdir", str(tmp_path),
+         "--batch_size", "4", "model.params.lossconfig.params.disc_start=0",
+         "data.params.train.params.size=24"]))
+    harness.trainer_obj.shards = shards
+    return harness.trainer_obj, state, data.train_dataloader().batch(0)
+
+
+def _step_before_shards(trainer, state, batch, generator):
+    """The one-process step as it was written before the ``shards`` option:
+    the generator step, then the discriminator step, each with its noise."""
+    from sd_tpu_torch.training.vae_gan import adopt_weight
+
+    shape = trainer.posterior_shape(batch)
+    noise_g = torch.randn(shape, generator=generator)
+    noise_d = torch.randn(shape, generator=generator)
+    x = trainer._images(batch)
+    ae, disc = state.ae, state.disc
+    disc.requires_grad_(False)
+    state.ae_opt.zero_grad(set_to_none=True)
+    state.logvar.grad = None
+    nll, reg, rec_loss, rec, logs = trainer._reconstruction_terms(ae, x, noise_g, state.logvar)
+    g_loss = -disc(rec, stats="batch").float().mean()
+    last = ae.get_last_layer()
+    g_nll = torch.autograd.grad(nll, last, retain_graph=True)[0]
+    g_g = torch.autograd.grad(g_loss, last, retain_graph=True)[0]
+    d_weight = torch.norm(g_nll.float()) / (torch.norm(g_g.float()) + 1e-4)
+    d_weight = (d_weight.clamp(0.0, 1e4) * trainer.disc_weight).detach()
+    disc_factor = adopt_weight(trainer.disc_factor, state.step, trainer.disc_start)
+    loss = nll + trainer.kl_weight * reg + d_weight * disc_factor * g_loss
+    loss.backward()
+    state.ae_opt.step()
+    with torch.no_grad():
+        state.logvar -= trainer.learning_rate * state.logvar.grad
+    disc.requires_grad_(True)
+    with torch.no_grad():
+        rec = ae(x, noise=noise_d)[0].float()
+    state.disc_opt.zero_grad(set_to_none=True)
+    logits_real, logits_fake = disc(x, stats="update").float(), disc(rec, stats="update").float()
+    d_loss = disc_factor * trainer.d_loss_fn(logits_real, logits_fake)
+    d_loss.backward()
+    state.disc_opt.step()
+    state.step += 1
+    return {"total_loss": loss.detach(), "d_weight": d_weight, "disc_loss": d_loss.detach()}
+
+
+def _flat_state(state):
+    """Every tensor of a VAE-GAN state by name (optimizer moments too)."""
+    sd = state.state_dict()
+    out = {f"ae.{k}": v for k, v in sd["ae"].items()}
+    out.update({f"disc.{k}": v for k, v in sd["disc"].items()})
+    for opt in ("ae_opt", "disc_opt"):
+        for i, st in sd[opt]["state"].items():
+            out.update({f"{opt}.{i}.{k}": v for k, v in st.items()})
+    out["logvar"] = sd["logvar"]
+    return out
+
+
+def test_reference_at_one_shard_is_the_plain_step_bit_for_bit(tmp_path):
+    """``train_step`` at ``shards`` = 1 (every one-process run's step, and
+    the reference of one rank) against the step as written before the
+    option, 2 steps from one build's weights: every weight, moment,
+    running statistic, the logvar and the losses equal."""
+    runs = []
+    for step in (lambda t, s, b, g: t.train_step(s, b, g), _step_before_shards):
+        trainer, state, batch = _tiny_kl(tmp_path)
+        logs = [{k: float(v) for k, v in step(trainer, state, batch,
+                                              torch.Generator().manual_seed(i)).items()
+                 if k in ("total_loss", "d_weight", "disc_loss")} for i in range(2)]
+        runs.append((logs, _flat_state(state)))
+    (got_logs, got), (want_logs, want) = runs
+    assert got_logs == want_logs and got.keys() == want.keys()
+    assert all(torch.equal(got[k], want[k]) for k in want), [
+        k for k in want if not torch.equal(got[k], want[k])]
+
+
+def test_reference_at_two_shards_averages_each_shards_own_step(tmp_path):
+    """One step of the reference of two ranks at batch 4 against two plain
+    steps from the same weights, each on one shard's rows (``s::2``) with
+    those rows of the same posterior draws (each discriminator step after
+    the reference's autoencoder update, which both ranks take): Adam's first
+    moments (the gradients times 1 - beta1) are the two steps' mean and the
+    logvar's move their mean, within 1e-6 of the scale (fp32, the sums in
+    another order); the running statistics are shard 0's, bit for bit, and
+    so are the logs. A plain step at batch 4 is not the reference: its moments
+    differ by more than 1e-3 of the scale (one d_weight, one batch's
+    statistics)."""
+    trainer, state, batch = _tiny_kl(tmp_path, shards=2)
+    logvar0 = state.logvar.item()
+    ref_logs = trainer.train_step(state, batch, torch.Generator().manual_seed(0))
+    ref = _flat_state(state)
+    ref_ae = state.ae.state_dict()
+    g = torch.Generator().manual_seed(0)
+    shape = trainer.posterior_shape(batch)
+    noise_g, noise_d = torch.randn(shape, generator=g), torch.randn(shape, generator=g)
+    shards = []
+    for s in range(2):
+        trainer, state, _ = _tiny_kl(tmp_path)
+        rows = {"image": batch["image"][s::2]}
+        logs = trainer.generator_step(state, rows, noise_g[s::2])
+        state.ae.load_state_dict(ref_ae)
+        logs.update(trainer.discriminator_step(state, rows, noise_d[s::2]))
+        shards.append((logs, _flat_state(state)))
+    plain, plain_state, _ = _tiny_kl(tmp_path)
+    plain.train_step(plain_state, batch, torch.Generator().manual_seed(0))
+    plain = _flat_state(plain_state)
+    first = [k for k in ref if k.endswith(".exp_avg")]
+    assert len(first) == len(list(state.ae.parameters())) + len(list(state.disc.parameters()))
+    for k in first:
+        mean = (shards[0][1][k] + shards[1][1][k]) / 2
+        torch.testing.assert_close(ref[k], mean, rtol=0,
+                                   atol=1e-6 * max(float(mean.abs().max()), 1e-30))
+    scale = max(float(ref[k].abs().max()) for k in first)
+    assert max(float((plain[k] - ref[k]).abs().max()) for k in first) > 1e-3 * scale
+    moves = [float(st["logvar"]) - logvar0 for _, st in shards]
+    assert float(ref["logvar"]) - logvar0 == pytest.approx(sum(moves) / 2, rel=1e-6)
+    for k in ref:
+        if "running" in k:
+            assert torch.equal(ref[k], shards[0][1][k]), k
+    for k in ("total_loss", "d_weight", "disc_loss", "rec_loss", "kl_loss"):
+        assert float(ref_logs[k]) == float(shards[0][0][k]), k

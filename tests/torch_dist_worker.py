@@ -1,17 +1,22 @@
 """One rank of the port's two-rank CPU checks (``test_torch_parallel_dist.py``
-starts two of these): it imports the port alone, joins a gloo group through
-a ``FileStore`` in the test's directory, runs torch on one thread, and
-writes what it computed there for the test to compare.
+and ``test_torch_first_stage_dist.py`` start two of these): it imports the
+port alone, joins a gloo group through a ``FileStore`` in the test's
+directory, runs torch on one thread, and writes what it computed there for
+the test to compare.
 
-    RANK=r WORLD_SIZE=2 LOCAL_RANK=r python tests/torch_dist_worker.py <dir>
+    RANK=r WORLD_SIZE=2 LOCAL_RANK=r python tests/torch_dist_worker.py <dir> [first_stage]
 
 ``<dir>/inputs.npz`` holds the test's arrays; rank 0 writes
 ``<dir>/outputs.npz`` and the training runs' directories, and each rank
-its dry-run legs' numbers.
+its dry-run legs' numbers. With ``first_stage``: the first-stage checks
+(:func:`first_stage`), whose numbers rank 0 writes to
+``<dir>/first_stage.json``.
 """
 
+import glob
 import json
 import os
+import pathlib
 import shutil
 import sys
 
@@ -152,6 +157,109 @@ def dryrun_legs(root, device):
         json.dump(result, f)
 
 
+FIRST_STAGE_KL = str(pathlib.Path(__file__).resolve().parents[1]
+                     / "configs/sd_tpu/tiny-autoencoder-kl.yaml")
+# the tiny KL VAE-GAN's CLI arguments: the discriminator from step 1, 24²
+# images
+FIRST_STAGE_ARGS = ["-t", "--device", "cpu", "--no_images", "--log_every", "1",
+                    "--ckpt_every", "100", "model.params.lossconfig.params.disc_start=0",
+                    "data.params.train.params.size=24"]
+
+
+def first_stage_fit(argv, resume=False, shards=1):
+    """The training CLI's first-stage run of ``argv`` (after
+    ``FIRST_STAGE_ARGS``) through ``Trainer.fit``; ``shards`` makes its
+    trainer the one-process reference of that many ranks. Returns the
+    harness and the state."""
+    from sd_tpu_torch.scripts.train import build_trainer, parse_args
+
+    harness, state, data = build_trainer(parse_args(FIRST_STAGE_ARGS + argv))
+    harness.trainer_obj.shards = shards
+    harness.fit(state, data, resume=resume)
+    return harness, state
+
+
+def vae_gan_run(sd):
+    """A first-stage checkpoint's state as
+    ``dryrun_multigpu.compare_training`` takes it: both optimizers'
+    parameters (``ae.``, ``disc.``) and moments."""
+    names = {"ae": list(sd["ae"]),
+             "disc": [k for k in sd["disc"] if "running" not in k and "num_batches" not in k]}
+    run = {"after": {}, "moments": {}}
+    for part, opt in (("ae", "ae_opt"), ("disc", "disc_opt")):
+        run["after"].update({f"{part}.{k}": sd[part][k] for k in names[part]})
+        run["moments"].update({f"{part}.{k}": v
+                               for k, v in moments_of(sd[opt], names[part]).items()})
+    return run
+
+
+def _running_stats(disc_sd):
+    return {k: v for k, v in disc_sd.items() if "running" in k}
+
+
+def first_stage(root, device, out):
+    """The first stage at two ranks (the tiny KL config, ``disc_start`` 0):
+
+    - ``scripts/dryrun_multigpu.py``'s ``first_stage`` leg on the tiny VQ
+      VAE-GAN (under DDP + ZeRO-1 against the one-process reference of 2
+      ranks; the KL model's comparison is run A's against the test's
+      reference), each rank's numbers in ``first_stage_rank<r>.json``;
+    - the test's run A (2 steps of the CLI under ``torch.distributed.run``)
+      resumed to 4; each rank's logvar, and rank 0's checkpoint's running
+      statistics against both ranks' own;
+    - the test's one-process reference checkpoint (2 steps, ``w1``) resumed
+      here at two ranks for 2 more, against A (``compare_training``);
+    - ``BatchResizeWrapper`` over each rank's shard: the sizes it draws.
+    """
+    from sd_tpu_torch.scripts import dryrun_multigpu as dryrun
+    from sd_tpu_torch.training.trainer import DataModuleFromConfig
+    from sd_tpu_torch.training.vae_gan import BatchResizeWrapper
+
+    me = torch.distributed.get_rank()
+    opt = dryrun.parse_args(["--tiny", "--device", "cpu", "--legs", "first_stage", "--steps",
+                             "2"])
+    leg = dryrun.leg_first_stage(opt, device, {}, kinds=("vq",))
+    with open(os.path.join(root, f"first_stage_rank{me}.json"), "w") as f:
+        json.dump(leg, f)
+
+    (run_a,) = glob.glob(os.path.join(root, "a", "*_a"))
+    last_a = os.path.join(run_a, "checkpoints", "last.pt")
+    _, state = first_stage_fit(["--resume", run_a, "--max_steps", "4"], resume=True)
+    mine = {"logvar": state.logvar.item(),
+            "stats": {k: v.tolist() for k, v in _running_stats(state.disc.state_dict()).items()}}
+    both = [None, None]
+    torch.distributed.all_gather_object(both, mine)
+    if me == 0:
+        saved = _running_stats(torch.load(last_a, weights_only=True)["state"]["disc"])
+        out["logvars"] = [b["logvar"] for b in both]
+        out["stats_saved_are_rank0s"] = all(v.tolist() == both[0]["stats"][k]
+                                            for k, v in saved.items())
+        out["stats_rank1_differ"] = any(both[1]["stats"][k] != both[0]["stats"][k]
+                                        for k in saved)
+        (w1,) = glob.glob(os.path.join(root, "w1", "*_w1"))
+        shutil.copytree(w1, os.path.join(root, "w1_at_2"))
+    torch.distributed.barrier()
+    _, state = first_stage_fit(["--resume", os.path.join(root, "w1_at_2"), "--max_steps", "4",
+                                "--batch_size", "2"], resume=True)
+    if me == 0:
+        got, want = (torch.load(os.path.join(d, "checkpoints", "last.pt"),
+                                weights_only=True)["state"]
+                     for d in (os.path.join(root, "w1_at_2"), run_a))
+        res = dryrun.compare_training(vae_gan_run(got), vae_gan_run(want), on_cpu=True,
+                                      beta2=dryrun.FIRST_STAGE_BETA2)
+        out["from_world1"] = {**res, "step": got["step"],
+                              "logvar_gap": float((got["logvar"] - want["logvar"]).abs())}
+
+    images = {"target": "sd_tpu_torch.data.synthetic.SyntheticImages",
+              "params": {"size": 32, "length": 40}}
+    data = BatchResizeWrapper(DataModuleFromConfig(2, images, num_shards=2, shard_index=me),
+                              (16, 48))
+    sizes = [int(b["image"].shape[1]) for b in data.train_dataloader()]
+    both = [None, None]
+    torch.distributed.all_gather_object(both, sizes)
+    out["resize_sizes"] = both
+
+
 def _equal(a, b) -> bool:
     if isinstance(a, dict):
         return a.keys() == b.keys() and all(_equal(a[k], b[k]) for k in a)
@@ -162,14 +270,20 @@ def _equal(a, b) -> bool:
     return a == b
 
 
-def main(root: str) -> None:
+def main(root: str, mode: str = "") -> None:
     from sd_tpu_torch.parallel.mesh import init_distributed, make_mesh
 
     torch.set_num_threads(1)
     device = init_distributed("gloo", "cpu", init_method=f"file://{root}/store")
-    inputs = dict(np.load(os.path.join(root, "inputs.npz")))
     out = {}
     try:
+        if mode == "first_stage":
+            first_stage(root, device, out)
+            if torch.distributed.get_rank() == 0:
+                with open(os.path.join(root, "first_stage.json"), "w") as f:
+                    json.dump(out, f)
+            return
+        inputs = dict(np.load(os.path.join(root, "inputs.npz")))
         mesh = make_mesh(torch.distributed.get_world_size(), 1, "cpu")
         sampling(inputs, out, mesh, device)
         tiling(inputs, out, mesh)
@@ -183,4 +297,4 @@ def main(root: str) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(*sys.argv[1:])
