@@ -45,4 +45,14 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "geglu_ff_int8_plain", "int8_dense", "int8_dense_plain", "fused_conv3x3",
            "fused_conv3x3_plain", "winograd_conv3x3", "winograd_conv3x3_split",
            "winograd_conv3x3_plain", "fused_block", "fused_block_plain", "tail_fused",
-           "tail_fused_plain", "block_weights"]
+           "tail_fused_plain", "block_weights", "COUNTED", "launch_counts"]
+
+# the wrappers that count their launches (``<wrapper>.launches``)
+COUNTED = ("flash_attention", "geglu_ff", "flash_attention_bwd", "geglu_ff_int8",
+            "flash_attention_int8", "int8_dense", "fused_conv3x3", "winograd_conv3x3",
+            "winograd_conv3x3_split", "fused_block", "tail_fused")
+
+
+def launch_counts() -> dict:
+    """Each kernel wrapper's launches in this process so far, by name."""
+    return {name: globals()[name].launches for name in COUNTED}

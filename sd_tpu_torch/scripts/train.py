@@ -60,6 +60,18 @@ over the ranks) is on by default for N > 1. Rank 0 alone writes the
 config, the checkpoints (in the one-process layout), the images and the
 metrics; the run's directory is rank 0's. Without ``WORLD_SIZE`` in the
 environment the CLI runs as one process, as it always did.
+
+``--ckpt <file>`` warm-starts an LDM run (``main.py --ckpt``): the model is
+built from the reference-layout checkpoint's weights
+(``utils/port.py::load_torch_state_dict``), so the trainer state, its EMA
+shadow among it, starts from them. With ``--resume`` the run's own
+checkpoint is restored over them, as in ``main.py``. The run's config
+records the file as ``model.params.ckpt_path`` (the reference's name), so
+that a resumed run, with ``--ckpt`` or without, and a sampler loading the
+run take the frozen stages from it again: its checkpoints hold the trained
+weights alone. A first-stage config refuses ``--ckpt`` (``main.py``
+ignores it there). A run on the card ends
+with a line of its kernel launches (``LAUNCHES_LINE``).
 """
 
 from __future__ import annotations
@@ -73,6 +85,10 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 import torch
 
 from sd_tpu_torch.parallel.mesh import BACKENDS, is_main_process, launched, rank, world_size
+
+# the prefix of the line that a run on the card ends with: this process's
+# kernel launches (rank 0's under torchrun), as JSON
+LAUNCHES_LINE = "Kernel launches: "
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -104,6 +120,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
                         "cuda, gloo for cpu)")
     p.add_argument("--zero", type=lambda v: v.lower() != "false", default=None,
                    help="ZeRO-1 under torchrun (default: true for more than one rank)")
+    p.add_argument("--ckpt", type=str, default="",
+                   help="a reference-layout .ckpt to warm-start LDM training from")
     opt, unknown = p.parse_known_args(argv)
     opt.dotlist = [a for a in unknown if "=" in a and not a.startswith("-")]
     rest = [a for a in unknown if a not in opt.dotlist]
@@ -159,9 +177,19 @@ def build_trainer(opt: argparse.Namespace, device: Optional[torch.device] = None
     harness_args = dict(logdir=logdir, max_steps=opt.max_steps, ckpt_every=opt.ckpt_every,
                         seed=opt.seed, log_every=opt.log_every)
     model_cfg = config["model"]
+    first_stage = model_cfg["target"].split(".")[-1] in ("AutoencoderKL", "VQModel",
+                                                          "VQModelInterface")
+    if first_stage and opt.ckpt:
+        raise SystemExit(f"--ckpt warm-starts LatentDiffusion training only; "
+                         f"{model_cfg['target']} is a first-stage model, which main.py trains "
+                         f"from its seed whatever --ckpt says. Drop --ckpt to train it.")
+    if opt.ckpt:  # the run's config names it: a resume and a sampler read the frozen stages
+        model_cfg.setdefault("params", {})["ckpt_path"] = os.path.abspath(opt.ckpt)
+        if is_main_process():
+            print(f"Warm-starting from {opt.ckpt}")
     data_cfg = dict(config["data"]["params"])
     data = DataModuleFromConfig(**data_cfg, num_shards=world_size(), shard_index=rank())
-    if model_cfg["target"].split(".")[-1] in ("AutoencoderKL", "VQModel", "VQModelInterface"):
+    if first_stage:
         harness, state, data = _first_stage(opt, model_cfg, data, device, harness_args)
     else:
         harness, state = _latent_diffusion(opt, model_cfg, data_cfg["batch_size"], device,
@@ -195,6 +223,7 @@ def _latent_diffusion(opt, model_cfg, batch_size: int, device, harness_args):
     from sd_tpu_torch.utils.profiling import MetricsWriter
 
     mp = model_cfg["params"]
+    # with a ckpt_path every rank reads the file; DDP then broadcasts rank 0's weights
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=torch.float32, seed=opt.seed)
     lr = _learning_rate(opt, model_cfg, batch_size, 1e-4)
     sched = mp.get("scheduler_config")
@@ -263,6 +292,10 @@ def main(argv: Optional[Sequence[str]] = None) -> None:
             harness.fit(state, data, resume=bool(opt.resume))
         if is_main_process():
             print(f"Done at step {state.step}. Logs at {harness.logdir}")
+            if harness.trainer_obj.device.type == "cuda":
+                from sd_tpu_torch.ops.cuda import launch_counts
+
+                print(f"{LAUNCHES_LINE}{json.dumps(launch_counts())}", flush=True)
     finally:
         if torch.distributed.is_initialized():
             torch.distributed.destroy_process_group()

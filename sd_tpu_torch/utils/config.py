@@ -465,7 +465,8 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
     """Build a :class:`LatentDiffusion` from a config's ``model`` node on
     ``device`` (``meta`` for the shapes alone) in ``dtype``, with random weights from
     ``torch.Generator(device).manual_seed(seed)``, or, given ``state_dict``
-    (a reference checkpoint's), its weights: loaded strictly once
+    (a reference checkpoint's) or a ``params.ckpt_path`` in the config (the
+    reference's warm start: that file's), its weights: loaded strictly once
     :data:`REFERENCE_EXTRA_KEYS` are dropped, then cast to ``dtype``. The
     int8 serving mode ``int8`` (``SD_TPU_INT8``'s grammar; off by default)
     is held on its sites, with the weights it reads quantized after the
@@ -496,6 +497,10 @@ def build_latent_diffusion(model_cfg: Dict[str, Any], *, device, dtype=torch.flo
                               conditioning_key=key)
     device = torch.device(device)
     ldm.to_empty(device=device)
+    if state_dict is None and p.get("ckpt_path") and device.type != "meta":
+        from sd_tpu_torch.utils.port import load_torch_state_dict
+
+        state_dict = load_torch_state_dict(p["ckpt_path"])
     if state_dict is None:
         if device.type != "meta":  # the meta device holds shapes only
             init_random_(ldm, torch.Generator(device=device).manual_seed(seed))
@@ -519,7 +524,9 @@ def build_latent_diffusion_from_run(run_path: str, config_path: Optional[str] = 
     from the run's config (``<logdir>/configs/project.yaml``, or
     ``config_path``) and its recorded seed, on the device type they were
     drawn on: a torch generator draws other numbers on another device type,
-    so a build on another one is refused. Returns ``(ldm, meta)``; anything
+    so a build on another one is refused. A run warm-started from a
+    reference checkpoint (``model.params.ckpt_path`` in its config) takes
+    them from that file instead, on any device. Returns ``(ldm, meta)``; anything
     unresolvable raises, so a run directory never samples random weights.
     """
     params, meta = load_run_params(run_path, use_ema=use_ema)
@@ -531,7 +538,8 @@ def build_latent_diffusion_from_run(run_path: str, config_path: Optional[str] = 
     model_cfg = cfg["model"] if "model" in cfg else cfg
     device = torch.device(device)
     drawn_on = meta.get("frozen_device")
-    if drawn_on is not None and drawn_on != device.type:
+    warm_started = bool((model_cfg.get("params") or {}).get("ckpt_path"))
+    if not warm_started and drawn_on is not None and drawn_on != device.type:
         raise ValueError(f"run {run_path!r} drew its frozen stages on {drawn_on}; rebuilding "
                          f"them on {device.type} would draw other weights")
     ldm = build_latent_diffusion(model_cfg, device=device, dtype=dtype, seed=int(meta["seed"]),

@@ -456,7 +456,8 @@ def test_port_imports_nothing_of_jax_or_sd_tpu():
                    "scripts/train_searcher.py", "models/vae_extras.py", "utils/profiling.py",
                    "utils/tb_events.py", "utils/prefetch.py", "parallel/mesh.py",
                    "parallel/tp.py", "parallel/sharded_sampling.py", "core/draws.py",
-                   "scripts/dryrun_multigpu.py"):
+                   "scripts/dryrun_multigpu.py", "scripts/convergence_run.py",
+                   "scripts/int8_quality.py"):
         assert _REPO / "sd_tpu_torch" / module in files
     bad = {str(f.relative_to(_REPO)): sorted(set(_imported_roots(f)) & _FORBIDDEN)
            for f in files}
