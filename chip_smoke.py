@@ -122,6 +122,21 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    (and, for K5 "qkpv", K5 "qk"'s) must exceed at every shape, so that a
    kernel skipping its quantization fails; K5 "qkpv" at d=40 too (its
    narrow kernel, on no serving path: within INT8_TOL, not timed);
+10b. [head dims]: K1 at [1, 4096, 1, 1280], [2, 1024, 1, 2048] and
+   [1, 256, 1, 4096] (its stream plan) and [2, 1024, 8, 36] (zero-padded
+   to 40), K3 at [1, 4096, 1, 768], [2, 1024, 1, 1280] and
+   [1, 512, 1, 2048] (its slice plan), K5 "qk" and "qkpv" at
+   [1, 4096, 1, 768] and [1, 2048, 1, 1280] (its split plan): head dims
+   no config of the repository reaches and sd_tpu's kernels take, each
+   against its plain version as in phases 3, 5 and 10 (K1 with its lse and
+   sharp logits, K3 with sharp logits, K5 with INT8_TOL and its gates),
+   timed beside the plain version, sdpa (its backward for K3) and the
+   bound, with its launch plan; untimed, K3 at [2, 1024, 8, 36] and K5 at
+   [1, 2048, 2, 36] "qk" and [1, 2048, 1, 300] "qkpv" (zero-padded to a
+   multiple of 8 by the wrappers); then each shape once through
+   dot_product_attention (with a gradient for K3's shapes, in the int8
+   modes "attn" and "attn_pv" for K5's), exactly K1 = 7, K3 = 3, K5 = 4
+   (2 in "qkpv");
 11. int8 reference: the tiny model at 256² (attention at N=4096, the
    decoder's at N=16384) with every bucket in bf16 on the card against the
    same weights in fp32 on the CPU without int8, PLMS 5: relative L2 of the
@@ -337,7 +352,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    one process without DDP, AdamW's first moments and the parameters'
    deltas within the dry run's CARD_MOMENT_TOL and CARD_DELTA_TOL
    (relative L2); the ms a step with and without DDP and the peak memory;
-   then its first_stage leg: the kl-f8 VAE-GAN (global batch 12) and the
+   the checkpoint's gather of the ZeRO-1 AdamW (optimizer_state_dict's
+   tensor broadcasts) and consolidate_state_dict's pickling gather each
+   timed cold, then warm in the other order, the two state dicts equal to
+   the bit; then its first_stage leg: the kl-f8 VAE-GAN (global batch 12) and the
    VQ-f4 VQ-GAN (8) at 256², disc_start 0, 3 steps under DDP, exactly
    K1 = 4 and K3 = 2 a step, against the same steps in one process: every
    gap 0 (both Adams' first moments and deltas, the weights, the logvar,
@@ -347,7 +365,9 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    --backend gloo (NCCL refuses two ranks on one card; gloo's times are no
    speed figure): (a) 2 DDP + ZeRO-1 steps at 2 a rank against one process
    at batch 4 (the same launches a step on each rank; the first moments
-   and the deltas within CARD_MOMENT_TOL and CARD_DELTA_TOL); (b) sharded_sample at PLMS 50, guidance 7.5,
+   and the deltas within CARD_MOMENT_TOL and CARD_DELTA_TOL; the ZeRO-1
+   AdamW's checkpoint gather timed once on each rank, the pickling way not
+   run); (b) sharded_sample at PLMS 50, guidance 7.5,
    a batch of 8 against one process's batch of 8 from the same x_T
    (relative L2 of the latents within 0.10; K1 = K2 = 16 x 51 a rank);
    (c) one tensor-parallel UNet evaluation at B=2 against the replicated
@@ -717,6 +737,21 @@ CORRECTOR_LAUNCHES = {"flash_attention": 8, "flash_attention_bwd": 2}
 VQ_GAN_COMPARED = {"rec_loss": FIRST_STAGE_LOSS_TOL, "nll_loss": FIRST_STAGE_LOSS_TOL,
                    "quant_loss": FIRST_STAGE_LOSS_TOL, "g_loss": 5e-2, "disc_loss": 5e-2}
 # the H100 SXM's dense bf16 and int8 tensor-core rates and memory rate
+# [head dims]: K1, K3 and K5 at head dims that no config of the repository
+# reaches but sd_tpu's kernels take (its flash_supported has no head-dim
+# condition): K1's stream plan (d > 1024) and a head dim that is not a
+# multiple of 8 (zero-padded by the wrapper), K3's slice plan (d > 512),
+# K5's split plan (d > 512)
+HEAD_DIM_FLASH_SHAPES = [(1, 4096, 1, 1280), (2, 1024, 1, 2048), (1, 256, 1, 4096),
+                         (2, 1024, 8, 36)]
+HEAD_DIM_BWD_SHAPES = [(1, 4096, 1, 768), (2, 1024, 1, 1280), (1, 512, 1, 2048)]
+HEAD_DIM_INT8_SHAPES = [(1, 4096, 1, 768, "qk"), (1, 4096, 1, 768, "qkpv"),
+                        (1, 2048, 1, 1280, "qk"), (1, 2048, 1, 1280, "qkpv")]
+# untimed: K3 through the autograd function's padding and K5 through its
+# wrapper's, at head dims that are not multiples of 8
+HEAD_DIM_ODD_BWD_SHAPE = (2, 1024, 8, 36)
+HEAD_DIM_ODD_INT8_SHAPES = [(1, 2048, 2, 36, "qk"), (1, 2048, 1, 300, "qkpv")]
+
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
 PEAK_BYTES = 3.35e12
@@ -847,8 +882,8 @@ def build() -> None:
         elif "Used" in line and kernel not in seen:
             # K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's, K4's, X1's and
             # X2's kernels by name and template arguments
-            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide)?|winograd_kernel|"
-                             r"int8_attn_kernel(?:_wide)?|geglu_gemm_kernel|"
+            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide|_split)?|winograd_kernel|"
+                             r"int8_attn_kernel(?:_wide|_split)?|geglu_gemm_kernel|"
                              r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel|k4_out_kernel|"
                              r"x1_qkv_kernel|x1_attn_kernel|ln_rows_kernel", kernel or "")
             if name:
@@ -1786,6 +1821,88 @@ def check_kernels() -> dict:
     for k, rows in check_ldm_1p4b_shapes(randn).items():
         timings[k] += rows
     return timings
+
+
+def head_dims_main_path() -> tuple:
+    """[head dims]: K1 (output, row log-sum-exp, sharp logits), K3 (dQ, dK,
+    dV, sharp logits) and K5 ("qk" and "qkpv") at HEAD_DIM_*_SHAPES against
+    their plain versions, each timed beside its plain version, sdpa (or
+    sdpa's backward) and its bound, with its launch plan, and untimed K3
+    and K5 at head dims that are not multiples of 8 (HEAD_DIM_ODD_*); then
+    each timed shape once through ``dot_product_attention``, the entry
+    point every model calls (with a gradient for K3's, in the int8 serving
+    modes "attn" and "attn_pv" for K5's), the counts reset just before:
+    exactly one K1 launch a K1 shape, one K1 and one K3 a K3 shape, one K5
+    a K5 shape. Returns the rows by kernel and the launch counts."""
+    from sd_tpu_torch.ops.attention import dot_product_attention
+    from sd_tpu_torch.ops.quant import parse_int8
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(22)
+    randn = lambda *s: torch.randn(s, generator=g, device="cuda")
+    rows = {"flash_attention": [], "flash_attention_bwd": [], "flash_attention_int8": []}
+    for shape in HEAD_DIM_FLASH_SHAPES:
+        log_plan("K1", shape)
+        row = flash_case(randn, shape)
+        row["err"] = max(row["err"], flash_case(randn, shape, sharp=True, timed=False)["err"])
+        rows["flash_attention"].append(row)
+        free_memory()
+    for shape in HEAD_DIM_BWD_SHAPES:
+        log_plan("K3 dK/dV", shape)
+        log_plan("K3 dQ", shape)
+        for sharp in (False, True):
+            flash_case(randn, shape, sharp=sharp, timed=False)
+        row = flash_bwd_case(randn, shape)
+        row["err"] = max(row["err"], flash_bwd_case(randn, shape, sharp=True, timed=False)["err"])
+        rows["flash_attention_bwd"].append(row)
+        free_memory()
+    for shape in HEAD_DIM_INT8_SHAPES:
+        log_plan(f"K5 {shape[4]}", shape[:4])
+        rows["flash_attention_int8"].append(int8_flash_case(randn, shape))
+        free_memory()
+    for sharp in (False, True):
+        rows["flash_attention_bwd"].append(
+            flash_bwd_case(randn, HEAD_DIM_ODD_BWD_SHAPE, sharp=sharp, timed=False))
+    for shape in HEAD_DIM_ODD_INT8_SHAPES:
+        log_plan(f"K5 {shape[4]}", shape[:4])
+        rows["flash_attention_int8"].append(int8_flash_case(randn, shape, timed=False))
+    for k, part in rows.items():
+        part = [r for r in part if "ms" in r]
+        sums = {key: sum(r[key] for r in part) for key in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms")}
+        log(f"[head dims] {k} over its {len(part)} shapes: kernel {sums['ms']:.4f} ms, plain "
+            f"{sums['plain_ms']:.4f} ms, library {sums['library_ms']:.4f} ms, bound "
+            f"{sums['bound_ms']:.4f} ms")
+
+    bf = lambda shape: [randn(*shape).to(torch.bfloat16) for _ in range(3)]
+    reset_launches()
+    for shape in HEAD_DIM_FLASH_SHAPES:
+        with torch.no_grad():
+            out = dot_product_attention(*bf(shape))
+        if out.shape != shape or not torch.isfinite(out).all():
+            raise AssertionError(f"[head dims] K1 at {shape}: {tuple(out.shape)}, not finite")
+    for shape in HEAD_DIM_BWD_SHAPES:
+        leaves = [t.requires_grad_() for t in bf(shape)]
+        grads = torch.autograd.grad(dot_product_attention(*leaves).float().sum(), leaves)
+        if not all(gr.shape == shape and torch.isfinite(gr).all() for gr in grads):
+            raise AssertionError(f"[head dims] K3 at {shape}: gradients not finite")
+    for b, n, h, d, mode in HEAD_DIM_INT8_SHAPES:
+        with torch.no_grad():
+            out = dot_product_attention(*bf((b, n, h, d)),
+                                        int8=parse_int8({"qk": "attn", "qkpv": "attn_pv"}[mode]))
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"[head dims] K5 {mode} at {(b, n, h, d)}: not finite")
+    torch.cuda.synchronize()
+    counts = read_launches()
+    want = expect(flash_attention=len(HEAD_DIM_FLASH_SHAPES) + len(HEAD_DIM_BWD_SHAPES),
+                  flash_attention_bwd=len(HEAD_DIM_BWD_SHAPES),
+                  flash_attention_int8=len(HEAD_DIM_INT8_SHAPES),
+                  flash_attention_int8_qkpv=sum(s[4] == "qkpv" for s in HEAD_DIM_INT8_SHAPES))
+    log(f"[head dims] through dot_product_attention: launches {counts}")
+    if counts != want:
+        raise AssertionError(f"[head dims] launches {counts}, expected {want}")
+    log(f"[head dims] {time.perf_counter() - t_phase:.1f} s")
+    return rows, counts
 
 
 def check_int8_kernels() -> dict:
@@ -4171,6 +4288,14 @@ def check_train_leg(label: str, rows: list, note: str = "") -> dict:
             f"{leg['peak_gib']:.2f} GiB, moments owned {z['owned_bytes'] / 2**30:.3f} GiB of a "
             f"share of {z['share_bytes'] / 2**30:.3f}, EMA tensors {z['ema_tensors']} of "
             f"{z['tensors']}; launches a step {want}")
+        save = leg["save"]
+        log(f"[{label}] rank {r['rank']}: SD v1's ZeRO-1 AdamW gathered for a checkpoint (tensor "
+            f"broadcasts to rank 0's CPU) in {' and '.join(f'{t:.2f}' for t in save['gather_s'])} s"
+            + (f"; consolidate_state_dict + state_dict (pickled) in "
+               f"{' and '.join(f'{t:.2f}' for t in save['consolidate_s'])} s (each way cold, "
+               f"then warm in the other order), the two state dicts equal to the bit"
+               if "consolidate_s" in save else "")
+            + note)
     ref = rows[0]["train"]
     log(f"[{label}] one process at batch 4 (no DDP, no ZeRO): "
         f"{' '.join(f'{t:.1f}' for t in ref['reference_ms'])} ms, peak memory "
@@ -4400,6 +4525,10 @@ def main() -> None:
     build()
     timings = check_kernels()
     timings.update(check_int8_kernels())
+    head_dim_rows, head_dims = head_dims_main_path()
+    for k, rows in head_dim_rows.items():
+        timings[k] += rows
+    free_memory()
     timings.update(check_conv_kernels())
     free_memory()
     timings.update(check_block_kernels())
@@ -4464,10 +4593,10 @@ def main() -> None:
                                          "tools/exp_winograd.py:271"),
               "fused_block": ("sd_tpu_torch/csrc/fused_block.cu", "tools/exp_block_kernel.py:91"),
               "tail_fused": ("sd_tpu_torch/csrc/tail_fused.cu", "tools/exp_block_kernel.py:244")}
-    runs = (served["launches"], served_int8, trained, served_conv, x3_launches, block_launches,
-            served_ckpt, served_run, served_img2img, served_daemon, first_stage, trained_1p4b,
-            inpainted, sampled, cin256, superres, knn, extras, *data_runs, *parallel_runs,
-            converged)
+    runs = (head_dims, served["launches"], served_int8, trained, served_conv, x3_launches,
+            block_launches, served_ckpt, served_run, served_img2img, served_daemon,
+            first_stage, trained_1p4b, inpainted, sampled, cin256, superres, knn, extras,
+            *data_runs, *parallel_runs, converged)
     kernels = []
     for k, rows in timings.items():
         # the times sum the timed shapes; the error is the worst of all

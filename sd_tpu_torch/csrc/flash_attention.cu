@@ -75,10 +75,24 @@
 //   4 * Nq * Nk * d: 2.5x at d = 1024, 2x at d = 640 and 768 (the bound
 //   counts the function's work). 103,424 bytes of shared memory, two
 //   blocks an SM. A plan that is right first; making it fast is later work.
+// - d > 1024 (any head dim sd_tpu's kernel runs at; no config of the
+//   repository reaches one): the stream plan, the split plan with Q in
+//   chunks too. Q whole in shared memory would take 66 KB per 1024 columns
+//   of d, so nothing of the head is held whole: each cp.async stage holds a
+//   128-column chunk of the 32-key tile's K and the same chunk of the
+//   block's 32 query rows, and S = Q K^T accumulates over the whole d chunk
+//   by chunk in registers, as in the split plan. The block then loads only
+//   its slice of V's 256 columns, and the first slice writes lse. Its
+//   shared memory is 54,784 bytes at every d (two stages of 64 rows at a
+//   pitch of 136, the V slice, the P tile and the exchange). Each slice
+//   streams Q's and K's whole rows and recomputes Q K^T: (2 * slices + 2) *
+//   Nq * Nk * d flops per head, 17x the function's 4 * Nq * Nk * d at
+//   d = 4096 (16 slices); the bound counts the function's work.
 //
 // The ragged last key tile is zero-filled by the copy and masked to -inf
 // before the max; query rows past Nq are zero-filled and not stored. d must
-// be a multiple of 8 and at most 1024, and scale positive.
+// be a multiple of 8 (the wrapper zero-pads another head dim on d), and
+// scale positive.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -500,12 +514,14 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The plan of the 576 < d <= 1024 kernel: the wide plan's 8 warps, 32 query
-// rows and 32 keys per tile, with O's columns split over blocks in slices of
-// OC. Shared memory: Q at the whole padded head dim DK, two stages of a
-// DC-column chunk of K, one V tile of the slice's OC columns, the bf16 P
-// tile and the exchange of row maxima and sums.
-template <int DK, int OC>
+// The plan of the d > 576 kernels: the wide plan's 8 warps, 32 query rows
+// and 32 keys per tile, with O's columns split over blocks in slices of OC.
+// Shared memory: Q at the whole padded head dim DK (the split plan, d <=
+// 1024) or nothing of it (QS, the stream plan: DK is 0), two stages of a
+// DC-column chunk of K (and with QS of the block's Q rows), one V tile of
+// the slice's OC columns, the bf16 P tile and the exchange of row maxima
+// and sums.
+template <int DK, int OC, bool QS>
 struct SplitPlan {
   static constexpr int WARPS = 8;
   static constexpr int THREADS = 256;
@@ -516,13 +532,14 @@ struct SplitPlan {
   static constexpr int LDK = DC + 8;
   static constexpr int LDV = OC + 8;
   static constexpr int LDP = BK + 8;
-  static constexpr int KS = BQ * LDQ;            // element offset of K's stage 0
-  static constexpr int VS = KS + 2 * BK * LDK;   // element offset of V
+  static constexpr int KS = QS ? 0 : BQ * LDQ;   // element offset of stage 0
+  static constexpr int STAGE = (BK + (QS ? BQ : 0)) * LDK;  // K's chunk, then Q's
+  static constexpr int VS = KS + 2 * STAGE;      // element offset of V
   static constexpr int PT = VS + BK * LDV;       // element offset of P
   static constexpr int RED = (PT + BQ * LDP) * 2;  // byte offset of the fp32 [2][4][16] exchange
   static constexpr int BYTES = RED + 2 * 4 * 16 * 4;
   static_assert(OC % 64 == 0, "a slice's columns split into pairs of n8 tiles over 4 warps");
-  static_assert(DK % DC == 0, "Q's padding covers the last chunk");
+  static_assert(QS ? DK == 0 : DK % DC == 0, "Q's padding covers the last chunk");
 };
 
 // Copies columns [c0, c0 + COLS) of rows [row0, row0 + ROWS) of one (batch,
@@ -541,12 +558,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int DK, int OC>
+template <int DK, int OC, bool QS>
 __global__ void __launch_bounds__(256)
 flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, bf16* __restrict__ o,
                        float* __restrict__ lse, int nq, int nk, int heads, int d, float sl) {
-  using P = SplitPlan<DK, OC>;
+  using P = SplitPlan<DK, OC, QS>;
   constexpr int BK = P::BK;
   constexpr int DC = P::DC;
   constexpr int NO = OC / 32;  // n8 tiles of O per warp (OC / 4 columns)
@@ -577,9 +594,18 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* red_row = red + rg * 64;       // [4][16] of this row group
   const int nchunks = (d + DC - 1) / DC;
 
-  if (d < DK) zero_padding<DK, P::LDQ, P::THREADS>(smem, P::BQ, d);
-  load_rows<P::BQ, P::LDQ, P::THREADS>(smem, qb, q0, nq, row_stride, d / 8);
-  load_tile<BK, DC, P::LDK, P::THREADS>(smem + P::KS, kb, 0, nk, row_stride, 0, d);
+  // a stage's chunk: K's of keys row0 .., and with QS the block's Q rows'
+  auto load_chunk = [&](bf16* stage, int row0, int c0) {
+    load_tile<BK, DC, P::LDK, P::THREADS>(stage, kb, row0, nk, row_stride, c0, d);
+    if constexpr (QS)
+      load_tile<P::BQ, DC, P::LDK, P::THREADS>(stage + BK * P::LDK, qb, q0, nq, row_stride, c0,
+                                               d);
+  };
+  if constexpr (!QS) {
+    if (d < DK) zero_padding<DK, P::LDQ, P::THREADS>(smem, P::BQ, d);
+    load_rows<P::BQ, P::LDQ, P::THREADS>(smem, qb, q0, nq, row_stride, d / 8);
+  }
+  load_chunk(smem + P::KS, 0, 0);
   sdt::cp_async_commit();
 
   float acc[NO][4];
@@ -587,7 +613,10 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the sums over its warp's keys
-  const bf16* qrow = smem + (rg * 16 + lane % 16) * P::LDQ + lane / 16 * 8;
+  // this thread's ldmatrix row of Q: in the whole Q (the split plan) or in
+  // a stage's Q chunk (QS, added to the stage's address)
+  const int qoff = QS ? BK * P::LDK + (rg * 16 + lane % 16) * P::LDK + lane / 16 * 8
+                      : (rg * 16 + lane % 16) * P::LDQ + lane / 16 * 8;
 
   int step = 0;  // chunks streamed so far: chunk `step` sits in stage step & 1
   const int ntiles = (nk + BK - 1) / BK;
@@ -600,21 +629,22 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // the last tile's P V is done: its V tile may be overwritten
       if (c == 0)
         load_tile<BK, OC, P::LDV, P::THREADS>(vs, vb, t * BK, nk, row_stride, s0, s0 + ow);
-      bf16* next = smem + P::KS + ((step + 1) & 1) * BK * P::LDK;
+      bf16* next = smem + P::KS + ((step + 1) & 1) * P::STAGE;
       if (c + 1 < nchunks)
-        load_tile<BK, DC, P::LDK, P::THREADS>(next, kb, t * BK, nk, row_stride, (c + 1) * DC, d);
+        load_chunk(next, t * BK, (c + 1) * DC);
       else if (t + 1 < ntiles)
-        load_tile<BK, DC, P::LDK, P::THREADS>(next, kb, (t + 1) * BK, nk, row_stride, 0, d);
+        load_chunk(next, (t + 1) * BK, 0);
       sdt::cp_async_commit();
-      const bf16* krow = smem + P::KS + (step & 1) * BK * P::LDK + (cg * 8 + lane % 8) * P::LDK +
-                         lane / 8 * 8;
+      const bf16* stage = smem + P::KS + (step & 1) * P::STAGE;
+      const bf16* krow = stage + (cg * 8 + lane % 8) * P::LDK + lane / 8 * 8;
+      const bf16* qrow = QS ? stage + qoff : smem + qoff + c * DC;
 #pragma unroll
       for (int kk = 0; kk < DC / 16; kk += 2) {
         if (c * DC + kk * 16 < d) {
           unsigned kf[4], qa[4], qc[4];
           sdt::ldmatrix_x4(kf, krow + kk * 16);
-          sdt::ldmatrix_x4(qa, qrow + c * DC + kk * 16);
-          sdt::ldmatrix_x4(qc, qrow + c * DC + kk * 16 + 16);
+          sdt::ldmatrix_x4(qa, qrow + kk * 16);
+          sdt::ldmatrix_x4(qc, qrow + kk * 16 + 16);
           sdt::mma(s, qa, kf[0], kf[1]);
           sdt::mma(s, qc, kf[2], kf[3]);
         }
@@ -751,21 +781,18 @@ Choice wide() {
   return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES, 0};
 }
 
-template <int DK, int OC>
+template <int DK, int OC, bool QS = false>
 Choice split() {
-  using P = SplitPlan<DK, OC>;
+  using P = SplitPlan<DK, OC, QS>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel_split<DK, OC>, P::BQ, P::BK, P::THREADS, P::BYTES, OC};
+  return {flash_fwd_kernel_split<DK, OC, QS>, P::BQ, P::BK, P::THREADS, P::BYTES, OC};
 }
 
 // The slices of O's columns a plan's grid runs over at head dim d.
 int slices_of(const Choice& c, int d) { return c.oc ? (d + c.oc - 1) / c.oc : 1; }
 
-// The widest head dim K1 takes (the first-stage extras' d = 1024 sites).
-constexpr int kMaxHeadDim = 1024;
-
 bool choose(int d, Choice* c) {
-  if (d <= 0 || d % 8 || d > kMaxHeadDim) return false;
+  if (d <= 0 || d % 8) return false;
   switch (round_up(d, 16)) {
     case 16: *c = narrow<16, 4, 64, 2>(); return true;
     case 32: *c = narrow<32, 4, 64, 2>(); return true;
@@ -779,15 +806,18 @@ bool choose(int d, Choice* c) {
     case 160: *c = narrow<160, 4, 32, 1>(); return true;
     default: break;
   }
-  *c = d <= 256 ? wide<256>() : d <= 512 ? wide<512>() : d <= 576 ? wide<576>()
-                                                     : split<1024, 256>();
+  *c = d <= 256    ? wide<256>()
+       : d <= 512  ? wide<512>()
+       : d <= 576  ? wide<576>()
+       : d <= 1024 ? split<1024, 256>()
+                   : split<0, 256, true>();
   return true;
 }
 
 }  // namespace
 
 // Returns the CUDA error code of the launch (0 on success). d must be a
-// multiple of 8 and at most 1024; the wrapper checks shapes and alignment.
+// multiple of 8; the wrapper checks shapes and alignment.
 // `lse` is null, or fp32 [B, H, Nq] for the row log-sum-exp.
 extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, void* o,
                                    void* lse, int batch, int nq, int nk, int heads, int d,

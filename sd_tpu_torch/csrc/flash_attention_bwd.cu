@@ -61,8 +61,26 @@
 // dV (or dQ) in registers (64 of them at d = 512). Three __syncthreads per
 // tile, 174 KiB of shared memory, one block per SM. Its bound at [12, 1024,
 // 1, 512] is 0.065 ms of operations (10 * B * Nq * Nk * D flops) against
-// 0.030 ms of bytes. d must be a multiple of 8 and at most 512 (padded to
-// 256, 384 or 512 in shared memory above 128).
+// 0.030 ms of bytes (padded to 256, 384 or 512 in shared memory).
+//
+// At d > 512 (any head dim sd_tpu's backward kernel runs at; no config of
+// the repository reaches one) the owned and streamed rows no longer fit
+// whole: at d = 1024 the wide plan's 160 rows take 330 KB. Both passes then
+// take the slice plan (flash_bwd_slice_kernel), K1's split of O's columns
+// applied to the backward: a block owns 16 rows and a slice of 256 of the
+// output's columns (grid.y runs over heads x slices). Per 32-row streamed
+// tile it recomputes X = S (or S^T) and Y = dP (or dP^T) over the whole d,
+// 128 columns at a time: each cp.async stage holds a chunk of the owned
+// pair (16 rows each) and of the streamed pair (32 rows each), so nothing
+// of the head is held whole. P = exp2(S * scale * log2 e - lse) and dS =
+// P (dP - delta) * scale come from K1's lse and the delta pre-pass as in
+// the wide plan; then the block loads only its slice of the streamed
+// tile's columns and accumulates its slice of dV = P^T dO and dK = dS^T Q,
+// or of dQ = dS K. 93,440 bytes of shared memory at every d. Each slice
+// recomputes X and Y: (4 * slices + 4) * Nq * Nk * d flops per head for
+// dK/dV and dQ with the slices' products, against the function's 10 * Nq *
+// Nk * d (the bound counts the function's). d must be a multiple of 8 (the
+// wrapper zero-pads another head dim on d).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -102,6 +120,22 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int row0, 
     const bool valid = row0 + r < n;
     sdt::cp_async16(dst + r * LD + c, src + (size_t)(valid ? row0 + r : 0) * row_stride + c,
                     valid);
+  }
+}
+
+// Copies columns [c0, c0 + COLS) of rows [row0, row0 + ROWS) of one (batch,
+// head) slice into shared memory at pitch LD; rows at or past n and columns
+// at or past `cols` are zero-filled.
+template <int ROWS, int COLS, int LD, int THREADS>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, int n,
+                                          int row_stride, int c0, int cols) {
+  constexpr int CH = COLS / 8;
+  for (int i = threadIdx.x; i < ROWS * CH; i += THREADS) {
+    const int r = i / CH;
+    const int c = (i - r * CH) * 8;
+    const bool valid = row0 + r < n && c0 + c < cols;
+    sdt::cp_async16(dst + r * LD + c,
+                    src + (valid ? (size_t)(row0 + r) * row_stride + c0 + c : 0), valid);
   }
 }
 
@@ -684,6 +718,228 @@ flash_bwd_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The plan of the d > 512 passes: the wide plan's 8 warps, 16 owned rows
+// and 32 streamed rows per tile, the output's columns in slices of OC.
+// Shared memory: two stages of a DC-column chunk of the owned pair (A, B)
+// and of the streamed pair (C, D), the slice's columns of the streamed
+// tile (C, and D for dK/dV), the fp32 X and Y tiles [2][16][LDS], the bf16
+// P and dS tiles [2][16][LDP], and the streamed rows' lse and delta.
+template <int OC>
+struct SlicePlan {
+  static constexpr int THREADS = 256;
+  static constexpr int OWNED = 16;
+  static constexpr int BT = 32;
+  static constexpr int DC = 128;
+  static constexpr int LDK = DC + 8;
+  static constexpr int LDV = OC + 8;
+  static constexpr int LDS = BT + 4;
+  static constexpr int LDP = BT + 8;
+  static constexpr int STAGE = (2 * OWNED + 2 * BT) * LDK;  // A, B, C, D chunks
+  static constexpr int CD = 2 * STAGE;                      // element offset of the slices
+  static constexpr int XY = (CD + 2 * BT * LDV) * 2;
+  static constexpr int PD = XY + 2 * OWNED * LDS * 4;
+  static constexpr int STATS = PD + 2 * OWNED * LDP * 2;
+  static constexpr int BYTES = STATS + 2 * BT * 4;
+  static_assert(OC % 128 == 0, "a slice's columns split into pairs of n8 tiles over 8 warps");
+};
+
+// Both passes at d > 512: flash_bwd_wide_kernel's roles (A, B owned; C, D
+// streamed; with KV dK and dV, else dQ), with the contraction of X = A C^T
+// and Y = B D^T streamed in chunks of DC columns and the accumulators over
+// the block's slice of OC output columns.
+template <int OC, bool KV>
+__global__ void __launch_bounds__(256)
+flash_bwd_slice_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       bf16* __restrict__ out_ds, bf16* __restrict__ out_p, int nq, int nk,
+                       int heads, int d, float scale, float sl) {
+  using P = SlicePlan<OC>;
+  constexpr int T = P::THREADS;
+  constexpr int BT = P::BT;
+  constexpr int DC = P::DC;
+  constexpr int LDK = P::LDK;
+  constexpr int LDV = P::LDV;
+  constexpr int OWNED = P::OWNED;
+  constexpr int NW = OC / 64;  // n8 tiles of each accumulator per warp
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
+  bf16* cds = smem + P::CD;
+  float* xy = reinterpret_cast<float*>(smem_raw + P::XY);
+  bf16* pd = reinterpret_cast<bf16*>(smem_raw + P::PD);
+  float* stats = reinterpret_cast<float*>(smem_raw + P::STATS);
+
+  const int slices = gridDim.y / heads;
+  const int h = blockIdx.y / slices;
+  const int s0 = (blockIdx.y - h * slices) * OC;  // the block's first output column
+  const int ow = min(OC, d - s0);                 // its output columns
+  const int r0 = blockIdx.x * OWNED;
+  const int b = blockIdx.z;
+  const int row_stride = heads * d;
+  const int n_own = KV ? nk : nq;
+  const int n_str = KV ? nq : nk;
+  const size_t q_off = ((size_t)b * nq * heads + h) * d;
+  const size_t k_off = ((size_t)b * nk * heads + h) * d;
+  const bf16* ab = KV ? k + k_off : q + q_off;
+  const bf16* bb = KV ? v + k_off : dout + q_off;
+  const bf16* cb = KV ? q + q_off : k + k_off;
+  const bf16* db = KV ? dout + q_off : v + k_off;
+  const float* lseb = lse + ((size_t)b * heads + h) * nq;
+  const float* deltab = delta + ((size_t)b * heads + h) * nq;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int col0 = warp * (OC / 8);     // this warp's first column in the slice
+  const int nv = (ow - col0 + 7) / 8;   // its n8 tiles inside the slice (may be <= 0)
+  const int nchunks = (d + DC - 1) / DC;
+
+  // a stage: chunk c0 .. of the owned pair's rows and of tile t's streamed pair
+  auto load_chunk = [&](bf16* stage, int t, int c0) {
+    load_tile<OWNED, DC, LDK, T>(stage, ab, r0, n_own, row_stride, c0, d);
+    load_tile<OWNED, DC, LDK, T>(stage + OWNED * LDK, bb, r0, n_own, row_stride, c0, d);
+    load_tile<BT, DC, LDK, T>(stage + 2 * OWNED * LDK, cb, t * BT, n_str, row_stride, c0, d);
+    load_tile<BT, DC, LDK, T>(stage + (2 * OWNED + BT) * LDK, db, t * BT, n_str, row_stride, c0,
+                              d);
+  };
+  load_chunk(smem, 0, 0);
+  sdt::cp_async_commit();
+
+  // the elementwise step's row and first column
+  const int er = threadIdx.x / 16, ec = threadIdx.x % 16 * 2;
+  const bool row_ok = r0 + er < n_own;
+  float lse_r = 0.f, delta_r = 0.f;
+  if (!KV && row_ok) {
+    lse_r = lseb[r0 + er];
+    delta_r = deltab[r0 + er];
+  }
+
+  // acc[0]: dS C (dK or dQ); acc[1]: P D (dV)
+  float acc[KV ? 2 : 1][NW][4];
+#pragma unroll
+  for (int a = 0; a < (KV ? 2 : 1); ++a)
+#pragma unroll
+    for (int j = 0; j < NW; ++j) acc[a][j][0] = acc[a][j][1] = acc[a][j][2] = acc[a][j][3] = 0.f;
+
+  const int which = warp / 4, nt = warp % 4;  // X (warps 0-3) or Y, and its n8 tile
+  int step = 0;  // chunks streamed so far: chunk `step` sits in stage step & 1
+  const int ntiles = (n_str + BT - 1) / BT;
+  for (int t = 0; t < ntiles; ++t) {
+    // X or Y over the whole contraction, one n8 tile a warp; ldmatrix_x4 on
+    // the streamed rows gives the B fragments of two k16 steps
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int ch = 0; ch < nchunks; ++ch, ++step) {
+      sdt::cp_async_wait<0>();
+      __syncthreads();
+      if (ch == 0) {
+        // the last tile's products are done: its slices and statistics may
+        // be overwritten
+        load_tile<BT, OC, LDV, T>(cds, cb, t * BT, n_str, row_stride, s0, s0 + ow);
+        if (KV) {
+          load_tile<BT, OC, LDV, T>(cds + BT * LDV, db, t * BT, n_str, row_stride, s0, s0 + ow);
+          load_stats<BT, T>(stats, lseb, t * BT, nq);
+          load_stats<BT, T>(stats + BT, deltab, t * BT, nq);
+        }
+      }
+      bf16* next = smem + ((step + 1) & 1) * P::STAGE;
+      if (ch + 1 < nchunks)
+        load_chunk(next, t, (ch + 1) * DC);
+      else if (t + 1 < ntiles)
+        load_chunk(next, t + 1, 0);
+      sdt::cp_async_commit();
+      const bf16* stage = smem + (step & 1) * P::STAGE;
+      const bf16* arow = stage + (which * OWNED + lane % 16) * LDK + lane / 16 * 8;
+      const bf16* brow = stage + (2 * OWNED + which * BT + nt * 8 + lane % 8) * LDK + lane / 8 * 8;
+#pragma unroll
+      for (int kk = 0; kk < DC / 32; ++kk) {
+        if (ch * DC + kk * 32 < d) {
+          unsigned bf[4], a0[4], a1[4];
+          sdt::ldmatrix_x4(bf, brow + kk * 32);
+          sdt::ldmatrix_x4(a0, arow + kk * 32);
+          sdt::ldmatrix_x4(a1, arow + kk * 32 + 16);
+          sdt::mma(c, a0, bf[0], bf[1]);
+          sdt::mma(c, a1, bf[2], bf[3]);
+        }
+      }
+    }
+    float* xr = xy + (which * OWNED + g) * P::LDS + nt * 8 + 2 * tq;
+    xr[0] = c[0];
+    xr[1] = c[1];
+    xr[8 * P::LDS] = c[2];
+    xr[8 * P::LDS + 1] = c[3];
+    // the tile's slices and statistics have landed (issued with its first chunk)
+    sdt::cp_async_wait<0>();
+    __syncthreads();
+
+    // P and dS, bf16, set to 0 outside the valid rows and columns
+    {
+      const float* lses = stats;
+      const float* deltas = stats + BT;
+      float p[2], ds[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = ec + e;
+        const bool valid = row_ok && t * BT + col < n_str;
+        const float s = xy[er * P::LDS + col];
+        const float dp = xy[(OWNED + er) * P::LDS + col];
+        const float l = KV ? lses[col] : lse_r;
+        const float dl = KV ? deltas[col] : delta_r;
+        const float pe = sdt::exp2_approx(fmaf(s, sl, -l));
+        p[e] = valid ? pe : 0.f;
+        ds[e] = valid ? ds_of(pe, dp, dl, scale) : 0.f;
+      }
+      *reinterpret_cast<unsigned*>(pd + er * P::LDP + ec) = sdt::pack_bf16(p[0], p[1]);
+      *reinterpret_cast<unsigned*>(pd + (OWNED + er) * P::LDP + ec) =
+          sdt::pack_bf16(ds[0], ds[1]);
+    }
+    __syncthreads();
+
+    // this warp's columns of the slice: acc[0] += dS C and, with KV, acc[1] += P D
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      unsigned sa[4], pa[4];
+      sdt::ldmatrix_x4(sa, pd + (OWNED + lane % 16) * P::LDP + kk * 16 + lane / 16 * 8);
+      if (KV) sdt::ldmatrix_x4(pa, pd + (lane % 16) * P::LDP + kk * 16 + lane / 16 * 8);
+      const int brow = (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * LDV + col0 + lane / 16 * 8;
+#pragma unroll
+      for (int dp = 0; dp < NW / 2; ++dp) {
+        if (2 * dp < nv) {
+          unsigned f[4];
+          sdt::ldmatrix_x4_trans(f, cds + brow + dp * 16);
+          sdt::mma(acc[0][2 * dp], sa, f[0], f[1]);
+          if (2 * dp + 1 < nv) sdt::mma(acc[0][2 * dp + 1], sa, f[2], f[3]);
+          if (KV) {
+            sdt::ldmatrix_x4_trans(f, cds + BT * LDV + brow + dp * 16);
+            sdt::mma(acc[KV ? 1 : 0][2 * dp], pa, f[0], f[1]);
+            if (2 * dp + 1 < nv) sdt::mma(acc[KV ? 1 : 0][2 * dp + 1], pa, f[2], f[3]);
+          }
+        }
+      }
+    }
+  }
+
+  const size_t own_off = (KV ? k_off : q_off) + s0;
+  const int ra = r0 + g, rb = ra + 8;
+#pragma unroll
+  for (int a = 0; a < (KV ? 2 : 1); ++a) {
+    bf16* out = (a == 0 ? out_ds : out_p) + own_off;
+#pragma unroll
+    for (int j = 0; j < NW; ++j) {
+      if (j < nv) {
+        const int col = col0 + j * 8 + 2 * tq;
+        if (ra < n_own)
+          *reinterpret_cast<unsigned*>(out + (size_t)ra * row_stride + col) =
+              sdt::pack_bf16(acc[a][j][0], acc[a][j][1]);
+        if (rb < n_own)
+          *reinterpret_cast<unsigned*>(out + (size_t)rb * row_stride + col) =
+              sdt::pack_bf16(acc[a][j][2], acc[a][j][3]);
+      }
+    }
+  }
+}
+
+// The slice plan's columns per block.
+constexpr int kSliceCols = 256;
+
 // The two passes' plans at padded head dim DK.
 template <int DK>
 struct Passes {
@@ -761,6 +1017,42 @@ cudaError_t launch_wide(const bf16* q, const bf16* k, const bf16* v, const bf16*
   return cudaGetLastError();
 }
 
+template <int OC>
+cudaError_t launch_slice(const bf16* q, const bf16* k, const bf16* v, const bf16* o,
+                         const bf16* dout, const float* lse, float* delta, bf16* dq, bf16* dk,
+                         bf16* dv, int batch, int nq, int nk, int heads, int d, float scale,
+                         cudaStream_t stream) {
+  using P = SlicePlan<OC>;
+  static_assert(P::BYTES <= 232448, "shared memory per block");
+  const auto kv_kernel = flash_bwd_slice_kernel<OC, true>;
+  const auto q_kernel = flash_bwd_slice_kernel<OC, false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(q_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, P::BYTES);
+  if (err != cudaSuccess) return err;
+  const float sl = scale * 1.4426950408889634f;
+
+  const long long rows = (long long)batch * nq * heads;
+  const unsigned delta_blocks = (unsigned)((rows + kWarps - 1) / kWarps);
+  flash_bwd_delta_kernel<<<delta_blocks, kThreads, 0, stream>>>(o, dout, delta, nq, heads, d,
+                                                                rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int slices = (d + OC - 1) / OC;
+  dim3 grid_kv((nk + P::OWNED - 1) / P::OWNED, heads * slices, batch);
+  kv_kernel<<<grid_kv, P::THREADS, P::BYTES, stream>>>(q, k, v, dout, lse, delta, dk, dv, nq,
+                                                       nk, heads, d, scale, sl);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  dim3 grid_q((nq + P::OWNED - 1) / P::OWNED, heads * slices, batch);
+  q_kernel<<<grid_q, P::THREADS, P::BYTES, stream>>>(q, k, v, dout, lse, delta, dq, nullptr,
+                                                     nq, nk, heads, d, scale, sl);
+  return cudaGetLastError();
+}
+
 // The padded head dim of the d > 128 passes: 256, 384 or 512.
 __host__ __device__ constexpr int wide_dim(int d) { return d <= 256 ? 256 : d <= 384 ? 384 : 512; }
 
@@ -773,7 +1065,7 @@ cudaError_t occupancy(Kernel kernel, int threads, int bytes, int* blocks) {
 }
 
 template <typename P, typename Kernel>
-cudaError_t plan_of(Kernel kernel, int* out, int threads = kThreads) {
+cudaError_t plan_of(Kernel kernel, int* out, int threads = kThreads, int slices = 1) {
   int blocks = 0;
   const cudaError_t err = occupancy(kernel, threads, P::BYTES, &blocks);
   out[0] = P::OWNED;
@@ -781,6 +1073,7 @@ cudaError_t plan_of(Kernel kernel, int* out, int threads = kThreads) {
   out[2] = threads;
   out[3] = P::BYTES;
   out[4] = blocks;
+  out[5] = slices;
   return err;
 }
 
@@ -799,14 +1092,22 @@ cudaError_t plan_wide(int which, int* out) {
                     : plan_of<P>(flash_bwd_wide_kernel<DK, false>, out, P::THREADS);
 }
 
+template <int OC>
+cudaError_t plan_slice(int which, int d, int* out) {
+  using P = SlicePlan<OC>;
+  const int slices = (d + OC - 1) / OC;
+  return which == 1 ? plan_of<P>(flash_bwd_slice_kernel<OC, true>, out, P::THREADS, slices)
+                    : plan_of<P>(flash_bwd_slice_kernel<OC, false>, out, P::THREADS, slices);
+}
+
 }  // namespace
 
 #define SDT_BWD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
 #define SDT_BWD_WIDE_DIMS(X) X(256) X(384) X(512)
 
 // Returns the CUDA error code of the launches (0 on success). `delta` is fp32
-// scratch of [B, H, Nq]. d must be a multiple of 8 and at most 512; the
-// wrapper checks shapes, types and alignment.
+// scratch of [B, H, Nq]. d must be a multiple of 8; the wrapper checks
+// shapes, types and alignment.
 extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void* v,
                                        const void* o, const void* dout, const void* lse,
                                        void* delta, void* dq, void* dk, void* dv, int batch,
@@ -823,7 +1124,10 @@ extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void*
   bf16* dkp = static_cast<bf16*>(dk);
   bf16* dvp = static_cast<bf16*>(dv);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d % 8 || d <= 0 || d > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if (d % 8 || d <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 512)
+    return static_cast<int>(launch_slice<kSliceCols>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp,
+                                                     batch, nq, nk, heads, d, scale, s));
 #define SDT_BWD_WIDE(DK)                                                                    \
   if (d > 128 && wide_dim(d) == DK)                                                        \
     return static_cast<int>(launch_wide<DK>(qp, kp, vp, op, dop, lp, dl, dqp, dkp, dvp, batch, \
@@ -842,10 +1146,11 @@ extern "C" int sdt_flash_attention_bwd(const void* q, const void* k, const void*
 
 // K3's plan for head dim d and pass `which` (1: dK/dV, 2: dQ): out = {rows a
 // block owns, rows of the streamed tile, threads, shared-memory bytes,
-// resident blocks per SM}.
+// resident blocks per SM, slices of the output's columns per row tile}.
 extern "C" int sdt_flash_bwd_plan(int d, int which, int* out) {
-  if (d % 8 || d <= 0 || d > 512 || (which != 1 && which != 2))
+  if (d % 8 || d <= 0 || (which != 1 && which != 2))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (d > 512) return static_cast<int>(plan_slice<kSliceCols>(which, d, out));
 #define SDT_PLAN_WIDE(DK) \
   if (d > 128 && wide_dim(d) == DK) return static_cast<int>(plan_wide<DK>(which, out));
   SDT_BWD_WIDE_DIMS(SDT_PLAN_WIDE)

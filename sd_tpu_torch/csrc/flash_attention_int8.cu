@@ -74,9 +74,22 @@
 //   [32, 32] tile (bf16, or int8 codes in pv_slot order); "qk" exchanges
 //   the row max through shared memory each tile, "qkpv" once a chunk.
 //   128 blocks at B = 1.
+// - d > 512 (any head dim sd_tpu's int8 kernel runs at; no config of the
+//   repository reaches one): the split plan. Q and K are quantized per row
+//   over the whole d, as `_kernel_chunked_int8` does, into codes padded to
+//   a multiple of 512 (DP); the wide plan's 32-row blocks and warp split,
+//   with O's columns in slices of 512 over blocks (grid.y runs over heads x
+//   slices). Per key tile the int32 logits accumulate over 512-column
+//   chunks of the codes: each cp.async stage holds one chunk of the
+//   block's Q codes and of the tile's K codes, so nothing of the head is
+//   held whole. The block then loads only its slice of V (bf16 for "qk";
+//   for "qkpv" the slice's features of V's transposed codes, with their
+//   per-chunk scales) and runs the wide plan's P V on it. Each slice
+//   recomputes the int8 Q K^T, the price of the split, as K1's split plan.
 //
 // N must be a multiple of 1024 (no ragged tiles or rows), d a multiple of 8
-// up to 512; self-attention only.
+// (the wrapper zero-pads another head dim on d, which changes no code or
+// scale); self-attention only.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -123,7 +136,9 @@ __device__ __forceinline__ unsigned pack_codes(float p0, float p1, float p2, flo
 // x [B, N, H, d] bf16 -> codes [B, H, N, dp] (zero-padded), scales [B, H, N].
 // dp = 48: one thread per row, consecutive threads on consecutive tokens of
 // one (b, h), so that the codes are written contiguously; 16-byte loads and
-// stores. dp = 512: one warp per row, 16 bytes a lane.
+// stores. dp = 512: one warp per row, 16 bytes a lane. dp > 512: one warp
+// per row in two passes over it, the max and then the codes, 8 values a
+// lane at a time.
 __global__ void __launch_bounds__(256)
 quant_heads_kernel(const bf16* __restrict__ x, signed char* __restrict__ xq,
                    float* __restrict__ sx, int batch, int n, int heads, int d, int dp) {
@@ -165,6 +180,30 @@ quant_heads_kernel(const bf16* __restrict__ x, signed char* __restrict__ xq,
   const int t = (row / heads) % n;
   const int b = row / ((long)heads * n);
   const bf16* src = x + row * d;
+  if (dp > 512) {
+    float amax = 0.f;
+    for (int c = lane; c < chunks; c += 32) {
+      const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
+      const bf16* e = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) amax = fmaxf(amax, fabsf(__bfloat162float(e[i])));
+    }
+    const float s = quant_scale(warp_max(amax));
+    const size_t out_row = ((size_t)b * heads + h) * n + t;
+    if (lane == 0) sx[out_row] = s;
+    for (int c = lane; c < dp / 8; c += 32) {
+      uint2 out = make_uint2(0u, 0u);
+      if (c < chunks) {
+        const uint4 raw = reinterpret_cast<const uint4*>(src)[c];
+        const bf16* e = reinterpret_cast<const bf16*>(&raw);
+        signed char* o = reinterpret_cast<signed char*>(&out);
+#pragma unroll
+        for (int i = 0; i < 8; ++i) o[i] = quant(__bfloat162float(e[i]), s);
+      }
+      reinterpret_cast<uint2*>(xq + out_row * dp)[c] = out;
+    }
+    return;
+  }
   float amax = 0.f;
   uint4 raw[2];
 #pragma unroll
@@ -877,33 +916,336 @@ int8_attn_kernel_wide(const signed char* __restrict__ qq, const float* __restric
   }
 }
 
+// ---------------------------------------------------------------- d > 512
+
+// The plan of the split kernel: the wide plan's 8 warps, 32 query rows in
+// two groups of 16 and 32-key tiles, O's columns in slices of OC over
+// blocks, the contraction in chunks of DC columns of the codes. Shared
+// memory (bytes): two stages of (a DC-column chunk of the block's Q codes,
+// the same chunk of the tile's K codes), the tile's keys' scales, its V
+// slice (bf16 [32, OC + 8] in "qk", transposed codes [OC, 48] in "qkpv"),
+// the P tile and the fp32 [2][4][16] row exchange.
+template <bool PV8>
+struct SplitPlan {
+  static constexpr int DC = 512;
+  static constexpr int OC = 512;
+  static constexpr int THREADS = 256;
+  static constexpr int BQ = 32;
+  static constexpr int BK = 32;
+  static constexpr int LDQ = DC + 16;  // byte pitch of the Q and K code chunks
+  static constexpr int LDV = OC + 8;   // bf16 pitch of V (qk)
+  static constexpr int LDT = BK + 16;  // byte pitch of V's transposed codes (qkpv)
+  static constexpr int LDP = PV8 ? BK + 16 : (BK + 8) * 2;  // byte pitch of P
+  static constexpr int STAGE = (BQ + BK) * LDQ;              // Q's chunk, then K's
+  static constexpr int SK = 2 * STAGE;
+  static constexpr int V = SK + BK * 4;
+  static constexpr int PT = V + (PV8 ? OC * LDT : BK * LDV * 2);
+  static constexpr int RED = PT + BQ * LDP;
+  static constexpr int BYTES = RED + 2 * 4 * 16 * 4;
+};
+
+template <bool PV8>
+__global__ void __launch_bounds__(256)
+int8_attn_kernel_split(const signed char* __restrict__ qq, const float* __restrict__ sq,
+                       const signed char* __restrict__ kq, const float* __restrict__ sk,
+                       const bf16* __restrict__ v, const signed char* __restrict__ vq,
+                       const float* __restrict__ sv, bf16* __restrict__ o, int n, int heads,
+                       int d, float sl) {
+  using P = SplitPlan<PV8>;
+  constexpr int DC = P::DC, OC = P::OC, BK = P::BK, LDQ = P::LDQ;
+  constexpr int NO = OC / 32;  // n8 tiles of O per warp (OC / 4 columns)
+  constexpr int TILES = kChunk / BK;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* red = reinterpret_cast<float*>(smem + P::RED);
+
+  const int dp = (d + DC - 1) / DC * DC;  // the codes' padded head dim
+  const int nc = dp / DC;                 // contraction chunks
+  const int slices = gridDim.y / heads;
+  const int h = blockIdx.y / slices;
+  const int s0 = (blockIdx.y - h * slices) * OC;  // the block's first column of O
+  const int ow = min(OC, d - s0);                 // its columns of O
+  const int q0 = blockIdx.x * P::BQ;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * heads + h;
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int rg = warp / 4;  // row group: rows rg * 16 ..
+  const int cg = warp % 4;  // keys cg * 8 .. of a tile, slice columns cg * OC / 4 ..
+  const int col0 = cg * (OC / 4);
+  const int nv = min(NO, (ow - col0 + 7) / 8);  // this warp's n8 tiles of O inside the slice
+  float* red_row = red + rg * 64;
+  const int nchunks = n / kChunk;
+  const int steps = PV8 ? nchunks * 2 * TILES : n / BK;
+
+  // the key tile of a step: "qk" one step a tile; "qkpv" per chunk its tiles
+  // for the max, then again for P and P V
+  auto tile_of = [&](int step) {
+    return PV8 ? (step / (2 * TILES)) * kChunk + (step % TILES) * BK : step * BK;
+  };
+  // a stage: chunk c of the contraction, of Q's codes and of the step's K codes
+  auto load_chunk = [&](unsigned char* stage, int step, int c) {
+    copy_rows<P::THREADS>(stage, qq + (bh * n + q0) * dp + c * DC, P::BQ, DC / 16, dp, LDQ);
+    copy_rows<P::THREADS>(stage + P::BQ * LDQ, kq + (bh * n + tile_of(step)) * dp + c * DC, BK,
+                          DC / 16, dp, LDQ);
+  };
+  load_chunk(smem, 0, 0);
+  sdt::cp_async_commit();
+
+  float acc[NO][4];
+  int oi[PV8 ? NO : 1][4];
+#pragma unroll
+  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, mc0 = -INFINITY, mc1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;  // this thread's part of the sums over its warp's keys
+  const float rs0 = sq[bh * n + q0 + rg * 16 + g] * sl;
+  const float rs1 = sq[bh * n + q0 + rg * 16 + g + 8] * sl;
+  const int qoff = (rg * 16 + lane % 16) * LDQ + lane / 16 * 16;
+  const int koff = P::BQ * LDQ + (cg * 8 + lane % 8) * LDQ + lane / 8 * 16;
+
+  int u = 0;  // chunks streamed so far: chunk u sits in stage u & 1
+  for (int step = 0; step < steps; ++step) {
+    const int within = step % (2 * TILES);
+    const bool pass1 = PV8 && within < TILES;
+    const int k0 = tile_of(step);
+
+    // S over this warp's 8 keys, the contraction in chunks of DC codes
+    int si[4] = {0, 0, 0, 0};
+    for (int c = 0; c < nc; ++c, ++u) {
+      sdt::cp_async_wait<0>();
+      __syncthreads();
+      if (c == 0) {
+        // the last step's P V is done: its scales and V may be overwritten
+        copy_rows<P::THREADS>(smem + P::SK, sk + bh * n + k0, 1, BK / 4, 0, 0);
+        if (!PV8)
+          copy_rows<P::THREADS>(smem + P::V, v + ((size_t)(b * n + k0) * heads + h) * d + s0, BK,
+                                ow / 8, (size_t)heads * d * 2, P::LDV * 2);
+        else if (!pass1)
+          copy_rows<P::THREADS>(smem + P::V, vq + (bh * dp + s0) * n + k0, OC, BK / 16, n,
+                                P::LDT);
+      }
+      if (c + 1 < nc)
+        load_chunk(smem + ((u + 1) & 1) * P::STAGE, step, c + 1);
+      else if (step + 1 < steps)
+        load_chunk(smem + ((u + 1) & 1) * P::STAGE, step + 1, 0);
+      sdt::cp_async_commit();
+      const signed char* st = reinterpret_cast<const signed char*>(smem + (u & 1) * P::STAGE);
+#pragma unroll 4
+      for (int kk = 0; kk < DC / 32; kk += 2) {
+        unsigned kf[4], qa[4], qc[4];
+        sdt::ldmatrix_x4(kf, st + koff + kk * 32);
+        sdt::ldmatrix_x4(qa, st + qoff + kk * 32);
+        sdt::ldmatrix_x4(qc, st + qoff + kk * 32 + 32);
+        sdt::mma_s8(si, qa, kf[0], kf[1]);
+        sdt::mma_s8(si, qc, kf[2], kf[3]);
+      }
+    }
+    // the tile's scales and V slice have landed (issued with its first chunk)
+    sdt::cp_async_wait<0>();
+    __syncthreads();
+    const float2 kc = *reinterpret_cast<const float2*>(
+        reinterpret_cast<const float*>(smem + P::SK) + cg * 8 + 2 * tq);
+    float s[4];
+    s[0] = static_cast<float>(si[0]) * rs0 * kc.x;
+    s[1] = static_cast<float>(si[1]) * rs0 * kc.y;
+    s[2] = static_cast<float>(si[2]) * rs1 * kc.x;
+    s[3] = static_cast<float>(si[3]) * rs1 * kc.y;
+    float t0 = sdt::quad_max(fmaxf(s[0], s[1]));
+    float t1 = sdt::quad_max(fmaxf(s[2], s[3]));
+
+    if (pass1) {
+      mc0 = fmaxf(mc0, t0);
+      mc1 = fmaxf(mc1, t1);
+      if (within == TILES - 1) {
+        // the chunk's max over the group's four warps; O and the sums
+        // rescaled once, the chunk's P V zeroed
+        if (tq == 0) {
+          red_row[cg * 16 + g] = mc0;
+          red_row[cg * 16 + g + 8] = mc1;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int w = 0; w < 4; ++w) {
+          mc0 = fmaxf(mc0, red_row[w * 16 + g]);
+          mc1 = fmaxf(mc1, red_row[w * 16 + g + 8]);
+        }
+        const float n0 = fmaxf(m0, mc0), n1 = fmaxf(m1, mc1);
+        const float c0 = sdt::exp2_approx(m0 - n0), c1 = sdt::exp2_approx(m1 - n1);
+        m0 = n0;
+        m1 = n1;
+        mc0 = mc1 = -INFINITY;
+        l0 *= c0;
+        l1 *= c1;
+        sdt::rescale_rows(acc, c0, c1);
+        if (PV8)
+#pragma unroll
+          for (int j = 0; j < NO; ++j) oi[j][0] = oi[j][1] = oi[j][2] = oi[j][3] = 0;
+      }
+      continue;
+    }
+
+    if (!PV8) {
+      // the row max over the group's four warps, each tile
+      if (tq == 0) {
+        red_row[cg * 16 + g] = t0;
+        red_row[cg * 16 + g + 8] = t1;
+      }
+      __syncthreads();
+#pragma unroll
+      for (int w = 0; w < 4; ++w) {
+        t0 = fmaxf(t0, red_row[w * 16 + g]);
+        t1 = fmaxf(t1, red_row[w * 16 + g + 8]);
+      }
+      const float n0 = fmaxf(m0, t0), n1 = fmaxf(m1, t1);
+      const float c0 = sdt::exp2_approx(m0 - n0), c1 = sdt::exp2_approx(m1 - n1);
+      m0 = n0;
+      m1 = n1;
+      l0 *= c0;
+      l1 *= c1;
+      sdt::rescale_rows(acc, c0, c1);
+    }
+
+    // P against the running max (qk) or the chunk's (qkpv)
+    const float p0 = sdt::exp2_approx(s[0] - m0);
+    const float p1 = sdt::exp2_approx(s[1] - m0);
+    const float p2 = sdt::exp2_approx(s[2] - m1);
+    const float p3 = sdt::exp2_approx(s[3] - m1);
+    l0 += p0 + p1;
+    l1 += p2 + p3;
+    unsigned char* ps = smem + P::PT;
+    if (!PV8) {
+      unsigned char* prow = ps + (rg * 16 + g) * P::LDP + (cg * 8 + 2 * tq) * 2;
+      *reinterpret_cast<unsigned*>(prow) = sdt::pack_bf16(p0, p1);
+      *reinterpret_cast<unsigned*>(prow + 8 * P::LDP) = sdt::pack_bf16(p2, p3);
+    } else {
+      signed char* prow = reinterpret_cast<signed char*>(ps + (rg * 16 + g) * P::LDP);
+      const int k0s = pv_slot(cg * 8 + 2 * tq), k1s = pv_slot(cg * 8 + 2 * tq + 1);
+      prow[k0s] = static_cast<signed char>(__float2int_rn(p0 * 127.f));
+      prow[k1s] = static_cast<signed char>(__float2int_rn(p1 * 127.f));
+      prow[8 * P::LDP + k0s] = static_cast<signed char>(__float2int_rn(p2 * 127.f));
+      prow[8 * P::LDP + k1s] = static_cast<signed char>(__float2int_rn(p3 * 127.f));
+    }
+    __syncthreads();
+
+    if (!PV8) {
+      // O[:, this warp's columns of the slice] += bf16(P) V
+      const bf16* vs = reinterpret_cast<const bf16*>(smem + P::V);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        unsigned pa[4];
+        sdt::ldmatrix_x4(pa, ps + (rg * 16 + lane % 16) * P::LDP + (kk * 16 + lane / 16 * 8) * 2);
+#pragma unroll
+        for (int fp = 0; fp < NO / 2; ++fp) {
+          if (2 * fp < nv) {
+            unsigned vf[4];
+            sdt::ldmatrix_x4_trans(vf, vs + (kk * 16 + lane % 8 + (lane / 8) % 2 * 8) * P::LDV +
+                                           col0 + fp * 16 + lane / 16 * 8);
+            sdt::mma(acc[2 * fp], pa, vf[0], vf[1]);
+            if (2 * fp + 1 < nv) sdt::mma(acc[2 * fp + 1], pa, vf[2], vf[3]);
+          }
+        }
+      }
+    } else {
+      // the chunk's P V in int32 over this warp's columns of the slice
+      const signed char* vts = reinterpret_cast<const signed char*>(smem + P::V);
+      unsigned pa[4];
+      sdt::ldmatrix_x4(pa, ps + (rg * 16 + lane % 16) * P::LDP + lane / 16 * 16);
+#pragma unroll
+      for (int fp = 0; fp < NO / 2; ++fp) {
+        if (2 * fp < nv) {
+          unsigned vf[4];
+          sdt::ldmatrix_x4(vf, vts + (col0 + fp * 16 + lane % 8 + lane / 16 * 8) * P::LDT +
+                                   (lane / 8) % 2 * 16);
+          sdt::mma_s8(oi[2 * fp], pa, vf[0], vf[1]);
+          if (2 * fp + 1 < nv) sdt::mma_s8(oi[2 * fp + 1], pa, vf[2], vf[3]);
+        }
+      }
+      if (within == 2 * TILES - 1) {
+        const float* svc = sv + (bh * nchunks + step / (2 * TILES)) * dp + s0 + col0;
+#pragma unroll
+        for (int j = 0; j < NO; ++j) {
+          if (j < nv) {
+            const float2 vs2 = *reinterpret_cast<const float2*>(svc + j * 8 + 2 * tq);
+            const float f0 = vs2.x / 127.f, f1 = vs2.y / 127.f;
+            acc[j][0] += static_cast<float>(oi[j][0]) * f0;
+            acc[j][1] += static_cast<float>(oi[j][1]) * f1;
+            acc[j][2] += static_cast<float>(oi[j][2]) * f0;
+            acc[j][3] += static_cast<float>(oi[j][3]) * f1;
+          }
+        }
+      }
+    }
+  }
+
+  // the row sums over the group's four warps
+  l0 = sdt::quad_sum(l0);
+  l1 = sdt::quad_sum(l1);
+  __syncthreads();
+  if (tq == 0) {
+    red_row[cg * 16 + g] = l0;
+    red_row[cg * 16 + g + 8] = l1;
+  }
+  __syncthreads();
+  l0 = l1 = 0.f;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    l0 += red_row[w * 16 + g];
+    l1 += red_row[w * 16 + g + 8];
+  }
+  const int r0 = q0 + rg * 16 + g;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  const int row_stride = heads * d;
+  bf16* ob = o + ((size_t)b * n * heads + h) * d + s0;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    if (j < nv) {
+      const int cc = col0 + j * 8 + 2 * tq;
+      *reinterpret_cast<unsigned*>(ob + (size_t)r0 * row_stride + cc) =
+          sdt::pack_bf16(acc[j][0] * i0, acc[j][1] * i0);
+      *reinterpret_cast<unsigned*>(ob + (size_t)(r0 + 8) * row_stride + cc) =
+          sdt::pack_bf16(acc[j][2] * i1, acc[j][3] * i1);
+    }
+  }
+}
+
 typedef void (*AttnFn)(const signed char*, const float*, const signed char*, const float*,
                        const bf16*, const signed char*, const float*, bf16*, int, int, int, float);
 
 // One kernel per (padded head dim, mode): its rows a block, keys a tile,
-// threads and shared memory.
+// threads and shared memory, and the split plan's columns of O a block (0
+// elsewhere).
 struct Choice {
   AttnFn kernel;
-  int bq, bk, threads, bytes;
+  int bq, bk, threads, bytes, oc;
 };
 
 template <bool PV8, int BK>
 Choice narrow() {
   using P = NarrowPlan<PV8, BK>;
-  return {int8_attn_kernel<PV8, BK>, P::BQ, P::BK, P::THREADS, P::BYTES};
+  return {int8_attn_kernel<PV8, BK>, P::BQ, P::BK, P::THREADS, P::BYTES, 0};
 }
 
 template <bool PV8>
 Choice wide() {
   using P = WidePlan<PV8>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {int8_attn_kernel_wide<PV8>, P::BQ, P::BK, P::THREADS, P::BYTES};
+  return {int8_attn_kernel_wide<PV8>, P::BQ, P::BK, P::THREADS, P::BYTES, 0};
+}
+
+template <bool PV8>
+Choice split() {
+  using P = SplitPlan<PV8>;
+  static_assert(P::BYTES <= 232448, "shared memory per block");
+  return {int8_attn_kernel_split<PV8>, P::BQ, P::BK, P::THREADS, P::BYTES, P::OC};
 }
 
 int padded_dim(int d) {
-  if (d <= 0 || d % 8 != 0 || d > 512) return 0;
-  return d <= 48 ? 48 : 512;
+  if (d <= 0 || d % 8 != 0) return 0;
+  return d <= 48 ? 48 : d <= 512 ? 512 : (d + 511) / 512 * 512;
 }
+
+// The slices of O's columns a plan's grid runs over at head dim d.
+int slices_of(const Choice& c, int d) { return c.oc ? (d + c.oc - 1) / c.oc : 1; }
 
 // A kernel's shared-memory attribute, set once per device, and its
 // resident blocks per SM.
@@ -911,7 +1253,7 @@ cudaError_t prepare(const Choice& c, int* per_sm) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  constexpr int kDevices = 16, kKernels = 5;
+  constexpr int kDevices = 16, kKernels = 7;
   static const void* seen[kDevices][kKernels];
   static int blocks[kDevices][kKernels];
   const void* key = reinterpret_cast<const void*>(c.kernel);
@@ -938,6 +1280,10 @@ cudaError_t prepare(const Choice& c, int* per_sm) {
 // fewer than two thirds of the other's, as at B = 2 (512 blocks: one wave
 // against two).
 cudaError_t choose(int dp, bool pv8, long blocks_of_rows, Choice* c, int* per_sm) {
+  if (dp > 512) {
+    *c = pv8 ? split<true>() : split<false>();
+    return prepare(*c, per_sm);
+  }
   if (dp != 48) {
     *c = pv8 ? wide<true>() : wide<false>();
     return prepare(*c, per_sm);
@@ -964,14 +1310,14 @@ cudaError_t choose(int dp, bool pv8, long blocks_of_rows, Choice* c, int* per_sm
 
 }  // namespace
 
-// The padded head dim the kernel uses for head dim d (0 if d is not taken).
-// Two plans, those of SD v1's int8 serving path: head dims up to 48 pad to
-// 48 (the UNet's d = 40), the others up to 512 pad to 512 (the VAE
-// mid-block's d = 512).
+// The padded head dim the kernel uses for head dim d (0 if d is not a
+// multiple of 8). Three plans: head dims up to 48 pad to 48 (the UNet's
+// d = 40), up to 512 to 512 (the VAE mid-block's d = 512), wider ones to a
+// multiple of 512 (the split plan).
 extern "C" int sdt_flash_int8_padded_dim(int d) { return padded_dim(d); }
 
 // q, k, v, o [B, N, H, d] bf16 (self-attention, N a multiple of 1024, d a
-// multiple of 8 up to 512); scratch from the wrapper: qq, kq [B, H, N, dp]
+// multiple of 8); scratch from the wrapper: qq, kq [B, H, N, dp]
 // int8 and sq, sk [B, H, N] fp32; for pv8 also vq [B, H, dp, N] int8 and
 // sv [B, H, N / 1024, dp] fp32; dp from sdt_flash_int8_padded_dim;
 // scale_log2e is the logit scale times log2(e), rounded once to fp32 as
@@ -1002,7 +1348,7 @@ extern "C" int sdt_flash_attention_int8(const void* q, const void* k, const void
   int per_sm = 0;
   err = choose(dp, pv8 != 0, (long)batch * heads * n, &c, &per_sm);
   if (err != cudaSuccess) return static_cast<int>(err);
-  c.kernel<<<dim3(n / c.bq, heads, batch), c.threads, c.bytes, s>>>(
+  c.kernel<<<dim3(n / c.bq, heads * slices_of(c, d), batch), c.threads, c.bytes, s>>>(
       static_cast<const signed char*>(qq), static_cast<const float*>(sq),
       static_cast<const signed char*>(kq), static_cast<const float*>(sk),
       static_cast<const bf16*>(v), static_cast<const signed char*>(vq),
@@ -1012,8 +1358,8 @@ extern "C" int sdt_flash_attention_int8(const void* q, const void* k, const void
 
 // K5's plan at [batch, n, heads, d] in mode pv8: out = {query rows per
 // block, keys per tile, threads, shared-memory bytes, resident blocks per
-// SM}. Returns a CUDA error code (cudaErrorInvalidValue for a head dim K5
-// does not take).
+// SM, slices of O's columns per row tile}. Returns a CUDA error code
+// (cudaErrorInvalidValue for a head dim that is not a multiple of 8).
 extern "C" int sdt_flash_int8_plan(int batch, int n, int heads, int d, int pv8, int* out) {
   const int dp = padded_dim(d);
   if (dp == 0) return static_cast<int>(cudaErrorInvalidValue);
@@ -1025,5 +1371,6 @@ extern "C" int sdt_flash_int8_plan(int batch, int n, int heads, int d, int pv8, 
   out[2] = c.threads;
   out[3] = c.bytes;
   out[4] = blocks;
+  out[5] = slices_of(c, d);
   return static_cast<int>(err);
 }

@@ -1,6 +1,7 @@
-"""The CLIP BPE tokenizer and the vocabulary-free hash tokenizer (copies of
-``CLIPTokenizer`` and ``HashTokenizer``, with the text cleanup they share,
-from ``sd_tpu/data/tokenizer.py``).
+"""The CLIP BPE tokenizer, the BERT WordPiece tokenizer and the
+vocabulary-free hash tokenizer (copies of ``CLIPTokenizer``,
+``BERTWordPieceTokenizer`` and ``HashTokenizer``, with the text cleanup they
+share, from ``sd_tpu/data/tokenizer.py``).
 
 :class:`CLIPTokenizer` is byte-level BPE with the openai CLIP semantics:
 lowercase and whitespace cleanup, CLIP's token pattern, BPE with ``</w>``
@@ -13,6 +14,14 @@ module's ``\\p{L}`` and ``\\p{N}``; the port builds both classes from the
 ``unicodedata`` categories (L*: Lu Ll Lt Lm Lo; N*: Nd Nl No) for stdlib
 ``re``, whose ``\\w`` and ``\\d`` are other sets (``\\d`` misses ``²`` and
 ``Ⅻ``). The two agree wherever their Unicode versions do.
+
+:class:`BERTWordPieceTokenizer` is the tokenizer behind the LAION 1.4B
+LDM's ``BERTEmbedder`` with BERT's conventions: ``[CLS]`` + greedy
+longest-match WordPiece ids (``##`` continuation pieces, ``[UNK]`` for a
+word it cannot cover) + ``[SEP]``, padded with ``[PAD]``; its words are runs
+of letters and numbers and single other non-space characters, split with
+the same ``unicodedata`` classes. Its vocabulary is a BERT ``vocab.txt``
+(one token a line) or a dict.
 
 :class:`HashTokenizer` gives deterministic word-hash ids with the same call
 contract, ``<|startoftext|>`` and ``<|endoftext|>`` at the two top ids. It
@@ -34,7 +43,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["bytes_to_unicode", "CLIPTokenizer", "HashTokenizer"]
+__all__ = ["bytes_to_unicode", "CLIPTokenizer", "BERTWordPieceTokenizer", "HashTokenizer"]
 
 
 def _clean(text: str) -> str:
@@ -192,6 +201,66 @@ class CLIPTokenizer:
         out = np.full((len(texts), context_length), self.eot_id, dtype=np.int32)
         for i, text in enumerate(texts):
             ids = [self.sot_id] + self.encode(text)[: context_length - 2] + [self.eot_id]
+            out[i, : len(ids)] = ids
+        return out
+
+
+@lru_cache()
+def _bert_pattern() -> "re.Pattern":
+    letters, numbers = _category_classes()
+    return re.compile(rf"[{letters}{numbers}]+|[^\s{letters}{numbers}]")
+
+
+class BERTWordPieceTokenizer:
+    """``tok(texts, context_length=77)`` → int32 ids ``[len(texts),
+    context_length]``: ``[CLS]`` + WordPiece ids + ``[SEP]``, padded with
+    ``[PAD]`` (id 0 where the vocabulary has none), truncated.
+
+    ``vocab``: the path of a BERT ``vocab.txt``, or a token → id dict.
+    """
+
+    def __init__(self, vocab, lowercase: bool = True):
+        if isinstance(vocab, str):
+            with open(vocab, encoding="utf-8") as f:
+                vocab = {line.rstrip("\n"): i for i, line in enumerate(f)}
+        self.vocab = dict(vocab)
+        self.lowercase = lowercase
+        self.pad_id = self.vocab.get("[PAD]", 0)
+        self.cls_id = self.vocab.get("[CLS]", 101)
+        self.sep_id = self.vocab.get("[SEP]", 102)
+        self.unk_id = self.vocab.get("[UNK]", 100)
+
+    def _split(self, text: str) -> List[str]:
+        text = _clean(text)
+        if self.lowercase:
+            text = text.lower()
+        return _bert_pattern().findall(text)
+
+    def _wordpiece(self, word: str) -> List[int]:
+        """Greedy longest match from the left; one unmatched piece makes the
+        whole word ``[UNK]``."""
+        ids: List[int] = []
+        start = 0
+        while start < len(word):
+            for end in range(len(word), start, -1):
+                piece = word[start:end] if start == 0 else "##" + word[start:end]
+                if piece in self.vocab:
+                    ids.append(self.vocab[piece])
+                    start = end
+                    break
+            else:
+                return [self.unk_id]
+        return ids
+
+    def encode(self, text: str) -> List[int]:
+        return [i for w in self._split(text) for i in self._wordpiece(w)]
+
+    def __call__(self, texts, context_length: int = 77) -> np.ndarray:
+        if isinstance(texts, str):
+            texts = [texts]
+        out = np.full((len(texts), context_length), self.pad_id, dtype=np.int32)
+        for i, text in enumerate(texts):
+            ids = [self.cls_id] + self.encode(text)[: context_length - 2] + [self.sep_id]
             out[i, : len(ids)] = ids
         return out
 

@@ -4,14 +4,11 @@ Tensors are token-major ``[B, N, H, D]`` at :func:`dot_product_attention`, as
 in ``sd_tpu``. :func:`attention_route` is the dispatch of an unmasked call,
 a pure function of (device type, dtype, B, Nq, Nk, H, d). On a CUDA tensor:
 
-- every unmasked self-attention call (``Nq == Nk``) at a head dim up to
-  K1's 1024 goes to the K1 kernel (``ops/cuda/flash_attention.py``),
-  including the UNet's 8x8 mid-block and cin256-v2's d = 960 sites at
-  N = 64; where autograd records, its backward is K3 or the plain backward
-  by ``sd_tpu``'s rule. A wider head takes the plain version where
-  ``sd_tpu``'s ``flash_supported`` shape rule leaves the site to XLA, and
-  is refused with a ``ValueError`` where ``sd_tpu`` would run its kernel
-  (no config of the repository reaches either);
+- every unmasked self-attention call (``Nq == Nk``), at every head dim,
+  goes to the K1 kernel (``ops/cuda/flash_attention.py``), including the
+  UNet's 8x8 mid-block and cin256-v2's d = 960 sites at N = 64; where
+  autograd records, its backward is K3 or the plain backward by
+  ``sd_tpu``'s rule;
 - cross-attention (77 keys) and CLIP's causal masked attention use plain
   torch ops with an fp32 softmax, as ``sd_tpu`` leaves them to XLA;
 - every GEGLU feed-forward goes to the K2 kernel (``ops/cuda/geglu_ff.py``),
@@ -29,7 +26,8 @@ autocast's where autocast is on.
 
 In the int8 serving mode (``ops/quant.py``; the mode is held on each
 module's ``int8``), as ``sd_tpu``: the self-attention sites that
-``resolve_int8`` accepts (full rows of at least 2048 keys) go to K5, the FF
+``resolve_int8`` accepts (full rows of 2048, 3072 or 4096 keys, at every
+head dim) go to K5, the FF
 sites that pass ``int8_ff_supported`` to K4, and with the ``proj`` bucket
 the projections to K6: self-attention's Q, K and V in one call on the
 concatenated ``[3C, C]`` weight, cross-attention's Q (K and V of the
@@ -71,8 +69,6 @@ from sd_tpu_torch.ops.cuda import (
 )
 from sd_tpu_torch.ops.cuda.geglu_ff import (geglu_ff_plain, int8_ff_supported, quantize_cols,
                                             quantize_ff_weights)
-from sd_tpu_torch.ops.cuda.flash_attention import (K1_COVERAGE_ITEM, K1_MAX_HEAD_DIM,
-                                                   flash_shape_supported)
 from sd_tpu_torch.ops.cuda.int8_dense import block_m, int8_width_ok
 from sd_tpu_torch.ops.norms import GroupNorm32, LayerNormFp32
 
@@ -116,20 +112,10 @@ def attention_route(device_type: str, dtype: torch.dtype, b: int, nq: int, nk: i
     """Where an unmasked attention call of ``[B, Nq, H, d]`` queries over Nk
     keys goes: "K1" (the kernel wrapper, which computes the plain version on
     the CPU) or "plain". Cross-attention and the card's other dtypes are
-    "plain"; self-attention is "K1" up to K1's head dim. Above it the
-    port follows ``sd_tpu``: "plain" where ``flash_supported``'s shape rule
-    leaves the site to XLA, and a ``ValueError`` where ``sd_tpu`` runs its
-    kernel, on every device, so that a model that runs on the CPU runs on
-    the card."""
+    "plain"; self-attention is "K1" at every B, N, H and head dim."""
     if nq != nk or not takes_kernel(device_type, dtype):
         return "plain"
-    if d <= K1_MAX_HEAD_DIM:
-        return "K1"
-    if not flash_shape_supported(nq, nk):
-        return "plain"
-    raise ValueError(f"self-attention at B={b}, N={nq}, H={h}, head dim {d}: sd_tpu runs its "
-                     f"flash kernel there and K1 takes head dims up to {K1_MAX_HEAD_DIM}; see "
-                     f"{K1_COVERAGE_ITEM}")
+    return "K1"
 
 
 def dot_product_attention(q, k, v, scale: Optional[float] = None,

@@ -34,9 +34,9 @@ _SIGNATURES = {
     "sdt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, nq, nk, heads, d, scale, stream
     "sdt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
-    # d, int[5] out: K1's launch plan
+    # d, int[6] out: K1's launch plan
     "sdt_flash_plan": [_I, _P],
-    # d, pass (1 dK/dV, 2 dQ), int[5] out: K3's launch plan
+    # d, pass (1 dK/dV, 2 dQ), int[6] out: K3's launch plan
     "sdt_flash_bwd_plan": [_I, _I, _P],
     # x, w1, b1, w2, b2, h, ws, y, m, c, inner, c_out, stream
     "sdt_geglu_ff": [_P] * 8 + [_I] * 4 + [_P],
@@ -55,9 +55,9 @@ _SIGNATURES = {
     # q, k, v, o, qq, sq, kq, sk, vq, sv, batch, n, heads, d, scale * log2(e),
     # pv8, stream
     "sdt_flash_attention_int8": [_P] * 10 + [_I] * 4 + [ctypes.c_float, _I, _P],
-    # d -> the padded head dim of the int8 attention (0: not taken)
+    # d -> the padded head dim of the int8 attention (0: not a multiple of 8)
     "sdt_flash_int8_padded_dim": [_I],
-    # batch, n, heads, d, pv8, int[5] out: K5's launch plan
+    # batch, n, heads, d, pv8, int[6] out: K5's launch plan
     "sdt_flash_int8_plan": [_I] * 5 + [_P],
     # x, wk, a, d, bias, skip, y, m1, m2, ws, batch, c, h, w, n, stream
     "sdt_fused_conv3x3": [_P] * 10 + [_I] * 5 + [_P],

@@ -17,18 +17,19 @@ does about that.
   ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
   kernel launches (one per call).
   :func:`kernel_plan` reads each kernel's launch plan from the library.
-  K1 takes head dims that are multiples of 8 up to 1024 (``K1_MAX_HEAD_DIM``:
-  14 plans; above 576 the split plan, whose blocks own slices of 256 of O's
-  columns, for the first-stage extras' one-head sites up to d = 1024 and
-  cin256-v2's d = 960); K3 up to 512 (``K3_MAX_HEAD_DIM``), and K5 up to 512
-  (``K5_MAX_HEAD_DIM``).
+  No head dim is refused: K1 runs 15 plans (above 576 the split plan,
+  whose blocks own slices of 256 of O's columns, and above 1024 the stream
+  plan, which streams Q's columns too), K3 its slice plan above 512 and
+  K5 its split plan above 512. A head dim that is not a multiple of 8 runs
+  on a copy zero-padded on d (Q, K and V; :func:`padded_head_dim`), O's and
+  the gradients' padding columns dropped and the scale the true d's.
 - :func:`differentiable_flash_attention` is the entry point for code that
   may need gradients: where autograd records, it runs a
   ``torch.autograd.Function`` whose forward is K1 (with the row log-sum-exp
   saved) and whose backward follows ``sd_tpu``'s ``_flash_bhnd_bwd``: K3 when
   Nk > 256 and Nq is a multiple of 256, the plain backward otherwise
-  (:func:`uses_bwd_kernel`, which refuses a head dim above K3's 512 where
-  ``sd_tpu`` would run its backward kernel).
+  (:func:`uses_bwd_kernel`). It pads a head dim that is not a multiple of 8
+  once, for both.
 
 K5, the int8 serving mode's attention (``attn``: int8 QKᵀ, mode "qk";
 ``attn_pv``: int8 P·V too, mode "qkpv"), replaces ``_kernel_chunked_int8``
@@ -52,6 +53,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from sd_tpu_torch.ops import quant
 from sd_tpu_torch.ops.cuda._build import check, kernels, stream_of
@@ -61,18 +63,8 @@ __all__ = ["flash_attention", "flash_attention_plain", "flash_attention_lse_plai
            "flash_attention_bwd", "flash_attention_bwd_plain",
            "differentiable_flash_attention", "resolve_int8", "flash_attention_int8",
            "flash_attention_int8_plain", "int8_padded_dim", "int8_scratch_shapes",
-           "kernel_plan", "uses_bwd_kernel", "flash_shape_supported", "K1_MAX_HEAD_DIM",
-           "K3_MAX_HEAD_DIM", "K5_MAX_HEAD_DIM", "K1_COVERAGE_ITEM", "K3_COVERAGE_ITEM"]
+           "kernel_plan", "uses_bwd_kernel", "flash_shape_supported", "padded_head_dim"]
 
-# the widest head dim each kernel takes: K1's split plan reaches the
-# first-stage extras' d = 1024 sites; K3's and K5's stop at the VAE
-# mid-block's 512
-K1_MAX_HEAD_DIM = 1024
-K3_MAX_HEAD_DIM = 512
-K5_MAX_HEAD_DIM = 512
-# what a refusal of a head dim past those names: ROADMAP.md's open coverage
-K1_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K1 above d = 1024'"
-K3_COVERAGE_ITEM = "ROADMAP.md's open kernel coverage 'K3 above d = 512'"
 # sd_tpu's flash_supported shape rule: the rows its kernel takes
 _FLASH_MIN_N, _FLASH_MAX_N, _FLASH_N_MULTIPLE = 128, 4096, 128
 # sd_tpu's backward dispatch (_flash_bhnd_bwd): the kernel above 256 keys,
@@ -137,6 +129,25 @@ def flash_attention_bwd_plain(q, k, v, o, do, scale: float
     return dq, dk, dv
 
 
+def padded_head_dim(d: int) -> int:
+    """The head dim the kernels run at: ``d`` rounded up to a multiple of 8
+    (their 16-byte copies), the extra columns zeros."""
+    return -(-d // 8) * 8
+
+
+def _pad_head(dp: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each tensor zero-padded on its last dim to ``dp``, contiguous. Zero
+    columns of Q and K change no logit, and zero columns of V only add zero
+    columns to O (and to the gradients), which the callers drop."""
+    return tuple((t if t.shape[-1] == dp else F.pad(t, (0, dp - t.shape[-1]))).contiguous()
+                 for t in tensors)
+
+
+def _drop_padding(d: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """Each tensor's first ``d`` columns of its last dim, contiguous."""
+    return tuple(t if t.shape[-1] == d else t[..., :d].contiguous() for t in tensors)
+
+
 def _check_inputs(q, k, v):
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.bfloat16:
@@ -154,9 +165,9 @@ def _check_inputs(q, k, v):
     if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (h, d):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if d % 8 or d > K1_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 "
-                         f"and at most {K1_MAX_HEAD_DIM}")
+    if d % 8:
+        raise ValueError(f"flash_attention: head dim {d} must be a multiple of 8 at the "
+                         f"launch (the wrappers pad it)")
     if min(b, nq, k.shape[1], h) == 0:
         raise ValueError("flash_attention: empty input")
 
@@ -172,8 +183,6 @@ def _check_bwd_inputs(q, k, v, o, do, lse):
     b, nq, h, d = q.shape
     if lse is None or lse.dtype != torch.float32 or lse.shape != (b, h, nq):
         raise ValueError(f"flash_attention_bwd: lse must be float32 {(b, h, nq)}")
-    if d > K3_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention_bwd: head dim {d} above {K3_MAX_HEAD_DIM}")
 
 
 def _check_scale(scale: float, what: str) -> None:
@@ -188,24 +197,28 @@ def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]]
     "K3 dQ") at head dim ``d``, or of K5 ("K5 qk", "K5 qkpv") at head dim
     ``d`` and ``shape`` = (B, N, H), from the loaded library: the rows a
     block owns, the rows of the tile it streams, threads and shared-memory
-    bytes per block, and the blocks that fit on one SM; for K1 also the
-    slices of O's columns over which a row tile's blocks split (1 but in
-    the split plan). Needs the card."""
+    bytes per block, the blocks that fit on one SM, and the slices of the
+    output's columns over which a row tile's blocks split (1 but in K1's
+    split and stream plans, K3's slice plan and K5's split plan), at the
+    padded head dim the wrappers launch. Needs the card."""
     out = (ctypes.c_int * 6)()
     lib = kernels()
+    dp = padded_head_dim(d)
     if which == "K1":
-        err = lib.sdt_flash_plan(d, out)
+        err = lib.sdt_flash_plan(dp, out)
     elif which.startswith("K5"):
-        err = lib.sdt_flash_int8_plan(*shape, d, int(which == "K5 qkpv"), out)
+        err = lib.sdt_flash_int8_plan(*shape, dp, int(which == "K5 qkpv"), out)
     else:
-        err = lib.sdt_flash_bwd_plan(d, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
+        err = lib.sdt_flash_bwd_plan(dp, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
     check(err, f"{which} plan at d={d}")
-    names = ("rows", "tile", "threads", "smem_bytes", "blocks_per_sm")
-    return dict(zip(names + (("slices",) if which == "K1" else ()), out))
+    return dict(zip(("rows", "tile", "threads", "smem_bytes", "blocks_per_sm", "slices"), out))
 
 
 def _launch_forward(q, k, v, scale: float, with_lse: bool):
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    """K1 on CUDA tensors of any head dim: O (at the input's d) and, with
+    ``with_lse``, the row log-sum-exp."""
+    d_in = q.shape[-1]
+    q, k, v = _pad_head(padded_head_dim(d_in), q, k, v)
     _check_inputs(q, k, v)
     _check_scale(scale, "flash_attention")
     b, nq, h, d = q.shape
@@ -219,7 +232,7 @@ def _launch_forward(q, k, v, scale: float, with_lse: bool):
             stream_of(q))
     check(err, "flash_attention")
     flash_attention.launches += 1
-    return out, lse
+    return _drop_padding(d_in, out)[0], lse
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -247,7 +260,8 @@ def flash_attention_bwd(q, k, v, o, do, lse: Optional[torch.Tensor], scale: floa
         return flash_attention_bwd_plain(q, k, v, o, do, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_bwd: no path for device {q.device}")
-    q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+    d_in = q.shape[-1]
+    q, k, v, o, do = _pad_head(padded_head_dim(d_in), q, k, v, o, do)
     _check_bwd_inputs(q, k, v, o, do, lse)
     _check_scale(scale, "flash_attention_bwd")
     b, nq, h, d = q.shape
@@ -261,7 +275,7 @@ def flash_attention_bwd(q, k, v, o, do, lse: Optional[torch.Tensor], scale: floa
             b, nq, k.shape[1], h, d, float(scale), stream_of(q))
     check(err, "flash_attention_bwd")
     flash_attention_bwd.launches += 1
-    return dq, dk, dv
+    return _drop_padding(d_in, dq, dk, dv)
 
 
 flash_attention_bwd.launches = 0
@@ -275,44 +289,41 @@ def flash_shape_supported(nq: int, nk: int) -> bool:
             and nq % _FLASH_N_MULTIPLE == 0)
 
 
-def uses_bwd_kernel(nq: int, nk: int, d: int) -> bool:
+def uses_bwd_kernel(nq: int, nk: int) -> bool:
     """``sd_tpu``'s ``_flash_bhnd_bwd`` rule: the backward kernel where
-    Nk > 256 and Nq % 256 == 0, the plain backward otherwise. Where the
-    rule asks for the kernel at a head dim above K3's 512, it raises: the
-    port has no backward kernel there, and the plain backward would hide
-    the missing coverage."""
-    if not (nk > _SMALL_KV and nq % _BLOCK_Q_BWD == 0):
-        return False
-    if d > K3_MAX_HEAD_DIM:
-        raise ValueError(f"flash attention backward at Nq={nq}, Nk={nk}, head dim {d}: "
-                         f"sd_tpu runs its backward kernel there and K3 takes head dims up to "
-                         f"{K3_MAX_HEAD_DIM}; see {K3_COVERAGE_ITEM}")
-    return True
+    Nk > 256 and Nq % 256 == 0, the plain backward otherwise; at every head
+    dim, as ``sd_tpu``'s."""
+    return nk > _SMALL_KV and nq % _BLOCK_Q_BWD == 0
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K1 forward (saving the row log-sum-exp), K3 or the plain backward."""
+    """K1 forward (saving the row log-sum-exp), K3 or the plain backward.
+    On the card a head dim that is not a multiple of 8 is padded once: the
+    padded Q, K, V and O are saved, and the gradients lose the padding."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.bfloat16)
     def forward(ctx, q, k, v, scale):
+        d = q.shape[-1]
         if q.device.type == "cuda":
+            q, k, v = _pad_head(padded_head_dim(d), q, k, v)
             out, lse = _launch_forward(q, k, v, scale, with_lse=True)
         else:
             out, lse = flash_attention(q, k, v, scale), None
-        ctx.scale = scale
+        ctx.scale, ctx.d = scale, d
         ctx.save_for_backward(q, k, v, out, lse)
-        return out
+        return _drop_padding(d, out)[0]
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
-        if uses_bwd_kernel(q.shape[1], k.shape[1], q.shape[-1]):
+        (do,) = _pad_head(q.shape[-1], do)
+        if uses_bwd_kernel(q.shape[1], k.shape[1]):
             dq, dk, dv = flash_attention_bwd(q, k, v, out, do, lse, ctx.scale)
         else:
             dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, do, ctx.scale)
-        return dq, dk, dv, None
+        return (*_drop_padding(ctx.d, dq, dk, dv), None)
 
 
 def differentiable_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -333,9 +344,12 @@ def resolve_int8(int8, q: torch.Tensor, k: torch.Tensor, masked: bool = False) -
     ``int8`` is "off"/"qk"/"qkpv", or a serving mode (``quant.Int8Mode``):
     ``attn_pv`` gives "qkpv" at head dims >= 256 and "qk" below, ``attn``
     gives "qk", each only where the bucket's gate passes for ``q``. Any mode
-    resolves to "off" unless the row is full and unmasked (Nq == Nk),
-    Nk >= 2048 and Nk a multiple of the 1024-key chunk, and the head dim is
-    one K5 takes (up to 512): a wider head takes bf16 K1.
+    resolves to "off" unless the call is one that ``sd_tpu`` gives its int8
+    kernel: unmasked self-attention on ``flash_supported``'s rows (N a
+    multiple of 128 up to 4096; above, ``sd_tpu``'s attention is XLA's),
+    Nk >= 2048 (``_resolve_int8``) and Nk a multiple of the 1024-key chunk
+    (``_fwd_bhnd`` takes its int8 kernel only chunked). No head-dim
+    condition: K5 takes every d.
     """
     if isinstance(int8, quant.Int8Mode):
         if quant.int8_bucket_enabled(int8, "attn_pv", q):
@@ -347,8 +361,8 @@ def resolve_int8(int8, q: torch.Tensor, k: torch.Tensor, masked: bool = False) -
     if int8 not in ("off", "qk", "qkpv"):
         raise ValueError(f"int8 attention mode {int8!r}: expected off, qk or qkpv")
     nq, nk = q.shape[1], k.shape[1]
-    if (masked or nq != nk or nk < _INT8_MIN_KV or nk % INT8_CHUNK
-            or int8_padded_dim(q.shape[-1]) == 0):
+    if (masked or not flash_shape_supported(nq, nk) or nk < _INT8_MIN_KV
+            or nk % INT8_CHUNK):
         return "off"
     return int8
 
@@ -390,27 +404,25 @@ def flash_attention_int8_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
 
 
 def int8_padded_dim(d: int) -> int:
-    """The head dim K5 pads the contraction to (0: a head dim it does not
-    take): 48 up to d = 48, 512 above, d a multiple of 8 up to 512 (K5's own
-    cap, below K1's). The library's ``sdt_flash_int8_padded_dim`` is the
-    same rule."""
-    if d <= 0 or d % 8 or d > K5_MAX_HEAD_DIM:
+    """The head dim K5 pads the contraction of its codes to (0 for no head
+    dim): 48 up to d = 48, 512 up to 512, above a multiple of 512 (the
+    split plan's chunks). The library's ``sdt_flash_int8_padded_dim`` is the
+    same rule at the multiple of 8 the wrapper pads d to."""
+    if d <= 0:
         return 0
-    return 48 if d <= 48 else 512
+    return 48 if d <= 48 else 512 if d <= 512 else -(-d // 512) * 512
 
 
 def _check_int8_inputs(q, k, v) -> int:
     """The checks a CUDA tensor meets before K5 launches, past
-    ``_check_inputs``: self-attention, N a multiple of the chunk, a head dim
-    K5 pads; returns the padded head dim."""
+    ``_check_inputs``: self-attention, N a multiple of the chunk; returns
+    the padded head dim."""
     _check_inputs(q, k, v)
     b, n, h, d = q.shape
-    dp = int8_padded_dim(d)
-    if k.shape[1] != n or n % INT8_CHUNK or dp == 0:
+    if k.shape[1] != n or n % INT8_CHUNK:
         raise ValueError(f"flash_attention_int8: self-attention with N a multiple of "
-                         f"{INT8_CHUNK} and a head dim the kernel takes, got q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}")
-    return dp
+                         f"{INT8_CHUNK}, got q {tuple(q.shape)}, k {tuple(k.shape)}")
+    return int8_padded_dim(d)
 
 
 def int8_scratch_shapes(b: int, n: int, h: int, d: int, mode: str) -> dict:
@@ -439,7 +451,8 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_int8_plain(q, k, v, scale, mode)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention_int8: no path for device {q.device}")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    d_in = q.shape[-1]
+    q, k, v = _pad_head(padded_head_dim(d_in), q, k, v)
     dp = _check_int8_inputs(q, k, v)
     b, n, h, d = q.shape
     lib = kernels()
@@ -461,7 +474,7 @@ def flash_attention_int8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     check(err, "flash_attention_int8")
     flash_attention_int8.launches += 1
     flash_attention_int8.pv_launches += pv8
-    return out
+    return _drop_padding(d_in, out)[0]
 
 
 # launches, and those of them in "qkpv"

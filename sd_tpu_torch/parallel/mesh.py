@@ -22,7 +22,8 @@ collectives. Eager PyTorch has no GSPMD: the port runs one process per rank
   ZeRO-1, the Adam or AdamW moments (the LDM's AdamW, the first stage's two
   Adams) and the EMA shadow partitioned over the data ranks, the
   parameters replicated; :func:`optimizer_state_dict` gathers an
-  optimizer's shards into the single-process layout on rank 0.
+  optimizer's shards into the single-process layout on rank 0 by tensor
+  broadcasts from each parameter's owner (no pickles).
   ``torch.distributed.optim.ZeroRedundancyOptimizer``
   assigns WHOLE parameters to ranks (greedily, the largest first, each to
   the least loaded rank), where ``sd_tpu`` splits each leaf's largest
@@ -211,30 +212,86 @@ def zero_optimizer(optimizer: torch.optim.Optimizer, group=None):
                          **{k: optimizer.defaults[k] for k in ZERO_HYPER})
 
 
-def optimizer_state_dict(optimizer: torch.optim.Optimizer) -> Optional[Dict[str, Any]]:
-    """The optimizer's ``state_dict`` in the single-process layout: a
-    ``ZeroRedundancyOptimizer``'s shards consolidated on rank 0 (every rank
-    calls it; the others get None)."""
-    if not hasattr(optimizer, "consolidate_state_dict"):
-        return optimizer.state_dict()
-    optimizer.consolidate_state_dict(to=0)
-    return optimizer.state_dict() if rank(optimizer.process_group) == 0 else None
+def _zero_marks(optimizer) -> Tuple[List[int], List[bool], List[float]]:
+    """Of each parameter of a ``ZeroRedundancyOptimizer``, in the order of
+    its ``param_groups``: the owning rank, whether the owner holds state for
+    it, and the owner's step count; read from each rank's local optimizer
+    and summed over the ranks (one all-reduce)."""
+    params = [p for g in optimizer.param_groups for p in g["params"]]
+    owned = {id(p) for g in optimizer.optim.param_groups for p in g["params"]}
+    me = rank(optimizer.process_group)
+    rows = []
+    for p in params:
+        st = optimizer.optim.state.get(p) if id(p) in owned else None
+        rows.append([me + 1 if id(p) in owned else 0, 1 if st else 0,
+                     float(st["step"]) if st else 0.0])
+    mark = torch.tensor(rows, dtype=torch.float64, device=params[0].device)
+    dist.all_reduce(mark, group=optimizer.process_group)
+    owners = [int(o) - 1 for o in mark[:, 0].tolist()]
+    if min(owners) < 0:
+        raise RuntimeError("zero_owners: a parameter has no owner")
+    return owners, [bool(x) for x in mark[:, 1].tolist()], mark[:, 2].tolist()
 
 
 def zero_owners(optimizer) -> List[int]:
     """The owning rank of each parameter of a ``ZeroRedundancyOptimizer``,
-    in the order of its ``param_groups``: read from each rank's local
-    optimizer and summed over the ranks (one all-reduce)."""
-    params = [p for g in optimizer.param_groups for p in g["params"]]
-    local = {id(p) for g in optimizer.optim.param_groups for p in g["params"]}
-    me = rank(optimizer.process_group)
-    mark = torch.tensor([me + 1 if id(p) in local else 0 for p in params],
-                        dtype=torch.int64, device=params[0].device)
-    dist.all_reduce(mark, group=optimizer.process_group)
-    owners = (mark - 1).tolist()
-    if min(owners) < 0:
-        raise RuntimeError("zero_owners: a parameter has no owner")
-    return owners
+    in the order of its ``param_groups`` (one all-reduce)."""
+    return _zero_marks(optimizer)[0]
+
+
+def _step_dtype(group: Dict[str, Any]) -> torch.dtype:
+    """The dtype of Adam's ``step`` (``torch.optim``'s rule): float32 when
+    fused, else float64 only where that is the default dtype."""
+    if group.get("fused") or torch.get_default_dtype() != torch.float64:
+        return torch.float32
+    return torch.float64
+
+
+def optimizer_state_dict(optimizer: torch.optim.Optimizer,
+                         device="cpu") -> Optional[Dict[str, Any]]:
+    """The optimizer's ``state_dict`` in the single-process layout; every
+    rank calls it, and under ZeRO-1 rank 0 alone gets it (the others None).
+
+    A ``ZeroRedundancyOptimizer`` (over Adam or AdamW, the port's) is
+    gathered by tensors: one all-reduce of each parameter's owner, state
+    flag and step, then each parameter's moments broadcast by its owner and
+    kept by rank 0 on ``device`` (the CPU by default). The result equals, to
+    the bit, ``consolidate_state_dict(to=0)`` then ``state_dict()``, whose
+    object collectives pickle every rank's whole state."""
+    if not hasattr(optimizer, "consolidate_state_dict"):
+        return optimizer.state_dict()
+    if not isinstance(optimizer.optim, torch.optim.Adam):  # AdamW is an Adam
+        raise TypeError(f"optimizer_state_dict: ZeRO-1 over {type(optimizer.optim).__name__}; "
+                        f"the tensor gather knows Adam's and AdamW's state")
+    group = optimizer.process_group
+    me = rank(group)
+    owners, stepped, steps = _zero_marks(optimizer)
+    out = torch.optim.Optimizer.state_dict(optimizer) if me == 0 else None
+    pending = False  # rank 0's own moments copied to the host asynchronously
+    i = 0
+    for g in optimizer.param_groups:
+        keys = ("exp_avg", "exp_avg_sq") + (("max_exp_avg_sq",) if g.get("amsgrad") else ())
+        for p in g["params"]:
+            if stepped[i]:
+                mine = optimizer.optim.state[p] if owners[i] == me else None
+                src = dist.get_global_rank(group, owners[i])
+                entry = {"step": torch.tensor(steps[i], dtype=_step_dtype(g), device=device)}
+                for key in keys:
+                    t = mine[key] if mine is not None else torch.empty_like(p)
+                    dist.broadcast(t, src=src, group=group)
+                    # a live moment copies into pinned memory without a sync
+                    # (the received buffers, freed at once, copy in turn)
+                    entry[key] = t.to(device, non_blocking=mine is not None)
+                    pending |= mine is not None and t.is_cuda
+                if me == 0:
+                    out["state"][i] = entry
+            i += 1
+    if me != 0:
+        return None
+    if pending:
+        torch.cuda.synchronize()
+    out["state"] = dict(sorted(out["state"].items()))
+    return out
 
 
 def zero_state_sharding(state, group=None):

@@ -23,7 +23,10 @@ where its check fails:
   wherever the gradient is not rounding noise, on the card the relative L2
   of the first moments within ``CARD_MOMENT_TOL`` and of the parameters'
   deltas within ``CARD_DELTA_TOL``. Per step: the ms (host clock after a sync) and the
-  K1, K2 and K3 launches; the peak memory of the rank;
+  K1, K2 and K3 launches; the peak memory of the rank; after the steps the
+  checkpoint's gather of the ZeRO-1 AdamW timed (``time_save``: at one
+  rank twice, in turns with ``consolidate_state_dict``'s pickling gather,
+  equal to the bit);
 - ``first_stage``: S steps of the kl-f8 VAE-GAN
   (``sd_tpu_torch/configs/autoencoder_kl_32x32x4.yaml``) and of the VQ-f4
   VQ-GAN (``sd_tpu_torch/configs/vq-f4.yaml``), full width at 256² and
@@ -87,7 +90,8 @@ import torch.distributed as dist
 
 from sd_tpu_torch.core.draws import RowDraws
 from sd_tpu_torch.parallel.mesh import (BACKENDS, all_gather_rows, init_distributed,
-                                        make_mesh, rank, world_size, zero_owners)
+                                        make_mesh, optimizer_state_dict, rank, world_size,
+                                        zero_owners)
 
 LEGS = ("train", "first_stage", "hsdp", "pipeline", "sample", "fit", "fit_first_stage", "tp")
 # sd_tpu's dryrun bound (fp32 on the CPU: the all-reduce sums in another order)
@@ -240,6 +244,7 @@ def _train_run(opt, device, group, shards: int, shard: int, hsdp_mesh=None) -> D
     if group is not None:
         out["zero"] = zero_share(state.optimizer, group)
         out["zero"].update(ema_tensors=len(state.ema.shadow))
+        out["save"] = time_save(state.optimizer, device)
         if world_size(group) > 1 and not len(state.ema.shadow) < out["zero"]["tensors"]:
             raise AssertionError("ZeRO-1: the EMA shadow is not partitioned")
     names = [n for n, _ in unet.named_parameters()]
@@ -268,26 +273,78 @@ def zero_share(zero, group) -> Dict[str, Any]:
             "tensors": len(sizes)}
 
 
+def equal_state(a: Any, b: Any) -> bool:
+    """Whether two state dicts are equal to the bit: the same keys and
+    structure, and every tensor of the same dtype, device and shape with
+    equal elements."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and list(a) == list(b) and all(
+            equal_state(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return type(a) is type(b) and len(a) == len(b) and all(
+            equal_state(x, y) for x, y in zip(a, b))
+    if torch.is_tensor(a):
+        return (torch.is_tensor(b) and a.dtype == b.dtype and a.device == b.device
+                and a.shape == b.shape and torch.equal(a, b))
+    return a == b
+
+
+def time_save(zero, device: torch.device) -> Dict[str, Any]:
+    """The checkpoint's gather of a ZeRO-1 optimizer (``optimizer_state_dict``,
+    tensor broadcasts to rank 0's CPU) timed on every rank, host clock after
+    a sync. At one rank it is timed twice in turns with
+    ``consolidate_state_dict`` + ``state_dict``, the pickling way it
+    replaced: both cold (the gather's result alive while the other is
+    taken, so neither finds pinned host memory freed by the other) and
+    checked equal to the bit, then both warm in the other order. At more
+    ranks the gather is timed once and that way is not run (SD v1's AdamW
+    over gloo took 455 s)."""
+    def timed(fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        value = fn()
+        _sync(device)
+        return value, time.perf_counter() - t0
+
+    def consolidated():
+        zero.consolidate_state_dict(to=0)
+        out = zero.state_dict()
+        zero._all_state_dicts = []  # the state dict keeps the tensors
+        return out
+
+    gather = lambda: optimizer_state_dict(zero)
+    new, cold = timed(gather)
+    res: Dict[str, Any] = {"gather_s": [cold]}
+    one = world_size(zero.process_group) == 1
+    if one:
+        old, cold = timed(consolidated)
+        res["consolidate_s"] = [cold]
+        res["equal"] = equal_state(new, old)
+        if not res["equal"]:
+            raise AssertionError("the tensor gather's state dict differs from "
+                                 "consolidate_state_dict's")
+        del new, old
+        gc.collect()
+        res["consolidate_s"].append(timed(consolidated)[1])
+        gc.collect()
+        res["gather_s"].append(timed(gather)[1])
+    print(f"[dryrun save] rank {rank()}: the ZeRO-1 optimizer's state gathered to rank 0's CPU "
+          f"by tensors in {' and '.join(f'{t:.2f}' for t in res['gather_s'])} s"
+          + (f"; consolidate_state_dict + state_dict in "
+             f"{' and '.join(f'{t:.2f}' for t in res['consolidate_s'])} s (cold, then warm; "
+             f"the warm ones in the other order), equal to the bit" if one else ""), flush=True)
+    return res
+
+
 def optimizer_moments(optimizer, names: Sequence[str]) -> Optional[Dict[str, tuple]]:
     """``{name: (exp_avg, exp_avg_sq, step)}`` of the first ``len(names)``
     parameters of an AdamW (a DTensor's gathered), on their device; every
-    rank calls it. Under ZeRO-1 each pair is broadcast from its owner and
-    rank 0 alone returns them (the others None)."""
-    params = [p for g in optimizer.param_groups for p in g["params"]][:len(names)]
-    if not hasattr(optimizer, "consolidate_state_dict"):
-        return {n: (_full(optimizer.state[p]["exp_avg"]), _full(optimizer.state[p]["exp_avg_sq"]),
-                    float(optimizer.state[p]["step"])) for n, p in zip(names, params)}
-    group = optimizer.process_group
-    me, out = rank(group), {}
-    for n, p, owner in zip(names, params, zero_owners(optimizer)):
-        st = optimizer.optim.state[p] if owner == me else None
-        pair = [_full(st[k]) if st else torch.empty_like(p) for k in ("exp_avg", "exp_avg_sq")]
-        step = torch.tensor([float(st["step"]) if st else 0.0], device=p.device)
-        for t in (*pair, step):
-            dist.broadcast(t, src=dist.get_global_rank(group, owner), group=group)
-        if me == 0:
-            out[n] = (*pair, float(step))
-    return out if me == 0 else None
+    rank calls it. Under ZeRO-1 it is the checkpoint's gather
+    (``optimizer_state_dict``, each parameter's moments broadcast by its
+    owner), and rank 0 alone returns them (the others None)."""
+    device = optimizer.param_groups[0]["params"][0].device
+    sd = optimizer_state_dict(optimizer, device=device)
+    return None if sd is None else moments_of(sd, names)
 
 
 def moments_of(optimizer_sd: Dict[str, Any], names: Sequence[str]) -> Dict[str, tuple]:
@@ -364,7 +421,7 @@ def _compare(got: Dict[str, Any], ref: Dict[str, Any], device: torch.device,
 def leg_train(opt, device, shared: Dict[str, Any]) -> Dict[str, Any]:
     n = world_size()
     run = _train_run(opt, device, dist.group.WORLD, n, rank())
-    res = {k: run[k] for k in ("ms", "launches", "loss", "zero", "peak_gib") if k in run}
+    res = {k: run[k] for k in ("ms", "launches", "loss", "zero", "save", "peak_gib") if k in run}
     if rank() == 0:
         ref = _train_run(opt, device, None, 1, 0)
         shared["reference"] = ref

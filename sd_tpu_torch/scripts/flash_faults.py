@@ -60,15 +60,16 @@ FAULTS = {
          "const int ntiles = (nk + BK - 1) / BK - 1;", 3)]),
     "lse without the max": ("K1", [
         ("flash_mma.cuh", "return m + log2f(l);", "return log2f(l);", 1)]),
+    # the wide and slice plans (d > 128, d > 512) share one text of each fault
     "dV without p_lo's rounding": ("K3", [
-        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[0], p[1])", "__float_as_uint(p[0])", 2),
+        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[0], p[1])", "__float_as_uint(p[0])", 3),
         ("flash_attention_bwd.cu", "sdt::pack_bf16(p[2], p[3])", "__float_as_uint(p[2])", 1)]),
     "dS without delta": ("K3", [
         ("flash_attention_bwd.cu", "return p * (dp - delta) * scale;", "return p * dp * scale;",
          1)]),
     "the wide plan's last streamed tile dropped": ("K3 wide", [
         ("flash_attention_bwd.cu", "const int ntiles = (n_str + BT - 1) / BT;",
-         "const int ntiles = (n_str + BT - 1) / BT - 1;", 1)]),
+         "const int ntiles = (n_str + BT - 1) / BT - 1;", 2)]),
     "the last channel step dropped": ("K8", [
         ("winograd_conv.cu", "const int nsteps = (C + CS - 1) / CS;",
          "const int nsteps = (C + CS - 1) / CS - 1;", 1)]),

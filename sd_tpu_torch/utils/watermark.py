@@ -1,19 +1,23 @@
-"""Invisible watermark, embed side (a copy of ``embed_watermark_batch`` and
-its helpers from ``sd_tpu/utils/watermark.py``).
+"""Invisible watermark: embed and decode (copies of ``embed_watermark_batch``,
+``embed_watermark`` and ``decode_watermark`` and their helpers from
+``sd_tpu/utils/watermark.py``).
 
 DWT+DCT quantization-index modulation, as the reference's ``dwtDct``: a
 1-level Haar DWT of the luma channel, 4x4 DCT blocks of the LL subband, one
-payload bit per block embedded by quantizing a mid-frequency coefficient.
-Host-side numpy on uint8 images; each 4x4 DCT is the fixed orthonormal map
-``D @ blk @ D.T``, so the batch embeds as einsums. Needs ``cv2`` for the
-RGB/YUV conversion, imported at call time.
+payload bit per block embedded by quantizing a mid-frequency coefficient;
+:func:`decode_watermark` reads each block's bit back and takes the
+majority over the blocks that carry each payload bit. Host-side numpy on
+uint8 images; each 4x4 DCT is the fixed orthonormal map ``D @ blk @ D.T``,
+so the batch embeds as einsums. Needs ``cv2`` for the RGB/YUV conversion,
+imported at call time.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["embed_watermark_batch", "WATERMARK_PAYLOAD"]
+__all__ = ["embed_watermark", "embed_watermark_batch", "decode_watermark",
+           "WATERMARK_PAYLOAD"]
 
 WATERMARK_PAYLOAD = b"StableDiffusionV1"
 _Q = 12.0          # quantization step
@@ -113,3 +117,22 @@ def embed_watermark_batch(imgs: np.ndarray,
     ll = _from_blocks(blk, bh, bw)
     yuv[..., 0] = np.clip(_haar_idwt2(ll, hvd), 0, 255)
     return _yuv_rgb(yuv.astype(np.uint8))
+
+
+def embed_watermark(img: np.ndarray, payload: bytes = WATERMARK_PAYLOAD) -> np.ndarray:
+    """One uint8 RGB image [H, W, 3] through :func:`embed_watermark_batch`."""
+    return embed_watermark_batch(img[None], payload)[0]
+
+
+def decode_watermark(img: np.ndarray, n_bytes: int = len(WATERMARK_PAYLOAD)) -> bytes:
+    """The ``n_bytes`` payload of a uint8 RGB image [H, W, 3]: each block's
+    bit is the parity of its quantized coefficient, and each payload bit the
+    majority over the blocks that carry it."""
+    n_bits = n_bytes * 8
+    ll, _ = _haar_dwt2(_rgb_yuv(img[None]).astype(np.float32)[..., 0])
+    blk, bh, bw = _to_blocks(ll)
+    d = np.einsum("ij,...jk,lk->...il", _D, blk, _D)
+    bit = np.round(d[0, ..., _COEFF[0], _COEFF[1]] / _Q).astype(np.int64) & 1  # [bh, bw]
+    votes = np.zeros((n_bits, 2), np.int64)
+    np.add.at(votes, (np.arange(bh * bw) % n_bits, bit.reshape(-1)), 1)
+    return np.packbits((votes[:, 1] > votes[:, 0]).astype(np.uint8)).tobytes()

@@ -1,13 +1,13 @@
 """cin256-v2 in the port against sd_tpu on the CPU, and the attention
 route that lets its one-head sites run on the card.
 
-- :func:`sd_tpu_torch.ops.attention.attention_route` at each case: K1 up to
-  its head dim of 1024 (cin256-v2's d = 960 at N = 64 included, which
-  sd_tpu leaves to XLA), the plain route above it where sd_tpu's
-  ``flash_supported`` shape rule leaves the site to XLA, a ValueError
-  naming ROADMAP.md's coverage item where sd_tpu runs its kernel; the
-  shape rule against sd_tpu's own predicate (its platform check patched to
-  a TPU); K5's and K3's caps of 512.
+- :func:`sd_tpu_torch.ops.attention.attention_route` at each case: K1 for
+  every bf16 self-attention site at every head dim (cin256-v2's d = 960
+  at N = 64 included, which sd_tpu leaves to XLA, and d = 1032, past the
+  1024 where K1 once stopped), the plain route for cross-attention and the
+  card's other dtypes; the shape rule against sd_tpu's own predicate (its
+  platform check patched to a TPU); K5 and K3 past the 512 where they once
+  stopped: K5's padding, sd_tpu's int8 and backward rules at d = 576.
 - A tiny single-head spatial-transformer UNet with a ClassEmbedder (head
   dims 64 and 96, cin256-v2's layout at narrow width) against sd_tpu's from
   the same parameters: rtol and atol 1e-4 of the output's scale, fp32.
@@ -54,30 +54,26 @@ ROUTES = {
     "cin256 d=960 N=64": (("cuda", BF16, 8, 64, 64, 1, 960), "K1"),
     "d=960 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 960), "K1"),
     "d=960 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 960), "K1"),
-    "d=1032 N=64": (("cuda", BF16, 8, 64, 64, 1, 1032), "plain"),
-    "d=1032 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 1032), "plain"),
-    "d=1032 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 1032), "plain"),
+    "d=1032 N=64": (("cuda", BF16, 8, 64, 64, 1, 1032), "K1"),
+    "d=1032 off sd_tpu's row rule (N=200)": (("cuda", BF16, 2, 200, 200, 1, 1032), "K1"),
+    "d=1032 above sd_tpu's 4096 rows": (("cuda", BF16, 1, 8192, 8192, 1, 1032), "K1"),
     "VAE mid-block d=512": (("cuda", BF16, 1, 4096, 4096, 1, 512), "K1"),
     "cross-attention d=960": (("cuda", BF16, 8, 256, 1, 1, 960), "plain"),
     "fp32 on the card": (("cuda", torch.float32, 8, 256, 256, 1, 576), "plain"),
     "CPU d=576": (("cpu", torch.float32, 8, 256, 256, 1, 576), "K1"),
     "CPU d=960 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 960), "K1"),
-    "CPU d=1032 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 1032), "plain"),
+    "CPU d=1032 N=64": (("cpu", torch.float32, 8, 64, 64, 1, 1032), "K1"),
     "d=640 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 640), "K1"),
     "CPU d=1024 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1024), "K1"),
-    "d=1032 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 1032), None),
-    "CPU d=1032 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1032), None),
+    "d=1032 N=256, where sd_tpu runs its kernel": (("cuda", BF16, 8, 256, 256, 1, 1032), "K1"),
+    "CPU d=1032 N=4096": (("cpu", torch.float32, 1, 4096, 4096, 1, 1032), "K1"),
 }
 
 
 @pytest.mark.parametrize("case", list(ROUTES))
 def test_attention_route(case):
     args, want = ROUTES[case]
-    if want is None:
-        with pytest.raises(ValueError, match="K1 above d = 1024"):
-            attention_route(*args)
-    else:
-        assert attention_route(*args) == want
+    assert attention_route(*args) == want
 
 
 def test_flash_shape_rule_is_sd_tpus(monkeypatch):
@@ -93,43 +89,39 @@ def test_flash_shape_rule_is_sd_tpus(monkeypatch):
 
 
 def test_the_caps_of_k5_and_k3():
-    """K5 and K3 stop at 512 where K1 goes on to 1024: K5's padding and its
-    mode send a wider head to bf16 K1; K3's rule refuses where sd_tpu runs
-    its backward kernel and takes the plain backward where sd_tpu does."""
-    assert port_flash.K1_MAX_HEAD_DIM == 1024
-    assert port_flash.K3_MAX_HEAD_DIM == port_flash.K5_MAX_HEAD_DIM == 512
-    assert [port_flash.int8_padded_dim(d) for d in (40, 512, 520, 576)] == [48, 512, 0, 0]
-    q = torch.zeros(1, 2048, 1, 576)
-    assert port_flash.resolve_int8("qkpv", q, q) == "off"
-    q = torch.zeros(1, 2048, 1, 512)
-    assert port_flash.resolve_int8("qkpv", q, q) == "qkpv"
-    assert port_flash.uses_bwd_kernel(1024, 1024, 384) and port_flash.uses_bwd_kernel(
-        4096, 4096, 512)
-    assert not port_flash.uses_bwd_kernel(256, 256, 576)   # cin256-v2's d = 576 site
-    assert not port_flash.uses_bwd_kernel(64, 64, 960)
-    with pytest.raises(ValueError, match="K3 above d = 512"):
-        port_flash.uses_bwd_kernel(1024, 1024, 576)
+    """K5 and K3 take the head dims past 512 where they once stopped: K5
+    pads the codes of d = 520 and 576 to 1024, takes int8 there on sd_tpu's
+    rule, and K3's rule is sd_tpu's at every head dim (the kernel where Nk >
+    256 and Nq % 256 == 0)."""
+    for name in ("K1_MAX_HEAD_DIM", "K3_MAX_HEAD_DIM", "K5_MAX_HEAD_DIM", "K1_COVERAGE_ITEM",
+                 "K3_COVERAGE_ITEM"):
+        assert not hasattr(port_flash, name)
+    assert [port_flash.int8_padded_dim(d) for d in (40, 512, 520, 576)] == [48, 512, 1024, 1024]
+    for d in (512, 576):
+        q = torch.zeros(1, 2048, 1, d)
+        assert port_flash.resolve_int8("qkpv", q, q) == "qkpv"
+    # d = 576 at N = 1024 and 4096 takes K3's slice plan, as sd_tpu its kernel
+    assert port_flash.uses_bwd_kernel(1024, 1024) and port_flash.uses_bwd_kernel(4096, 4096)
+    assert not port_flash.uses_bwd_kernel(256, 256)   # cin256-v2's d = 576 site
+    assert not port_flash.uses_bwd_kernel(64, 64)
 
 
 def test_dot_product_attention_takes_each_route_on_the_cpu(monkeypatch):
-    """On CPU tensors: d = 1032 at N = 64 goes to the plain version (not the
-    kernel wrapper), d = 576 at N = 256 and d = 960 at N = 64 to the
-    wrapper, and d = 1032 at N = 256 is refused."""
+    """On CPU tensors every self-attention site goes to the kernel wrapper,
+    at every head dim: d = 1032 at N = 64 and N = 256, d = 576 at N = 256,
+    d = 960 at N = 64 and the odd d = 44 at N = 128."""
     calls = []
     monkeypatch.setattr(port_attention, "differentiable_flash_attention",
                         lambda *a: calls.append("K1") or port_flash.flash_attention_plain(*a))
     rng = np.random.default_rng(0)
-    for n, d, want in ((64, 1032, []), (256, 576, ["K1"]), (64, 960, ["K1"])):
+    for n, d in ((64, 1032), (256, 576), (64, 960), (256, 1032), (128, 44)):
         q, k, v = (torch.from_numpy(rng.standard_normal((2, n, 1, d)).astype(np.float32))
                    for _ in range(3))
         calls.clear()
         out = dot_product_attention(q, k, v)
-        assert calls == want
+        assert calls == ["K1"]
         torch.testing.assert_close(out, port_flash.flash_attention_plain(q, k, v), rtol=0,
                                    atol=0)
-    q = torch.zeros(1, 256, 1, 1032)
-    with pytest.raises(ValueError, match="K1 above d = 1024"):
-        dot_product_attention(q, q, q)
 
 
 def tiny_cin_config():

@@ -406,7 +406,7 @@ def test_flash_int8_qk_one_pass_rounding_within_bound():
     ((1, 1536, 1, 40), (1, 1536, 1, 40), "N not a multiple of the 1024-key chunk"),
     ((1, 2048, 1, 40), (1, 1024, 1, 40), "cross-attention"),
     ((1, 2048, 1, 12), (1, 2048, 1, 12), "d not a multiple of 8"),
-    ((1, 2048, 1, 520), (1, 2048, 1, 520), "d past the padded dims"),
+    ((1, 2048, 1, 520), (1, 3072, 1, 520), "N of q and k differ at d = 520"),
 ])
 def test_flash_int8_wrapper_rejects_what_the_kernel_does_not_take(q_shape, k_shape, why):
     """The checks a CUDA tensor meets before K5 launches, run on CPU tensors."""
@@ -416,10 +416,11 @@ def test_flash_int8_wrapper_rejects_what_the_kernel_does_not_take(q_shape, k_sha
 
 
 def test_flash_int8_padded_dims_and_scratch_shapes():
-    """d pads to 48 up to 48 and to 512 above; "qkpv"'s V codes are
-    transposed, [B, H, DP, N], with per-chunk scales [B, H, N / 1024, DP]."""
-    assert [port_flash.int8_padded_dim(d) for d in (8, 40, 48, 56, 512, 520, 44)] == [
-        48, 48, 48, 512, 512, 0, 0]
+    """d pads to 48 up to 48, to 512 up to 512 and to a multiple of 512
+    above; "qkpv"'s V codes are transposed, [B, H, DP, N], with per-chunk
+    scales [B, H, N / 1024, DP]."""
+    assert [port_flash.int8_padded_dim(d) for d in (8, 40, 48, 56, 512, 520, 44, 1280)] == [
+        48, 48, 48, 512, 512, 1024, 48, 1536]
     bf = lambda s: torch.zeros(s, dtype=torch.bfloat16)
     assert port_flash._check_int8_inputs(*(bf((2, 4096, 8, 40)),) * 3) == 48
     assert port_flash._check_int8_inputs(*(bf((1, 4096, 1, 512)),) * 3) == 512

@@ -131,7 +131,7 @@ def _bf16(*shape):
     (torch.zeros((1, 64, 2, 16)), _bf16(1, 64, 2, 16), TypeError),   # fp32 on the card path
     (_bf16(1, 64, 2, 16), _bf16(1, 64, 2, 24), ValueError),          # head dims differ
     (_bf16(1, 64, 2, 20), _bf16(1, 64, 2, 20), ValueError),          # d not a multiple of 8
-    (_bf16(1, 64, 1, 1032), _bf16(1, 64, 1, 1032), ValueError),      # d above 1024
+    (_bf16(1, 64, 1, 1032), _bf16(1, 64, 1, 1024), ValueError),      # head dims differ past 1024
     (_bf16(1, 64, 2, 16), _bf16(2, 64, 2, 16), ValueError),          # batches differ
 ])
 def test_flash_wrapper_rejects_what_the_kernel_does_not_take(q, k, error):
@@ -227,7 +227,7 @@ def test_differentiable_attention_grads_match_jax(n):
     shape = (2, n, 2, 16)
     q, k, v = _qkv(shape, 7)
     w = np.random.default_rng(8).standard_normal(shape).astype(np.float32)
-    assert uses_bwd_kernel(n, n, shape[-1]) == (n > 256)
+    assert uses_bwd_kernel(n, n) == (n > 256)
 
     def loss(q_, k_, v_):
         return jnp.sum(jnp.asarray(w) * pallas_flash(q_, k_, v_, interpret=True, block_q=128))
@@ -309,7 +309,7 @@ def test_no_grad_feedforward_under_autocast_takes_the_autocast_dtype():
 
 
 @pytest.mark.parametrize("d,lse_shape,error", [
-    (520, (1, 2, 64), ValueError),   # K3 takes d up to 512
+    (520, (2, 1, 64), ValueError),   # lse is [H, B, Nq], not [B, H, Nq] (d = 520 is taken)
     (40, (1, 2, 32), ValueError),    # lse is not [B, H, Nq]
     (40, None, ValueError),          # no lse
 ])
@@ -325,6 +325,6 @@ def test_flash_bwd_wrapper_accepts_the_path_shapes():
     module = importlib.import_module("sd_tpu_torch.ops.cuda.flash_attention")
     # the UNet's training sites, and the VAE mid-block's at 256² and 512²
     for b, n, h, d in ((4, 4096, 8, 40), (4, 1024, 8, 80), (12, 1024, 1, 512),
-                       (2, 4096, 1, 512), (1, 64, 1, 136)):
+                       (2, 4096, 1, 512), (1, 64, 1, 136), (1, 512, 1, 2048)):
         t = _bf16(b, n, h, d)
         module._check_bwd_inputs(t, t, t, t, t, torch.zeros((b, h, n)))

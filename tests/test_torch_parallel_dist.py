@@ -15,7 +15,9 @@ of two processes that import the port alone:
    batch continued at world 2 to them (``dryrun_multigpu.compare_training``:
    AdamW's first moments within 1e-3 of their scale, the weights and the EMA
    within 5e-5 where the gradient is not rounding noise); a SIGUSR1 to
-   one rank saving on both at the end of that step;
+   one rank saving on both at the end of that step; the checkpoint's
+   tensor gather of a ZeRO-1 AdamW and Adam equal to the bit to
+   ``consolidate_state_dict``'s;
    then ``scripts/dryrun_multigpu.py``'s legs in the same processes: DDP with
    ZeRO-1 (moments and EMA partitioned) with 2 accumulated micro-batches
    and the EMA against one process by ``compare_training`` (the weights
@@ -170,6 +172,12 @@ def test_world2_checkpoint_resumes_and_loads_at_world1(worker, tmp_path):
            "moments": moments_of(want["optimizer"], names)}
     res = compare_training(got, ref, on_cpu=True)
     assert res["ok"], res
+
+
+def test_zero_save_gathers_tensors_equal_to_consolidate(worker):
+    """optimizer_state_dict's tensor gather of a ZeRO-1 AdamW and Adam at two
+    ranks equals consolidate_state_dict's pickled one, to the bit."""
+    assert bool(worker[2]["zero_save_equal"])
 
 
 def test_sigusr1_at_one_rank_saves_on_both(worker):

@@ -135,6 +135,36 @@ def signal_save(root, out):
     out["signal_saves"] = np.asarray(both)
 
 
+def zero_save(out):
+    """A ZeRO-1 AdamW and a ZeRO-1 Adam (amsgrad, the first stage's betas)
+    over five parameters, one of which never has a gradient, after 3 steps:
+    ``optimizer_state_dict``'s tensor gather against
+    ``consolidate_state_dict`` + ``state_dict``; rank 0 writes whether the
+    two are equal to the bit."""
+    from sd_tpu_torch.parallel.mesh import optimizer_state_dict, zero_sharding
+    from sd_tpu_torch.scripts.dryrun_multigpu import equal_state
+
+    equal = []
+    for cls, kw in ((torch.optim.AdamW, dict(lr=1e-3, weight_decay=0.01)),
+                    (torch.optim.Adam, dict(lr=1e-3, betas=(0.5, 0.9), amsgrad=True))):
+        g = torch.Generator().manual_seed(0)
+        params = [torch.nn.Parameter(torch.randn(s, generator=g))
+                  for s in ((7, 5), (64,), (3, 3, 4), (11,), (2, 2))]
+        zero = zero_sharding(params, optimizer_class=cls, **kw)
+        for step in range(3):
+            for i, p in enumerate(params):
+                p.grad = None if i == 3 else torch.randn(p.shape, generator=g)
+            zero.step()
+        gathered = optimizer_state_dict(zero)
+        zero.consolidate_state_dict(to=0)
+        if torch.distributed.get_rank() == 0:
+            want = zero.state_dict()
+            equal.append(equal_state(gathered, want) and len(want["state"]) == len(params) - 1)
+        else:
+            equal.append(gathered is None)
+    out["zero_save_equal"] = np.bool_(all(equal))
+
+
 def _run(sd):
     """A checkpoint's state as dryrun_multigpu.compare_training takes it."""
     names = list(sd["unet"])
@@ -289,6 +319,7 @@ def main(root: str, mode: str = "") -> None:
         tiling(inputs, out, mesh)
         checkpoints(root, out)
         signal_save(root, out)
+        zero_save(out)
         dryrun_legs(root, device)
         if torch.distributed.get_rank() == 0:
             np.savez(os.path.join(root, "outputs.npz"), **out)
