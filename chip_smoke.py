@@ -41,10 +41,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    blocks (VQ_FLASH_SHAPES: inpainting_big's d = 64, 96 and 128 at batch 1,
    CelebA-HQ's d = 32 at 14, 21 and 28 heads at batch 4, its decoder's
    mid-block) and at cin256-v2's and bsr_sr's (WIDE_FLASH_SHAPES: the
-   one-head d = 384, 576 and 960 sites, K1's wide<576> and split plans, at
+   one-head d = 384, 576 and 960 sites, K1's wide<576> and cluster plans, at
    batch 4 with guidance; SuperResPipeline's 9 tiles at the 8x level, 20
    heads of 32, and their decode's mid-block; the tiled LDM's 9 patches and
-   its 225 decode patches), at K1's split plan (SPLIT_FLASH_SHAPES: d =
+   its 225 decode patches), at K1's cluster plan (SPLIT_FLASH_SHAPES: d =
    640, 768 and 1024 at N = 1024 and 4096, the first-stage extras' one-head
    sites), at the 768² RDM's sites (RDM_FLASH_SHAPES: 14 to 56 heads of 32
    at N = 2304, 576, 144 and 36 with guidance at 4 samples, and its kl-f16
@@ -63,7 +63,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    for K1; none for K2, whose yardstick is the unfused bf16 FF: F.linear,
    chunk, F.gelu, multiply, F.linear);
 5. K3 flash-attention backward: at the training path's two shapes, at
-   the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's wide plan,
+   the first stage's mid-blocks (VAE_BWD_SHAPES, d = 512: K3's cluster plan,
    with K1's output and row log-sum-exp checked there too; DP_VAE_BWD_SHAPES
    likewise, a rank's mid-blocks at two ranks) and at the VQ-f4
    models' training shapes (TRAIN_VQ_BWD_SHAPES), with plain and
@@ -123,9 +123,10 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    kernel skipping its quantization fails; K5 "qkpv" at d=40 too (its
    narrow kernel, on no serving path: within INT8_TOL, not timed);
 10b. [head dims]: K1 at [1, 4096, 1, 1280], [2, 1024, 1, 2048] and
-   [1, 256, 1, 4096] (its stream plan) and [2, 1024, 8, 36] (zero-padded
-   to 40), K3 at [1, 4096, 1, 768], [2, 1024, 1, 1280] and
-   [1, 512, 1, 2048] (its slice plan), K5 "qk" and "qkpv" at
+   [1, 256, 1, 4096] (its cluster plan), [1, 256, 1, 4608] (its stream
+   plan) and [2, 1024, 8, 36] (zero-padded to 40), K3 at [1, 4096, 1, 768],
+   [2, 1024, 1, 1280] and [1, 512, 1, 2048] (its cluster plan) and
+   [1, 512, 1, 2560] (its slice plan), K5 "qk" and "qkpv" at
    [1, 4096, 1, 768] and [1, 2048, 1, 1280] (its split plan): head dims
    no config of the repository reaches and sd_tpu's kernels take, each
    against its plain version as in phases 3, 5 and 10 (K1 with its lse and
@@ -276,7 +277,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
    batch 4, 256², as the reference's latent_imagenet_diffusion notebook
    samples: samples/s, exactly K1 = 16 x 20 + 1 (5 sites at d = 384, 5
    at d = 576 and 6 at d = 960, N = 64, a UNet evaluation: the d = 960
-   sites, which sd_tpu leaves to XLA, take K1's split plan) and K2 = 16 x
+   sites, which sd_tpu leaves to XLA, take K1's cluster plan) and K2 = 16 x
    20, the
    latents within AGREEMENT_TOL of a second build sampling with the plain
    attention, and the share of equal code indices against the CPU;
@@ -307,7 +308,7 @@ Phases, one or more lines each; any failure raises and the exit code is not 0:
 30. [vae extras]: MergedRescaleEncoder, MergedRescaleDecoder (z_channels
    128) and TimestepVAEModel (a timestep and a 3-channel context) at ch
    128, ch_mult (1, 2, 4, 8), batch 4, 256², seeded, bf16: exactly K1 = 2,
-   2 and 1 at [4, 1024, 1, 1024] (K1's split plan), each output within
+   2 and 1 at [4, 1024, 1, 1024] (K1's cluster plan), each output within
    AGREEMENT_TOL of itself with the plain attention; TimestepVAEModel again
    with SD_TPU_FUSED_CONV=1: exactly K7 = 2 x 17 (the timestep term in the
    second GroupNorm's offset) and K1 = 1, within AGREEMENT_TOL of its
@@ -461,13 +462,13 @@ VQ_FLASH_SHAPES = [(1, 4096, 8, 64), (1, 1024, 8, 96), (1, 256, 8, 128), (4, 102
                    (4, 256, 21, 32), (4, 64, 28, 32), (4, 4096, 1, 512)]
 # (B, N, H, D): cin256-v2 at batch 4 with guidance (B=8): its one-head sites
 # at 32² (d = 384), 16² (d = 576, K1's wide<576> plan) and 8² (d = 960, K1's
-# split plan); bsr_sr's 8x level
+# cluster plan); bsr_sr's 8x level
 # (20 heads of 32) and its VQ decoder's mid-block: SuperResPipeline's 9 tiles
 # of 32² latents, then the tiled LDM's 9 patches of 128² latents and its 225
 # decode patches of 32² latents
 WIDE_FLASH_SHAPES = [(8, 1024, 1, 384), (8, 256, 1, 576), (8, 64, 1, 960), (9, 16, 20, 32),
                      (9, 1024, 1, 512), (9, 256, 20, 32), (225, 1024, 1, 512)]
-# (B, N, H, D): K1's split plan (576 < d <= 1024) at the first-stage extras'
+# (B, N, H, D): K1's cluster plan (576 < d <= 4096) at the first-stage extras'
 # one-head sites: batch 4 of 256² images at ch 128, ch_mult (1, 2, 4, 8) puts
 # N = 1024 at d = 1024; d = 640 and 768 at that N and at N = 4096
 SPLIT_FLASH_SHAPES = [(4, 1024, 1, 640), (4, 1024, 1, 768), (4, 1024, 1, 1024),
@@ -503,7 +504,7 @@ FF_SHAPES = [(8192, 320, 1280), (2048, 640, 2560), (512, 1280, 5120), (128, 1280
 # (B, N, H, D): the training sites that take K3 (N > 256) at batch 4
 BWD_SHAPES = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
 # (B, N, H, D): the first stage's mid-blocks in VAE-GAN training (encoder and
-# decoder alike), K3's wide plan: 256² at the config's batch of 12, and 512²
+# decoder alike), K3's cluster plan: 256² at the config's batch of 12, and 512²
 VAE_BWD_SHAPES = [(12, 1024, 1, 512), (2, 4096, 1, 512)]
 # (B, N, H, D): a rank's mid-blocks in the first_stage leg at two ranks: the
 # kl-f8 VAE-GAN at 12 / 2 images of 256², the VQ-f4 VQ-GAN at 8 / 2 (K1's
@@ -689,7 +690,11 @@ LDM_1P4B_LAUNCHES = {"flash_attention": 2 * SITES_PER_UNET + BERT_LAYERS + 1,
 # each of the six K1 and K3 faults reads 0.11 or more (or a non-finite
 # value) on some gradient group, and five of them 5.2e-3 or more (or a
 # non-finite value) on a loss; K3's wide plan's dropped tile, at most
-# 4.9e-4 on the losses, shows in the gradients only
+# 4.9e-4 on the losses, shows in the gradients only. With K3's cluster
+# plan at d = 512 the sound sources read at most 7.0e-4 and 6.1e-3, and
+# each of its four faults 0.11 or more (or a non-finite value) on a
+# gradient group; its dropped tile, at most 1.4e-3 on the losses, shows in
+# the gradients only
 FIRST_STAGE_COMPARED = ("rec_loss", "nll_loss", "kl_loss", "g_loss", "disc_loss")
 FIRST_STAGE_GRAD_GROUPS = tuple(f"{part}.mid.attn_1.{w}" for part in ("encoder", "decoder")
                                 for w in "qkv") + ("encoder",)
@@ -739,18 +744,25 @@ VQ_GAN_COMPARED = {"rec_loss": FIRST_STAGE_LOSS_TOL, "nll_loss": FIRST_STAGE_LOS
 # the H100 SXM's dense bf16 and int8 tensor-core rates and memory rate
 # [head dims]: K1, K3 and K5 at head dims that no config of the repository
 # reaches but sd_tpu's kernels take (its flash_supported has no head-dim
-# condition): K1's stream plan (d > 1024) and a head dim that is not a
-# multiple of 8 (zero-padded by the wrapper), K3's slice plan (d > 512),
+# condition): K1's cluster plan above d = 1024 and its stream plan (d >
+# 4096), a head dim that is not a multiple of 8 (zero-padded by the
+# wrapper), K3's cluster plan above d = 512 and its slice plan (d > 2048),
 # K5's split plan (d > 512)
 HEAD_DIM_FLASH_SHAPES = [(1, 4096, 1, 1280), (2, 1024, 1, 2048), (1, 256, 1, 4096),
-                         (2, 1024, 8, 36)]
-HEAD_DIM_BWD_SHAPES = [(1, 4096, 1, 768), (2, 1024, 1, 1280), (1, 512, 1, 2048)]
+                         (2, 1024, 8, 36), (1, 256, 1, 4608)]
+HEAD_DIM_BWD_SHAPES = [(1, 4096, 1, 768), (2, 1024, 1, 1280), (1, 512, 1, 2048),
+                       (1, 512, 1, 2560)]
 HEAD_DIM_INT8_SHAPES = [(1, 4096, 1, 768, "qk"), (1, 4096, 1, 768, "qkpv"),
                         (1, 2048, 1, 1280, "qk"), (1, 2048, 1, 1280, "qkpv")]
 # untimed: K3 through the autograd function's padding and K5 through its
 # wrapper's, at head dims that are not multiples of 8
 HEAD_DIM_ODD_BWD_SHAPE = (2, 1024, 8, 36)
 HEAD_DIM_ODD_INT8_SHAPES = [(1, 2048, 2, 36, "qk"), (1, 2048, 1, 300, "qkpv")]
+# (kernel, (B, N, H, D)): one shape of K1's and one of K3's cluster plans,
+# run twice on the same inputs, every output compared to the bit (K3's
+# passes sum dK/dV and dQ without atomics, and every block of a cluster sums
+# the partial S and dP in one order)
+DETERMINISM_SHAPES = [("K1", (4, 1024, 1, 1024)), ("K3", (12, 1024, 1, 512))]
 
 PEAK_FLOPS = 989e12
 PEAK_INT8 = 1979e12
@@ -882,8 +894,8 @@ def build() -> None:
         elif "Used" in line and kernel not in seen:
             # K1's, K3's, K5's, K8's, X3's, K2's, K7's, K6's, K4's, X1's and
             # X2's kernels by name and template arguments
-            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide|_split)?|winograd_kernel|"
-                             r"int8_attn_kernel(?:_wide|_split)?|geglu_gemm_kernel|"
+            name = re.search(r"flash_(?:fwd|bwd)_[a-z_]*kernel(?:_wide|_split|_cluster|_stream)?|"
+                             r"winograd_kernel|int8_attn_kernel(?:_wide|_split)?|geglu_gemm_kernel|"
                              r"fused_conv(?:_reduce)?_kernel|int8_dense_kernel|k4_out_kernel|"
                              r"x1_qkv_kernel|x1_attn_kernel|ln_rows_kernel", kernel or "")
             if name:
@@ -996,10 +1008,16 @@ def log_plan(which: str, shape) -> None:
     slices = plan.get("slices", 1)
     blocks = -(-n // plan["rows"]) * h * b * slices
     slots = plan["blocks_per_sm"] * torch.cuda.get_device_properties(0).multi_processor_count
-    split = f", O's columns in {slices} slices" if slices > 1 else ""
+    cluster = plan.get("cluster", 1)
+    if cluster > 1:
+        split = (f", the head's columns over a cluster of {cluster} CTAs "
+                 f"({plan['active_clusters']} clusters co-scheduled)")
+    else:
+        split = f", O's columns in {slices} slices" if slices > 1 else ""
     log(f"[{which} plan] {shape}: {plan['rows']} rows a block, tiles of {plan['tile']}{split}, "
         f"{plan['threads']} threads, {plan['smem_bytes']} bytes of shared memory, "
-        f"{plan['blocks_per_sm']} blocks per SM; {blocks} blocks, {blocks / slots:.2f} waves")
+        f"{plan['blocks_per_sm']} blocks per SM, cluster {cluster}; {blocks} blocks, "
+        f"{blocks / slots:.2f} waves")
 
 
 def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
@@ -1035,9 +1053,9 @@ def flash_case(randn, shape, sharp: bool = False, timed: bool = True) -> dict:
     plain_ms = time_ms(lambda: flash_attention_plain(*bf, scale), iters=5 if big else 20)
     library_ms = time_ms(lambda: sdpa(*bf, scale))
     bnd = bound(4 * b * h * n * n * d, 4 * b * n * h * d * 2)
-    # the split plan (d > 576) recomputes Q K^T once per slice of O's columns
-    slices = -(-d // 256) if d > 576 else 1
-    work = f"; the split plan does {(2 * slices + 2) / 4:.2f}x that work" if slices > 1 else ""
+    # the stream plan (d > 2048) recomputes Q K^T once per slice of O's columns
+    slices = -(-d // 256) if d > 2048 else 1
+    work = f"; the stream plan does {(2 * slices + 2) / 4:.2f}x that work" if slices > 1 else ""
     log(f"[K1 flash_attention] {shape}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms ({sdpa_backend(*bf, scale)}), bound "
         f"{bnd['bound_ms']:.4f} ms ({bnd['bound_by']}){work}")
@@ -1201,7 +1219,7 @@ def sdpa_backend(q, k, v, scale) -> str:
 
 def check_flash_bwd(randn) -> list:
     """K3 at the UNet's training shapes, at the first stage's mid-blocks
-    (d = 512, its wide plan; K1's output and row log-sum-exp at those shapes
+    (d = 512, its cluster plan; K1's output and row log-sum-exp at those shapes
     too, which K3 reads) and at the VQ-f4 models' training shapes."""
     rows = []
     for shape in BWD_SHAPES + VAE_BWD_SHAPES + DP_VAE_BWD_SHAPES + TRAIN_VQ_BWD_SHAPES:
@@ -1811,13 +1829,42 @@ def check_ldm_1p4b_shapes(randn) -> dict:
     return rows
 
 
+def check_determinism(randn) -> None:
+    """K1's and K3's cluster plans, whose blocks sum S (K3: S and dP)
+    across a cluster, run twice on the same inputs at DETERMINISM_SHAPES:
+    every output, the row log-sum-exp included, must be equal to the bit."""
+    from sd_tpu_torch.ops.cuda import flash_attention_bwd
+    from sd_tpu_torch.ops.cuda.flash_attention import _launch_forward
+
+    for which, shape in DETERMINISM_SHAPES:
+        q, k, v, do = (randn(*shape).to(torch.bfloat16) for _ in range(4))
+        scale = shape[3] ** -0.5
+        runs = []
+        for _ in range(2):
+            out = _launch_forward(q, k, v, scale, with_lse=True)
+            if which == "K3":
+                out = flash_attention_bwd(q, k, v, out[0], do, out[1], scale)
+            runs.append(out)
+        torch.cuda.synchronize()
+        names = ("O", "lse") if which == "K1" else ("dQ", "dK", "dV")
+        unequal = [n for n, a, b in zip(names, *runs) if not torch.equal(a, b)]
+        log(f"[{which} determinism] {shape}: two runs equal to the bit in "
+            f"{', '.join(names)}" if not unequal else
+            f"[{which} determinism] {shape}: {', '.join(unequal)} DIFFER between two runs")
+        if unequal:
+            raise AssertionError(f"{which} at {shape}: {unequal} differ between two runs")
+        free_memory()
+
+
 def check_kernels() -> dict:
     """K1, K2 and K3: rows timed at the serving and SD v1 training shapes,
-    then untimed rows at the 1.4B training's own shapes."""
+    then untimed rows at the 1.4B training's own shapes; then K1's and K3's
+    determinism."""
     g = torch.Generator(device="cuda").manual_seed(0)
     randn = lambda *s: torch.randn(s, generator=g, device="cuda")
     timings = {"flash_attention": check_flash(randn), "geglu_ff": check_geglu(randn),
                "flash_attention_bwd": check_flash_bwd(randn)}
+    check_determinism(randn)
     for k, rows in check_ldm_1p4b_shapes(randn).items():
         timings[k] += rows
     return timings
@@ -3540,7 +3587,7 @@ def cin256_main_path() -> dict:
 
     t_phase = time.perf_counter()
     # the route of each kind of self-attention site at B=8: d = 960 at N = 64,
-    # which sd_tpu leaves to XLA, takes K1's split plan
+    # which sd_tpu leaves to XLA, takes K1's cluster plan
     routes = {(n, d): attention_route("cuda", torch.bfloat16, 8, n, n, 1, d)
               for n, d in ((1024, 384), (256, 576), (64, 960))}
     log(f"[cin256] routes (N, d): {routes}")

@@ -16,9 +16,10 @@
 // What bounds it on the H100: operations. Q K^T and P V are 4 * B * H * Nq *
 // Nk * D flops against (Nq + 2 Nk) * D * 2 bytes per head read and Nq * D * 2
 // written; at [2, 4096, 8, 40] that is 0.043 ms of the 989 TFLOP/s dense bf16
-// peak against 0.010 ms of bytes at 3.35 TB/s. At d = 40 the B * H * Nq * Nk
-// exponentials on the special-function unit (16 a clock per SM) are a second
-// floor of the same order.
+// peak against 0.010 ms of bytes at 3.35 TB/s, at [1, 4096, 1, 1024] 0.069
+// ms against 0.007 ms. At d = 40 the B * H * Nq * Nk exponentials on the
+// special-function unit (16 a clock per SM) are a second floor of the same
+// order.
 //
 // Design. The products run on mma.sync.m16n8k16 (bf16 in, fp32 accumulate),
 // and S, P and the O accumulator never leave the registers (flash_mma.cuh
@@ -59,35 +60,43 @@
 //   the P tile (2,560) and the exchange (512), under the 232,448 a block may
 //   use, so one block an SM. It is a simple plan: at [8, 256, 1, 576] its 64
 //   blocks fill 64 of the 132 SMs.
-// - 576 < d <= 1024 (the first-stage extras' one-head d = 640 to 1024 sites,
-//   cin256-v2's d = 960): Q, two stages of K and V at the whole head no
-//   longer fit in 232,448 bytes (at d = 1024, 160 rows at a pitch of 1,032
-//   take 330,240). The split plan gives each block 32 query rows and a
-//   slice of at most 256 of O's columns (grid.y runs over heads x slices, 4
-//   slices at d = 1024). Q stays whole in shared memory (66,048 bytes); the
-//   32-key tile's K streams through two stages of 128 columns by cp.async,
-//   so that S = Q K^T over the whole d accumulates chunk by chunk in
-//   registers (the same warp split as the wide plan: four warps of a row
-//   group take 8 keys each); then the block loads only its slice of V's
-//   columns (32 x 256), and P V runs as in the wide plan on the slice. The
-//   first slice writes lse. Each slice recomputes Q K^T, so the kernel does
-//   (2 * slices + 2) * Nq * Nk * d flops per head where the function needs
-//   4 * Nq * Nk * d: 2.5x at d = 1024, 2x at d = 640 and 768 (the bound
-//   counts the function's work). 103,424 bytes of shared memory, two
-//   blocks an SM. A plan that is right first; making it fast is later work.
-// - d > 1024 (any head dim sd_tpu's kernel runs at; no config of the
-//   repository reaches one): the stream plan, the split plan with Q in
-//   chunks too. Q whole in shared memory would take 66 KB per 1024 columns
-//   of d, so nothing of the head is held whole: each cp.async stage holds a
-//   128-column chunk of the 32-key tile's K and the same chunk of the
-//   block's 32 query rows, and S = Q K^T accumulates over the whole d chunk
-//   by chunk in registers, as in the split plan. The block then loads only
-//   its slice of V's 256 columns, and the first slice writes lse. Its
-//   shared memory is 54,784 bytes at every d (two stages of 64 rows at a
-//   pitch of 136, the V slice, the P tile and the exchange). Each slice
-//   streams Q's and K's whole rows and recomputes Q K^T: (2 * slices + 2) *
-//   Nq * Nk * d flops per head, 17x the function's 4 * Nq * Nk * d at
-//   d = 4096 (16 slices); the bound counts the function's work.
+// - 576 < d <= 4096 (the first-stage extras' one-head d = 640 to 1024
+//   sites, cin256-v2's d = 960): the cluster plan. Q, K and V at the whole
+//   head no longer fit a block, and O's 64 x d fp32 no longer fits a
+//   warpgroup's registers, so the head's columns are split over the blocks
+//   of a thread-block cluster: C = ceil(d / 512) blocks (2 up to d = 1024,
+//   3 up to 1536, 4 up to 2048, 8 up to 4096, the portable cluster size),
+//   each of two warpgroups that own 64 query rows (one wgmma M) and 256
+//   columns apiece. Per 32-key tile each warpgroup contracts its columns
+//   into a partial S = Q K^T on wgmma (both operands K-major from shared
+//   memory), the block adds its two partials, and after one cluster barrier
+//   every block sums the C block partials through distributed shared
+//   memory in rank order, so that every warpgroup holds the same S to the
+//   bit: the same P, row max and row sum, and rank 0's lse is the one every
+//   block used. Then each warpgroup rescales and accumulates its 64 x 256
+//   of O += P V on wgmma, P in registers as the A operand and V's tile read
+//   MN-major. The function's 4 * Nq * Nk * d flops are done once (a split
+//   of O's columns over independent blocks would recompute Q K^T in every
+//   slice, 2-2.5x the work). Thread 0 brings Q and the key tiles by TMA (4-D boxes of 64
+//   columns, zero-filled past the rows and the head dim) into two stages on
+//   mbarriers. 230,416 bytes of shared memory (Q 64 KB, two stages of K and
+//   V 128 KB, the warpgroups' partials 16 KB, two buffers of the block's
+//   partial 16 KB), one block an SM; 216 registers a thread, no spills.
+//   The cluster's blocks share one GPC: cudaOccupancyMaxActiveClusters
+//   reads 66 clusters of 2, 30 of 4 and 15 of 8 on an H100 (sdt_flash_plan).
+//   Its sum adds the partials in another order than one dot product over
+//   d: within bf16 rounding of the plain version.
+// - d > 4096 (any head dim sd_tpu's kernel runs at; no config of the
+//   repository reaches one): a cluster would need more than 8 blocks, past
+//   the portable size, so the stream plan takes it. Nothing of the
+//   head is held whole: each cp.async stage holds a 128-column chunk of the
+//   32-key tile's K and the same chunk of the block's 32 query rows, and
+//   S = Q K^T accumulates over the whole d chunk by chunk in registers (four
+//   warps of a row group take 8 keys each). The block then loads only its
+//   slice of V's 256 columns (grid.y runs over heads x slices), and the
+//   first slice writes lse. 54,784 bytes of shared memory at every d. Each
+//   slice streams Q's and K's whole rows and recomputes Q K^T: (2 * slices
+//   + 2) * Nq * Nk * d flops per head, 9.5x the function's at d = 4608.
 //
 // The ragged last key tile is zero-filled by the copy and masked to -inf
 // before the max; query rows past Nq are zero-filled and not stored. d must
@@ -100,6 +109,7 @@
 #include <stdint.h>
 
 #include "flash_mma.cuh"
+#include "tma.cuh"
 
 using sdt::bf16;
 
@@ -514,32 +524,27 @@ flash_fwd_kernel_wide(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-// The plan of the d > 576 kernels: the wide plan's 8 warps, 32 query rows
-// and 32 keys per tile, with O's columns split over blocks in slices of OC.
-// Shared memory: Q at the whole padded head dim DK (the split plan, d <=
-// 1024) or nothing of it (QS, the stream plan: DK is 0), two stages of a
-// DC-column chunk of K (and with QS of the block's Q rows), one V tile of
-// the slice's OC columns, the bf16 P tile and the exchange of row maxima
-// and sums.
-template <int DK, int OC, bool QS>
-struct SplitPlan {
+// The plan of the d > 2048 kernel (the stream plan): the wide plan's 8
+// warps, 32 query rows and 32 keys per tile, with O's columns split over
+// blocks in slices of OC. Shared memory: two stages of a DC-column chunk of
+// the key tile's K and of the block's Q rows, one V tile of the slice's OC
+// columns, the bf16 P tile and the exchange of row maxima and sums.
+template <int OC>
+struct StreamPlan {
   static constexpr int WARPS = 8;
   static constexpr int THREADS = 256;
   static constexpr int BQ = 32;
   static constexpr int BK = 32;
   static constexpr int DC = 128;
-  static constexpr int LDQ = DK + 8;
   static constexpr int LDK = DC + 8;
   static constexpr int LDV = OC + 8;
   static constexpr int LDP = BK + 8;
-  static constexpr int KS = QS ? 0 : BQ * LDQ;   // element offset of stage 0
-  static constexpr int STAGE = (BK + (QS ? BQ : 0)) * LDK;  // K's chunk, then Q's
-  static constexpr int VS = KS + 2 * STAGE;      // element offset of V
+  static constexpr int STAGE = (BK + BQ) * LDK;  // K's chunk, then Q's
+  static constexpr int VS = 2 * STAGE;           // element offset of V
   static constexpr int PT = VS + BK * LDV;       // element offset of P
   static constexpr int RED = (PT + BQ * LDP) * 2;  // byte offset of the fp32 [2][4][16] exchange
   static constexpr int BYTES = RED + 2 * 4 * 16 * 4;
   static_assert(OC % 64 == 0, "a slice's columns split into pairs of n8 tiles over 4 warps");
-  static_assert(QS ? DK == 0 : DK % DC == 0, "Q's padding covers the last chunk");
 };
 
 // Copies columns [c0, c0 + COLS) of rows [row0, row0 + ROWS) of one (batch,
@@ -558,12 +563,12 @@ __device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int row0, 
   }
 }
 
-template <int DK, int OC, bool QS>
+template <int OC>
 __global__ void __launch_bounds__(256)
-flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, bf16* __restrict__ o,
-                       float* __restrict__ lse, int nq, int nk, int heads, int d, float sl) {
-  using P = SplitPlan<DK, OC, QS>;
+flash_fwd_kernel_stream(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, bf16* __restrict__ o,
+                        float* __restrict__ lse, int nq, int nk, int heads, int d, float sl) {
+  using P = StreamPlan<OC>;
   constexpr int BK = P::BK;
   constexpr int DC = P::DC;
   constexpr int NO = OC / 32;  // n8 tiles of O per warp (OC / 4 columns)
@@ -594,18 +599,13 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* red_row = red + rg * 64;       // [4][16] of this row group
   const int nchunks = (d + DC - 1) / DC;
 
-  // a stage's chunk: K's of keys row0 .., and with QS the block's Q rows'
+  // a stage's chunk: K's of keys row0 .. and the block's Q rows'
   auto load_chunk = [&](bf16* stage, int row0, int c0) {
     load_tile<BK, DC, P::LDK, P::THREADS>(stage, kb, row0, nk, row_stride, c0, d);
-    if constexpr (QS)
-      load_tile<P::BQ, DC, P::LDK, P::THREADS>(stage + BK * P::LDK, qb, q0, nq, row_stride, c0,
-                                               d);
+    load_tile<P::BQ, DC, P::LDK, P::THREADS>(stage + BK * P::LDK, qb, q0, nq, row_stride, c0,
+                                             d);
   };
-  if constexpr (!QS) {
-    if (d < DK) zero_padding<DK, P::LDQ, P::THREADS>(smem, P::BQ, d);
-    load_rows<P::BQ, P::LDQ, P::THREADS>(smem, qb, q0, nq, row_stride, d / 8);
-  }
-  load_chunk(smem + P::KS, 0, 0);
+  load_chunk(smem, 0, 0);
   sdt::cp_async_commit();
 
   float acc[NO][4];
@@ -613,10 +613,8 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
   float m0 = -INFINITY, m1 = -INFINITY;
   float l0 = 0.f, l1 = 0.f;  // this thread's part of the sums over its warp's keys
-  // this thread's ldmatrix row of Q: in the whole Q (the split plan) or in
-  // a stage's Q chunk (QS, added to the stage's address)
-  const int qoff = QS ? BK * P::LDK + (rg * 16 + lane % 16) * P::LDK + lane / 16 * 8
-                      : (rg * 16 + lane % 16) * P::LDQ + lane / 16 * 8;
+  // this thread's ldmatrix row of Q in a stage's Q chunk
+  const int qoff = BK * P::LDK + (rg * 16 + lane % 16) * P::LDK + lane / 16 * 8;
 
   int step = 0;  // chunks streamed so far: chunk `step` sits in stage step & 1
   const int ntiles = (nk + BK - 1) / BK;
@@ -629,15 +627,15 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
       // the last tile's P V is done: its V tile may be overwritten
       if (c == 0)
         load_tile<BK, OC, P::LDV, P::THREADS>(vs, vb, t * BK, nk, row_stride, s0, s0 + ow);
-      bf16* next = smem + P::KS + ((step + 1) & 1) * P::STAGE;
+      bf16* next = smem + ((step + 1) & 1) * P::STAGE;
       if (c + 1 < nchunks)
         load_chunk(next, t * BK, (c + 1) * DC);
       else if (t + 1 < ntiles)
         load_chunk(next, (t + 1) * BK, 0);
       sdt::cp_async_commit();
-      const bf16* stage = smem + P::KS + (step & 1) * P::STAGE;
+      const bf16* stage = smem + (step & 1) * P::STAGE;
       const bf16* krow = stage + (cg * 8 + lane % 8) * P::LDK + lane / 8 * 8;
-      const bf16* qrow = QS ? stage + qoff : smem + qoff + c * DC;
+      const bf16* qrow = stage + qoff;
 #pragma unroll
       for (int kk = 0; kk < DC / 16; kk += 2) {
         if (c * DC + kk * 16 < d) {
@@ -746,50 +744,302 @@ flash_fwd_kernel_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <typename Kernel>
-cudaError_t launch_kernel(Kernel kernel, int bq, int slices, int threads, int bytes,
-                          const bf16* q, const bf16* k, const bf16* v, bf16* o, float* lse,
-                          int batch, int nq, int nk, int heads, int d, float sl,
-                          cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return err;
-  dim3 grid((nq + bq - 1) / bq, heads * slices, batch);
-  kernel<<<grid, threads, bytes, stream>>>(q, k, v, o, lse, nq, nk, heads, d, sl);
-  return cudaGetLastError();
+// The plan of the cluster kernel (576 < d <= 4096): a block of two
+// warpgroups owns 64 query rows (one wgmma M) and 512 columns of the head,
+// each warpgroup 256 of them; a cluster of ceil(d / 512) blocks covers the
+// head. Keys come in tiles of 32. Shared memory, in wgmma's
+// 128-byte-swizzled K-major layout (blocks of 64 columns, rows of 128
+// bytes, 8-row atoms of 1024 bytes): Q's columns, two stages of K's and
+// V's columns of a key tile, the two warpgroups' fp32 partial S in the
+// accumulator's register order (the room where the cluster's sum lands
+// too), two buffers of the block's partial S and the stages' mbarriers.
+// Thread 0 brings Q and every key tile by TMA (one box a 64-column block,
+// head_map's 4-D boxes, zero-filled past the rows and the head dim).
+struct ClusterPlan {
+  static constexpr int THREADS = 256;
+  static constexpr int BQ = 64;
+  static constexpr int BK = 32;
+  static constexpr int W = 512;                  // the block's columns
+  static constexpr int MAX_CLUSTER = 8;          // the portable cluster size
+  static constexpr int KS = BQ * W * 2;          // byte offset of stage 0 (K, then V)
+  static constexpr int STAGE = 2 * BK * W * 2;
+  static constexpr int PBUF = BQ * BK * 4;       // one partial S
+  static constexpr int SLOTS = KS + 2 * STAGE;   // byte offset of the warpgroups' partials
+  static constexpr int BP = SLOTS + 2 * PBUF;    // byte offset of the block's partials
+  static constexpr int BARS = BP + 2 * PBUF;     // byte offset of the stages' mbarriers
+  static constexpr int BYTES = BARS + 16 + 1024;  // with the slack that aligns the atoms
+};
+
+// 576 < d <= 4096 (the first-stage extras' one-head d = 640 to 1024 sites,
+// cin256-v2's d = 960). Block `rank` of a cluster owns columns [512 rank,
+// 512 rank + 512) of the head for 64 query rows, warpgroup wg of them the
+// 256 from 512 rank + 256 wg. Per key tile:
+// - each warpgroup computes its partial S = Q[:, cols] K[:, cols]^T on
+//   wgmma (64 x 32, 16 k16 steps) and stores it in the accumulator's
+//   register order;
+// - the block adds its two warpgroups' partials (warpgroup 0's first) into
+//   its partial, a quarter of the elements a thread;
+// - after the cluster's barrier, the block sums the cluster's partials in
+//   rank order through distributed shared memory, again a quarter of the
+//   elements a thread: each block's partial crosses the cluster once per
+//   reader block, and every block adds in one order, so that every
+//   warpgroup of the cluster holds the same S to the bit and so the same P,
+//   row max and row sum;
+// - each warpgroup runs the online softmax in registers and accumulates
+//   O[:, cols] += P V[:, cols] on wgmma with P in registers.
+// The block's partials are double-buffered: a block writes tile t's buffer
+// again at tile t + 2, after it has passed the barrier of tile t + 1, which
+// no block reaches before it has read tile t's partials; so one cluster
+// barrier a tile suffices. Warpgroup 0 of rank 0 writes lse.
+__global__ void __launch_bounds__(ClusterPlan::THREADS, 1)
+flash_fwd_kernel_cluster(const __grid_constant__ CUtensorMap qm,
+                         const __grid_constant__ CUtensorMap km,
+                         const __grid_constant__ CUtensorMap vm, bf16* __restrict__ o,
+                         float* __restrict__ lse, int nq, int nk, int heads, int d, float sl) {
+  using P = ClusterPlan;
+  constexpr int T = P::THREADS;
+  constexpr int BK = P::BK;
+  constexpr int W = P::W;
+  constexpr int NS = BK / 8;       // n8 tiles of S
+  constexpr int NO = 256 / 8;      // n8 tiles of a warpgroup's columns of O
+  constexpr int NP = NS * 128;     // float4s of a partial S
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  // the atoms' 1024-byte alignment; the same offset in every CTA, so the
+  // partials sit at one offset across the cluster
+  unsigned char* smem = smem_raw + ((1024 - (sdt::smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + P::BARS);
+
+  const int csize = gridDim.x;
+  const int q0 = blockIdx.y * P::BQ;
+  const int h = blockIdx.z % heads;
+  const int b = blockIdx.z / heads;
+  const int row_stride = heads * d;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128, wt = tid % 128;  // this thread's warpgroup, its index there
+  const int warp = wt / 32, lane = tid % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const int bc0 = blockIdx.x * W;   // the block's first column
+  const int c0 = bc0 + wg * 256;    // this warpgroup's first column
+
+  // thread 0: key tile t's K and V into stage t & 1, 8 boxes of 64 columns each
+  auto load_kv = [&](int t) {
+    unsigned char* st = smem + P::KS + (t & 1) * P::STAGE;
+    for (int cb = 0; cb < W / 64; ++cb) {
+      sdt::tma_load_4d(st + cb * (BK * 128), &km, bc0 + 64 * cb, h, t * BK, b, &full[t & 1]);
+      sdt::tma_load_4d(st + BK * W * 2 + cb * (BK * 128), &vm, bc0 + 64 * cb, h, t * BK, b,
+                       &full[t & 1]);
+    }
+  };
+  if (tid == 0) {
+    sdt::mbar_init(&full[0], 1);
+    sdt::mbar_init(&full[1], 1);
+    sdt::mbar_init_fence();
+    sdt::mbar_expect_tx(&full[0], P::KS + P::STAGE);
+    for (int cb = 0; cb < W / 64; ++cb)
+      sdt::tma_load_4d(smem + cb * (P::BQ * 128), &qm, bc0 + 64 * cb, h, q0, b, &full[0]);
+    load_kv(0);
+  }
+  __syncthreads();
+
+  float acc[NO * 4];
+#pragma unroll
+  for (int i = 0; i < NO * 4; ++i) acc[i] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY;
+  float l0 = 0.f, l1 = 0.f;  // this thread's part of the sums of rows g and g + 8
+  float4* slots = reinterpret_cast<float4*>(smem + P::SLOTS);  // [2 warpgroups][NP]
+
+  const int ntiles = (nk + BK - 1) / BK;
+  for (int t = 0; t < ntiles; ++t) {
+    sdt::mbar_wait(&full[t & 1], (t >> 1) & 1);
+    const unsigned char* ks = smem + P::KS + (t & 1) * P::STAGE;
+    const unsigned char* vs = ks + BK * W * 2;
+
+    // this warpgroup's partial S over its 256 columns: column blocks 4 wg ..
+    // 4 wg + 3 of Q and K
+    float s[NS * 4];
+    sdt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const int cb = 4 * wg + kk / 4;
+      sdt::wgmma_bf16_k<BK>(s, sdt::wgmma_desc<128>(smem + cb * (P::BQ * 128) + kk % 4 * 32, 1024),
+                            sdt::wgmma_desc<128>(ks + cb * (BK * 128) + kk % 4 * 32, 1024),
+                            kk > 0);
+    }
+    sdt::wgmma_commit();
+    sdt::wgmma_wait<0>();
+    sdt::fence_regs(s);
+#pragma unroll
+    for (int i = 0; i < NS; ++i)
+      slots[wg * NP + i * 128 + wt] = make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2],
+                                                  s[4 * i + 3]);
+    // every thread is past tile t - 1's P V: its stage takes tile t + 1
+    __syncthreads();
+    if (tid == 0 && t + 1 < ntiles) {
+      sdt::mbar_expect_tx(&full[(t + 1) & 1], P::STAGE);
+      load_kv(t + 1);
+    }
+
+    // the block's partial, then the cluster's sum in rank order, into the
+    // warpgroups' room
+    float4* bp = reinterpret_cast<float4*>(smem + P::BP + (t & 1) * P::PBUF);
+#pragma unroll
+    for (int m = 0; m < NP / T; ++m) {
+      const int e = tid + m * T;
+      bp[e] = sdt::add4(slots[e], slots[NP + e]);
+    }
+    sdt::cluster_sync();
+#pragma unroll
+    for (int m = 0; m < NP / T; ++m) {
+      const int e = tid + m * T;
+      float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int r = 0; r < P::MAX_CLUSTER; ++r)
+        if (r < csize) sum = sdt::add4(sum, *sdt::cluster_ptr(bp + e, r));
+      slots[e] = sum;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const float4 x = slots[i * 128 + wt];
+      s[4 * i] = x.x;
+      s[4 * i + 1] = x.y;
+      s[4 * i + 2] = x.z;
+      s[4 * i + 3] = x.w;
+    }
+    const int kbase = t * BK;
+    if (kbase + BK > nk) {
+#pragma unroll
+      for (int j = 0; j < NS; ++j) {
+        const int c = kbase + j * 8 + 2 * tq;
+        if (c >= nk) s[4 * j] = s[4 * j + 2] = -INFINITY;
+        if (c + 1 >= nk) s[4 * j + 1] = s[4 * j + 3] = -INFINITY;
+      }
+    }
+
+    // online softmax of rows g and g + 8 of this warp's 16, in registers
+    float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      t0 = fmaxf(t0, fmaxf(s[4 * j], s[4 * j + 1]));
+      t1 = fmaxf(t1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+    }
+    const float n0 = fmaxf(m0, sdt::quad_max(t0) * sl);
+    const float n1 = fmaxf(m1, sdt::quad_max(t1) * sl);
+    const float e0 = n0 == -INFINITY ? 0.f : n0;  // a row with no key yet stays at p = 0
+    const float e1 = n1 == -INFINITY ? 0.f : n1;
+    const float c0r = sdt::exp2_approx(m0 - e0), c1r = sdt::exp2_approx(m1 - e1);
+    m0 = n0;
+    m1 = n1;
+    l0 *= c0r;
+    l1 *= c1r;
+#pragma unroll
+    for (int j = 0; j < NO; ++j) {
+      acc[4 * j] *= c0r;
+      acc[4 * j + 1] *= c0r;
+      acc[4 * j + 2] *= c1r;
+      acc[4 * j + 3] *= c1r;
+    }
+    unsigned pf[BK / 16][4];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      const float p0 = sdt::exp2_approx(fmaf(s[4 * j], sl, -e0));
+      const float p1 = sdt::exp2_approx(fmaf(s[4 * j + 1], sl, -e0));
+      const float p2 = sdt::exp2_approx(fmaf(s[4 * j + 2], sl, -e1));
+      const float p3 = sdt::exp2_approx(fmaf(s[4 * j + 3], sl, -e1));
+      l0 += p0 + p1;
+      l1 += p2 + p3;
+      pf[j / 2][j % 2 * 2] = sdt::pack_bf16(p0, p1);
+      pf[j / 2][j % 2 * 2 + 1] = sdt::pack_bf16(p2, p3);
+    }
+
+    // O[:, cols] += P V[:, cols], P from the registers
+    sdt::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      sdt::wgmma_bf16_rs<256>(acc, pf[kk],
+                              sdt::wgmma_desc<128>(vs + 4 * wg * (BK * 128) + kk * 2048, 1024,
+                                                   BK * 128),
+                              1);
+    sdt::wgmma_commit();
+    sdt::wgmma_wait<0>();
+    sdt::fence_regs(acc);
+  }
+  // no block leaves while another may still read its last partial
+  sdt::cluster_sync();
+
+  l0 = sdt::quad_sum(l0);
+  l1 = sdt::quad_sum(l1);
+  const int r0 = q0 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  const float i0 = 1.f / l0, i1 = 1.f / l1;
+  bf16* ob = o + ((size_t)b * nq * heads + h) * d;
+#pragma unroll
+  for (int j = 0; j < NO; ++j) {
+    const int c = c0 + j * 8 + 2 * tq;
+    if (c < d) {
+      if (r0 < nq)
+        *reinterpret_cast<unsigned*>(ob + (size_t)r0 * row_stride + c) =
+            sdt::pack_bf16(acc[4 * j] * i0, acc[4 * j + 1] * i0);
+      if (r1 < nq)
+        *reinterpret_cast<unsigned*>(ob + (size_t)r1 * row_stride + c) =
+            sdt::pack_bf16(acc[4 * j + 2] * i1, acc[4 * j + 3] * i1);
+    }
+  }
+  if (lse != nullptr && blockIdx.x == 0 && wg == 0 && tq == 0) {
+    float* lb = lse + ((size_t)b * heads + h) * nq;
+    if (r0 < nq) lb[r0] = sdt::row_lse(m0, l0);
+    if (r1 < nq) lb[r1] = sdt::row_lse(m1, l1);
+  }
 }
 
-// One plan per padded head dim: the kernel, its rows per block, keys per tile,
-// threads and shared memory, and the split plan's column width (0 elsewhere).
+using Kernel = void (*)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int, int,
+                        float);
+
+// One plan per padded head dim: the kernel (null for the cluster plan, whose
+// kernel takes tensor maps), its rows per block, keys per tile, threads and
+// shared memory, the stream plan's column width (0 elsewhere) and the CTAs
+// of a cluster (0: no cluster launch).
 struct Choice {
-  void (*kernel)(const bf16*, const bf16*, const bf16*, bf16*, float*, int, int, int, int,
-                 float);
-  int bq, bk, threads, bytes, oc;
+  Kernel kernel;
+  int bq, bk, threads, bytes, oc, cluster;
 };
 
 template <int DK, int WARPS, int BK, int MT>
 Choice narrow() {
   using P = Plan<DK, WARPS, BK, MT>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel<DK, WARPS, BK, MT>, P::BQ, BK, P::THREADS, P::BYTES, 0};
+  return {flash_fwd_kernel<DK, WARPS, BK, MT>, P::BQ, BK, P::THREADS, P::BYTES, 0, 0};
 }
 
 template <int DK>
 Choice wide() {
   using P = WidePlan<DK>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES, 0};
+  return {flash_fwd_kernel_wide<DK>, P::BQ, P::BK, P::THREADS, P::BYTES, 0, 0};
 }
 
-template <int DK, int OC, bool QS = false>
-Choice split() {
-  using P = SplitPlan<DK, OC, QS>;
+template <int OC>
+Choice stream() {
+  using P = StreamPlan<OC>;
   static_assert(P::BYTES <= 232448, "shared memory per block");
-  return {flash_fwd_kernel_split<DK, OC, QS>, P::BQ, P::BK, P::THREADS, P::BYTES, OC};
+  return {flash_fwd_kernel_stream<OC>, P::BQ, P::BK, P::THREADS, P::BYTES, OC, 0};
+}
+
+Choice cluster(int d) {
+  using P = ClusterPlan;
+  static_assert(P::BYTES <= 232448, "shared memory per block");
+  return {nullptr, P::BQ, P::BK, P::THREADS, P::BYTES, 0, (d + P::W - 1) / P::W};
+}
+
+const void* kernel_of(const Choice& c) {
+  return c.cluster ? reinterpret_cast<const void*>(flash_fwd_kernel_cluster)
+                   : reinterpret_cast<const void*>(c.kernel);
 }
 
 // The slices of O's columns a plan's grid runs over at head dim d.
-int slices_of(const Choice& c, int d) { return c.oc ? (d + c.oc - 1) / c.oc : 1; }
+int slices_of(const Choice& c, int d) {
+  return c.oc ? (d + c.oc - 1) / c.oc : c.cluster ? c.cluster : 1;
+}
 
 bool choose(int d, Choice* c) {
   if (d <= 0 || d % 8) return false;
@@ -806,11 +1056,11 @@ bool choose(int d, Choice* c) {
     case 160: *c = narrow<160, 4, 32, 1>(); return true;
     default: break;
   }
-  *c = d <= 256    ? wide<256>()
-       : d <= 512  ? wide<512>()
-       : d <= 576  ? wide<576>()
-       : d <= 1024 ? split<1024, 256>()
-                   : split<0, 256, true>();
+  *c = d <= 256   ? wide<256>()
+       : d <= 512 ? wide<512>()
+       : d <= 576 ? wide<576>()
+       : d <= ClusterPlan::W * ClusterPlan::MAX_CLUSTER ? cluster(d)
+                                                          : stream<256>();
   return true;
 }
 
@@ -824,31 +1074,58 @@ extern "C" int sdt_flash_attention(const void* q, const void* k, const void* v, 
                                    float scale, void* stream) {
   Choice c;
   if (!choose(d, &c)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(launch_kernel(
-      c.kernel, c.bq, slices_of(c, d), c.threads, c.bytes, static_cast<const bf16*>(q),
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), batch, nq, nk, heads, d, scale * 1.4426950408889634f,
-      static_cast<cudaStream_t>(stream)));
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
+  const float sl = scale * 1.4426950408889634f;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int rows = (nq + c.bq - 1) / c.bq;
+  cudaError_t err;
+  if (c.cluster) {
+    using P = ClusterPlan;
+    CUtensorMap qm, km, vm;
+    err = sdt::cached_head_map(&qm, qp, batch, nq, heads, d, P::BQ);
+    if (err == cudaSuccess) err = sdt::cached_head_map(&km, kp, batch, nk, heads, d, P::BK);
+    if (err == cudaSuccess) err = sdt::cached_head_map(&vm, vp, batch, nk, heads, d, P::BK);
+    if (err == cudaSuccess)
+      err = sdt::launch_clustered(flash_fwd_kernel_cluster, dim3(c.cluster, rows, batch * heads),
+                                  c.threads, c.bytes, c.cluster, s, qm, km, vm, op, lp, nq, nk,
+                                  heads, d, sl);
+    return static_cast<int>(err);
+  }
+  err = sdt::smem_limit(reinterpret_cast<const void*>(c.kernel), c.bytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  c.kernel<<<dim3(rows, heads * slices_of(c, d), batch), c.threads, c.bytes, s>>>(
+      qp, kp, vp, op, lp, nq, nk, heads, d, sl);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K1's plan for head dim d: out = {query rows per block, keys per tile,
 // threads, shared-memory bytes, resident blocks per SM, slices of O's columns
-// per row tile}. Returns a CUDA error
-// code (cudaErrorInvalidValue for a head dim K1 does not take).
+// per row tile, CTAs of a cluster (1: no cluster launch), the clusters the
+// card co-schedules (cudaOccupancyMaxActiveClusters; 0 without a cluster
+// launch)}. Returns a CUDA error code (cudaErrorInvalidValue for a head dim
+// K1 does not take).
 extern "C" int sdt_flash_plan(int d, int* out) {
   Choice c;
   if (!choose(d, &c)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err =
-      cudaFuncSetAttribute(c.kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, c.bytes);
-  int blocks = 0;
+  const void* kernel = kernel_of(c);
+  cudaError_t err = sdt::smem_limit(kernel, c.bytes);
+  int blocks = 0, clusters = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, c.kernel, c.threads, c.bytes);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, c.threads, c.bytes);
+  if (err == cudaSuccess && c.cluster)
+    err = sdt::active_clusters(kernel, c.threads, c.bytes, c.cluster, &clusters);
   out[0] = c.bq;
   out[1] = c.bk;
   out[2] = c.threads;
   out[3] = c.bytes;
   out[4] = blocks;
   out[5] = slices_of(c, d);
+  out[6] = c.cluster ? c.cluster : 1;
+  out[7] = clusters;
   return static_cast<int>(err);
 }
 

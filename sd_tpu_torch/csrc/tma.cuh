@@ -2,7 +2,9 @@
 // (fused_conv.cu): mbarriers, 2-D tiled TMA loads (cp.async.bulk.tensor)
 // that complete on an mbarrier, alone or multicast to a cluster, the
 // cluster's barrier, and the host's tensor maps, encoded with the driver's
-// cuTensorMapEncodeTiled reached through the runtime (no -lcuda).
+// cuTensorMapEncodeTiled reached through the runtime (no -lcuda); and the
+// cluster pieces of K1's and K3's cluster plans: reads of another CTA's
+// shared memory and the host's cluster launch.
 
 #pragma once
 
@@ -61,6 +63,18 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, i
       : "memory");
 }
 
+// The box of a 4-D map at (c0 innermost, c1, c2, c3) into shared memory,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, int c0, int c1,
+                                            int c2, int c3, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+
 // The same box into the same shared-memory offset of every CTA of the
 // cluster in `mask`, completing on each one's barrier at `bar`'s offset.
 __device__ __forceinline__ void tma_load_2d_multicast(void* dst, const CUtensorMap* map, int c0,
@@ -79,6 +93,22 @@ __device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, unsigned rank
       " mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_addr(bar)),
       "r"(rank)
       : "memory");
+}
+
+// `p`'s offset in the shared memory of CTA `rank` of the cluster, as a
+// generic address (distributed shared memory). Plain loads through it are
+// scheduled as any others, many in flight at once; the cluster's barrier
+// (cluster_sync, a compiler barrier too) orders them after the stores they
+// read.
+template <typename T>
+__device__ __forceinline__ const T* cluster_ptr(const T* p, unsigned rank) {
+  uint64_t r;
+  asm("mapa.u64 %0, %1, %2;\n" : "=l"(r) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(r);
+}
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
 }
 
 __device__ __forceinline__ unsigned cluster_rank() {
@@ -143,6 +173,59 @@ inline cudaError_t matrix_map(CUtensorMap* map, CUtensorMapDataType type, int el
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The 4-D map of a contiguous bf16 [batch, n, heads, d] tensor (d
+// innermost, then heads, rows, batch elements), boxes of 64 head-dim
+// columns x 1 head x box_rows rows x 1 batch element, 128-byte swizzled,
+// zero-filled out of bounds (rows past n, columns past d): a block of 64
+// columns of box_rows rows of one (batch, head) slice in wgmma's K-major
+// layout. d must be a multiple of 8.
+inline cudaError_t head_map(CUtensorMap* map, const void* base, int batch, int n, int heads,
+                            int d, int box_rows) {
+  EncodeTiled encode;
+  const cudaError_t err = tensor_map_encoder(&encode);
+  if (err != cudaSuccess) return err;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)n,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)n * heads * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+                              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// head_map, remembered for the calling thread's last 16 distinct arguments:
+// a map is a function of them alone (the tensor's address and shape), so a
+// later tensor at the same address and shape has the same map, and a call
+// at small shapes saves the encodes.
+inline cudaError_t cached_head_map(CUtensorMap* map, const void* base, int batch, int n,
+                                   int heads, int d, int box_rows) {
+  struct Entry {
+    const void* base;
+    int batch, n, heads, d, box_rows;
+    CUtensorMap map;
+  };
+  thread_local Entry cache[16];
+  thread_local int used = 0, next = 0;
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.base == base && e.batch == batch && e.n == n && e.heads == heads && e.d == d &&
+        e.box_rows == box_rows) {
+      *map = e.map;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t err = head_map(map, base, batch, n, heads, d, box_rows);
+  if (err != cudaSuccess) return err;
+  cache[next] = {base, batch, n, heads, d, box_rows, *map};
+  next = (next + 1) % 16;
+  if (used < 16) ++used;
+  return cudaSuccess;
+}
+
 // Raises a kernel's dynamic shared-memory limit to `bytes` on the current
 // device, once per (kernel, device, bytes) in a table of 64 entries (a host
 // call a launch saves).
@@ -162,6 +245,72 @@ inline cudaError_t smem_limit(const void* kernel, int bytes) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess && used < 64) done[used++] = {kernel, dev, bytes};
   return err;
+}
+
+// The largest number of `cluster`-CTA clusters of `kernel` (at `threads` and
+// `bytes` of dynamic shared memory) that the current device co-schedules,
+// once per (kernel, device, cluster, bytes) in a table of 32 entries.
+inline cudaError_t active_clusters(const void* kernel, int threads, int bytes, int cluster,
+                                   int* clusters) {
+  struct Entry {
+    const void* kernel;
+    int dev, cluster, bytes, clusters;
+  };
+  static Entry done[32];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  for (int i = 0; i < used; ++i)
+    if (done[i].kernel == kernel && done[i].dev == dev && done[i].cluster == cluster &&
+        done[i].bytes == bytes) {
+      *clusters = done[i].clusters;
+      return cudaSuccess;
+    }
+  err = smem_limit(kernel, bytes);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = dim3(cluster);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaOccupancyMaxActiveClusters(clusters, kernel, &cfg);
+  if (err == cudaSuccess && used < 32) done[used++] = {kernel, dev, cluster, bytes, *clusters};
+  return err;
+}
+
+// Launches `kernel` over `grid` in clusters of `cluster` CTAs along x. A
+// cluster the device cannot co-schedule (no cluster of this size fits)
+// returns cudaErrorInvalidClusterSize; nothing is launched in its place.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_clustered(void (*kernel)(Params...), dim3 grid, int threads,
+                                    int bytes, int cluster, cudaStream_t stream,
+                                    Args... args) {
+  int clusters = 0;
+  cudaError_t err =
+      active_clusters(reinterpret_cast<const void*>(kernel), threads, bytes, cluster, &clusters);
+  if (err != cudaSuccess) return err;
+  if (clusters < 1) return cudaErrorInvalidClusterSize;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeClusterDimension;
+  attr.val.clusterDim.x = cluster;
+  attr.val.clusterDim.y = 1;
+  attr.val.clusterDim.z = 1;
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err == cudaSuccess ? cudaGetLastError() : err;
 }
 
 }  // namespace sdt

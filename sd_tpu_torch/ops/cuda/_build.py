@@ -34,9 +34,9 @@ _SIGNATURES = {
     "sdt_flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, ctypes.c_float, _P],
     # q, k, v, o, dout, lse, delta, dq, dk, dv, batch, nq, nk, heads, d, scale, stream
     "sdt_flash_attention_bwd": [_P] * 10 + [_I] * 5 + [ctypes.c_float, _P],
-    # d, int[6] out: K1's launch plan
+    # d, int[8] out: K1's launch plan
     "sdt_flash_plan": [_I, _P],
-    # d, pass (1 dK/dV, 2 dQ), int[6] out: K3's launch plan
+    # d, pass (1 dK/dV, 2 dQ), int[8] out: K3's launch plan
     "sdt_flash_bwd_plan": [_I, _I, _P],
     # x, w1, b1, w2, b2, h, ws, y, m, c, inner, c_out, stream
     "sdt_geglu_ff": [_P] * 8 + [_I] * 4 + [_P],

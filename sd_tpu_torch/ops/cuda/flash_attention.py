@@ -17,10 +17,12 @@ does about that.
   ``flash_attention.launches`` and ``flash_attention_bwd.launches`` count
   kernel launches (one per call).
   :func:`kernel_plan` reads each kernel's launch plan from the library.
-  No head dim is refused: K1 runs 15 plans (above 576 the split plan,
-  whose blocks own slices of 256 of O's columns, and above 1024 the stream
-  plan, which streams Q's columns too), K3 its slice plan above 512 and
-  K5 its split plan above 512. A head dim that is not a multiple of 8 runs
+  No head dim is refused: K1 runs 15 plans (above 576 the cluster plan,
+  whose blocks each own 512 of the head's columns and sum Q Kᵀ across a
+  thread-block cluster, and above 4096 the stream plan, which streams Q's
+  columns too), K3 its cluster plan above 128 and its slice plan above
+  2048, and K5 its split plan above 512. A head dim that is not a multiple
+  of 8 runs
   on a copy zero-padded on d (Q, K and V; :func:`padded_head_dim`), O's and
   the gradients' padding columns dropped and the scale the true d's.
 - :func:`differentiable_flash_attention` is the entry point for code that
@@ -197,11 +199,16 @@ def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]]
     "K3 dQ") at head dim ``d``, or of K5 ("K5 qk", "K5 qkpv") at head dim
     ``d`` and ``shape`` = (B, N, H), from the loaded library: the rows a
     block owns, the rows of the tile it streams, threads and shared-memory
-    bytes per block, the blocks that fit on one SM, and the slices of the
+    bytes per block, the blocks that fit on one SM, the slices of the
     output's columns over which a row tile's blocks split (1 but in K1's
-    split and stream plans, K3's slice plan and K5's split plan), at the
-    padded head dim the wrappers launch. Needs the card."""
-    out = (ctypes.c_int * 6)()
+    cluster and stream plans, K3's cluster and slice plans and K5's split
+    plan), the CTAs of a cluster (1 where the plan is no cluster launch:
+    K1 at 576 < d <= 4096 and K3 at 128 < d <= 2048 launch clusters whose
+    blocks each hold a slice of the head's columns) and the clusters the
+    card co-schedules (``cudaOccupancyMaxActiveClusters``; 0 without a
+    cluster launch), at the padded head dim the wrappers launch. Needs the
+    card."""
+    out = (ctypes.c_int * 8)(0, 0, 0, 0, 0, 1, 1, 0)
     lib = kernels()
     dp = padded_head_dim(d)
     if which == "K1":
@@ -211,7 +218,8 @@ def kernel_plan(d: int, which: str = "K1", shape: Optional[Tuple[int, int, int]]
     else:
         err = lib.sdt_flash_bwd_plan(dp, {"K3 dK/dV": 1, "K3 dQ": 2}[which], out)
     check(err, f"{which} plan at d={d}")
-    return dict(zip(("rows", "tile", "threads", "smem_bytes", "blocks_per_sm", "slices"), out))
+    return dict(zip(("rows", "tile", "threads", "smem_bytes", "blocks_per_sm", "slices",
+                     "cluster", "active_clusters"), out))
 
 
 def _launch_forward(q, k, v, scale: float, with_lse: bool):

@@ -11,8 +11,10 @@ expected count, so a fault that no longer applies fails loudly), and a
 child process with that copy first on ``sys.path`` builds its kernels and
 runs the smoke's checks: ``flash_case`` (K1 faults) or ``flash_bwd_case``
 (K3 faults) at every N=4096 shape of ``FLASH_SHAPES`` or ``BWD_SHAPES``
-and, for K3, at both ``VAE_BWD_SHAPES`` (its d = 512 plan; "K3 wide": at
-those only), with plain and with sharp logits; ``winograd_case`` (K8 and X3 faults, one
+and, for K3, at both ``VAE_BWD_SHAPES`` (d = 512, its cluster plan; "K3
+cluster": at those only), and for "K1 cluster" at every shape of
+``SPLIT_FLASH_SHAPES`` (d = 640 to 1024, K1's cluster plan), with plain and
+with sharp logits; ``winograd_case`` (K8 and X3 faults, one
 source) at every UNet shape (B=2) of ``WINO_SHAPES``, K8 and X3 both;
 ``int8_flash_case`` (K5 faults) at every shape of ``INT8_FLASH_SHAPES``
 whose mode the fault touches ("K5": both modes, "K5 qkpv": that mode
@@ -49,27 +51,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[2]
 
-# name: (K1, K3, K3 wide, K5, K5 qkpv, K8, X3, K2, K7, K6, K4, X1 or X2, [(source file,
-# text, replacement, count)])
+# name: (K1, K1 cluster, K3, K3 cluster, K5, K5 qkpv, K8, X3, K2, K7, K6, K4, X1 or X2,
+# [(source file, text, replacement, count)])
 FAULTS = {
     "O not rescaled when the max moves": ("K1", [
         ("flash_mma.cuh", "    acc[j][0] *= c0;\n    acc[j][1] *= c0;\n    acc[j][2] *= c1;\n"
                           "    acc[j][3] *= c1;\n", "", 1)]),
     "the last key tile dropped": ("K1", [
         ("flash_attention.cu", "const int ntiles = (nk + BK - 1) / BK;",
-         "const int ntiles = (nk + BK - 1) / BK - 1;", 3)]),
+         "const int ntiles = (nk + BK - 1) / BK - 1;", 4)]),
     "lse without the max": ("K1", [
         ("flash_mma.cuh", "return m + log2f(l);", "return log2f(l);", 1)]),
-    # the wide and slice plans (d > 128, d > 512) share one text of each fault
+    "one rank's partial S left out of the cluster's sum": ("K1 cluster", [
+        ("flash_attention.cu",
+         "if (r < csize) sum = sdt::add4(sum, *sdt::cluster_ptr(bp + e, r));",
+         "if (r < csize && r != 1) sum = sdt::add4(sum, *sdt::cluster_ptr(bp + e, r));", 1)]),
+    # the narrow, cluster and slice plans (d <= 128, d <= 2048, d > 2048)
+    # share one text of each fault
     "dV without p_lo's rounding": ("K3", [
         ("flash_attention_bwd.cu", "sdt::pack_bf16(p[0], p[1])", "__float_as_uint(p[0])", 3),
-        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[2], p[3])", "__float_as_uint(p[2])", 1)]),
+        ("flash_attention_bwd.cu", "sdt::pack_bf16(p[2], p[3])", "__float_as_uint(p[2])", 2)]),
     "dS without delta": ("K3", [
         ("flash_attention_bwd.cu", "return p * (dp - delta) * scale;", "return p * dp * scale;",
          1)]),
-    "the wide plan's last streamed tile dropped": ("K3 wide", [
+    "the cluster plan's last streamed tile dropped": ("K3 cluster", [
         ("flash_attention_bwd.cu", "const int ntiles = (n_str + BT - 1) / BT;",
          "const int ntiles = (n_str + BT - 1) / BT - 1;", 2)]),
+    "one rank's partial dP left out of the cluster's sum": ("K3 cluster", [
+        ("flash_attention_bwd.cu",
+         "if (r < csize) sum = sdt::add4(sum, *sdt::cluster_ptr(bp + e, r));",
+         "if (r < csize && (r != 1 || e < NX * 128))\n"
+         "          sum = sdt::add4(sum, *sdt::cluster_ptr(bp + e, r));", 1)]),
     "the last channel step dropped": ("K8", [
         ("winograd_conv.cu", "const int nsteps = (C + CS - 1) / CS;",
          "const int nsteps = (C + CS - 1) / CS - 1;", 1)]),
@@ -166,9 +178,10 @@ def _smoke():
 
 
 def run_checks(kernel: str) -> dict:
-    """In the child: the smoke's K1 or K3 case at every N=4096 shape, plain
-    and sharp, its Winograd case (K8 and X3) at every UNet shape, its K5
-    case at every int8 attention shape of the fault's modes, its K2 case
+    """In the child: the smoke's K1 or K3 case at every N=4096 shape (or at
+    the cluster plans' shapes), plain and sharp, its Winograd case (K8 and
+    X3) at every UNet shape, its K5 case at every int8 attention shape of
+    the fault's modes, its K2 case
     at every FF shape, its K7 case at every fused-conv launch, its K6 case
     at every int8 dense shape, its K4 case at every int8 FF shape or its X1
     or X2 check at every block site; returns {shape (sharp): margin, or None
@@ -227,10 +240,12 @@ def run_checks(kernel: str) -> dict:
         return margins
     if kernel == "K1":
         shapes = [s for s in smoke.FLASH_SHAPES if s[1] == 4096]
-    else:  # K3's N=4096 shapes and its d = 512 plan's ("K3 wide": those only)
-        shapes = smoke.VAE_BWD_SHAPES + ([] if kernel == "K3 wide" else
+    elif kernel == "K1 cluster":  # the cluster plan's shapes, d = 640 to 1024
+        shapes = smoke.SPLIT_FLASH_SHAPES
+    else:  # K3's N=4096 shapes and its d = 512 shapes ("K3 cluster": those only)
+        shapes = smoke.VAE_BWD_SHAPES + ([] if kernel == "K3 cluster" else
                                          [s for s in smoke.BWD_SHAPES if s[1] == 4096])
-    case = smoke.flash_case if kernel == "K1" else smoke.flash_bwd_case
+    case = smoke.flash_case if kernel.startswith("K1") else smoke.flash_bwd_case
     for shape in shapes:
         for sharp in (False, True):
             label = "x".join(map(str, shape)) + ("/sharp" if sharp else "")

@@ -100,7 +100,7 @@ def test_the_caps_of_k5_and_k3():
     for d in (512, 576):
         q = torch.zeros(1, 2048, 1, d)
         assert port_flash.resolve_int8("qkpv", q, q) == "qkpv"
-    # d = 576 at N = 1024 and 4096 takes K3's slice plan, as sd_tpu its kernel
+    # d = 576 at N = 1024 and 4096 takes K3's cluster plan, as sd_tpu its kernel
     assert port_flash.uses_bwd_kernel(1024, 1024) and port_flash.uses_bwd_kernel(4096, 4096)
     assert not port_flash.uses_bwd_kernel(256, 256)   # cin256-v2's d = 576 site
     assert not port_flash.uses_bwd_kernel(64, 64)

@@ -10,7 +10,7 @@ embedding and a context, and its state dict read back by sd_tpu's
 fused (K7) path, whose CPU version is the kernel's plain version. The bound
 is 1e-4 of the output's scale (max |sd_tpu|): fp32 on both sides, the same
 operations summed in other orders. Last, ``VAEAttnBlock`` at C = 640 and
-1024 (one head, N = 64) reaches K1's wrapper, which K1's split plan takes
+1024 (one head, N = 64) reaches K1's wrapper, which K1's cluster plan takes
 on the card.
 """
 
